@@ -1,0 +1,54 @@
+"""Load the JAX package's Graph2Class parameters into the port's module.
+
+The JAX params are nested dicts and lists of numpy arrays:
+
+    {"gnn": {"node_embedder": {...}, "mp_layers": [<one per unique layer>]},
+     "node_to_class": {"weight": [C, H], "bias": [C]}}
+
+with TypedMLP ``weights_0`` as ``[T, d_in, d_out]`` and every Linear
+``weight`` as ``[out, in]``: the port's layouts, so each array loads as is.
+``mp_layers`` holds one entry per unique layer object, in stack order;
+residual entries are ``{}`` and map to nothing.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2ClassModule
+
+
+def _flatten(prefix: str, tree: Any, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            _flatten(f"{prefix}{k}.", v, out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def jax_params_to_state_dict(module: Graph2ClassModule, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state dict for the JAX params pytree."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten("gnn.node_embedder.", params["gnn"]["node_embedder"], flat)
+    _flatten("node_to_class.", params["node_to_class"], flat)
+    layer_params = params["gnn"]["mp_layers"]
+    for position, unique in enumerate(module.gnn._layer_param_index):
+        _flatten(f"gnn.message_passing_layers.{position}.", layer_params[unique], flat)
+    expected = module.state_dict()
+    state = {}
+    for key, value in flat.items():
+        if key not in expected:
+            raise KeyError(f"JAX parameter {key} has no counterpart in the port's module")
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: JAX shape {value.shape}, port shape {tuple(expected[key].shape)}")
+        state[key] = torch.from_numpy(np.array(value)).to(expected[key].dtype)  # a writable copy
+    return state
+
+
+@torch.no_grad()
+def load_jax_params(module: Graph2ClassModule, params: Mapping) -> Graph2ClassModule:
+    """Copy the JAX params into ``module`` (every parameter must be given)."""
+    module.load_state_dict(jax_params_to_state_dict(module, params), strict=True)
+    return module

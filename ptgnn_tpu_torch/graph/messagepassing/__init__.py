@@ -1,0 +1,18 @@
+from ptgnn_tpu_torch.graph.messagepassing.base import (
+    AbstractMessagePassingLayer,
+    GraphContext,
+)
+from ptgnn_tpu_torch.graph.messagepassing.mlp_mp import MlpMessagePassingLayer, TypedMLP
+from ptgnn_tpu_torch.graph.messagepassing.residual import (
+    AbstractResidualLayer,
+    ConcatResidualLayer,
+)
+
+__all__ = [
+    "AbstractMessagePassingLayer",
+    "AbstractResidualLayer",
+    "ConcatResidualLayer",
+    "GraphContext",
+    "MlpMessagePassingLayer",
+    "TypedMLP",
+]

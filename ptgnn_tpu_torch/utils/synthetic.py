@@ -1,0 +1,113 @@
+"""Synthetic Typilus-schema graphs for tests and the chip smoke run.
+
+The same generator as the JAX package's ``synthetic_typilus_graphs``: for a
+seed both packages see the same graphs, so their batches can be compared
+bitwise.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+_TYPE_NAMES = [
+    "int", "str", "bool", "float", "bytes", "List[int]", "List[str]",
+    "Dict[str, int]", "Dict[str, Any]", "Optional[int]", "Optional[str]",
+    "Tuple[int, int]", "Set[str]", "Iterator[str]", "Callable", "Path",
+    "np.ndarray", "torch.Tensor", "Dict[int, List[str]]", "Sequence[float]",
+]
+
+_IDENTIFIERS = [
+    "foo", "bar", "baz", "value", "result", "index", "count", "name", "data",
+    "items", "node", "graph", "edge", "config", "parse", "load", "save",
+    "get_value", "setItem", "maxCount", "numNodes", "fileName", "toString",
+    "run_loop", "batchSize", "learningRate", "outputDir", "inputPath",
+]
+
+_EDGE_TYPES = ["NEXT", "CHILD", "OCCURRENCE_OF", "COMPUTED_FROM", "RETURNS_TO"]
+
+
+def _to_adj(src, dst) -> Dict[str, List[int]]:
+    adj: Dict[str, List[int]] = {}
+    for s, d in zip(src, dst):
+        adj.setdefault(str(int(s)), []).append(int(d))
+    return adj
+
+
+def _ast_like_edges(rng, n: int, token_len: int, edges_per_node: float):
+    """Token chain + banded AST tree + geometric-offset semantic edges."""
+    edges: Dict[str, Dict[str, List[int]]] = {}
+    if token_len > 1:
+        toks = np.arange(token_len)
+        edges["NEXT"] = _to_adj(toks[:-1], toks[1:])
+    if n > 1:
+        kids = np.arange(1, n)
+        parents = kids - 1 - rng.randint(0, np.minimum(kids, 32))
+        edges["CHILD"] = _to_adj(parents, kids)
+    remaining = max(0, int(edges_per_node * n) - (token_len - 1) - (n - 1))
+    for et in ("OCCURRENCE_OF", "COMPUTED_FROM", "RETURNS_TO"):
+        num_e = rng.poisson(remaining // 3) if remaining else 0
+        if num_e == 0 or n < 2:
+            continue
+        src = rng.randint(0, n, num_e)
+        off = rng.geometric(1.0 / 24.0, num_e) * rng.choice([-1, 1], num_e)
+        dst = np.clip(src + off, 0, n - 1)
+        keep = dst != src
+        if keep.any():
+            edges[et] = _to_adj(src[keep], dst[keep])
+    return edges
+
+
+def synthetic_typilus_graphs(
+    num_graphs: int,
+    seed: int = 0,
+    mean_nodes: int = 200,
+    max_nodes: int = 2000,
+    edges_per_node: float = 2.0,
+    supernode_fraction: float = 0.05,
+    topology: str = "random",
+) -> Iterator[Dict]:
+    """Typilus-schema graphs: string nodes, nested ``{edge_type: {src:
+    [dsts]}}`` adjacency, annotated supernodes, a token-sequence backbone.
+    ``topology`` is "random" (uniform pairs) or "ast" (program-graph-like)."""
+    if topology not in ("random", "ast"):
+        raise ValueError(f"unknown topology {topology!r}")
+    rng = np.random.RandomState(seed)
+    type_probs = 1.0 / np.arange(1, len(_TYPE_NAMES) + 1)
+    type_probs /= type_probs.sum()
+
+    for gi in range(num_graphs):
+        n = int(np.clip(rng.poisson(mean_nodes), 16, max_nodes))
+        nodes = [str(_IDENTIFIERS[rng.randint(len(_IDENTIFIERS))]) for _ in range(n)]
+        token_len = max(4, n // 2)
+        token_sequence = list(range(token_len))
+
+        edges: Dict[str, Dict[str, List[int]]] = {}
+        if topology == "random":
+            for et in _EDGE_TYPES:
+                num_e = rng.poisson(edges_per_node * n / len(_EDGE_TYPES))
+                if num_e == 0:
+                    continue
+                src = rng.randint(0, n, num_e)
+                dst = rng.randint(0, n, num_e)
+                edges[et] = _to_adj(src, dst)
+        else:
+            edges = _ast_like_edges(rng, n, token_len, edges_per_node)
+
+        num_supernodes = max(1, int(n * supernode_fraction))
+        supernode_idxs = rng.choice(n, size=num_supernodes, replace=False)
+        supernodes = {
+            str(int(idx)): {
+                "name": nodes[idx],
+                "annotation": _TYPE_NAMES[rng.choice(len(_TYPE_NAMES), p=type_probs)],
+            }
+            for idx in supernode_idxs
+        }
+
+        yield {
+            "nodes": nodes,
+            "edges": edges,
+            "token-sequence": token_sequence,
+            "supernodes": supernodes,
+            "filename": f"synthetic_{gi}.py",
+        }

@@ -1,0 +1,71 @@
+"""The port stands alone: importing all of it loads neither JAX nor the JAX
+package, no source imports them, and entry points do not fall back to the
+CPU when CUDA is missing."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "ptgnn_tpu_torch"
+PORT_SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {list(_module_names())!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'ptgnn_tpu' or m.startswith('ptgnn_tpu.'))\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "ptgnn_tpu"), f"{path}: imports {name}"
+
+
+def test_entry_points_without_device_raise_when_cuda_is_missing():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    from ptgnn_tpu_torch.implementations.typilus.harness import build_graph2class, small_padding
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_graph2class(padding=small_padding(max_nodes=256), hidden_state_size=8)
+    model, module, _ = build_graph2class(
+        padding=small_padding(max_nodes=256), hidden_state_size=8, device="cpu"
+    )
+    graphs = synthetic_typilus_graphs(2, seed=1, mean_nodes=40, max_nodes=100)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.report_accuracy(graphs, module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(iter(model.predict(graphs, module)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.build_neural_module()
