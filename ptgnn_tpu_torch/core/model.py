@@ -11,8 +11,12 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from collections import deque
 from concurrent import futures
-from typing import Any, Dict, Generic, Iterator, List, Optional, Tuple, TypeVar
+from pathlib import Path
+from typing import Any, Dict, Generic, Iterator, List, Mapping, Optional, Tuple, Type, TypeVar
 
+import torch
+
+from ptgnn_tpu_torch.core.checkpoint import cpu_state, read_pickle, write_pickle
 from ptgnn_tpu_torch.core.iterators import ThreadedIterator, shuffled_iterator
 
 _EXHAUSTED = object()
@@ -20,6 +24,7 @@ _EXHAUSTED = object()
 TRawDatapoint = TypeVar("TRawDatapoint")
 TTensorizedDatapoint = TypeVar("TTensorizedDatapoint")
 TNeuralModule = TypeVar("TNeuralModule")
+TModel = TypeVar("TModel", bound="AbstractNeuralModel")
 
 __all__ = ["AbstractNeuralModel"]
 
@@ -70,6 +75,19 @@ class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeu
     @abstractmethod
     def build_neural_module(self) -> TNeuralModule:
         raise NotImplementedError()
+
+    # ---- saving / loading ----
+    def save(self, path: Path, module: torch.nn.Module) -> None:
+        """Write ``(self, module.state_dict())`` as a gzip pickle (CPU
+        tensors), through a temporary file and a rename."""
+        write_pickle(Path(path), (self, cpu_state(module.state_dict())))
+
+    @classmethod
+    def restore_model(cls: Type[TModel], path: Path) -> Tuple[TModel, Mapping[str, torch.Tensor]]:
+        """``(model, state_dict)`` from :meth:`save`. Unpickling runs code:
+        restore only files you wrote or trust."""
+        model, state = read_pickle(Path(path))
+        return model, state
 
     # ---- tensorization ----
     @abstractmethod

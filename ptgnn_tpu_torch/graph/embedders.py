@@ -38,7 +38,7 @@ class SubtokenUnitEmbedder(torch.nn.Module):
         )
         self.dropout_rate = dropout_rate
 
-    def forward(self, token_idxs, lengths, *, train: bool = False):
+    def forward(self, token_idxs, lengths, *, train: bool = False, generator=None):
         """token_idxs: [B, max_subtok]; lengths: [B] -> [B, D]."""
         embedded = self.embeddings(token_idxs)  # [B, S, D]
         positions = torch.arange(embedded.shape[1], device=embedded.device)
@@ -46,7 +46,7 @@ class SubtokenUnitEmbedder(torch.nn.Module):
         out = (embedded * maskf).sum(dim=-2)
         if self.combination == "mean":
             out = out / (lengths[:, None].to(embedded.dtype) + 1e-10)
-        return dropout(self.out_layer(out), self.dropout_rate, train)
+        return dropout(self.out_layer(out), self.dropout_rate, train, generator)
 
 
 class StrElementRepresentationModel(AbstractNeuralModel):

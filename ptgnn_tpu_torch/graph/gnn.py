@@ -2,7 +2,8 @@
 
 The module runs over a statically shaped GraphBatch: backward and self
 edges are materialized by the batcher, residual layers compose through an
-explicit stash. Edge dropout comes with the training slice.
+explicit stash. Edge dropout is not ported (the factories that use this
+engine set its rate to 0).
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ class GraphNeuralNetwork(torch.nn.Module):
     def output_node_state_dim(self) -> int:
         return self.message_passing_layers[-1].output_state_dimension
 
-    def gnn(self, node_representations, ctx: GraphContext, *, train: bool = False) -> torch.Tensor:
+    def gnn(self, node_representations, ctx: GraphContext, *, train: bool = False,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Run the message-passing layer stack."""
         stash: Dict[int, torch.Tensor] = {}
         for layer in self.message_passing_layers:
@@ -66,12 +68,15 @@ class GraphNeuralNetwork(torch.nn.Module):
                 original = stash.pop(id(layer))
                 node_representations = layer.combine(original, node_representations, train=train)
             else:
-                node_representations = layer(node_representations, ctx, train=train)
+                node_representations = layer(node_representations, ctx, train=train, generator=generator)
         return node_representations
 
-    def forward(self, batch: GraphBatch, *, train: bool = False) -> Tuple[GnnOutput, Dict[str, Any]]:
-        """Returns (GnnOutput, metric accumulators)."""
-        initial = self.node_embedder(**batch.node_data, train=train)  # [N_pad, D]
+    def forward(
+        self, batch: GraphBatch, *, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Tuple[GnnOutput, Dict[str, Any]]:
+        """Returns (GnnOutput, metric accumulators). ``generator`` draws every
+        dropout mask when training."""
+        initial = self.node_embedder(**batch.node_data, train=train, generator=generator)  # [N_pad, D]
         ctx = GraphContext(
             adjacency=batch.adjacency,
             node_graph=batch.node_graph,
@@ -79,7 +84,7 @@ class GraphNeuralNetwork(torch.nn.Module):
             graph_mask=batch.graph_mask,
             references=batch.references,
         )
-        output = self.gnn(initial, ctx, train=train)
+        output = self.gnn(initial, ctx, train=train, generator=generator)
         metrics = {
             "num_graphs": batch.num_graphs,
             "num_nodes": batch.num_nodes,

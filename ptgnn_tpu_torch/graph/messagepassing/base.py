@@ -7,7 +7,7 @@ device picks kernel or plain version.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -25,9 +25,11 @@ class GraphContext(NamedTuple):
 
 
 class AbstractMessagePassingLayer(torch.nn.Module):
-    """forward(node_states [N, D], ctx, train=False) -> [N, D'] node states."""
+    """forward(node_states [N, D], ctx, train=False, generator=None) -> [N, D']
+    node states; ``generator`` draws the layer's dropout when training."""
 
-    def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False):
+    def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         raise NotImplementedError
 
     @property

@@ -65,14 +65,20 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
         self.dense = Linear(message_dimension, output_state_dimension, use_bias=True,
                             weight_init=init.xavier_uniform())
 
-    def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False):
+    def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        keep = 1.0 - (self.message_mlp.dropout_rate if train else 0.0)
+        seed = None
+        if keep < 1.0:  # the keyed message dropout's seed, in [0, 2**32)
+            if generator is None:
+                raise ValueError("message dropout during training needs a torch.Generator")
+            seed = torch.randint(0, 2**32, (), generator=generator, device=node_states.device)
         aggregated = fused_typed_message_aggregation(
             node_states, self.message_mlp.weights_0, ctx.adjacency, node_states.shape[0],
-            self.aggregation_fn, self.use_target_state_as_message_input,
-            1.0 - (self.message_mlp.dropout_rate if train else 0.0),
+            self.aggregation_fn, self.use_target_state_as_message_input, keep, seed,
         )
         out = torch.tanh(self.dense(self.layer_norm(gelu_exact(aggregated))))
-        return dropout(out, self.dropout_rate, train)
+        return dropout(out, self.dropout_rate, train, generator)
 
     @property
     def input_state_dimension(self) -> int:

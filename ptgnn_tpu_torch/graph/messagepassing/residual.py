@@ -21,7 +21,7 @@ class _ResidualOriginLayer(AbstractMessagePassingLayer):
         # it in the module tree twice.
         object.__setattr__(self, "target_layer", target_layer)
 
-    def forward(self, node_states, ctx, *, train=False):
+    def forward(self, node_states, ctx, *, train=False, generator=None):
         return node_states
 
     @property

@@ -69,17 +69,25 @@ class Graph2ClassModule(Module):
             bias_init=init.zeros(),
         )
 
-    def _logits(self, batch: GraphBatch, *, train: bool):
-        gnn_output, gnn_metrics = self.gnn(batch, train=train)
+    def _logits(self, batch: GraphBatch, *, train: bool, generator: Optional[torch.Generator] = None):
+        gnn_output, gnn_metrics = self.gnn(batch, train=train, generator=generator)
         mask = gnn_output.reference_masks["supernodes"]  # [R_pad]
         reps = gnn_output.reference_rows("supernodes")  # [R_pad, D]
         logits = self.node_to_class(reps)
         return logits, gnn_output.reference_nodes_graph_idx["supernodes"], mask, gnn_metrics
 
-    def forward(self, batch: GraphBatch, target_classes: torch.Tensor, *, train: bool = False):
+    def forward(
+        self,
+        batch: GraphBatch,
+        target_classes: torch.Tensor,
+        *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
         """Masked mean cross-entropy over valid supernode slots; returns
-        (loss, metric accumulators)."""
-        logits, _, mask, gnn_metrics = self._logits(batch, train=train)
+        (loss, metric accumulators). ``train=True`` applies dropout, drawn from
+        ``generator``, and gives the training loss."""
+        logits, _, mask, gnn_metrics = self._logits(batch, train=train, generator=generator)
         logp = torch.log_softmax(logits.float(), dim=-1)
         safe_targets = torch.where(mask, target_classes, torch.zeros_like(target_classes)).long()
         nll = -logp.gather(1, safe_targets[:, None])[:, 0]

@@ -1,10 +1,16 @@
-"""Build the Graph2Class model on synthetic Typilus-schema data and produce
-finalized, statically shaped minibatches."""
+"""Build the Graph2Class model on synthetic Typilus-schema data, produce
+finalized, statically shaped minibatches, and time the training step over
+device-resident batches as ``bench.py`` times the JAX package's."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import time
+from typing import Any, Dict, List, Sequence, Tuple
 
+import torch
+
+from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
 from ptgnn_tpu_torch.device import DeviceLike
+from ptgnn_tpu_torch.graph.structs import GraphBatch
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class, Graph2ClassModule
 from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model
@@ -75,3 +81,57 @@ def build_graph2class(
     while len(minibatches) < num_minibatches:
         minibatches.append(minibatches[len(minibatches) % len(minibatches)])
     return model, module, minibatches
+
+
+def train_steps(
+    module: Graph2ClassModule,
+    batches: Sequence[Tuple[GraphBatch, torch.Tensor]],
+    *,
+    steps: int,
+    enable_amp: bool = False,
+    learning_rate: float = 2.5e-4,
+    clip_gradient_norm: float = 1.0,
+    seed: int = 0,
+) -> Dict[str, float]:
+    """``bench.py``'s train-step loop over device-resident (batch, target
+    classes) pairs: clip(1.0) + Adam(2.5e-4), one warm-up step on the first
+    batch, then ``steps`` timed steps cycling over the batches, the last
+    of which waits for the device. Updates ``module`` in place. Returns the
+    last loss, ms per step, and graphs, nodes and edges per second."""
+    optimizer = torch.optim.Adam(module.parameters(), lr=learning_rate)
+    base_lrs = [group["lr"] for group in optimizer.param_groups]
+    device = next(module.parameters()).device
+    generator = torch.Generator(device=device)
+    # Host-side sizes: reading them from the device inside the loop would
+    # synchronise every step.
+    sizes = [(int(b.num_graphs), int(b.num_nodes), int(b.num_edges)) for b, _ in batches]
+
+    def step(i: int) -> torch.Tensor:
+        batch, targets = batches[i % len(batches)]
+        generator.manual_seed(seed * 1_000_003 + i)
+        loss, _ = module_loss(
+            module, {"batch": batch, "target_classes": targets}, train=True,
+            generator=generator, amp=enable_amp,
+        )
+        loss.backward()
+        optimizer_step(module, optimizer, base_lrs, clip_gradient_norm=clip_gradient_norm)
+        return loss
+
+    step(0)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    totals = [0, 0, 0]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step(i)
+        for k, v in enumerate(sizes[i % len(sizes)]):
+            totals[k] += v
+    final_loss = float(loss.detach())  # waits for the last step
+    elapsed = time.perf_counter() - t0
+    return {
+        "loss": final_loss,
+        "ms_per_step": 1e3 * elapsed / steps,
+        "graphs_per_s": totals[0] / elapsed,
+        "nodes_per_s": totals[1] / elapsed,
+        "edges_per_s": totals[2] / elapsed,
+    }

@@ -1,5 +1,5 @@
-"""The Graph2Class model factory and its batch budgets (the training CLI
-comes with the training slice)."""
+"""The Graph2Class model factory and its batch budgets. The training CLI
+waits for ``utils/io.py``; train through ``core.trainer.ModelTrainer``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -33,6 +33,42 @@ def typilus_reference_budgets(max_nodes: int) -> tuple:
     )
 
 
+class MlpStackCreator:
+    """The benchmark 'mlp' stack for ``num_edges`` materialized edge types: 12
+    entries, 8 MLP-MP layers with max aggregation and target-state input, two
+    concat residuals. A class, not a closure, so a model that holds it
+    pickles into a checkpoint."""
+
+    def __init__(self, hidden_state_size: int, dropout_rate: float):
+        self.hidden_state_size = hidden_state_size
+        self.dropout_rate = dropout_rate
+
+    def _mlp_mp(self, num_edges: int, input_dim: int, message_dim: int) -> MlpMessagePassingLayer:
+        return MlpMessagePassingLayer(
+            input_state_dimension=input_dim,
+            message_dimension=message_dim,
+            output_state_dimension=self.hidden_state_size,
+            num_edge_types=num_edges,
+            message_aggregation_function="max",
+            dropout_rate=self.dropout_rate,
+        )
+
+    def __call__(self, num_edges: int):
+        h = self.hidden_state_size
+        r1 = ConcatResidualLayer(h)
+        r2 = ConcatResidualLayer(h)
+        return [
+            r1.pass_through_dummy_layer(),
+            self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h),
+            r1,
+            self._mlp_mp(num_edges, 2 * h, 2 * h),
+            r2.pass_through_dummy_layer(),
+            self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h),
+            r2,
+            self._mlp_mp(num_edges, 2 * h, 2 * h),
+        ]
+
+
 def create_graph2class_gnn_model(
     hidden_state_size: int = 64,
     dropout_rate: float = 0.1,
@@ -40,36 +76,11 @@ def create_graph2class_gnn_model(
     architecture: str = "mlp",
     min_freq_threshold: int = 5,
 ) -> Graph2Class:
-    """The benchmark 'mlp' architecture: 12 stack entries, 8 MLP-MP layers
-    with max aggregation and target-state input, two concat residuals."""
+    """The benchmark 'mlp' architecture (:class:`MlpStackCreator`); edge
+    dropout is 0, as in the JAX package's factory."""
     if architecture != "mlp":
         raise NotImplementedError(f"architecture {architecture!r} is not ported yet")
     padding = padding if padding is not None else default_padding()
-
-    def create_mlp_mp_layers(num_edges: int):
-        def mlp_mp(input_dim: int, message_dim: int):
-            return MlpMessagePassingLayer(
-                input_state_dimension=input_dim,
-                message_dimension=message_dim,
-                output_state_dimension=hidden_state_size,
-                num_edge_types=num_edges,
-                message_aggregation_function="max",
-                dropout_rate=dropout_rate,
-            )
-
-        h = hidden_state_size
-        r1 = ConcatResidualLayer(h)
-        r2 = ConcatResidualLayer(h)
-        return [
-            r1.pass_through_dummy_layer(),
-            mlp_mp(h, h), mlp_mp(h, h), mlp_mp(h, h),
-            r1,
-            mlp_mp(2 * h, 2 * h),
-            r2.pass_through_dummy_layer(),
-            mlp_mp(h, h), mlp_mp(h, h), mlp_mp(h, h),
-            r2,
-            mlp_mp(2 * h, 2 * h),
-        ]
 
     return Graph2Class(
         gnn_model=GraphNeuralNetworkModel(
@@ -81,7 +92,7 @@ def create_graph2class_gnn_model(
                 min_freq_threshold=min_freq_threshold,
                 dropout_rate=dropout_rate,
             ),
-            message_passing_layer_creator=create_mlp_mp_layers,
+            message_passing_layer_creator=MlpStackCreator(hidden_state_size, dropout_rate),
             padding=padding,
             max_nodes_per_graph=100000,
             max_graph_edges=500000,

@@ -18,12 +18,18 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
-    """Inverted dropout; identity when not training or ``rate == 0``."""
+def dropout(
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Inverted dropout; identity when not training or ``rate == 0``. The mask
+    comes from ``generator`` (on ``x``'s device), never from PyTorch's global
+    generator, so a seeded caller gets the same masks on every run."""
     if not train or rate <= 0.0:
         return x
+    if generator is None:
+        raise ValueError("dropout during training needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep).bool()
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -57,6 +63,43 @@ class Linear(torch.nn.Module):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+class _EmbeddingLookup(torch.autograd.Function):
+    """``F.embedding`` whose backward sums each id's rows in a fixed order, so
+    the table's gradient is the same bits on every run; PyTorch's CUDA
+    embedding backward adds float32 rows in atomic order.
+
+    The rows are sorted stably by id and summed in two levels of sequential
+    segment sums: chunks of at most ``_CHUNK`` rows of one id, then each id's
+    chunks. One level would sum the padding id's tens of thousands of rows in
+    one sequential chain. Every shape is fixed by the input sizes, so nothing
+    waits for the device."""
+
+    _CHUNK = 128
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.num_embeddings = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        num_ids, chunk = ctx.num_embeddings, _EmbeddingLookup._CHUNK
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sorted_ids = flat[order]
+        rows = g.reshape(-1, g.shape[-1])[order].float()  # bf16 rows summed in float32
+        counts = torch.bincount(flat, minlength=num_ids)
+        chunks = (counts + chunk - 1) // chunk  # chunks of each id
+        rank = torch.arange(flat.numel(), device=flat.device) - (torch.cumsum(counts, 0) - counts)[sorted_ids]
+        slot = (torch.cumsum(chunks, 0) - chunks)[sorted_ids] + rank // chunk  # non-decreasing
+        num_slots = num_ids + flat.numel() // chunk + 1  # > the chunks of all ids
+        partial = torch.segment_reduce(rows, "sum", lengths=torch.bincount(slot, minlength=num_slots))
+        lengths = torch.cat([chunks, (num_slots - chunks.sum()).reshape(1)])
+        return None, torch.segment_reduce(partial, "sum", lengths=lengths)[:num_ids].to(g.dtype)
+
+
 class Embedding(torch.nn.Module):
     """Token embedding table ``[V, D]``."""
 
@@ -71,7 +114,7 @@ class Embedding(torch.nn.Module):
         self._weight_init(self.weight.data, generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.weight)
+        return _EmbeddingLookup.apply(ids.long(), self.weight)
 
 
 class LayerNorm(torch.nn.Module):

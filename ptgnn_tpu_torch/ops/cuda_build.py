@@ -43,6 +43,12 @@ _SIGNATURES = {
         [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
+    "sum": (
+        "segment_sum.cu",
+        "ptgnn_segment_sum",
+        [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    ),
 }
 
 _LOCK = threading.Lock()

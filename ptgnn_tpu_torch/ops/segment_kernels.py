@@ -15,14 +15,18 @@ never falls back from one to the other.
 
 Kernels (sources in ``ptgnn_tpu_torch/csrc/``):
 
+* ``segment_sum.cu`` replaces ``_sum_kernel``;
 * ``segment_extremum.cu`` replaces ``_extremum_kernel``;
 * ``broadcast_rows.cu`` replaces ``_broadcast_kernel``.
 
-The segment-sum kernel (``_sum_kernel``) is not ported yet: the sum on a
-CUDA tensor raises.
+Gradients mirror the JAX package's custom VJPs as ``torch.autograd.Function``s:
+the sum's backward is the broadcast, the broadcast's backward is the sum, and
+the extremum's backward splits the cotangent among tied extrema through one
+widened broadcast, a sum and a broadcast.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -31,6 +35,7 @@ from ptgnn_tpu_torch.ops import cuda_build
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SUM_COLS = 32  # columns per CTA of the sum kernel
 
 
 class AggregationPlan(NamedTuple):
@@ -117,18 +122,24 @@ def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> to
         return broadcast_plain(table, plan)
     _require_cuda(table, "planned_broadcast_to_edges")
     _check_plan(plan, table.device)
-    if table.ndim != 2 or not table.is_contiguous():
-        raise ValueError("the broadcast table must be a contiguous [N, D] tensor")
-    row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 16 or table.data_ptr() % 16:
-        raise ValueError(f"broadcast rows must be 16-byte multiples (got {row_bytes} B)")
+    if table.ndim != 2 or 16 % table.element_size():
+        raise ValueError("the broadcast table must be an [N, D] tensor of 1, 2, 4, 8 or 16-byte elements")
+    d = table.shape[1]
+    per_unit = 16 // table.element_size()
+    width = -(-d // per_unit) * per_unit
+    if width != d or not table.is_contiguous() or table.data_ptr() % 16:
+        # The kernel moves whole 16-byte units: other rows ride in a
+        # zero-padded, aligned copy (off the main path, whose rows are whole).
+        padded = table.new_zeros((table.shape[0], max(width, per_unit)))
+        padded[:, :d] = table
+        return planned_broadcast_to_edges(padded, plan)[:, :d]
     e_pad = plan.local_rows.shape[0]
-    out = torch.empty((e_pad, table.shape[1]), dtype=table.dtype, device=table.device)
+    out = torch.empty((e_pad, d), dtype=table.dtype, device=table.device)
     fn = cuda_build.kernel_function("broadcast")
     err = fn(
         table.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
-        out.data_ptr(), e_pad, row_bytes, plan.tile, plan.counts.shape[1], table.shape[0],
-        _stream(table.device),
+        out.data_ptr(), e_pad, d * table.element_size(), plan.tile, plan.counts.shape[1],
+        table.shape[0], _stream(table.device),
     )
     cuda_build.check("broadcast", err)
     planned_broadcast_to_edges.launches += 1
@@ -204,26 +215,153 @@ planned_segment_extremum.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Segment sum (the kernel comes with the training slice)
+# Segment sum (replaces _sum_kernel)
 # ---------------------------------------------------------------------------
+
+
+def segment_sum_plain(data: torch.Tensor, plan: AggregationPlan, num_nodes: int) -> torch.Tensor:
+    """Plain version of the sum kernel: float32 sum per plan row; sentinel
+    slots add nothing, rows without slots read 0."""
+    num_blocks, r = plan.counts.shape
+    # Sentinel slots add into one spare row past the plan's rows.
+    out = torch.zeros((num_blocks * r + 1, data.shape[1]), dtype=torch.float32, device=data.device)
+    out.index_add_(0, plan_rows(plan, num_blocks * r), data.float())
+    return out[:num_nodes]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _sum_splits(device: torch.device, num_blocks: int, d: int) -> int:
+    """Parts of each row block's tile range, so the sum kernel runs about two
+    CTAs per SM: (row blocks x 32-column chunks) alone fill too few SMs at
+    the bench layout (32 row blocks)."""
+    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    ctas = num_blocks * -(-d // _SUM_COLS)
+    return max(1, min(8, -(-2 * sms // max(ctas, 1))))
 
 
 def planned_segment_sum(
     data: torch.Tensor, plan: AggregationPlan, num_nodes: int
 ) -> torch.Tensor:
-    """[E_pad, D] slot data (zero at masked slots) -> [num_nodes, D] float32
-    per-node sums. Only the plain version exists so far."""
-    if data.device.type != "cpu":
-        raise NotImplementedError(
-            "the segment-sum kernel (the port of _sum_kernel) is not written yet; "
-            "sum/mean aggregation runs on the CPU only"
-        )
+    """[E_pad, D] f32/bf16 slot data in plan order (zero at masked slots, or
+    masked by the plan's sentinel) -> [num_nodes, D] float32 per-node sums.
+    CPU: the plain version; CUDA: the kernel, whose result is the same bits
+    on every run."""
+    if data.device.type == "cpu":
+        return segment_sum_plain(data, plan, num_nodes)
+    _require_cuda(data, "planned_segment_sum")
+    _check_plan(plan, data.device)
     num_blocks, r = plan.counts.shape
-    rows = plan_rows(plan, num_blocks * r)
-    real = rows < num_blocks * r
-    out = torch.zeros((num_blocks * r, data.shape[1]), dtype=torch.float32)
-    out.index_add_(0, rows[real], data[real].float())
-    return out[:num_nodes]
+    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
+        raise ValueError("sum data must be a contiguous [E, D] float32/bfloat16 tensor")
+    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
+        raise ValueError("sum data and node count do not match the plan")
+    d = data.shape[1]
+    out = torch.empty((num_nodes, d), dtype=torch.float32, device=data.device)
+    if d == 0 or num_nodes == 0:
+        return out
+    splits = _sum_splits(data.device, num_blocks, d)
+    partial = (
+        torch.empty((splits, num_nodes, d), dtype=torch.float32, device=data.device)
+        if splits > 1 else None
+    )
+    fn = cuda_build.kernel_function("sum")
+    err = fn(
+        data.data_ptr(), _KERNEL_DTYPES[data.dtype], plan.local_rows.data_ptr(),
+        plan.tile_row_blocks.data_ptr(), plan.tile_row_blocks.shape[0],
+        None if partial is None else partial.data_ptr(), out.data_ptr(), num_nodes,
+        num_blocks, plan.tile, r, d, splits, _stream(data.device),
+    )
+    cuda_build.check("sum", err)
+    planned_segment_sum.launches += 1
+    return out
+
+
+planned_segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Gradients (the JAX package's custom VJPs)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_dtype(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype in _KERNEL_DTYPES else t.float()
+
+
+class _SegmentSum(torch.autograd.Function):
+    """planned_segment_sum; backward: the broadcast of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, data, plan, num_nodes):
+        ctx.plan = plan
+        ctx.data_dtype = data.dtype
+        return planned_segment_sum(data, plan, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return planned_broadcast_to_edges(g.contiguous(), ctx.plan).to(ctx.data_dtype), None, None
+
+
+class _BroadcastToEdges(torch.autograd.Function):
+    """planned_broadcast_to_edges; backward: the segment sum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, table, plan):
+        ctx.plan = plan
+        ctx.num_rows = table.shape[0]
+        return planned_broadcast_to_edges(table, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_table = planned_segment_sum(_kernel_dtype(g).contiguous(), ctx.plan, ctx.num_rows)
+        return d_table.to(g.dtype), None
+
+
+class _SegmentExtremum(torch.autograd.Function):
+    """planned_segment_extremum; backward: the cotangent split evenly among
+    the slots that equal their row's extremum (jax segment_max semantics)."""
+
+    @staticmethod
+    def forward(ctx, data, plan, num_nodes, is_max):
+        out = planned_segment_extremum(data, plan, num_nodes, is_max)
+        ctx.save_for_backward(data, out)
+        ctx.plan = plan
+        ctx.num_nodes = num_nodes
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, out = ctx.saved_tensors
+        d = out.shape[1]
+        # One widened broadcast carries the extremum and the cotangent; slots
+        # at the sentinel read 0 rows, so their cotangent is 0.
+        rows = planned_broadcast_to_edges(torch.cat([out, g.to(out.dtype)], dim=1), ctx.plan)
+        is_ext = (data == rows[:, :d]).float()
+        ties = planned_segment_sum(is_ext, ctx.plan, ctx.num_nodes)
+        ties_per_edge = planned_broadcast_to_edges(ties, ctx.plan).clamp_min(1.0)
+        d_data = is_ext * rows[:, d:].to(g.dtype) / ties_per_edge
+        return d_data.to(data.dtype), None, None, None
+
+
+def segment_sum(data: torch.Tensor, plan: AggregationPlan, num_nodes: int) -> torch.Tensor:
+    """Differentiable :func:`planned_segment_sum`."""
+    return _SegmentSum.apply(data, plan, num_nodes)
+
+
+def broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> torch.Tensor:
+    """Differentiable :func:`planned_broadcast_to_edges`."""
+    return _BroadcastToEdges.apply(table, plan)
+
+
+def segment_extremum(
+    data: torch.Tensor, plan: AggregationPlan, num_nodes: int, is_max: bool = True
+) -> torch.Tensor:
+    """Differentiable :func:`planned_segment_extremum`."""
+    return _SegmentExtremum.apply(data, plan, num_nodes, is_max)
 
 
 # ---------------------------------------------------------------------------
@@ -237,18 +375,21 @@ def planned_segment_reduce(
     num_nodes: int,
     reduction: str,
     mask: Optional[torch.Tensor] = None,
+    counts_exact: bool = False,
 ) -> torch.Tensor:
-    """torch-scatter-compatible masked reduce over the plan; accumulates in
-    float32 and casts back to the data's dtype."""
+    """torch-scatter-compatible masked reduce over the plan, differentiable;
+    accumulates in float32 and casts back to the data's dtype.
+
+    ``counts_exact``: the mask is the batch's static edge mask, so the plan's
+    counts are the masked in-degrees and mean skips its counting pass."""
     orig_dtype = data.dtype
-    if data.dtype not in _KERNEL_DTYPES:
-        data = data.float()
+    data = _kernel_dtype(data)
     if reduction in ("sum", "add", "mean"):
         if mask is not None:
             data = torch.where(mask[:, None], data, torch.zeros((), dtype=data.dtype, device=data.device))
-        out = planned_segment_sum(data, plan, num_nodes)
+        out = segment_sum(data.contiguous(), plan, num_nodes)
         if reduction == "mean":
-            if mask is None:
+            if mask is None or counts_exact:
                 counts = plan.counts.reshape(-1)[:num_nodes].float()
             else:
                 counts = planned_segment_sum(mask[:, None].float(), plan, num_nodes)[:, 0]
@@ -262,7 +403,7 @@ def planned_segment_reduce(
             neutral = -_BIG if is_max else _BIG
         if mask is not None:
             data = torch.where(mask[:, None], data, torch.full((), neutral, dtype=data.dtype, device=data.device))
-        out = planned_segment_extremum(data.contiguous(), plan, num_nodes, is_max)
+        out = segment_extremum(data.contiguous(), plan, num_nodes, is_max)
     else:
         raise ValueError(f"Unknown reduction '{reduction}'")
     return out.to(orig_dtype)
@@ -274,6 +415,7 @@ def adjacency_segment_reduce(
     num_nodes: int,
     reduction: str,
     mask: Optional[torch.Tensor] = None,
+    counts_exact: bool = False,
 ) -> torch.Tensor:
     """Masked segment reduce of [E_pad, D] slot data over a batch's unified
     edge layout. Sum/mean use the supertile plan; max/min need the
@@ -282,17 +424,21 @@ def adjacency_segment_reduce(
         plan = sum_plan_from_adjacency(adj)
     else:
         plan = plan_from_adjacency(adj)
-    return planned_segment_reduce(data, plan, num_nodes, reduction, mask)
+    return planned_segment_reduce(data, plan, num_nodes, reduction, mask, counts_exact)
+
+
+_WRAPPERS = {
+    "segment_extremum": planned_segment_extremum,
+    "broadcast_to_edges": planned_broadcast_to_edges,
+    "segment_sum": planned_segment_sum,
+}
 
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters of this module's kernel wrappers."""
-    return {
-        "segment_extremum": planned_segment_extremum.launches,
-        "broadcast_to_edges": planned_broadcast_to_edges.launches,
-    }
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    planned_segment_extremum.launches = 0
-    planned_broadcast_to_edges.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

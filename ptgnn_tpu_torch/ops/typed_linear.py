@@ -4,8 +4,11 @@ Every tile of ``edge_tile`` consecutive edges has one type (the batcher's
 layout), so ``y[e] = x[e] @ W[type(e)]`` is a batched matmul of
 ``[n_tiles, tile, D]`` by the gathered ``[n_tiles, D, M]`` weights. The JAX
 package leaves this to XLA at the Graph2Class shapes; here it is a plain
-``torch.bmm``. The hand grouped GEMM that ports the Pallas typed matmul comes
-with the slice whose path routes it.
+``torch.bmm``, and its gradients are stock autograd (the index_select's
+backward sums the per-tile weight gradients by type). The hand grouped GEMM
+that ports the Pallas typed matmul comes with the slice whose path routes it.
+The fused op's backward calls this function without autograd and forms dW
+itself (``ops/fused_mp.py``).
 """
 from __future__ import annotations
 

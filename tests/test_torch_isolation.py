@@ -69,3 +69,7 @@ def test_entry_points_without_device_raise_when_cuda_is_missing():
         next(iter(model.predict(graphs, module)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.build_neural_module()
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelTrainer(model, "unused.pkl.gz")

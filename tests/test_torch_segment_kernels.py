@@ -1,7 +1,9 @@
 """The port's segment extremum and receiver broadcast against the JAX
-package's Pallas kernels (interpreted), bitwise, and the port's plain
-planned sum/mean against the interpreted sum kernel. The CUDA kernels
-against their plain versions: tests/test_torch_kernels_cuda.py."""
+package's Pallas kernels (interpreted), bitwise, the port's plain planned
+sum/mean against the interpreted sum kernel, and the gradients of the
+autograd ops against ``jax.vjp`` of the JAX package's custom VJPs. The CUDA
+kernels against their plain versions: tests/test_torch_kernels_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,7 +90,7 @@ def test_broadcast_plain_matches_jax_kernel_bitwise(granularity, dtype, d):
     assert not got[local_rows == R].float().any()  # sentinel slots read 0
 
 
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("granularity", ["edge_tile", "supertile"])
 @pytest.mark.parametrize("reduction", ["sum", "mean"])
 def test_plain_sum_and_mean_match_jax_kernel(reduction, granularity, m):
@@ -110,9 +112,64 @@ def test_plain_sum_and_mean_match_jax_kernel(reduction, granularity, m):
     assert not got[200:].any() and not got[[3, 11]].any()
 
 
-def test_sum_on_cuda_tensor_raises_until_ported():
-    receivers, local_rows, _, trb, counts = make_layout()
-    _, tplan = plans(local_rows, trb, counts, TILE)
-    meta = torch.zeros((len(receivers), 4), device="meta")
-    with pytest.raises(NotImplementedError):
-        tsk.planned_segment_sum(meta, tplan, 10)
+
+def _supertile(trb):
+    return np.ascontiguousarray(trb.reshape(-1, ALIGN // TILE)[:, 0])
+
+
+@pytest.mark.parametrize("reduction", ["sum", "mean", "max", "min"])
+def test_reduce_gradients_match_jax_vjp(reduction):
+    """The sum's backward is the broadcast (exact), the extremum's the tie
+    split (coarse data: many ties). f32, rtol/atol 1e-6."""
+    receivers, local_rows, mask, trb, counts = make_layout(seed=21)
+    if reduction in ("sum", "mean"):
+        trb, tile = _supertile(trb), ALIGN
+    else:
+        tile = TILE
+    jplan, tplan = plans(local_rows, trb, counts, tile)
+    rng = np.random.RandomState(5)
+    data = np.round(rng.randn(len(receivers), 64) * 2).astype(np.float32) / 2
+    n = 230
+    cot = rng.randn(n, 64).astype(np.float32)
+
+    def f(x):
+        return jsk.planned_segment_reduce(x, jnp.asarray(receivers), jplan, n, reduction, jnp.asarray(mask))
+
+    expected_out, vjp = jax.vjp(f, jnp.asarray(data))
+    (expected,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(data).requires_grad_()
+    out = tsk.planned_segment_reduce(x, tplan, n, reduction, torch.from_numpy(mask))
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(expected_out), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(expected), rtol=1e-6, atol=1e-6)
+    assert np.abs(x.grad.numpy()).max() > 0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_broadcast_gradient_matches_jax_vjp(d):
+    """The broadcast's backward is the segment sum over the same plan (f32
+    sums in another order: rtol/atol 1e-5)."""
+    receivers, local_rows, _, trb, counts = make_layout(seed=d + 7)
+    jplan, tplan = plans(local_rows, _supertile(trb), counts, ALIGN)
+    rng = np.random.RandomState(d)
+    n = 250
+    table = rng.randn(n, d).astype(np.float32)
+    cot = rng.randn(len(receivers), d).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jsk.planned_broadcast_to_edges(t, jnp.asarray(receivers), jplan), jnp.asarray(table))
+    (expected,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(table).requires_grad_()
+    tsk.broadcast_to_edges(x, tplan).backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-5)
+
+
+def test_sum_gradient_is_the_broadcast_bitwise():
+    receivers, local_rows, _, trb, counts = make_layout(seed=31)
+    jplan, tplan = plans(local_rows, _supertile(trb), counts, ALIGN)
+    rng = np.random.RandomState(1)
+    data = rng.randn(len(receivers), 64).astype(np.float32)
+    cot = rng.randn(230, 64).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jsk.planned_segment_sum(x, jnp.asarray(receivers), jplan, 230), jnp.asarray(data))
+    (expected,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(data).requires_grad_()
+    tsk.segment_sum(x, tplan, 230).backward(torch.from_numpy(cot))
+    np.testing.assert_array_equal(bits(x.grad), bits(expected))
