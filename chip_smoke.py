@@ -31,7 +31,24 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    clip + Adam step on equal gradients; a tie count >= 1 for every
    non-empty (node, column) of every MP layer in both orientations of the
    backward; and a train step that repeats bit for bit;
-7. kernels: each kernel's time (CUDA events over a CUDA graph of launches
+7. ppi-serving: PPI at its reference width (hidden 256, 4,096-node batches
+   of 122,880 edge slots, a Tanh feature embedder, 5 sum MLP-MP layers in two
+   mean residual blocks, random seeded weights) on synthetic graphs of the
+   published PPI sizes (50 features, 121 labels, about 2,372 nodes and 14.4
+   edges per node), one graph a batch: report_metrics, and the forward over
+   device-resident batches in float32 and in bf16 AMP eval, with the
+   counters read around each (per forward: 5 broadcast and 5 sum launches,
+   and 5 typed matmul launches in bf16);
+8. ppi-train: ModelTrainer.train for one epoch with validation under bf16
+   AMP, then train_steps in float32 and in bf16 AMP (per step: 10 broadcast,
+   10 sum, and 15 typed matmul launches in bf16, 0 in float32);
+9. ppi-parity: the float32 forward and a float32 train step (dropout 0) on
+   the card against the CPU, elementwise; a bf16 AMP step (the typed matmul
+   kernel) against the CPU's plain route; the typed matmul against float64
+   at both PPI shapes in both dtypes, bitwise from run to run and under tile
+   and row permutations; the sum at 256 and 512 and the broadcast at 256 on
+   the PPI layout; a bf16 AMP step with dropout that repeats bit for bit;
+10. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line.
 
@@ -52,11 +69,25 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 SEED = 0
 NUM_BATCHES = 6
 TRAIN_STEPS = 30
-PER_FORWARD = {"segment_extremum": 8, "broadcast_to_edges": 8, "segment_sum": 0}
-PER_TRAIN_STEP = {"segment_extremum": 8, "broadcast_to_edges": 24, "segment_sum": 16}
+PER_FORWARD = {"segment_extremum": 8, "broadcast_to_edges": 8, "segment_sum": 0, "typed_matmul": 0}
+PER_TRAIN_STEP = {"segment_extremum": 8, "broadcast_to_edges": 24, "segment_sum": 16, "typed_matmul": 0}
+# PPI: per MP layer one broadcast (target rows) and one sum forward, one
+# broadcast (g rows) and one sum (both cotangents) backward; the typed matmul
+# once forward and twice backward, where its gate opens (bf16 only).
+PPI_GRAPHS = 6
+PPI_TRAIN_STEPS = 20
+PPI_PER_FORWARD = {
+    "float32": {"segment_extremum": 0, "broadcast_to_edges": 5, "segment_sum": 5, "typed_matmul": 0},
+    "bf16": {"segment_extremum": 0, "broadcast_to_edges": 5, "segment_sum": 5, "typed_matmul": 5},
+}
+PPI_PER_TRAIN_STEP = {
+    "float32": {"segment_extremum": 0, "broadcast_to_edges": 10, "segment_sum": 10, "typed_matmul": 0},
+    "bf16": {"segment_extremum": 0, "broadcast_to_edges": 10, "segment_sum": 10, "typed_matmul": 15},
+}
 
 
 def phase(name: str, msg: str) -> None:
@@ -120,6 +151,23 @@ def graph_time_ms(calls, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def event_time_ms(calls, reps: int = 3) -> float:
+    """Mean time of one call between CUDA events, for calls that synchronise
+    (and so cannot be captured into a CUDA graph)."""
+    for call in calls[:2]:
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for call in calls:
+            call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
 def rotating(make, bytes_per_copy: int, count: int = 16):
     """Input copies enough to spill the 50 MB L2 between calls."""
     copies = max(1, min(count, math.ceil(2 * 50e6 / max(bytes_per_copy, 1))))
@@ -168,7 +216,8 @@ def train_phase(model, batches, dev, card):
     for name, amp in (("float32", False), ("bf16 AMP", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
         before = sk.launch_counts()
-        stats = train_steps(steps_module, batches, steps=TRAIN_STEPS, enable_amp=amp, seed=SEED)
+        stats = train_steps(steps_module, [{"batch": b, "target_classes": t} for b, t in batches],
+                            steps=TRAIN_STEPS, enable_amp=amp, seed=SEED)
         per_step = {k: v / (TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
         if per_step != PER_TRAIN_STEP:
             raise RuntimeError(f"expected {PER_TRAIN_STEP} launches per train step, got {per_step}")
@@ -373,6 +422,359 @@ def repeat_check(model, device_batch, dev):
           f"and all {len(runs[0]) - 1} gradient tensors")
 
 
+def ppi_setup(dev, card):
+    """The PPI model at its reference width on synthetic graphs of the
+    published sizes: (model, module on the card, samples, host minibatches,
+    device-resident minibatches)."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, build_ppi, synthetic_ppi_samples
+    from ptgnn_tpu_torch.implementations.ppi.train import ppi_padding
+
+    samples = synthetic_ppi_samples(PPI_GRAPHS, SEED, **PPI_GRAPH_SIZES)
+    t0 = time.perf_counter()
+    model, module, minibatches = build_ppi(padding=ppi_padding(), samples=samples, hidden_state_size=256,
+                                           seed=SEED, device=dev)
+    t_host = time.perf_counter() - t0
+    batches = [tree_to(mb, dev) for mb in minibatches]
+    torch.cuda.synchronize()
+    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges))
+             for mb in minibatches]
+    adj = minibatches[0]["batch"].adjacency
+    phase("ppi-serving", f"host metadata + tensorize + batching of {len(samples)} graphs: {t_host:.2f} s "
+          f"({1e3 * t_host / len(samples):.0f} ms/graph); {len(batches)} batches of (graphs, nodes, edges) "
+          f"{sizes}; {adj.mask.shape[0]} edge slots in {adj.tile_types.shape[0]} tiles of {adj.edge_tile}, "
+          f"{[int(mb['batch'].adjacency.mask.sum()) for mb in minibatches]} valid; message weights "
+          f"{tuple(module.gnn.message_passing_layers[1].message_mlp.weights_0.shape)}")
+    return model, module, samples, minibatches, batches
+
+
+def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3):
+    """report_metrics, then the forward over device-resident batches in
+    float32 and in bf16 AMP eval. Returns the launch counts of the path."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    module.eval()
+    forwards = [0]
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sk.reset_launch_counts()  # the ppi-serving path starts here
+    t0 = time.perf_counter()
+    metrics = model.report_metrics(samples, module, device=dev)
+    t_report = time.perf_counter() - t0
+    report_forwards = forwards[0]
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()) or set(metrics) != {"f1_score", "pr_score", "re_score"}:
+        raise RuntimeError(f"report_metrics gave {metrics}")
+    phase("ppi-serving", f"report_metrics {metrics} over {len(samples)} graphs in {t_report:.2f} s "
+          f"({report_forwards} forwards; host tensorize + batching included)")
+    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in batches]
+    g, n, e = (reps * sum(s[i] for s in sizes) for i in range(3))
+    eval_losses = {}
+    for name, amp in (("float32", False), ("bf16", True)):
+        before, before_forwards = sk.launch_counts(), forwards[0]
+        with torch.inference_mode():
+            for mb in batches:  # warm-up
+                module_loss(module, mb, train=False, amp=amp)
+            torch.cuda.synchronize()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for mb in batches:
+                    losses.append(module_loss(module, mb, train=False, amp=amp)[0])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        per_forward = {k: v / (forwards[0] - before_forwards) for k, v in delta(sk.launch_counts(), before).items()}
+        if per_forward != PPI_PER_FORWARD[name]:
+            raise RuntimeError(f"expected {PPI_PER_FORWARD[name]} launches per {name} forward, got {per_forward}")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite {name} eval losses {losses}")
+        eval_losses[name] = float(losses[:len(batches)].mean())
+        phase("ppi-serving", f"{name} forward over {reps * len(batches)} device-resident batches: eval loss "
+              f"{eval_losses[name]:.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
+              f"{g / elapsed:.2f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
+              f"launches per forward {per_forward}")
+    counts = sk.launch_counts()  # the ppi-serving path ends here
+    counter.remove()
+    if abs(eval_losses["bf16"] - eval_losses["float32"]) > 2e-2 * abs(eval_losses["float32"]):
+        raise RuntimeError(f"bf16 eval loss {eval_losses['bf16']} is not within 2e-2 of float32's")
+    n_bf16 = (reps + 1) * len(batches)
+    expected = {k: PPI_PER_FORWARD["float32"][k] * (forwards[0] - n_bf16) + PPI_PER_FORWARD["bf16"][k] * n_bf16
+                for k in counts}
+    phase("ppi-serving", f"launches over the ppi-serving path's {forwards[0]} forwards: {counts}")
+    if counts != expected:
+        raise RuntimeError(f"ppi-serving launches {counts} != {expected} expected")
+    return counts
+
+
+def ppi_train_phase(model, samples, batches, dev, card):
+    """ModelTrainer.train for one epoch under bf16 AMP, then train_steps in
+    float32 and in bf16 AMP. Returns the launch counts of the path."""
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, synthetic_ppi_samples
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    valid = synthetic_ppi_samples(2, SEED + 1, **PPI_GRAPH_SIZES)
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    trainer = ModelTrainer(
+        model, out_dir / "ppi.pkl.gz", max_num_epochs=1, minibatch_size=1, clip_gradient_norm=1.0,
+        target_validation_metric="f1_score", target_validation_metric_higher_is_better=True,
+        enable_amp=True, device=dev, seed=SEED,
+    )  # Adam(1e-3), the default optimizer
+    trainer.load_metadata_and_create_network(samples, parallelize=False)
+    module = trainer.neural_module
+    forwards, backwards = [0], [0]
+    hooks = [
+        module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+        module.to_logits.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1)),
+    ]
+    valid_metrics = []
+    trainer.register_validation_epoch_end_hook(lambda m, mod, e, metrics: valid_metrics.append(metrics))
+    sk.reset_launch_counts()  # the ppi-train path starts here
+    t0 = time.perf_counter()
+    trainer.train(samples, valid, initialize_metadata=False, patience=0, store_tensorized_data_in_memory=True)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    for hook in hooks:
+        hook.remove()
+    fw, bw = forwards[0], backwards[0]
+    expected = {k: PPI_PER_FORWARD["bf16"][k] * fw + (PPI_PER_TRAIN_STEP["bf16"][k] - PPI_PER_FORWARD["bf16"][k]) * bw
+                for k in sk.launch_counts()}
+    got = sk.launch_counts()
+    phase("ppi-train", f"ModelTrainer.train (bf16 AMP): 1 epoch over {len(samples)} graphs with validation "
+          f"over {len(valid)} before and after in {t_train:.2f} s (host tensorize + batching included): {bw} "
+          f"train steps, {fw - bw} validation forwards; validation metrics {valid_metrics}; launches {got}")
+    if bw == 0 or not (out_dir / "ppi.pkl.gz").exists():
+        raise RuntimeError("ModelTrainer.train took no PPI step or wrote no checkpoint")
+    if got != expected:
+        raise RuntimeError(f"ModelTrainer.train launches {got} != {expected} expected from {fw} forwards and {bw} backwards")
+    for name, amp in (("float32", False), ("bf16", True)):
+        steps_module = model.build_neural_module(device=dev, seed=SEED)
+        before = sk.launch_counts()
+        stats = train_steps(steps_module, batches, steps=PPI_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-3, seed=SEED)
+        per_step = {k: v / (PPI_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        if per_step != PPI_PER_TRAIN_STEP[name]:
+            raise RuntimeError(f"expected {PPI_PER_TRAIN_STEP[name]} launches per {name} PPI step, got {per_step}")
+        if not math.isfinite(stats["loss"]):
+            raise RuntimeError(f"PPI train_steps ({name}) gave a non-finite loss {stats['loss']}")
+        phase("ppi-train", f"train_steps {name}: {PPI_TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
+              f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.2f} graphs/s, "
+              f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
+              f"launches per step {per_step}")
+        expected = add_counts(expected, {k: v * (PPI_TRAIN_STEPS + 1) for k, v in PPI_PER_TRAIN_STEP[name].items()})
+    counts = sk.launch_counts()  # the ppi-train path ends here
+    phase("ppi-train", f"launches over the ppi-train path: {counts}")
+    if counts != expected:
+        raise RuntimeError(f"ppi-train launches {counts} != {expected} expected")
+    return counts
+
+
+def _typed_reference(x, w, tt, tile):
+    """float64 product of the typed matmul, and each element's sum of |x||w|."""
+    d, m = w.shape[1], w.shape[2]
+    wt = w.double().index_select(0, tt.long())
+    xt = x.double().reshape(-1, tile, d)
+    return torch.bmm(xt, wt).reshape(-1, m), torch.bmm(xt.abs(), wt.abs()).reshape(-1, m)
+
+
+def typed_matmul_checks(adj, dev, gen, max_abs_err):
+    """The typed matmul kernel at both PPI shapes in both dtypes: within
+    2^-8 |ref| + 1e-5 sum|x||w| of float64 (its plain version too), the same
+    bits on a second run and under a permutation of same-type tiles and of
+    the rows inside each tile."""
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    tt, tile = adj.tile_types, adj.edge_tile
+    nt = tt.shape[0]
+    g = torch.Generator().manual_seed(SEED)
+    tile_perm = torch.arange(nt)
+    for t in torch.unique(tt.cpu()):
+        idx = torch.nonzero(tt.cpu() == t)[:, 0]
+        tile_perm[idx] = idx[torch.randperm(len(idx), generator=g)]
+    rows = torch.cat([tile_perm[i] * tile + torch.randperm(tile, generator=g) for i in range(nt)]).to(dev)
+    done = []
+    for din, m in ((512, 256), (256, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(nt * tile, din, device=dev, generator=gen).to(dtype)
+            w = (torch.randn(3, din, m, device=dev, generator=gen) / din ** 0.5).to(dtype)
+            got = ttl.typed_matmul_kernel(x, w, tt, tile)
+            plain = ttl.typed_matmul_plain(x, w, tt, tile)
+            ref, scale = _typed_reference(x, w, tt, tile)
+            for which, out in (("kernel", got), ("plain version", plain)):
+                if bool(((out.double() - ref).abs() > 2.0 ** -8 * ref.abs() + 1e-5 * scale).any()):
+                    raise RuntimeError(f"typed matmul {which} off float64 at {din}x{m}/{dtype}")
+            del ref, scale
+            key = f"typed_matmul {din}x{m} {str(dtype)[6:]}"
+            max_abs_err[key] = float((got.float() - plain.float()).abs().max())
+            if not bitwise_equal(got, ttl.typed_matmul_kernel(x, w, tt, tile)):
+                raise RuntimeError(f"typed matmul gave other bits on a second run at {din}x{m}/{dtype}")
+            if not bitwise_equal(ttl.typed_matmul_kernel(x[rows], w, tt, tile), got[rows]):
+                raise RuntimeError(f"typed matmul bits depend on row positions at {din}x{m}/{dtype}")
+            done.append(f"{din}x{m}/{str(dtype)[6:]}")
+    torch.cuda.synchronize()
+    phase("ppi-parity", f"typed matmul kernel at [{nt * tile}, D] x [3, D, M], D x M and dtype {done}: within "
+          f"2^-8 |ref| + 1e-5 sum|x||w| of float64 (its plain version too; kernel vs plain max abs err "
+          f"{ {k: v for k, v in max_abs_err.items() if k.startswith('typed')} }), bitwise from run to run "
+          f"and under a permutation of same-type tiles and of the rows inside each tile")
+
+
+def ppi_parity_phase(model, minibatches, batches, dev):
+    """The PPI forward and train step on the card against the CPU, the
+    typed matmul, sum and broadcast on the PPI layout, and a repeat check."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    gpu = model.build_neural_module(device=dev, seed=SEED).eval()
+    cpu = model.build_neural_module(device="cpu", seed=SEED).eval()
+    host_mb = tree_to(minibatches[0], torch.device("cpu"))
+    with torch.inference_mode():
+        gl, _ = gpu(**batches[0])
+        cl, _ = cpu(**host_mb)
+        g_logits = gpu.logits(batches[0]["batch"])[0].cpu().numpy()
+        c_logits = cpu.logits(host_mb["batch"])[0].numpy()
+    atol = 1e-4 * float(np.abs(c_logits).max())
+    np.testing.assert_allclose(float(gl), float(cl), rtol=1e-4)
+    np.testing.assert_allclose(g_logits, c_logits, rtol=1e-4, atol=atol)
+    phase("ppi-parity", f"float32 forward card vs CPU: loss {float(gl):.7f} vs {float(cl):.7f}; logits max abs "
+          f"err {float(np.abs(g_logits - c_logits).max()):.3e} (rtol 1e-4, atol {atol:.3e} = 1e-4 x max|logit|)")
+
+    def step(module, mb, amp, generator):
+        module.zero_grad(set_to_none=True)
+        loss, _ = module_loss(module, mb, train=True, generator=generator, amp=amp)
+        loss.backward()
+        return float(loss.detach()), [(name, p.grad.detach().cpu().clone()) for name, p in module.named_parameters()]
+
+    for m in (gpu, cpu):
+        set_dropout(m, 0.0)
+    g_loss, g32 = step(gpu, batches[0], False, torch.Generator(device=dev))
+    c_loss, c32 = step(cpu, host_mb, False, torch.Generator())
+    np.testing.assert_allclose(g_loss, c_loss, rtol=1e-5)
+    for (n, g), (_, c) in zip(g32, c32):
+        c = c.numpy()
+        np.testing.assert_allclose(g.numpy(), c, rtol=1e-4, atol=1e-4 * np.abs(c).max(), err_msg=n)
+    worst = max((float((g - c).abs().max() / c.abs().max()), n) for (n, g), (_, c) in zip(g32, c32))
+    phase("ppi-parity", f"float32 train step (dropout 0) card vs CPU: loss {g_loss:.7f} vs {c_loss:.7f}; "
+          f"all {len(g32)} gradients within rtol 1e-4, atol 1e-4 x max|g| elementwise (largest "
+          f"difference {worst[0]:.3e} of max|g|, {worst[1]})")
+
+    # bf16 AMP: the card's bf16 step (the typed matmul kernel, cuBLAS) and the
+    # CPU's (the plain route, the CPU's bf16 GEMMs) each round at their own
+    # places. Each bf16 gradient is held to its own device's float32 gradient
+    # of the same step: the card's may lie no farther from it than 1.5 times
+    # the CPU's distance (or 1e-2 of its norm); the card-vs-CPU distance of
+    # every tensor is reported beside the 2e-2 of the norm first asked for.
+    g16_loss, g16 = step(gpu, batches[0], True, torch.Generator(device=dev))
+    c16_loss, c16 = step(cpu, host_mb, True, torch.Generator())
+    if abs(g16_loss - c16_loss) > 1e-2 * abs(c16_loss):
+        raise RuntimeError(f"bf16 AMP PPI loss card {g16_loss} vs CPU {c16_loss}")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    rows = [(rel(g, c), rel(g, gf), rel(c, cf), n)
+            for (n, g), (_, c), (_, gf), (_, cf) in zip(g16, c16, g32, c32)]
+    for card_cpu, card_f32, cpu_f32, n in rows:
+        if card_f32 > max(1.5 * cpu_f32, 1e-2):
+            raise RuntimeError(f"bf16 AMP PPI gradient {n}: {card_f32:.3e} of its norm from the card's float32 "
+                               f"gradient, against the CPU's {cpu_f32:.3e}")
+    over = [(f"{r[0]:.3e}", r[3]) for r in rows if r[0] > 2e-2]
+    phase("ppi-parity", f"bf16 AMP train step, card (typed matmul kernel) vs CPU (plain route): loss "
+          f"{g16_loss:.6f} vs {c16_loss:.6f} (within 1e-2); distance of each bf16 gradient from its own "
+          f"device's float32 one, largest card {max(r[1] for r in rows):.3e} vs CPU {max(r[2] for r in rows):.3e}, "
+          f"summed card {sum(r[1] for r in rows):.3e} vs CPU {sum(r[2] for r in rows):.3e}; card vs CPU largest "
+          f"{max(rows)[0]:.3e} ({max(rows)[3]}), {len(over)} of {len(rows)} tensors beyond 2e-2 of the norm: {over}")
+
+    adj = batches[0]["batch"].adjacency
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    max_abs_err = {}
+    typed_matmul_checks(adj, dev, gen, max_abs_err)
+    plan = sk.sum_plan_from_adjacency(adj)
+    num_nodes = adj.agg_counts.numel()
+    for width in (256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            data = torch.where(adj.mask[:, None], torch.randn(adj.mask.shape[0], width, device=dev,
+                               generator=gen), 0.0).to(dtype)
+            got = sk.planned_segment_sum(data, plan, num_nodes)
+            err = (got - sk.segment_sum_plain(data, plan, num_nodes)).abs()
+            max_abs_err[f"segment_sum {width} {str(dtype)[6:]}"] = float(err.max())
+            if bool((err > 1e-5 * sk.segment_sum_plain(data.abs(), plan, num_nodes)).any()):
+                raise RuntimeError(f"sum kernel off by more than 1e-5 of sum|x| on the PPI layout at {width}/{dtype}")
+            if not bitwise_equal(got, sk.planned_segment_sum(data, plan, num_nodes)):
+                raise RuntimeError(f"sum kernel gave other bits on a second run at {width}/{dtype}")
+            ones = (torch.rand(data.shape, device=dev, generator=gen) < 0.5).to(dtype) * adj.mask[:, None].to(dtype)
+            if not bitwise_equal(sk.planned_segment_sum(ones, plan, num_nodes), sk.segment_sum_plain(ones, plan, num_nodes)):
+                raise RuntimeError(f"sum kernel != plain version on 0/1 data at {width}/{dtype}")
+        table = torch.randn(num_nodes, 256, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            if not bitwise_equal(sk.planned_broadcast_to_edges(table.to(dtype), plan),
+                                 sk.broadcast_plain(table.to(dtype), plan)):
+                raise RuntimeError(f"broadcast kernel != plain version on the PPI layout at 256/{dtype}")
+    torch.cuda.synchronize()
+    phase("ppi-parity", f"on the PPI layout: sum kernel at 256 and 512 (f32, bf16) within 1e-5 x sum|x| "
+          f"(max abs err { {k: v for k, v in max_abs_err.items() if k.startswith('segment_sum')} }), bitwise "
+          f"on 0/1 data and run to run; broadcast at 256 (f32, bf16) bitwise equal to its plain version")
+
+    runs = []
+    for _ in range(2):
+        m = model.build_neural_module(device=dev, seed=SEED)
+        loss, _ = module_loss(m, batches[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED),
+                              amp=True)
+        loss.backward()
+        runs.append([loss.detach()] + [p.grad for p in m.parameters()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*runs))
+    if differ:
+        raise RuntimeError(f"a bf16 AMP PPI train step gave other bits on a second run in {differ} tensors")
+    phase("ppi-parity", f"a bf16 AMP PPI train step (dropout on) repeats bit for bit: the loss and all "
+          f"{len(runs[0]) - 1} gradient tensors")
+    return max_abs_err
+
+
+def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path):
+    """kernels-line entries of the typed matmul at both PPI shapes and both
+    dtypes. Library call: today's bmm route (index_select + torch.bmm)."""
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    tt, tile = adj.tile_types, adj.edge_tile
+    nt = tt.shape[0]
+    e = nt * tile
+    entries = []
+    for din, m in ((512, 256), (256, 256)):
+        for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)):
+            size = torch.finfo(dtype).bits // 8
+            xs = rotating(lambda: torch.randn(e, din, device=dev, generator=gen).to(dtype), e * din * size)
+            w = (torch.randn(3, din, m, device=dev, generator=gen) / din ** 0.5).to(dtype)
+
+            def calls(fn):
+                return [lambda x=xs[i % len(xs)]: fn(x) for i in range(16)]
+
+            times = {
+                "ms": graph_time_ms(calls(lambda x: ttl.typed_matmul_kernel(x, w, tt, tile))),
+                "plain_ms": event_time_ms(calls(lambda x: ttl.typed_matmul_plain(x, w, tt, tile))),
+                "library_ms": graph_time_ms(calls(
+                    lambda x: torch.bmm(x.view(nt, tile, din), w.index_select(0, tt.long())).view(e, m))),
+            }
+            nbytes = e * din * size + e * m * size + w.numel() * size + nt * 4
+            ops = 2 * e * din * m
+            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+            dname = str(dtype)[6:]
+            entry = {
+                "name": "typed_matmul", "route": "cuda", "source": "ptgnn_tpu_torch/csrc/typed_matmul.cu",
+                "replaces": "ptgnn_tpu/ops/typed_linear.py:62",
+                "launches": counts["typed_matmul"],
+                "launches_by_path": {k: v["typed_matmul"] for k, v in launches_by_path.items()},
+                "launches_per_ppi_train_step": PPI_PER_TRAIN_STEP["bf16"]["typed_matmul"] if dtype == torch.bfloat16 else 0,
+                "max_abs_err": max_abs_err[f"typed_matmul {din}x{m} {dname}"],
+                "ms": times["ms"], "plain_ms": times["plain_ms"],
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": times["library_ms"], "shape": [e, din, m, 3], "dtype": dname,
+            }
+            entries.append(entry)
+            phase("kernels", json.dumps(entry))
+            del xs
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -460,7 +862,14 @@ def main() -> None:
 
     # ---- 4. training at full width --------------------------------------
     train_counts = train_phase(model, batches, dev, card)
-    main_counts = add_counts(serving_counts, train_counts)
+
+    # ---- 7-8. PPI serving and training at full width ----------------------
+    ppi_model, ppi_module, ppi_samples, ppi_minibatches, ppi_batches = ppi_setup(dev, card)
+    ppi_serving_counts = ppi_serving_phase(ppi_model, ppi_module, ppi_samples, ppi_batches, dev, card)
+    ppi_train_counts = ppi_train_phase(ppi_model, ppi_samples, ppi_batches, dev, card)
+    paths = {"serving": serving_counts, "train": train_counts,
+             "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts}
+    main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
 
@@ -564,6 +973,9 @@ def main() -> None:
     train_parity_phase(model, batches[0], minibatches[0], dev)
     repeat_check(model, batches[0], dev)
 
+    # ---- 9. PPI parity ------------------------------------------------------
+    ppi_max_abs_err = ppi_parity_phase(ppi_model, ppi_minibatches, ppi_batches, dev)
+
     # ---- 7. kernel timings -------------------------------------------------
     e_pad = adj.mask.shape[0]
     real = adj.mask
@@ -585,7 +997,7 @@ def main() -> None:
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_counts[name],
-            "launches_by_path": {"serving": serving_counts[name], "train": train_counts[name]},
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "launches_per_forward": PER_FORWARD[name], "launches_per_train_step": PER_TRAIN_STEP[name],
             "max_abs_err": max_abs_err[name],
             "ms": times["ms"], "plain_ms": times["plain_ms"],
@@ -647,6 +1059,48 @@ def main() -> None:
             if width == 64:
                 kernels.append(e)
             phase("kernels", json.dumps(e))
+    # The PPI layout's sum widths (the forward 256, the backward's combined
+    # cotangents 512) and broadcast width (256).
+    ppi_adj = ppi_batches[0]["batch"].adjacency
+    ppi_plan = sk.sum_plan_from_adjacency(ppi_adj)
+    ppi_nodes = ppi_adj.agg_counts.numel()
+    ppi_real = int(ppi_adj.mask.sum())
+    ppi_e_pad = ppi_adj.mask.shape[0]
+    ppi_index = sk.plan_rows(ppi_plan, ppi_nodes)
+    ppi_valid = ppi_adj.receivers < ppi_nodes
+    ppi_recv = torch.where(ppi_valid, ppi_adj.receivers, 0).long()
+    ppi_recv_rows = int(torch.unique(ppi_adj.receivers[ppi_adj.mask]).numel())
+    for width in (256, 512):
+        sums = rotating(lambda: torch.where(ppi_adj.mask[:, None], torch.randn(
+            ppi_e_pad, width, device=dev, generator=gen), 0.0), ppi_e_pad * width * 4)
+        times = {
+            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_sum(d, ppi_plan, ppi_nodes), sums)),
+            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_sum_plain(d, ppi_plan, ppi_nodes), sums)),
+            "library_ms": graph_time_ms(calls(
+                lambda d: torch.zeros(ppi_nodes + 1, width, device=dev).index_add_(0, ppi_index, d), sums)),
+        }
+        nbytes = (ppi_real * width * 4 + ppi_e_pad * 4 + ppi_plan.tile_row_blocks.numel() * 4
+                  + ppi_nodes * width * 4)
+        e = entry("segment_sum", times, nbytes, ppi_real * width, "ptgnn_tpu_torch/csrc/segment_sum.cu",
+                  "ptgnn_tpu/ops/pallas/segment_kernels.py:197", width)
+        e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"]
+        phase("kernels", "PPI layout " + json.dumps(e))
+        del sums
+    tables = rotating(lambda: torch.randn(ppi_nodes, 256, device=dev, generator=gen), ppi_nodes * 256 * 4)
+    times = {
+        "ms": graph_time_ms(calls(lambda t: sk.planned_broadcast_to_edges(t, ppi_plan), tables)),
+        "plain_ms": graph_time_ms(calls(lambda t: sk.broadcast_plain(t, ppi_plan), tables)),
+        "library_ms": graph_time_ms(calls(
+            lambda t: torch.where(ppi_valid[:, None], t.index_select(0, ppi_recv), 0.0), tables)),
+    }
+    nbytes = (ppi_recv_rows * 256 * 4 + ppi_e_pad * 4 + ppi_plan.tile_row_blocks.numel() * 4
+              + ppi_e_pad * 256 * 4)
+    e = entry("broadcast_to_edges", times, nbytes, 0, "ptgnn_tpu_torch/csrc/broadcast_rows.cu",
+              "ptgnn_tpu/ops/pallas/segment_kernels.py:233", 256)
+    e["max_abs_err"] = 0.0  # bitwise equal (ppi-parity)
+    phase("kernels", "PPI layout " + json.dumps(e))
+    del tables
+    kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,17 @@
-"""Load the JAX package's Graph2Class parameters into the port's module.
+"""Load the JAX package's task-model parameters (Graph2Class, PPI) into the
+port's module.
 
 The JAX params are nested dicts and lists of numpy arrays:
 
     {"gnn": {"node_embedder": {...}, "mp_layers": [<one per unique layer>]},
-     "node_to_class": {"weight": [C, H], "bias": [C]}}
+     <head>: {"weight": [C, H], "bias": [C]}}
 
-with TypedMLP ``weights_0`` as ``[T, d_in, d_out]`` and every Linear
-``weight`` as ``[out, in]``: the port's layouts, so each array loads as is.
-``mp_layers`` holds one entry per unique layer object, in stack order;
-residual entries are ``{}`` and map to nothing.
+with the head ``node_to_class`` (Graph2Class) or ``to_logits`` (PPI), the
+name of the port module's attribute too. TypedMLP ``weights_0`` is
+``[T, d_in, d_out]`` and every Linear ``weight`` ``[out, in]`` (PPI's
+embedder: ``node_embedder.linear.weight`` ``[H, F]``): the port's layouts,
+so each array loads as is. ``mp_layers`` holds one entry per unique layer
+object, in stack order; residual entries are ``{}`` and map to nothing.
 """
 from __future__ import annotations
 
@@ -16,8 +19,6 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
-
-from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2ClassModule
 
 
 def _flatten(prefix: str, tree: Any, out: Dict[str, np.ndarray]) -> None:
@@ -28,11 +29,13 @@ def _flatten(prefix: str, tree: Any, out: Dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree)
 
 
-def jax_params_to_state_dict(module: Graph2ClassModule, params: Mapping) -> Dict[str, torch.Tensor]:
+def jax_params_to_state_dict(module: torch.nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's state dict for the JAX params pytree."""
     flat: Dict[str, np.ndarray] = {}
     _flatten("gnn.node_embedder.", params["gnn"]["node_embedder"], flat)
-    _flatten("node_to_class.", params["node_to_class"], flat)
+    for head, tree in params.items():
+        if head != "gnn":
+            _flatten(f"{head}.", tree, flat)
     layer_params = params["gnn"]["mp_layers"]
     for position, unique in enumerate(module.gnn._layer_param_index):
         _flatten(f"gnn.message_passing_layers.{position}.", layer_params[unique], flat)
@@ -48,7 +51,7 @@ def jax_params_to_state_dict(module: Graph2ClassModule, params: Mapping) -> Dict
 
 
 @torch.no_grad()
-def load_jax_params(module: Graph2ClassModule, params: Mapping) -> Graph2ClassModule:
+def load_jax_params(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Copy the JAX params into ``module`` (every parameter must be given)."""
     module.load_state_dict(jax_params_to_state_dict(module, params), strict=True)
     return module

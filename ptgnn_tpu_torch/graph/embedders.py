@@ -1,4 +1,5 @@
-"""Node embedders: string labels split into subtokens.
+"""Node embedders: float feature vectors (PPI) and string labels split into
+subtokens.
 
 Minibatches are statically padded: every finalize takes ``pad_to`` (the node
 budget) and the subtoken width is the static ``max_num_subtokens``.
@@ -15,6 +16,74 @@ from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import Embedding, Linear, dropout
 from ptgnn_tpu_torch.utils.text import Vocabulary, split_identifier_into_parts
+
+_ACTIVATIONS = {"tanh": torch.tanh}  # the activations a ported factory uses
+
+
+class LinearFeatureEmbedder(torch.nn.Module):
+    """A bias-free xavier-uniform linear map of each node's features, then an
+    optional activation (``"tanh"``)."""
+
+    def __init__(self, input_element_size: int, output_embedding_size: int,
+                 activation: Optional[str] = None):
+        super().__init__()
+        if activation is not None and activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.linear = Linear(
+            input_element_size, output_embedding_size, use_bias=False, weight_init=init.xavier_uniform()
+        )
+        self.activation = activation
+
+    def forward(self, features: torch.Tensor, *, train: bool = False, generator=None) -> torch.Tensor:
+        """features: [N, F] -> [N, D]."""
+        out = self.linear(features)
+        return out if self.activation is None else _ACTIVATIONS[self.activation](out)
+
+
+class FeatureRepresentationModel(AbstractNeuralModel):
+    """Node embedder for fixed-size float feature vectors."""
+
+    def __init__(self, *, embedding_size: int = 64, activation: Optional[str] = None):
+        super().__init__()
+        self.embedding_size = embedding_size
+        self.__activation = activation
+
+    def representation_size(self) -> int:
+        return self.embedding_size
+
+    def initialize_metadata(self) -> None:
+        self.__num_input_features: Optional[int] = None
+
+    def update_metadata_from(self, datapoint: np.ndarray) -> None:
+        if self.__num_input_features is None:
+            self.__num_input_features = datapoint.shape[0]
+        elif self.__num_input_features != datapoint.shape[0]:
+            raise ValueError("All samples should have the same number of features.")
+
+    def build_neural_module(self) -> LinearFeatureEmbedder:
+        if self.__num_input_features is None:
+            raise RuntimeError("metadata not computed")
+        return LinearFeatureEmbedder(self.__num_input_features, self.embedding_size, self.__activation)
+
+    def tensorize(self, datapoint: np.ndarray) -> np.ndarray:
+        return datapoint
+
+    def initialize_minibatch(self) -> Dict[str, Any]:
+        return {"features": []}
+
+    def extend_minibatch_with(self, tensorized_datapoint, partial_minibatch) -> bool:
+        partial_minibatch["features"].append(tensorized_datapoint)
+        return True
+
+    def finalize_minibatch(self, accumulated_minibatch_data, pad_to: Optional[int] = None):
+        """{"features": [pad_to or N, F] float32}, zero rows past the nodes."""
+        items = accumulated_minibatch_data["features"]
+        width = self.__num_input_features
+        total = pad_to if pad_to is not None else len(items)
+        feats = np.zeros((total, width), np.float32)
+        if items:
+            feats[: len(items)] = np.asarray(items, dtype=np.float32)
+        return {"features": feats}
 
 
 class SubtokenUnitEmbedder(torch.nn.Module):

@@ -6,6 +6,7 @@ from ptgnn_tpu_torch.graph.messagepassing.mlp_mp import MlpMessagePassingLayer, 
 from ptgnn_tpu_torch.graph.messagepassing.residual import (
     AbstractResidualLayer,
     ConcatResidualLayer,
+    MeanResidualLayer,
 )
 
 __all__ = [
@@ -13,6 +14,7 @@ __all__ = [
     "AbstractResidualLayer",
     "ConcatResidualLayer",
     "GraphContext",
+    "MeanResidualLayer",
     "MlpMessagePassingLayer",
     "TypedMLP",
 ]

@@ -43,6 +43,23 @@ class AbstractResidualLayer(AbstractMessagePassingLayer):
         raise NotImplementedError
 
 
+class MeanResidualLayer(AbstractResidualLayer):
+    def __init__(self, input_dim: int):
+        super().__init__()
+        self.__input_dim = input_dim
+
+    def combine(self, original, node_states, *, train=False):
+        return (original + node_states) * 0.5
+
+    @property
+    def input_state_dimension(self) -> int:
+        return self.__input_dim
+
+    @property
+    def output_state_dimension(self) -> int:
+        return self.__input_dim
+
+
 class ConcatResidualLayer(AbstractResidualLayer):
     def __init__(self, input_dim: int):
         super().__init__()

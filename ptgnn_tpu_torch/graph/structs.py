@@ -190,6 +190,15 @@ class GnnOutput(NamedTuple):
     def reference_nodes_graph_idx(self) -> Dict[str, Any]:
         return self.node_graph_idx_reference
 
+    def node_table(self, which: str = "output") -> torch.Tensor:
+        """The full ``[max_nodes, D]`` node table, ``"output"`` or ``"input"``
+        (the embedder's) representations."""
+        if which == "output":
+            return self.output_node_representations
+        if which == "input":
+            return self.input_node_representations
+        raise ValueError(f"no node table {which!r}")
+
     def reference_rows(self, name: str) -> torch.Tensor:
         """``[R_pad, D]`` output representations of the named reference set."""
         return self.output_node_representations.index_select(

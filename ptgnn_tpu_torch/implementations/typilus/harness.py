@@ -1,16 +1,16 @@
 """Build the Graph2Class model on synthetic Typilus-schema data, produce
 finalized, statically shaped minibatches, and time the training step over
-device-resident batches as ``bench.py`` times the JAX package's."""
+device-resident minibatches as ``bench.py`` times the JAX package's (the
+step loop serves any task module: PPI's too)."""
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
 from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
 from ptgnn_tpu_torch.device import DeviceLike
-from ptgnn_tpu_torch.graph.structs import GraphBatch
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class, Graph2ClassModule
 from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model
@@ -84,8 +84,8 @@ def build_graph2class(
 
 
 def train_steps(
-    module: Graph2ClassModule,
-    batches: Sequence[Tuple[GraphBatch, torch.Tensor]],
+    module: torch.nn.Module,
+    minibatches: Sequence[Mapping[str, Any]],
     *,
     steps: int,
     enable_amp: bool = False,
@@ -93,24 +93,28 @@ def train_steps(
     clip_gradient_norm: float = 1.0,
     seed: int = 0,
 ) -> Dict[str, float]:
-    """``bench.py``'s train-step loop over device-resident (batch, target
-    classes) pairs: clip(1.0) + Adam(2.5e-4), one warm-up step on the first
-    batch, then ``steps`` timed steps cycling over the batches, the last
-    of which waits for the device. Updates ``module`` in place. Returns the
-    last loss, ms per step, and graphs, nodes and edges per second."""
+    """``bench.py``'s train-step loop over device-resident minibatches, each
+    the keyword arguments of ``module`` (Graph2Class: ``{"batch",
+    "target_classes"}``; PPI: ``{"batch", "targets"}``): clip(1.0) +
+    Adam(``learning_rate``), one warm-up step on the first minibatch, then
+    ``steps`` timed steps cycling over them, the last of which waits for the
+    device. Updates ``module`` in place. Returns the last loss, ms per step,
+    and graphs, nodes and edges per second."""
     optimizer = torch.optim.Adam(module.parameters(), lr=learning_rate)
     base_lrs = [group["lr"] for group in optimizer.param_groups]
     device = next(module.parameters()).device
     generator = torch.Generator(device=device)
     # Host-side sizes: reading them from the device inside the loop would
     # synchronise every step.
-    sizes = [(int(b.num_graphs), int(b.num_nodes), int(b.num_edges)) for b, _ in batches]
+    sizes = [
+        (int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges))
+        for mb in minibatches
+    ]
 
     def step(i: int) -> torch.Tensor:
-        batch, targets = batches[i % len(batches)]
         generator.manual_seed(seed * 1_000_003 + i)
         loss, _ = module_loss(
-            module, {"batch": batch, "target_classes": targets}, train=True,
+            module, dict(minibatches[i % len(minibatches)]), train=True,
             generator=generator, amp=enable_amp,
         )
         loss.backward()

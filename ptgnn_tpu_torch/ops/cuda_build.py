@@ -49,6 +49,12 @@ _SIGNATURES = {
         [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
+    "typed_matmul": (
+        "typed_matmul.cu",
+        "ptgnn_typed_matmul",
+        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P],
+    ),
 }
 
 _LOCK = threading.Lock()

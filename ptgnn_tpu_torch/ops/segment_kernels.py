@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.ops.typed_linear import typed_matmul_kernel
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -431,11 +432,13 @@ _WRAPPERS = {
     "segment_extremum": planned_segment_extremum,
     "broadcast_to_edges": planned_broadcast_to_edges,
     "segment_sum": planned_segment_sum,
+    "typed_matmul": typed_matmul_kernel,
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    """The launch counters of this module's kernel wrappers."""
+    """The launch counters of the port's kernel wrappers: this module's and
+    the typed matmul's (``ops/typed_linear.py``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 

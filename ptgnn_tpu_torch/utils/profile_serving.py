@@ -1,16 +1,20 @@
-"""Where the time of a Graph2Class serving forward, or of a training step,
-goes on the card.
+"""Where the time of a serving forward, or of a training step, goes on the
+card, for Graph2Class or PPI.
 
-Builds the benchmark configuration (``train.default_padding()``) with
-random seeded weights, keeps 6 batches on the device, and traces 3 passes
-over them with ``torch.profiler``: forwards, or with ``--train`` whole
-training steps (forward, backward, clip(1.0) + Adam(2.5e-4); ``--amp`` for
-bf16 AMP). Prints the wall time per batch, the device's busy share, the
-device time by kernel class and the 15 costliest kernels, and writes a
-Chrome trace to ``--trace``. Run on a machine with a CUDA device:
+Builds the model's configuration with random seeded weights (Graph2Class:
+the benchmark configuration, ``train.default_padding()``, hidden 64; PPI:
+``ppi_padding()``, hidden 256, synthetic graphs of the published PPI sizes,
+one graph a batch), keeps 6 batches on the device, and traces 3 passes over
+them with ``torch.profiler``: forwards, or with ``--train`` whole training
+steps (forward, backward, clip(1.0) + Adam: 2.5e-4 for Graph2Class, 1e-3 for
+PPI); ``--amp`` runs either in bf16 AMP. Prints the wall time per batch, the
+device's busy share, the device time by kernel class and the 15 costliest
+kernels, and writes a Chrome trace to ``--trace``. Run on a machine with a
+CUDA device:
 
     python -m ptgnn_tpu_torch.utils.profile_serving --trace serving_trace.json
     python -m ptgnn_tpu_torch.utils.profile_serving --train --trace train_trace.json
+    python -m ptgnn_tpu_torch.utils.profile_serving --model ppi --train --amp
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ CLASSES = (
     ("broadcast_rows_kernel", "broadcast kernel"),
     ("segment_sum_kernel", "sum kernel"),
     ("combine_partials_kernel", "sum kernel"),
+    ("typed_matmul", "typed matmul kernel"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("gemm", "matmul"),
     ("nvjet", "matmul"),  # cuBLAS's bf16 GEMMs on Hopper
@@ -56,14 +61,14 @@ def main() -> None:
     parser.add_argument("--trace", default=None, help="Chrome trace output path")
     parser.add_argument("--passes", type=int, default=3)
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
-    parser.add_argument("--amp", action="store_true", help="bf16 AMP training steps")
+    parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
+    parser.add_argument("--model", choices=("graph2class", "ppi"), default="graph2class")
     args = parser.parse_args()
 
     from torch.profiler import ProfilerActivity, profile
 
     from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
-    from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
-    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+    from ptgnn_tpu_torch.graph.structs import tree_to
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -71,34 +76,47 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    _, module, minibatches = build_graph2class(
-        padding=default_padding(), num_metadata_graphs=bench_graph_count(6), mean_nodes=2500,
-        max_graph_nodes=8000, hidden_state_size=64, num_minibatches=6, minibatch_size=300,
-        device=dev,
-    )
-    batches = [(mb["batch"].to(dev), torch.from_numpy(mb["target_classes"]).to(dev)) for mb in minibatches]
-    optimizer = torch.optim.Adam(module.parameters(), lr=2.5e-4)
+    if args.model == "ppi":
+        from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, build_ppi, synthetic_ppi_samples
+        from ptgnn_tpu_torch.implementations.ppi.train import ppi_padding
+
+        _, module, minibatches = build_ppi(
+            padding=ppi_padding(), samples=synthetic_ppi_samples(6, 0, **PPI_GRAPH_SIZES),
+            hidden_state_size=256, device=dev,
+        )
+        lr = 1e-3
+    else:
+        from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
+        from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+
+        _, module, minibatches = build_graph2class(
+            padding=default_padding(), num_metadata_graphs=bench_graph_count(6), mean_nodes=2500,
+            max_graph_nodes=8000, hidden_state_size=64, num_minibatches=6, minibatch_size=300,
+            device=dev,
+        )
+        lr = 2.5e-4
+    batches = [tree_to(mb, dev) for mb in minibatches]
+    optimizer = torch.optim.Adam(module.parameters(), lr=lr)
     generator = torch.Generator(device=dev)
 
-    def work(step: int, batch, targets) -> None:
+    def work(step: int, minibatch) -> None:
         if not args.train:
             with torch.inference_mode():
-                module(batch, targets)
+                module_loss(module, minibatch, train=False, amp=args.amp)
             return
         generator.manual_seed(step)
-        loss, _ = module_loss(module, {"batch": batch, "target_classes": targets}, train=True,
-                              generator=generator, amp=args.amp)
+        loss, _ = module_loss(module, minibatch, train=True, generator=generator, amp=args.amp)
         loss.backward()
-        optimizer_step(module, optimizer, [2.5e-4], clip_gradient_norm=1.0)
+        optimizer_step(module, optimizer, [lr], clip_gradient_norm=1.0)
 
-    for step, (batch, targets) in enumerate(batches):  # warm-up
-        work(step, batch, targets)
+    for step, minibatch in enumerate(batches):  # warm-up
+        work(step, minibatch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in range(args.passes):
-            for step, (batch, targets) in enumerate(batches):
-                work(len(batches) * (p + 1) + step, batch, targets)
+            for step, minibatch in enumerate(batches):
+                work(len(batches) * (p + 1) + step, minibatch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n_batches = args.passes * len(batches)
@@ -118,7 +136,8 @@ def main() -> None:
     device_ms = sum(by_class.values()) / 1e3
     summary = {
         "card": card,
-        "mode": ("train, bf16 AMP" if args.amp else "train, float32") if args.train else "serving forward",
+        "model": args.model,
+        "mode": ("train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
         "batches": n_batches,
         "wall_ms_per_batch_traced": 1e3 * wall / n_batches,
         "device_ms_per_batch": device_ms / n_batches,

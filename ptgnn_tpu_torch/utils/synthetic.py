@@ -1,8 +1,9 @@
-"""Synthetic Typilus-schema graphs for tests and the chip smoke run.
+"""Synthetic Typilus-schema graphs and PPI-like graphs for tests and the
+chip smoke run.
 
-The same generator as the JAX package's ``synthetic_typilus_graphs``: for a
-seed both packages see the same graphs, so their batches can be compared
-bitwise.
+The same generators as the JAX package's ``synthetic_typilus_graphs`` and
+``synthetic_ppi_graphs``: for a seed both packages see the same graphs, so
+their batches can be compared bitwise.
 """
 from __future__ import annotations
 
@@ -111,3 +112,28 @@ def synthetic_typilus_graphs(
             "supernodes": supernodes,
             "filename": f"synthetic_{gi}.py",
         }
+
+
+def synthetic_ppi_graphs(
+    num_graphs: int,
+    seed: int = 0,
+    mean_nodes: int = 300,
+    num_features: int = 50,
+    num_labels: int = 121,
+    edges_per_node: float = 10.0,
+) -> Iterator[Dict]:
+    """PPI-like graphs: float node features, multi-hot labels, one edge type.
+    Yields ``{"features": [N, F] float32, "labels": [N, L] float32 0/1,
+    "edges": [(u, v), ...]}``."""
+    rng = np.random.RandomState(seed)
+    # A feature -> label projection fixed across seeds, so that a model
+    # trained on one seed's graphs generalizes to another's.
+    w = np.random.RandomState(12345).randn(num_features, num_labels).astype(np.float32)
+    for _ in range(num_graphs):
+        n = int(np.clip(rng.poisson(mean_nodes), 32, 4 * mean_nodes))
+        feats = rng.randn(n, num_features).astype(np.float32)
+        logits = feats @ w + 0.5 * rng.randn(n, num_labels).astype(np.float32)
+        labels = (logits > 0).astype(np.float32)
+        num_e = int(edges_per_node * n)
+        edges = list(zip(rng.randint(0, n, num_e).tolist(), rng.randint(0, n, num_e).tolist()))
+        yield {"features": feats, "labels": labels, "edges": edges}

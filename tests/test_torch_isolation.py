@@ -73,3 +73,24 @@ def test_entry_points_without_device_raise_when_cuda_is_missing():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelTrainer(model, "unused.pkl.gz")
+
+
+def test_ppi_entry_points_without_device_raise_when_cuda_is_missing(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    from ptgnn_tpu_torch.graph.structs import BatchPadding
+    from ptgnn_tpu_torch.implementations.ppi import train as ppi_train
+    from ptgnn_tpu_torch.implementations.ppi.harness import build_ppi, synthetic_ppi_samples
+
+    padding = BatchPadding(max_nodes=256, max_edge_slots=256 * 24, max_graphs=4, edge_tile=64)
+    samples = synthetic_ppi_samples(2, seed=1, mean_nodes=40, num_labels=4, edges_per_node=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_ppi(padding=padding, samples=samples, hidden_state_size=8)
+    model, module, _ = build_ppi(padding=padding, samples=samples, hidden_state_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.report_metrics(samples, module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.build_neural_module()
+    args = ppi_train.build_arg_parser().parse_args([str(tmp_path), str(tmp_path / "m.pkl.gz")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ppi_train.ModelTrainer(model, args.model_filename, device=args.device)

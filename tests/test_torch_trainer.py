@@ -261,7 +261,7 @@ def test_training_is_reproducible_from_its_seed(tmp_path):
     for _ in range(2):
         _, module, mbs = build_graph2class(padding=small_padding(max_nodes=256), device="cpu",
                                            hidden_state_size=HIDDEN, num_minibatches=2, minibatch_size=8)
-        batches = [(mb["batch"].to("cpu"), torch.from_numpy(mb["target_classes"])) for mb in mbs]
+        batches = [tree_to(mb, torch.device("cpu")) for mb in mbs]
         losses.append(train_steps(module, batches, steps=3, seed=11)["loss"])
     assert losses[0] == losses[1] and np.isfinite(losses[0])
 
