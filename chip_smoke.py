@@ -24,10 +24,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (bitwise for the broadcast and the extremum; within 1e-5 of each row's
    sum of |x| for the sum, bitwise on 0/1 data and from run to run);
 6. train-parity: one train step (dropout 0) on the card against the CPU:
-   the loss; each MP layer alone on the same inputs (bitwise aggregates, the
-   same routing, every gradient to rtol 1e-4 and 1e-4 of its largest
-   magnitude); the whole step's gradients within 1e-2 of their norms, with
-   the routing differences that a few-ulp forward difference causes; the
+   the loss; each MP layer alone on the same inputs (the extremum kernel
+   bitwise against the plain reduce of the card's messages, the aggregates
+   and, on the card's routing decisions, every gradient to rtol 1e-4 and
+   1e-4 of its largest magnitude); the whole step: the loss, and every
+   gradient to rtol 1e-4
+   and 1e-4 of its largest magnitude against the CPU's step on the card's
+   routing decisions (which slots win a near-tie depends on the host CPU's
+   rounding), with the CPU's own step's loss and routing differences; the
    clip + Adam step on equal gradients; a tie count >= 1 for every
    non-empty (node, column) of every MP layer in both orientations of the
    backward; and a train step that repeats bit for bit;
@@ -48,15 +52,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    at both PPI shapes in both dtypes, bitwise from run to run and under tile
    and row permutations; the sum at 256 and 512 and the broadcast at 256 on
    the PPI layout; a bf16 AMP step with dropout that repeats bit for bit;
-10. kernels: each kernel's time (CUDA events over a CUDA graph of launches
+10. argmax-train: Graph2Class at the benchmark configuration with argmax
+   (single-winner) routing of the max aggregation: ModelTrainer.train for
+   one epoch and train_steps in float32 and bf16 AMP (per step: 8 argmax
+   extremum, 16 broadcast and 8 sum launches; per forward 8 argmax extremum
+   and 8 broadcast); one train step (dropout 0) on the card against the CPU
+   as in train-parity (the loss; every gradient elementwise on the card's
+   winning slots); each MP layer's
+   argmax extremum on the card's own messages against its plain version
+   (values bitwise, slots exactly); a train step that repeats bit for bit;
+11. ggnn: the 'ggnn' stack at hidden 64 on the benchmark batches: the
+   serving forward (8 extremum launches per forward), train_steps in
+   float32 and bf16 AMP (per step: 8 extremum, 16 broadcast, 16 sum), the
+   logits and a train step (dropout 0) on the card against the CPU, and a
+   train step that repeats bit for bit;
+12. cli: the Typilus train CLI for one epoch on synthetic folds written
+   under build/ ('mlp' under PTGNN_TPU_ARGMAX_ROUTING, then 'ggnn'), then
+   the predict CLI on the saved model;
+13. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
-   call's time, as one JSON line.
+   call's time, as one JSON line; before it, the argmax extremum against
+   its plain version at M 64 and 128, float32 and bf16, max and min, with
+   planted ties.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -73,20 +97,36 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 SEED = 0
 NUM_BATCHES = 6
 TRAIN_STEPS = 30
-PER_FORWARD = {"segment_extremum": 8, "broadcast_to_edges": 8, "segment_sum": 0, "typed_matmul": 0}
-PER_TRAIN_STEP = {"segment_extremum": 8, "broadcast_to_edges": 24, "segment_sum": 16, "typed_matmul": 0}
+
+
+def counts_of(extremum=0, argmax=0, broadcast=0, segsum=0, typed=0):
+    return {"segment_extremum": extremum, "segment_extremum_argmax": argmax, "broadcast_to_edges": broadcast,
+            "segment_sum": segsum, "typed_matmul": typed}
+
+
+PER_FORWARD = counts_of(extremum=8, broadcast=8)
+PER_TRAIN_STEP = counts_of(extremum=8, broadcast=24, segsum=16)
+# Argmax routing, per MLP-MP layer: the target-row broadcast and the argmax
+# extremum forward; the g-row broadcast and one sum backward (no tie count).
+ARGMAX_PER_FORWARD = counts_of(argmax=8, broadcast=8)
+ARGMAX_PER_TRAIN_STEP = counts_of(argmax=8, broadcast=16, segsum=8)
+# GGNN, per gated layer (no target state): the extremum forward; the
+# extremum-row broadcast, the tie count, the g-row broadcast and the
+# cotangent sum backward.
+GGNN_PER_FORWARD = counts_of(extremum=8)
+GGNN_PER_TRAIN_STEP = counts_of(extremum=8, broadcast=16, segsum=16)
 # PPI: per MP layer one broadcast (target rows) and one sum forward, one
 # broadcast (g rows) and one sum (both cotangents) backward; the typed matmul
 # once forward and twice backward, where its gate opens (bf16 only).
 PPI_GRAPHS = 6
 PPI_TRAIN_STEPS = 20
 PPI_PER_FORWARD = {
-    "float32": {"segment_extremum": 0, "broadcast_to_edges": 5, "segment_sum": 5, "typed_matmul": 0},
-    "bf16": {"segment_extremum": 0, "broadcast_to_edges": 5, "segment_sum": 5, "typed_matmul": 5},
+    "float32": counts_of(broadcast=5, segsum=5),
+    "bf16": counts_of(broadcast=5, segsum=5, typed=5),
 }
 PPI_PER_TRAIN_STEP = {
-    "float32": {"segment_extremum": 0, "broadcast_to_edges": 10, "segment_sum": 10, "typed_matmul": 0},
-    "bf16": {"segment_extremum": 0, "broadcast_to_edges": 10, "segment_sum": 10, "typed_matmul": 15},
+    "float32": counts_of(broadcast=10, segsum=10),
+    "bf16": counts_of(broadcast=10, segsum=10, typed=15),
 }
 
 
@@ -179,17 +219,78 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
-def train_phase(model, batches, dev, card):
+def beyond(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements outside rtol 1e-4, atol 1e-4 x max|want|."""
+    return int(((got - want).abs() > 1e-4 * want.abs() + 1e-4 * want.abs().max()).sum())
+
+
+ROUTING = ("planned_segment_extremum_with_argmax", "_primary_indicator", "_transpose_indicator")
+
+
+@contextlib.contextmanager
+def routing_tape(tape: list, replay: bool = False):
+    """Records in ``tape``, in call order, the routing decisions that the
+    fused op takes in the steps run inside it: the argmax extremum's winning
+    slots, and the tie indicators of value routing in both orientations.
+    With ``replay``, the steps take the decisions of ``tape`` in place of
+    their own. A CPU step that replays the card's tape resolves every
+    near-tie as the card did, so what is left between the two is float32
+    rounding. Under argmax routing its values are its own messages at the
+    card's winning slots."""
+    from ptgnn_tpu_torch.ops import fused_mp
+
+    real = {name: getattr(fused_mp, name) for name in ROUTING}
+    recorded = iter(list(tape))
+
+    def taped(name):
+        def call(*args):
+            own = real[name](*args)
+            if not replay:
+                tape.append((name, own))
+                return own
+            kind, theirs = next(recorded)
+            if kind != name:
+                raise RuntimeError(f"the step calls {name} where the tape holds {kind}")
+            if name != "planned_segment_extremum_with_argmax":
+                return theirs.to(own.device)
+            slots = theirs[1].to(own[1].device)
+            won = args[0].gather(0, slots.clamp_min(0).long()).float()
+            return torch.where(slots >= 0, won, torch.zeros((), dtype=won.dtype)), slots
+        return call
+
+    for name in ROUTING:
+        setattr(fused_mp, name, taped(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(fused_mp, name, fn)
+    if replay and next(recorded, None) is not None:
+        raise RuntimeError("the step took fewer routing decisions than the tape holds")
+
+
+def routing_differences(tape_a: list, tape_b: list) -> list[int]:
+    """Per fused-op routing call, the decisions on which two tapes differ:
+    winning slots under argmax routing, tie-indicator entries otherwise."""
+    diffs = []
+    for (kind, a), (_, b) in zip(tape_a, tape_b, strict=True):
+        if kind == "planned_segment_extremum_with_argmax":
+            a, b = a[1], b[1]
+        diffs.append(int((a.cpu() != b.cpu()).sum()))
+    return diffs
+
+
+def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD, per_step=PER_TRAIN_STEP):
     """ModelTrainer.train for one epoch, then train_steps in float32 and in
     bf16 AMP. Returns the launch counts over the whole phase."""
     from ptgnn_tpu_torch.core.trainer import ModelTrainer
-    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     train_graphs, valid_graphs = list(graphs(SEED)), list(graphs(SEED + 1))
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    checkpoint = out_dir / f"graph2class-{name}.pkl.gz"
     trainer = ModelTrainer(
-        model, out_dir / "graph2class.pkl.gz", max_num_epochs=1, minibatch_size=300,
+        model, checkpoint, max_num_epochs=1, minibatch_size=300,
         clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4),
         device=dev, seed=SEED,
     )
@@ -207,62 +308,64 @@ def train_phase(model, batches, dev, card):
     trainer.train(train_graphs, valid_graphs, initialize_metadata=False, patience=0)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    phase("train", f"ModelTrainer.train: 1 epoch over {len(train_graphs)} graphs with validation "
+    phase(name, f"ModelTrainer.train: 1 epoch over {len(train_graphs)} graphs with validation "
           f"before and after in {t_train:.2f} s (host tensorize + batching included): "
           f"{backwards[0]} train steps, {forwards[0] - backwards[0]} validation forwards; "
           f"validation metrics {valid_metrics}")
-    if backwards[0] == 0 or not (out_dir / "graph2class.pkl.gz").exists():
+    if backwards[0] == 0 or not checkpoint.exists():
         raise RuntimeError("ModelTrainer.train took no step or wrote no checkpoint")
-    for name, amp in (("float32", False), ("bf16 AMP", True)):
-        steps_module = model.build_neural_module(device=dev, seed=SEED)
-        before = sk.launch_counts()
-        stats = train_steps(steps_module, [{"batch": b, "target_classes": t} for b, t in batches],
-                            steps=TRAIN_STEPS, enable_amp=amp, seed=SEED)
-        per_step = {k: v / (TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
-        if per_step != PER_TRAIN_STEP:
-            raise RuntimeError(f"expected {PER_TRAIN_STEP} launches per train step, got {per_step}")
-        if not math.isfinite(stats["loss"]):
-            raise RuntimeError(f"train_steps ({name}) gave a non-finite loss {stats['loss']}")
-        phase("train", f"train_steps {name}: {TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
-              f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
-              f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
-              f"launches per step {per_step}")
+    train_steps_phase(model, batches, dev, card, name, per_step)
     counts = sk.launch_counts()  # the train path ends here
     for hook in hooks:
         hook.remove()
     expected = {
-        k: PER_FORWARD[k] * forwards[0] + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * backwards[0]
-        + PER_TRAIN_STEP[k] * 2 * (TRAIN_STEPS + 1)
+        k: per_forward[k] * forwards[0] + (per_step[k] - per_forward[k]) * backwards[0]
+        + per_step[k] * 2 * (TRAIN_STEPS + 1)
         for k in counts
     }
-    phase("train", f"launches over the train path: {counts}")
+    phase(name, f"launches over the {name} path: {counts}")
     if counts != expected:
         raise RuntimeError(f"train path launches {counts} != {expected} expected from its "
                            f"{forwards[0]} forwards and {backwards[0]} backwards in ModelTrainer.train")
     return counts
 
 
+def train_steps_phase(model, batches, dev, card, name, per_step):
+    """train_steps in float32 and in bf16 AMP from fresh seeded weights,
+    with the launches of every step checked."""
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
+        steps_module = model.build_neural_module(device=dev, seed=SEED)
+        before = sk.launch_counts()
+        stats = train_steps(steps_module, [{"batch": b, "target_classes": t} for b, t in batches],
+                            steps=TRAIN_STEPS, enable_amp=amp, seed=SEED)
+        got = {k: v / (TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        if got != per_step:
+            raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
+        if not math.isfinite(stats["loss"]):
+            raise RuntimeError(f"train_steps ({name}, {dtype_name}) gave a non-finite loss {stats['loss']}")
+        phase(name, f"train_steps {dtype_name}: {TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
+              f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
+              f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
+              f"launches per step {got}")
+
+
 def train_parity_phase(model, device_batch, host_minibatch, dev):
     """One float32 train step with dropout 0 on the card against the CPU.
 
-    Max aggregation routes each (node, column)'s gradient to the slots that
-    attain the maximum, so a near-tie that the two devices' few-ulp forward
-    differences order differently moves a gradient wholesale, and everything
-    upstream of that layer inherits the difference. Hence the gates: the
-    loss; each MP layer alone, from the CPU's inputs and upstream cotangent
-    (aggregates bitwise equal, no slot routed differently, every gradient
-    within rtol 1e-4 and 1e-4 of its tensor's largest magnitude); the whole
-    step end to end within 1e-2 of each gradient's norm, printed beside the
-    elementwise tolerance and the routing differences between the two runs."""
-    from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+    The whole step as ``step_against_cpu`` holds it; then each MP layer
+    alone, from the CPU's inputs and upstream cotangent (the extremum kernel
+    bitwise against the plain reduce of the card's own messages; the
+    aggregates and, on the card's routing decisions, every gradient within
+    rtol 1e-4 and 1e-4 of its tensor's largest magnitude); the tie counts;
+    and the clip + Adam step."""
+    from ptgnn_tpu_torch.core.trainer import optimizer_step
     from ptgnn_tpu_torch.graph.messagepassing.base import GraphContext
     from ptgnn_tpu_torch.ops import fused_mp
-
-    gpu = model.build_neural_module(device=dev, seed=SEED)
-    cpu = model.build_neural_module(device="cpu", seed=SEED)
-    for m in (gpu, cpu):
-        set_dropout(m, 0.0)
-    initial = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    from ptgnn_tpu_torch.ops.segment_kernels import adjacency_segment_reduce
+    from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
     def mlp_layers(m):
         return [layer for layer in m.gnn.message_passing_layers if type(layer).__name__ == "MlpMessagePassingLayer"]
@@ -275,82 +378,69 @@ def train_parity_phase(model, device_batch, host_minibatch, dev):
             out.register_hook(lambda g: upstream.__setitem__(index, g.detach()))
         return hook
 
-    hooks = [layer.register_forward_pre_hook(lambda mod, args, k=k: inputs[k].append(args[0].detach()))
-             for k, m in (("gpu", gpu), ("cpu", cpu)) for layer in mlp_layers(m)]
-    hooks += [layer.register_forward_hook(keep_upstream(i)) for i, layer in enumerate(mlp_layers(cpu))]
-    batch, targets = device_batch
-    gpu_loss, _ = module_loss(gpu, {"batch": batch, "target_classes": targets}, train=True,
-                              generator=torch.Generator(device=dev))
-    gpu_loss.backward()
-    cpu_batch = host_minibatch["batch"].to("cpu")
-    cpu_targets = torch.from_numpy(host_minibatch["target_classes"])
-    cpu_loss, _ = module_loss(cpu, {"batch": cpu_batch, "target_classes": cpu_targets}, train=True,
-                              generator=torch.Generator())
-    cpu_loss.backward()
-    for hook in hooks:
-        hook.remove()
-    gpu_loss, cpu_loss = float(gpu_loss.detach()), float(cpu_loss.detach())
-    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-5)
-    # (name, card gradient on the host, CPU gradient) of the whole step
-    step_grads = [(name, pg.grad.cpu(), pc.grad.clone())
-                  for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters())]
+    def keep(module, side):
+        handles = [layer.register_forward_pre_hook(lambda mod, args: inputs[side].append(args[0].detach()))
+                   for layer in mlp_layers(module)]
+        if side == "cpu":
+            handles += [layer.register_forward_hook(keep_upstream(i)) for i, layer in enumerate(mlp_layers(module))]
+        return handles
 
-    def beyond(got, want):
-        """Elements outside rtol 1e-4, atol 1e-4 x max|want|."""
-        return int(((got - want).abs() > 1e-4 * want.abs() + 1e-4 * want.abs().max()).sum())
+    gpu, cpu, step_grads = step_against_cpu(model, device_batch, host_minibatch, dev, "train-parity", keep)
+    initial = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    batch = device_batch[0]
+    cpu_batch = host_minibatch["batch"].to("cpu")
 
     # Each MP layer alone, on the same inputs and upstream cotangent.
     def context(b):
         return GraphContext(adjacency=b.adjacency, node_graph=b.node_graph, node_mask=b.node_mask,
                             graph_mask=b.graph_mask, references=b.references)
 
-    local_worst = 0.0
+    # The card's messages come from cuBLAS and the CPU's from the host's BLAS,
+    # whose rounding depends on the host (with AVX2 instead of AVX-512 they
+    # differ by ulps), so the card and the CPU are compared at the float32
+    # tolerance, and the kernel bitwise against the plain reduce of the
+    # card's own messages.
+    local_worst, agg_worst, bitwise_layers, rerouted = 0.0, 0.0, 0, []
     for index, (lg, lc) in enumerate(zip(mlp_layers(gpu), mlp_layers(cpu))):
         x, g_out = inputs["cpu"][index], upstream[index]
         xg, xc = x.to(dev).clone().requires_grad_(), x.clone().requires_grad_()
         lg.zero_grad()
         lc.zero_grad()
-        lg(xg, context(batch), train=True).backward(g_out.to(dev))
-        lc(xc, context(cpu_batch), train=True).backward(g_out)
+        tape = []
+        with routing_tape(tape):
+            lg(xg, context(batch), train=True).backward(g_out.to(dev))
+        with routing_tape(tape, replay=True):
+            lc(xc, context(cpu_batch), train=True).backward(g_out)
         w = lc.message_mlp.weights_0.detach()
-        out_c, inp_c = fused_mp._fused_fwd_impl(x, w, cpu_batch.adjacency, None, x.shape[0], "max", True, 1.0)
-        out_g, inp_g = fused_mp._fused_fwd_impl(x.to(dev), w.to(dev), batch.adjacency, None, x.shape[0], "max", True, 1.0)
-        rerouted = int((fused_mp._primary_indicator(inp_g, w.to(dev), batch.adjacency, out_g, torch.float32).cpu()
-                        != fused_mp._primary_indicator(inp_c, w, cpu_batch.adjacency, out_c, torch.float32)).sum())
-        if rerouted or not bitwise_equal(out_g.cpu(), out_c):
-            raise RuntimeError(f"MP layer {index} alone: aggregates differ or {rerouted} slots routed differently")
+        out_c, _, inp_c = fused_mp._fused_fwd_impl(x, w, cpu_batch.adjacency, None, x.shape[0], "max", True, 1.0)
+        out_g, _, inp_g = fused_mp._fused_fwd_impl(x.to(dev), w.to(dev), batch.adjacency, None, x.shape[0], "max", True, 1.0)
+        msgs_g = typed_tile_matmul(inp_g, w.to(dev), batch.adjacency.tile_types, batch.adjacency.edge_tile).cpu()
+        plain = adjacency_segment_reduce(msgs_g, cpu_batch.adjacency, x.shape[0], "max", mask=cpu_batch.adjacency.mask,
+                                         counts_exact=True)
+        if not bitwise_equal(out_g.cpu(), plain):
+            raise RuntimeError(f"MP layer {index} alone: the extremum kernel differs from the plain reduce of "
+                               f"the card's own messages")
+        out_g = out_g.cpu()
+        if beyond(out_g, out_c):
+            raise RuntimeError(f"MP layer {index} alone: the aggregates are off in {beyond(out_g, out_c)} elements")
+        agg_worst = max(agg_worst, float((out_g - out_c).abs().max() / out_c.abs().max()))
+        bitwise_layers += bitwise_equal(out_g, out_c)
+        rerouted.append(int((fused_mp._primary_indicator(inp_g, w.to(dev), batch.adjacency, out_g.to(dev),
+                                                         torch.float32).cpu()
+                             != fused_mp._primary_indicator(inp_c, w, cpu_batch.adjacency, out_c, torch.float32)).sum()))
         pairs = [("input", xg.grad, xc.grad)] + [
             (name, pg.grad, pc.grad) for (name, pg), pc in zip(lg.named_parameters(), lc.parameters())]
         for name, got, want in pairs:
             got = got.cpu()
             if beyond(got, want):
-                raise RuntimeError(f"MP layer {index} alone: the {name} gradient is off in {beyond(got, want)} elements")
+                raise RuntimeError(f"MP layer {index} alone: on the card's routing decisions, the {name} "
+                                   f"gradient is off in {beyond(got, want)} elements")
             local_worst = max(local_worst, float((got - want).abs().max() / want.abs().max()))
-    phase("train-parity", f"loss card {gpu_loss:.7f} vs CPU {cpu_loss:.7f} (rtol 1e-5); each of the "
-          f"{len(mlp_layers(gpu))} MP layers alone, on the CPU's inputs and upstream gradient: aggregates "
-          f"bitwise equal, no slot routed differently, every gradient within rtol 1e-4, atol 1e-4 x max|g| "
-          f"(worst {local_worst:.3e} of max)")
-
-    # The whole step end to end, and the routing differences that explain it.
-    rerouted = []
-    for lg, xg_in, xc_in in zip(mlp_layers(gpu), inputs["gpu"], inputs["cpu"]):
-        w = lg.message_mlp.weights_0.detach()
-        out_g, inp_g = fused_mp._fused_fwd_impl(xg_in, w, batch.adjacency, None, xg_in.shape[0], "max", True, 1.0)
-        out_c, inp_c = fused_mp._fused_fwd_impl(xc_in, w.cpu(), cpu_batch.adjacency, None, xc_in.shape[0], "max", True, 1.0)
-        rerouted.append(int((fused_mp._primary_indicator(inp_g, w, batch.adjacency, out_g, torch.float32).cpu()
-                             != fused_mp._primary_indicator(inp_c, w.cpu(), cpu_batch.adjacency, out_c, torch.float32)).sum()))
-    report, outside = [], []
-    for name, got, want in step_grads:
-        rel = float((got - want).norm() / want.norm())
-        report.append((rel, name))
-        if beyond(got, want):
-            outside.append(name)
-        if rel > 1e-2:
-            raise RuntimeError(f"end to end, the {name} gradient differs by {rel:.3e} of its norm")
-    report.sort(reverse=True)
-    phase("train-parity", f"end to end: slots routed differently per MP layer {rerouted}; every gradient "
-          f"within 1e-2 of its norm (largest {report[0][0]:.3e}, {report[0][1]}); {len(outside)} of "
-          f"{len(report)} tensors outside rtol 1e-4, atol 1e-4 x max|g|: {outside}")
+    phase("train-parity", f"each of the {len(mlp_layers(gpu))} MP layers alone, on the CPU's inputs and "
+          f"upstream gradient: the extremum kernel bitwise equal to the plain reduce of the card's messages; "
+          f"aggregates card vs CPU within rtol 1e-4, atol 1e-4 x max (worst {agg_worst:.3e} of max, bitwise "
+          f"equal in {bitwise_layers} layers, slots routed differently per layer {rerouted}); on the card's "
+          f"routing decisions every gradient within rtol 1e-4, atol 1e-4 x max|g| (worst {local_worst:.3e} of max)")
 
     # Every non-empty (node, column) of every MP layer must find its extremum
     # again in both orientations of the backward, which compare messages
@@ -388,26 +478,26 @@ def train_parity_phase(model, device_batch, host_minibatch, dev):
     for pg, g in zip(gpu.parameters(), cpu_grads):
         pg.grad = g.to(dev)
     optimizer_step(gpu, torch.optim.Adam(gpu.parameters(), lr=lr), [lr], clip_gradient_norm=1.0)
-    beyond, own_worst = 0, 0.0
+    off, own_worst = 0, 0.0
     for (name, pg), pc, po in zip(gpu.named_parameters(), cpu.parameters(), own):
         c = pc.detach().numpy()
         np.testing.assert_allclose(pg.detach().cpu().numpy(), c, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(c).max()), err_msg=name)
         diff = np.abs(po.numpy() - c)
-        beyond += int((diff > 1e-4 * np.abs(c) + 1e-4 * float(np.abs(c).max())).sum())
+        off += int((diff > 1e-4 * np.abs(c) + 1e-4 * float(np.abs(c).max())).sum())
         own_worst = max(own_worst, float(diff.max()) / lr)
     phase("train-parity", f"clip + Adam on equal gradients: every parameter within rtol 1e-4, atol 1e-4 x "
           f"max|p|; from the card's own gradients the largest parameter difference is {own_worst:.3e} "
-          f"learning rates, {beyond} elements beyond that tolerance")
+          f"learning rates, {off} elements beyond that tolerance")
 
 
-def repeat_check(model, device_batch, dev):
+def repeat_check(model, device_batch, dev, name="train-parity"):
     """Two train steps from the same weights and dropout seed give the same
     bits: every kernel and reduction of the step adds in a fixed order."""
     from ptgnn_tpu_torch.core.trainer import module_loss
 
     batch, targets = device_batch
-    for name, amp in (("float32", False), ("bf16 AMP", True)):
+    for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
         runs = []
         for _ in range(2):
             m = model.build_neural_module(device=dev, seed=SEED)
@@ -417,8 +507,8 @@ def repeat_check(model, device_batch, dev):
             runs.append([loss.detach()] + [p.grad for p in m.parameters()])
         differ = sum(not torch.equal(a, b) for a, b in zip(*runs))
         if differ:
-            raise RuntimeError(f"a {name} train step gave other bits on a second run in {differ} tensors")
-    phase("train-parity", f"a train step (dropout on) repeats bit for bit, float32 and bf16 AMP: the loss "
+            raise RuntimeError(f"a {dtype_name} train step gave other bits on a second run in {differ} tensors")
+    phase(name, f"a train step (dropout on) repeats bit for bit, float32 and bf16 AMP: the loss "
           f"and all {len(runs[0]) - 1} gradient tensors")
 
 
@@ -775,12 +865,360 @@ def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path):
     return entries
 
 
+def build_bench(dev, **kw):
+    """The benchmark configuration's model, its module on the card and its
+    minibatches, host and device-resident."""
+    from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
+    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+
+    model, module, minibatches = build_graph2class(
+        padding=default_padding(), num_metadata_graphs=bench_graph_count(NUM_BATCHES),
+        mean_nodes=2500, max_graph_nodes=8000, hidden_state_size=64, seed=SEED,
+        num_minibatches=NUM_BATCHES, minibatch_size=300, device=dev, **kw,
+    )
+    batches = [(mb["batch"].to(dev), torch.from_numpy(mb["target_classes"]).to(dev)) for mb in minibatches]
+    return model, module, minibatches, batches
+
+
+def mp_layers(module):
+    return [layer for layer in module.gnn.message_passing_layers if hasattr(layer, "aggregation_fn")]
+
+
+def step_against_cpu(model, device_batch, host_minibatch, dev, name, hook=None):
+    """One float32 train step (dropout 0) from the same weights on the card,
+    on the CPU, and on the CPU with the card's routing decisions
+    (``routing_tape``).
+
+    Max aggregation routes each (node, column)'s cotangent to the slots that
+    attain the maximum. Where the devices' few-ulp forward differences order
+    a near-tie differently, a cotangent moves wholesale to another slot and
+    everything upstream inherits it; how many such near-ties there are
+    depends on the host CPU's arithmetic. So the CPU's own step is held on
+    its loss (rtol 1e-5), and its gradients are reported beside the routing
+    decisions it takes differently. The CPU's step on the card's decisions
+    is held on its loss (rtol 1e-5) and on every gradient elementwise (rtol
+    1e-4, atol 1e-4 x the tensor's largest magnitude).
+
+    ``hook(module, side)``, if given, registers hooks on the card's module
+    (side "gpu") and the CPU's own (side "cpu") before their steps and
+    returns the handles. Returns (card module, CPU module, [(name, card
+    gradient on the host, CPU gradient)])."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+
+    batch, targets = device_batch
+    cpu_batch = {"batch": host_minibatch["batch"].to("cpu"),
+                 "target_classes": torch.from_numpy(host_minibatch["target_classes"])}
+
+    def step(side, tape, replay=False):
+        device = dev if side == "gpu" else "cpu"
+        module = model.build_neural_module(device=device, seed=SEED)
+        set_dropout(module, 0.0)
+        handles = hook(module, side) if hook is not None and not replay else []
+        with routing_tape(tape, replay):
+            loss, _ = module_loss(module, {"batch": batch, "target_classes": targets} if side == "gpu" else cpu_batch,
+                                  train=True, generator=torch.Generator(device=device))
+            loss.backward()
+        for handle in handles:
+            handle.remove()
+        return module, float(loss.detach())
+
+    card_tape, own_tape = [], []
+    gpu, gpu_loss = step("gpu", card_tape)
+    cpu, cpu_loss = step("cpu", own_tape)
+    pinned, pinned_loss = step("cpu", card_tape, replay=True)
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-5)
+    np.testing.assert_allclose(gpu_loss, pinned_loss, rtol=1e-5)
+    grads = [(pname, pg.grad.cpu(), pc.grad, pp.grad)
+             for (pname, pg), pc, pp in zip(gpu.named_parameters(), cpu.parameters(), pinned.parameters())]
+    worst = 0.0
+    for pname, got, _, want in grads:
+        if beyond(got, want):
+            raise RuntimeError(f"{name}: on the card's routing decisions, the CPU's {pname} gradient is "
+                               f"off in {beyond(got, want)} elements")
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    free = max((float((got - own).norm() / own.norm()), pname) for pname, got, own, _ in grads)
+    phase(name, f"train step (dropout 0) card vs CPU: loss {gpu_loss:.7f} vs {cpu_loss:.7f} (rtol 1e-5); on the "
+          f"card's routing decisions, loss {pinned_loss:.7f} and all {len(grads)} gradients within rtol 1e-4, "
+          f"atol 1e-4 x max|g| (worst {worst:.3e} of max); on its own, the CPU takes "
+          f"{routing_differences(card_tape, own_tape)} routing decisions differently per fused-op call, and "
+          f"its gradients lie up to {free[0]:.3e} of their norm from the card's ({free[1]})")
+    return gpu, cpu, [(pname, got, own) for pname, got, own, _ in grads]
+
+
+def argmax_phase(dev, card):
+    """Graph2Class at the benchmark configuration with argmax routing: the
+    train path (ModelTrainer.train, train_steps), the step against the CPU,
+    each layer's argmax extremum against its plain version, and a repeat.
+    Returns the launch counts of the path."""
+    from ptgnn_tpu_torch.ops import fused_mp
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
+
+    t0 = time.perf_counter()
+    model, _, minibatches, batches = build_bench(dev, argmax_routing=True)
+    phase("argmax-train", f"setup {time.perf_counter() - t0:.2f} s (model, metadata, 6 batches)")
+    counts = train_phase(model, batches, dev, card, "argmax-train", ARGMAX_PER_FORWARD, ARGMAX_PER_TRAIN_STEP)
+
+    inputs = []
+
+    def keep_inputs(module, side):
+        return [layer.register_forward_pre_hook(lambda mod, args: inputs.append(args[0].detach()))
+                for layer in mp_layers(module)] if side == "gpu" else []
+
+    gpu, _, _ = step_against_cpu(model, batches[0], minibatches[0], dev, "argmax-train", keep_inputs)
+    adj = batches[0][0].adjacency
+    cpu_adj = minibatches[0]["batch"].to("cpu").adjacency
+    plan = sk.plan_from_adjacency(adj)
+    rerouted, winners = [], 0
+    for index, (layer, x) in enumerate(zip(mp_layers(gpu), inputs)):
+        if not layer.argmax_routing:
+            raise RuntimeError(f"MP layer {index} does not route by argmax")
+        w = layer.message_mlp.weights_0.detach()
+        _, args_g, inp = fused_mp._fused_fwd_impl(x, w, adj, None, x.shape[0], "max", True, 1.0, True)
+        msgs = typed_tile_matmul(inp, w, adj.tile_types, adj.edge_tile)
+        work = torch.where(adj.mask[:, None], msgs, torch.full((), -3.0e38, device=dev)).contiguous()
+        vals, args = sk.planned_segment_extremum_with_argmax(work, plan, x.shape[0], True)
+        plain_vals, plain_args = sk.segment_extremum_argmax_plain(work, plan, x.shape[0], True)
+        if not (bitwise_equal(vals + 0.0, plain_vals + 0.0) and torch.equal(args, plain_args)
+                and torch.equal(args, args_g)):
+            raise RuntimeError(f"MP layer {index}: the argmax extremum kernel differs from its plain version")
+        winners += int((args >= 0).sum())
+        _, args_c, _ = fused_mp._fused_fwd_impl(x.cpu(), w.cpu(), cpu_adj, None, x.shape[0], "max", True, 1.0, True)
+        rerouted.append(int((args_c != args.cpu()).sum()))
+    torch.cuda.synchronize()
+    phase("argmax-train", f"each of the {len(inputs)} MP layers on the card's own messages: the argmax extremum "
+          f"kernel equals its plain version (values bitwise, {winners} winning slots exactly); from the same "
+          f"inputs the CPU picks another winner in {rerouted} (node, column)s per layer")
+    repeat_check(model, batches[0], dev, "argmax-train")
+    return counts
+
+
+def ggnn_phase(dev, card, reps: int = 3):
+    """The 'ggnn' stack at hidden 64 on the benchmark batches: serving
+    forwards and train_steps with their launches, then the logits and a
+    train step against the CPU, and a repeat. Returns the launch counts of
+    the path."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    t0 = time.perf_counter()
+    model, module, minibatches, batches = build_bench(dev, architecture="ggnn")
+    layers = module.gnn.message_passing_layers
+    shared = sum(layer is layers[1] for layer in layers)
+    phase("ggnn", f"setup {time.perf_counter() - t0:.2f} s; {len(layers)} stack entries, one gated layer object "
+          f"at {shared} positions; {sum(p.numel() for p in module.parameters())} parameters")
+    module.eval()
+    forwards = [0]
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sk.reset_launch_counts()  # the ggnn path starts here
+    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in minibatches]
+    g, n, e = (reps * sum(s[i] for s in sizes) for i in range(3))
+    with torch.inference_mode():
+        for batch, targets in batches:  # warm-up
+            module(batch, targets)
+        torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for batch, targets in batches:
+                losses.append(module(batch, targets)[0])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    counter.remove()
+    serving = sk.launch_counts()
+    if serving != {k: v * forwards[0] for k, v in GGNN_PER_FORWARD.items()}:
+        raise RuntimeError(f"expected {GGNN_PER_FORWARD} launches per ggnn forward, got {serving}")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite ggnn eval losses {losses}")
+    phase("ggnn", f"serving forward over {reps * len(batches)} device-resident batches: eval loss "
+          f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
+          f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
+          f"launches over {forwards[0]} forwards {serving}")
+    train_steps_phase(model, batches, dev, card, "ggnn", GGNN_PER_TRAIN_STEP)
+    counts = sk.launch_counts()  # the ggnn path ends here
+    expected = add_counts(serving, {k: v * 2 * (TRAIN_STEPS + 1) for k, v in GGNN_PER_TRAIN_STEP.items()})
+    phase("ggnn", f"launches over the ggnn path: {counts}")
+    if counts != expected:
+        raise RuntimeError(f"ggnn launches {counts} != {expected} expected")
+
+    cpu = model.build_neural_module(device="cpu", seed=SEED).eval()
+    with torch.inference_mode():
+        gpu_logits = module._logits(batches[0][0], train=False)[0].cpu().numpy()
+        cpu_logits = cpu._logits(minibatches[0]["batch"].to("cpu"), train=False)[0].numpy()
+    atol = 1e-4 * float(np.abs(cpu_logits).max())
+    np.testing.assert_allclose(gpu_logits, cpu_logits, rtol=1e-4, atol=atol)
+    phase("ggnn", f"logits card vs CPU: max abs err {float(np.abs(gpu_logits - cpu_logits).max()):.3e} "
+          f"(rtol 1e-4, atol {atol:.3e} = 1e-4 x max|logit|)")
+    step_against_cpu(model, batches[0], minibatches[0], dev, "ggnn")
+    repeat_check(model, batches[0], dev, "ggnn")
+    return counts
+
+
+def cli_phase(card):
+    """The Typilus train CLI for one epoch on synthetic folds under build/
+    ('mlp' with the argmax switch, then 'ggnn'), then the predict CLI on the
+    saved model. Returns the launch counts of the path."""
+    import io as stdio
+    import os
+    import shutil
+
+    from ptgnn_tpu_torch.implementations.typilus import predict as typilus_predict
+    from ptgnn_tpu_torch.implementations.typilus import train as typilus_train
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    folds = []
+    for i, (fold, count) in enumerate((("train", 12), ("valid", 4), ("test", 4))):
+        (root / fold).mkdir(parents=True)
+        write_jsonl_gz(root / fold / "part0.jsonl.gz",
+                       synthetic_typilus_graphs(count, seed=SEED + 20 + i, mean_nodes=1500, max_nodes=4000))
+        folds.append(str(root / fold))
+    cwd = os.getcwd()
+    os.chdir(root)  # the train CLI's log file goes under the working directory
+    sk.reset_launch_counts()  # the cli path starts here
+    try:
+        runs = {}
+        for architecture, argmax in (("mlp", True), ("ggnn", False)):
+            if argmax:
+                os.environ[typilus_train.ARGMAX_ROUTING_ENV] = "1"
+            before = sk.launch_counts()
+            t0 = time.perf_counter()
+            out = stdio.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    accuracy = typilus_train.run(typilus_train.build_arg_parser().parse_args(
+                        [*folds, str(root / f"{architecture}.pkl.gz"), "--max-num-epochs", "1", "--quiet",
+                         "--architecture", architecture]))
+            finally:
+                os.environ.pop(typilus_train.ARGMAX_ROUTING_ENV, None)
+            launched = delta(sk.launch_counts(), before)
+            if (launched["segment_extremum_argmax"] > 0) != argmax or (launched["segment_extremum"] > 0) == argmax:
+                raise RuntimeError(f"the {architecture} CLI run took the wrong extremum: {launched}")
+            line = [ln for ln in out.getvalue().splitlines() if ln.startswith("Test accuracy:")]
+            runs[architecture] = accuracy
+            phase("cli", f"train --architecture {architecture}{' (PTGNN_TPU_ARGMAX_ROUTING=1)' if argmax else ''}: "
+                  f"1 epoch over {len(os.listdir(folds[0]))} file(s) of 12 graphs in {time.perf_counter() - t0:.2f} s; "
+                  f"'{line[0] if line else '(no line)'}'; launches {launched}")
+            if not line or not 0.0 <= accuracy <= 1.0:
+                raise RuntimeError(f"the {architecture} train CLI printed no test accuracy")
+        out = stdio.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            printed = typilus_predict.run(typilus_predict.build_arg_parser().parse_args(
+                [str(root / "ggnn.pkl.gz"), folds[2]]))
+        lines = out.getvalue().strip().splitlines()
+    finally:
+        os.chdir(cwd)
+    counts = sk.launch_counts()  # the cli path ends here
+    if printed != len(lines) or printed == 0 or not all(" Predicted: `" in ln for ln in lines):
+        raise RuntimeError(f"predict printed {len(lines)} lines, counted {printed}")
+    phase("cli", f"predict on the ggnn model: {printed} suggestions for the 4 test graphs in "
+          f"{time.perf_counter() - t0:.2f} s, e.g. {lines[0]!r}; launches over the cli path {counts}")
+    return counts
+
+
+def argmax_kernel_checks(adj, dev, gen):
+    """The argmax extremum kernel against its plain version on the benchmark
+    layout at M 64 and 128, float32 and bf16, max and min, with planted ties:
+    values bitwise apart from the sign of zero, slots exactly, and the same
+    bits on a second run. Returns the largest absolute value difference."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    plan = sk.plan_from_adjacency(adj)
+    num_nodes = adj.agg_counts.numel()
+    rows = sk.plan_rows(plan, num_nodes)
+    real = torch.nonzero(adj.mask)[:, 0]
+    busiest = int(torch.bincount(rows[real], minlength=num_nodes + 1)[:num_nodes].argmax())
+    worst, done, ties = 0.0, [], 0
+    for width in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for is_max in (True, False):
+                data = torch.round(torch.randn(adj.mask.shape[0], width, device=dev, generator=gen) * 2) / 2
+                data[rows == busiest, 0] = 5.0 if is_max else -5.0  # one value on all its slots
+                data[real[0], 1], data[real[1:], 1] = -0.0, 0.0  # every row ties at zero
+                fill = torch.finfo(dtype).max if dtype == torch.bfloat16 else 3.0e38
+                data = torch.where(adj.mask[:, None], data.to(dtype),
+                                   torch.full((), -fill if is_max else fill, dtype=dtype, device=dev)).contiguous()
+                vals, args = sk.planned_segment_extremum_with_argmax(data, plan, num_nodes, is_max)
+                again_vals, again_args = sk.planned_segment_extremum_with_argmax(data, plan, num_nodes, is_max)
+                plain_vals, plain_args = sk.segment_extremum_argmax_plain(data, plan, num_nodes, is_max)
+                if not (bitwise_equal(vals + 0.0, plain_vals + 0.0) and torch.equal(args, plain_args)):
+                    raise RuntimeError(f"argmax extremum kernel != plain version at {width}/{dtype}/max={is_max}")
+                if not (bitwise_equal(vals, again_vals) and torch.equal(args, again_args)):
+                    raise RuntimeError(f"argmax extremum kernel gave other bits on a second run at {width}/{dtype}")
+                first = int(torch.nonzero((rows == busiest) & adj.mask)[0, 0])
+                if int(args[busiest, 0]) != first:
+                    raise RuntimeError("argmax extremum kernel did not keep the first of a tie across tiles")
+                worst = max(worst, float((vals - plain_vals).abs().max()))
+                ties += int(((data.float() == vals.index_select(0, torch.where(rows < num_nodes, rows, 0))) &
+                             adj.mask[:, None]).sum() - (args >= 0).sum())
+                done.append(f"{width}/{str(dtype)[6:]}/{'max' if is_max else 'min'}")
+    torch.cuda.synchronize()
+    phase("kernels", f"argmax extremum kernel == plain version (values bitwise apart from the sign of zero, "
+          f"slots exactly, the same bits on a second run) at {done}; {ties} tied losers in all, node {busiest}'s "
+          f"tie over {int(((rows == busiest) & adj.mask).sum())} slots in "
+          f"{len(torch.unique(torch.nonzero((rows == busiest) & adj.mask)[:, 0] // adj.edge_tile))} tiles went "
+          f"to its first slot")
+    return worst
+
+
+def argmax_kernel_entry(adj, dev, gen, max_abs_err, launches, launches_by_path):
+    """kernels-line entries of the argmax extremum at M = 64 and 128 (the
+    path's widths), float32; returns the M = 64 one. Library call:
+    scatter_reduce amax into zeros, the values alone (no PyTorch call gives
+    first-occurrence slots too): a partial stand-in."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    plan = sk.plan_from_adjacency(adj)
+    num_nodes = adj.agg_counts.numel()
+    num_blocks = adj.agg_counts.shape[0]
+    valid = adj.receivers < num_nodes
+    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
+    entries = []
+    for width in (64, 128):
+        scatter_index = torch.where(valid, adj.receivers, num_nodes).long()[:, None].expand(-1, width).contiguous()
+
+        def make():
+            data = torch.randn(e_pad, width, device=dev, generator=gen)
+            return torch.where(adj.mask[:, None], data, torch.full((), -3.0e38, device=dev)).contiguous()
+
+        datas = rotating(make, e_pad * width * 4)
+
+        def calls(fn):
+            return [lambda d=datas[i % len(datas)]: fn(d) for i in range(16)]
+
+        times = {
+            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_extremum_with_argmax(d, plan, num_nodes, True))),
+            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_extremum_argmax_plain(d, plan, num_nodes, True))),
+            "library_ms": graph_time_ms(calls(lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
+                0, scatter_index, d, "amax", include_self=False))),
+        }
+        nbytes = e_real * width * 4 + e_pad * 4 + (num_blocks + 1) * 8 + num_nodes * 4 + num_nodes * width * 8
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
+        entry = {
+            "name": "segment_extremum_argmax", "route": "cuda",
+            "source": "ptgnn_tpu_torch/csrc/segment_extremum_argmax.cu",
+            "replaces": "ptgnn_tpu/ops/pallas/segment_kernels.py:726",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "launches_per_train_step": ARGMAX_PER_TRAIN_STEP["segment_extremum_argmax"],
+            "max_abs_err": max_abs_err, **times,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_call": "scatter_reduce amax, values only (partial stand-in)",
+            "width": width, "dtype": "float32",
+        }
+        phase("kernels", json.dumps(entry))
+        entries.append(entry)
+        del datas
+    return entries[0]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
-    from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
-    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
     from ptgnn_tpu_torch.ops import cuda_build
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
@@ -803,16 +1241,10 @@ def main() -> None:
 
     # ---- 3. serving at full width ----------------------------------------
     t0 = time.perf_counter()
-    model, module, minibatches = build_graph2class(
-        padding=default_padding(),
-        num_metadata_graphs=bench_graph_count(NUM_BATCHES),
-        mean_nodes=2500, max_graph_nodes=8000, hidden_state_size=64, seed=SEED,
-        num_minibatches=NUM_BATCHES, minibatch_size=300, device=dev,
-    )
+    model, module, minibatches, batches = build_bench(dev)
     module.eval()
     sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges))
              for mb in minibatches]
-    batches = [(mb["batch"].to(dev), torch.from_numpy(mb["target_classes"]).to(dev)) for mb in minibatches]
     torch.cuda.synchronize()
     phase("serving", f"setup {time.perf_counter() - t0:.2f} s; {len(batches)} batches of "
           f"(graphs, nodes, edges) {sizes}; {len(model.target_vocab)} classes")
@@ -867,8 +1299,14 @@ def main() -> None:
     ppi_model, ppi_module, ppi_samples, ppi_minibatches, ppi_batches = ppi_setup(dev, card)
     ppi_serving_counts = ppi_serving_phase(ppi_model, ppi_module, ppi_samples, ppi_batches, dev, card)
     ppi_train_counts = ppi_train_phase(ppi_model, ppi_samples, ppi_batches, dev, card)
+
+    # ---- 10-12. argmax routing, GGNN, the CLIs ------------------------------
+    argmax_counts = argmax_phase(dev, card)
+    ggnn_counts = ggnn_phase(dev, card)
+    cli_counts = cli_phase(card)
     paths = {"serving": serving_counts, "train": train_counts,
-             "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts}
+             "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
+             "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -1101,6 +1539,9 @@ def main() -> None:
     phase("kernels", "PPI layout " + json.dumps(e))
     del tables
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
+    argmax_err = argmax_kernel_checks(adj, dev, gen)
+    kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
+                                       {k: v["segment_extremum_argmax"] for k, v in paths.items()}))
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}), flush=True)

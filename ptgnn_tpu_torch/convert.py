@@ -10,8 +10,15 @@ with the head ``node_to_class`` (Graph2Class) or ``to_logits`` (PPI), the
 name of the port module's attribute too. TypedMLP ``weights_0`` is
 ``[T, d_in, d_out]`` and every Linear ``weight`` ``[out, in]`` (PPI's
 embedder: ``node_embedder.linear.weight`` ``[H, F]``): the port's layouts,
-so each array loads as is. ``mp_layers`` holds one entry per unique layer
-object, in stack order; residual entries are ``{}`` and map to nothing.
+so each array loads as is. The gated (GGNN) layer's ``message_weights`` is
+``[T, D, M]`` and its ``state_update`` holds the GRU cell's ``weight_ih``
+``[3H, M]``, ``weight_hh`` ``[3H, H]``, ``bias_ih`` and ``bias_hh``
+``[3H]``, under the same names in the port. ``mp_layers`` holds one entry
+per unique layer object, in stack order; a layer object used at several
+positions (the GGNN stack's shared layer) loads its one entry at each of
+them, and residual entries are ``{}`` and map to nothing. A JAX key without
+a counterpart raises here; a port parameter that no JAX key fills raises in
+``load_state_dict``.
 """
 from __future__ import annotations
 

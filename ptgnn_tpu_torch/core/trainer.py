@@ -9,9 +9,10 @@ stopping and best-checkpoint save/restore, plus the five hook families.
   :func:`clip_by_global_norm_` writes optax's clip formula, and
   ``torch.optim.Adam`` with optax's defaults has Adam's update rule.
 * AMP keeps float32 master parameters and runs the forward with bfloat16
-  copies (``torch.func.functional_call``); autograd brings the gradients
-  back to float32 through the cast. No loss scaling: bf16 keeps float32's
-  exponent range.
+  copies swapped into each module object for the call (a module used at
+  several positions, as the GGNN stack's shared layer, is swapped once);
+  autograd brings the gradients back to float32 through the cast. No loss
+  scaling: bf16 keeps float32's exponent range.
 * Dropout draws from one ``torch.Generator`` on the device, re-seeded from
   (seed, epoch, step) before every step, as the JAX trainer folds its key.
 
@@ -21,6 +22,7 @@ reports them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -84,6 +86,25 @@ def _cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     return tree
 
 
+@contextlib.contextmanager
+def _cast_parameters(module: torch.nn.Module, dtype: torch.dtype):
+    """Every floating parameter replaced by a ``dtype`` copy while the block
+    runs, then restored. Each module object is visited once, so a module
+    reached through several paths keeps one copy (``functional_call`` swaps
+    by path and leaves such a module holding a copy)."""
+    swapped = []
+    try:
+        for sub in module.modules():
+            for name, p in list(sub._parameters.items()):
+                if p is not None and p.is_floating_point():
+                    sub._parameters[name] = p.to(dtype)
+                    swapped.append((sub, name, p))
+        yield
+    finally:
+        for sub, name, p in reversed(swapped):
+            sub._parameters[name] = p
+
+
 def module_loss(
     module: torch.nn.Module,
     minibatch: Dict[str, Any],
@@ -97,12 +118,8 @@ def module_loss(
     the minibatch's float arrays, and gradients flow back through the cast."""
     kwargs = dict(minibatch, train=train, generator=generator)
     if amp:
-        params = {
-            name: p.to(torch.bfloat16) if p.is_floating_point() else p
-            for name, p in module.named_parameters()
-        }
-        kwargs = _cast_floats(kwargs, torch.bfloat16)
-        loss, metrics = torch.func.functional_call(module, params, (), kwargs)
+        with _cast_parameters(module, torch.bfloat16):
+            loss, metrics = module(**_cast_floats(kwargs, torch.bfloat16))
     else:
         loss, metrics = module(**kwargs)
     return loss.float(), metrics

@@ -38,7 +38,8 @@ class TypedMLP(torch.nn.Module):
 class MlpMessagePassingLayer(AbstractMessagePassingLayer):
     """MLP message passing: typed linear messages from the source (and
     target) states, aggregated to receivers, then gelu -> LayerNorm ->
-    Dense -> tanh -> dropout."""
+    Dense -> tanh -> dropout. ``argmax_routing``: max/min aggregation routes
+    each gradient to the first winning edge alone (``ops/fused_mp.py``)."""
 
     def __init__(
         self,
@@ -49,6 +50,7 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
         message_aggregation_function: str,
         use_target_state_as_message_input: bool = True,
         dropout_rate: float = 0.0,
+        argmax_routing: bool = False,
     ):
         super().__init__()
         self.__input_state_dim = input_state_dimension
@@ -57,6 +59,7 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
         self.num_edge_types = num_edge_types
         self.aggregation_fn = message_aggregation_function
         self.dropout_rate = dropout_rate
+        self.argmax_routing = argmax_routing
         message_input_size = (
             2 * input_state_dimension if use_target_state_as_message_input else input_state_dimension
         )
@@ -76,6 +79,7 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
         aggregated = fused_typed_message_aggregation(
             node_states, self.message_mlp.weights_0, ctx.adjacency, node_states.shape[0],
             self.aggregation_fn, self.use_target_state_as_message_input, keep, seed,
+            argmax_routing=self.argmax_routing,
         )
         out = torch.tanh(self.dense(self.layer_norm(gelu_exact(aggregated))))
         return dropout(out, self.dropout_rate, train, generator)

@@ -1,9 +1,9 @@
-"""PPI (GraphSAGE-format) dataset loading from a local directory.
+"""PPI (GraphSAGE-format) dataset loading from a local or remote directory.
 
 Reads ``{fold}_graph.json`` (node-link JSON), ``{fold}_feats.npy``,
 ``{fold}_labels.npy`` and ``{fold}_graph_id.npy``, and splits the disjoint
 union into per-graph samples with node ids rebased to 0 and one forward edge
-type. Remote (``fsspec``) paths are not supported yet.
+type. A path containing ``://`` is read through fsspec (``utils/io.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from pathlib import Path
 from typing import Dict, List, Union
 
 import numpy as np
+
+from ptgnn_tpu_torch.utils.io import is_remote_path, join_path, open_binary
 
 
 class PPIGraphSample:
@@ -55,14 +57,15 @@ class PPIGraphSample:
 class PPIDatasetLoader:
     @classmethod
     def load_data(cls, data_dir: Union[str, Path], data_fold: str) -> List[PPIGraphSample]:
-        if "://" in str(data_dir):
-            raise NotImplementedError(f"remote dataset paths are not supported yet: {data_dir}")
-        data_dir = Path(data_dir)
-        with open(data_dir / f"{data_fold}_graph.json", "rb") as f:
+        if not is_remote_path(data_dir):
+            data_dir = Path(data_dir)
+        with open_binary(join_path(data_dir, f"{data_fold}_graph.json")) as f:
             graph_json_data = json.load(f)
-        node_to_features = np.load(data_dir / f"{data_fold}_feats.npy")
-        node_to_labels = np.load(data_dir / f"{data_fold}_labels.npy")
-        node_to_graph_id = np.load(data_dir / f"{data_fold}_graph_id.npy")
+        arrays = []
+        for name in ("feats", "labels", "graph_id"):
+            with open_binary(join_path(data_dir, f"{data_fold}_{name}.npy")) as f:
+                arrays.append(np.load(f))
+        node_to_features, node_to_labels, node_to_graph_id = arrays
 
         # Graph ids cover contiguous node ranges in the GraphSAGE dump: find
         # each graph's first node, then rebase edges so each graph starts at 0.

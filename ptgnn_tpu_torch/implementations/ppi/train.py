@@ -21,6 +21,7 @@ from ptgnn_tpu_torch.graph.messagepassing import MeanResidualLayer, MlpMessagePa
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.ppi.dataloader import PPIDatasetLoader
 from ptgnn_tpu_torch.implementations.ppi.ppi import PPIMulticlassClassification
+from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path
 
 
 def ppi_padding(max_nodes: int = 4096) -> BatchPadding:
@@ -91,7 +92,7 @@ def create_ppi_gnn_model(
 
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("data_path", type=Path)
+    parser.add_argument("data_path", type=data_path)
     parser.add_argument("model_filename", type=Path)
     parser.add_argument("--max-num-epochs", type=int, default=100)
     parser.add_argument("--minibatch-size", type=int, default=50)
@@ -105,7 +106,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--gradient-accumulation", type=int, default=1,
                         help="apply the mean gradient of every k minibatches in one optimizer step")
     parser.add_argument("--azure-info", type=Path, default=None,
-                        help="not supported yet (remote dataset paths are not ported)")
+                        help="JSON file of fsspec storage options for remote (e.g. az://) dataset paths")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     return parser
 
@@ -114,10 +115,10 @@ def run(args: argparse.Namespace) -> dict:
     """Train, then report the test fold's metrics (returned and printed)."""
     if args.autotune:
         raise NotImplementedError("--autotune: the padding autotuner is not ported yet")
-    if args.azure_info is not None:
-        raise NotImplementedError("--azure-info: remote dataset paths are not ported yet")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
+    if args.azure_info is not None:
+        configure_remote_io(args.azure_info)
     training_data = PPIDatasetLoader.load_data(args.data_path, "train")
     validation_data = PPIDatasetLoader.load_data(args.data_path, "valid")
 

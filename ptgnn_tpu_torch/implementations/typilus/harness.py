@@ -49,13 +49,15 @@ def build_graph2class(
     architecture: str = "mlp",
     dropout_rate: float = 0.1,
     topology: str = "random",
+    argmax_routing: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[Graph2Class, Graph2ClassModule, List[Dict[str, Any]]]:
     """Returns (model, module on ``device`` with seeded weights, host
-    minibatches)."""
+    minibatches). ``architecture``: 'mlp' or 'ggnn'; ``argmax_routing``:
+    single-winner gradients of the max aggregation."""
     model = create_graph2class_gnn_model(
         hidden_state_size=hidden_state_size, padding=padding,
-        architecture=architecture, dropout_rate=dropout_rate,
+        architecture=architecture, dropout_rate=dropout_rate, argmax_routing=argmax_routing,
     )
 
     def data():

@@ -46,6 +46,17 @@ class uniform(Initializer):
         tensor.uniform_(self.low, self.high, generator=generator)
 
 
+class normal(Initializer):
+    """torch.nn.init.normal_."""
+
+    def __init__(self, mean: float = 0.0, std: float = 1.0):
+        self.mean = mean
+        self.std = std
+
+    def __call__(self, tensor, generator):
+        tensor.normal_(self.mean, self.std, generator=generator)
+
+
 class xavier_uniform(Initializer):
     """torch.nn.init.xavier_uniform_: U(-a, a), a = gain*sqrt(6/(fan_in+fan_out))."""
 
@@ -56,6 +67,38 @@ class xavier_uniform(Initializer):
         fan_in, fan_out = _fan_in_out(tensor.shape)
         a = self.gain * math.sqrt(6.0 / (fan_in + fan_out))
         tensor.uniform_(-a, a, generator=generator)
+
+
+class xavier_normal(Initializer):
+    """torch.nn.init.xavier_normal_: N(0, std), std = gain*sqrt(2/(fan_in+fan_out))."""
+
+    def __init__(self, gain: float = 1.0):
+        self.gain = gain
+
+    def __call__(self, tensor, generator):
+        fan_in, fan_out = _fan_in_out(tensor.shape)
+        tensor.normal_(0.0, self.gain * math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
+
+
+class orthogonal(Initializer):
+    """torch.nn.init.orthogonal_: the Q of a gaussian's QR, sign-corrected so
+    the draw is uniform over the orthogonal matrices."""
+
+    def __init__(self, gain: float = 1.0):
+        self.gain = gain
+
+    def __call__(self, tensor, generator):
+        if tensor.ndim < 2:
+            raise ValueError("orthogonal requires a >=2D shape")
+        rows = tensor.shape[0]
+        cols = tensor.numel() // rows
+        flat = torch.empty(max(rows, cols), min(rows, cols), dtype=torch.float32)
+        flat.normal_(0.0, 1.0, generator=generator)
+        q, r = torch.linalg.qr(flat)
+        q = q * torch.sign(torch.diagonal(r))[None, :]
+        if rows < cols:
+            q = q.T
+        tensor.copy_((self.gain * q).reshape(tensor.shape))
 
 
 def torch_linear_bias(fan_in: int) -> uniform:

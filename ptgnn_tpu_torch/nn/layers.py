@@ -5,6 +5,7 @@ Weights keep the torch layouts of the JAX package (Linear weight
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -138,3 +139,48 @@ class LayerNorm(torch.nn.Module):
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         normed = (xf - mean) * torch.rsqrt(var + self.eps)
         return (normed * self.weight + self.bias).to(x.dtype)
+
+
+class GRUCell(torch.nn.Module):
+    """torch.nn.GRUCell-compatible cell (gate order r, z, n), with the JAX
+    package's dtype handling: each gate product accumulates in float32 at
+    least, is cast to its input's dtype, then gets its bias (bf16 under
+    AMP). Defaults are torch's U(-1/sqrt(H), 1/sqrt(H)); the GGNN state
+    update overrides them."""
+
+    def __init__(
+        self,
+        input_size: int,
+        hidden_size: int,
+        weight_ih_init: Optional[init.Initializer] = None,
+        weight_hh_init: Optional[init.Initializer] = None,
+        bias_ih_init: Optional[init.Initializer] = None,
+        bias_hh_init: Optional[init.Initializer] = None,
+    ):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        k = 1.0 / math.sqrt(hidden_size)
+        default = init.uniform(-k, k)
+        self._inits = (
+            weight_ih_init or default, weight_hh_init or default,
+            bias_ih_init or default, bias_hh_init or default,
+        )
+        self.weight_ih = torch.nn.Parameter(torch.empty(3 * hidden_size, input_size))
+        self.weight_hh = torch.nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
+        self.bias_ih = torch.nn.Parameter(torch.empty(3 * hidden_size))
+        self.bias_hh = torch.nn.Parameter(torch.empty(3 * hidden_size))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for fill, p in zip(self._inits, (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh)):
+            fill(p.data, generator)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        gi = F.linear(x, self.weight_ih.to(x.dtype)) + self.bias_ih
+        gh = F.linear(h, self.weight_hh.to(h.dtype)) + self.bias_hh
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h

@@ -43,6 +43,12 @@ _SIGNATURES = {
         [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
+    "extremum_argmax": (
+        "segment_extremum_argmax.cu",
+        "ptgnn_segment_extremum_argmax",
+        [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    ),
     "sum": (
         "segment_sum.cu",
         "ptgnn_segment_sum",

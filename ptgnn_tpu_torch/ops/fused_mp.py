@@ -22,6 +22,14 @@ scatter runs. For max/min the cotangent is split evenly among tied extrema
 recomputed bitwise from the saved forward input against the aggregated
 extremum, in both orientations.
 
+With ``argmax_routing`` (the JAX package's ``PTGNN_TPU_ARGMAX_ROUTING``), max
+and min instead route each (node, column)'s cotangent to one slot: the first
+that attains the extremum (torch-scatter's ``scatter_max``, which the
+original ptgnn trains with). The forward's argmax extremum kernel returns
+the winning slots; the backward selects by slot id in the primary
+orientation, and by the winner's (pair id, type) in the transpose one: no
+tie count, no message recompute.
+
 Message-input dropout is keyed on the DIRECTED (src, dst, type) identity by
 a uint32 hash (computed in int64, masked to 32 bits), so the transpose
 orientation regenerates the mask its pair edge used, and the mask equals
@@ -36,10 +44,13 @@ import torch
 from ptgnn_tpu_torch.ops.segment_kernels import (
     adjacency_broadcast_to_edges,
     adjacency_segment_reduce,
+    plan_from_adjacency,
+    planned_segment_extremum_with_argmax,
 )
 from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
 _U32 = 0xFFFFFFFF
+_BIG = 3.0e38
 
 
 def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,8 +113,10 @@ def _compute_dtype(node_states: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if node_states.dtype == torch.bfloat16 else torch.float32
 
 
-def _fused_fwd_impl(node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep):
-    """(aggregated messages, the dropped-out message input)."""
+def _fused_fwd_impl(node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep,
+                    argmax_routing=False):
+    """(aggregated messages, the winning slots of argmax routing or None, the
+    dropped-out message input)."""
     inp = node_states.index_select(0, _senders(adj, node_states.shape[0]))
     if use_target_state:
         # Receiver rows from the broadcast (0 at padding slots).
@@ -112,9 +125,23 @@ def _fused_fwd_impl(node_states, weight_stack, adj, seed, num_nodes, reduction, 
         key = _directed_edge_key(adj.senders, adj.receivers, adj.edge_types)
         inp = _apply_keyed_dropout(inp, (seed, key, keep))
     msgs = typed_tile_matmul(inp, weight_stack, adj.tile_types, adj.edge_tile)
+    if argmax_routing and reduction in ("max", "min"):
+        # The backward resolves each winner's transpose slot by its fwd/bwd
+        # pair id; the port's batcher always numbers them.
+        if adj.edge_feature_slot is None:
+            raise ValueError("argmax routing needs the batch's edge_feature_slot (fwd/bwd pair ids)")
+        is_max = reduction == "max"
+        neutral = torch.full((), -_BIG if is_max else _BIG, dtype=msgs.dtype, device=msgs.device)
+        work = torch.where(adj.mask[:, None], msgs, neutral)
+        if work.dtype not in (torch.float32, torch.bfloat16):
+            work = work.float()
+        vals, args = planned_segment_extremum_with_argmax(
+            work.contiguous(), plan_from_adjacency(adj), num_nodes, is_max
+        )
+        return vals.to(msgs.dtype), args, inp
     # The mask is the batch's static one, so the plan's counts are exact.
     out = adjacency_segment_reduce(msgs, adj, num_nodes, reduction, mask=adj.mask, counts_exact=True)
-    return out, inp
+    return out, None, inp
 
 
 def _primary_indicator(inp, weight_stack, adj, out, dtype) -> torch.Tensor:
@@ -137,9 +164,39 @@ def _transpose_indicator(x_recv, x_send, weight_stack, adj, out_send, drop_tr, d
 
 
 def _masked_take(values: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
+    """values[idx] along dim 0, ``fill`` where idx is out of range (JAX's
+    ``take(mode="fill")``)."""
     valid = (idx >= 0) & (idx < values.shape[0])
     got = values.index_select(0, torch.where(valid, idx, torch.zeros_like(idx)).long())
+    valid = valid.reshape(valid.shape + (1,) * (got.ndim - 1))
     return torch.where(valid, got, torch.full((), fill, dtype=values.dtype, device=values.device))
+
+
+def _primary_winners(args, adj, dtype) -> torch.Tensor:
+    """[E, M] 1 where a slot is its receiver's winning slot (argmax routing).
+    Padding receivers read -2, which no slot id equals; padding slots are
+    masked by the caller."""
+    arg_e = _masked_take(args, adj.receivers, -2)
+    slots = torch.arange(arg_e.shape[0], dtype=arg_e.dtype, device=arg_e.device)[:, None]
+    return (slots == arg_e).to(dtype)
+
+
+def _transpose_winners(args, adj, dtype) -> torch.Tensor:
+    """[E, M] 1 where the PAIR edge carried by a slot is the winner at the
+    pair's receiver (the slot's sender): the winning slot's (pair id, type)
+    equals this slot's (pair id, transposed type). A self edge is its own
+    pair, with pair id -1: its winner matches only a self edge of the same
+    type."""
+    pair = adj.edge_feature_slot
+    m = args.shape[1]
+    flat = args.reshape(-1)
+    of_arg = torch.cat([
+        _masked_take(pair, flat, -7).reshape(args.shape),
+        _masked_take(adj.edge_types, flat, -7).reshape(args.shape),
+    ], dim=1)  # [N, 2M]: the winner's pair id and type
+    at_sender = _masked_take(of_arg, adj.senders, -8)
+    tau = adj.tile_types_transposed.repeat_interleave(adj.edge_tile)
+    return ((pair[:, None] == at_sender[:, :m]) & (tau[:, None] == at_sender[:, m:])).to(dtype)
 
 
 def _use_masked_dw_route(n_tiles: int, e_pad: int, din: int, m: int, num_types: int, itemsize: int) -> bool:
@@ -175,14 +232,14 @@ def _weight_gradient(inp, d_msgs, weight_stack, adj, compute_dtype) -> torch.Ten
     return d_w.to(weight_stack.dtype)
 
 
-def _fused_bwd(node_states, weight_stack, adj, seed, out, inp, g,
+def _fused_bwd(node_states, weight_stack, adj, seed, out, args, inp, g,
                num_nodes, reduction, use_target_state, keep):
     n, d = node_states.shape
     # The backward runs in the forward's compute dtype (bf16 under AMP);
     # tie indicators are 0/1 and the segment kernels accumulate in float32.
     compute_dtype = _compute_dtype(node_states)
     g = g.to(compute_dtype)
-    value_tie = reduction in ("max", "min")
+    value_tie = reduction in ("max", "min") and args is None
     tile = adj.edge_tile
 
     drop = drop_tr = None
@@ -234,11 +291,14 @@ def _fused_bwd(node_states, weight_stack, adj, seed, out, inp, g,
 
     # Primary orientation: the per-slot message cotangent. The broadcast
     # zeroed the padding rows and the tie indicator carries the mask, so no
-    # masking select is needed.
+    # masking select is needed, except for argmax routing's winners.
     if reduction in ("sum", "add"):
         d_msgs = g_e_recv
     elif reduction == "mean":
         d_msgs = g_e_recv / per_node_divisor(recv_rows, adj.receivers, g_e_recv)
+    elif args is not None:
+        d_msgs = _primary_winners(args, adj, g_e_recv.dtype) * g_e_recv
+        d_msgs = torch.where(adj.mask[:, None], d_msgs, torch.zeros((), dtype=d_msgs.dtype, device=d_msgs.device))
     else:
         ties_recv = recv_rows[:, m:2 * m].to(ties.dtype)
         d_msgs = indicator_p * g_e_recv / ties_recv.clamp_min(1.0)
@@ -248,6 +308,8 @@ def _fused_bwd(node_states, weight_stack, adj, seed, out, inp, g,
         d_msgs_tr = g_e_send
     elif reduction == "mean":
         d_msgs_tr = g_e_send / per_node_divisor(send_rows, adj.senders, g_e_send)
+    elif args is not None:
+        d_msgs_tr = _transpose_winners(args, adj, g_e_send.dtype) * g_e_send
     else:
         x_recv = recv_rows[:, 2 * m:2 * m + d].to(node_states.dtype)
         x_send = send_rows[:, 3 * m:3 * m + d].to(node_states.dtype) if use_target_state else None
@@ -282,13 +344,14 @@ def _fused_bwd(node_states, weight_stack, adj, seed, out, inp, g,
 
 class _FusedTypedMessageAggregation(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep):
-        out, inp = _fused_fwd_impl(
-            node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep
+    def forward(ctx, node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep,
+                argmax_routing):
+        out, args, inp = _fused_fwd_impl(
+            node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, keep, argmax_routing
         )
         # The dropped-out message input is the one [E, Din] residual, as in
         # the JAX package; messages are recomputed where the ties need them.
-        ctx.save_for_backward(node_states, weight_stack, out, inp)
+        ctx.save_for_backward(node_states, weight_stack, out, inp, args)
         ctx.adj = adj
         ctx.seed = seed
         ctx.config = (num_nodes, reduction, use_target_state, keep)
@@ -296,9 +359,9 @@ class _FusedTypedMessageAggregation(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        node_states, weight_stack, out, inp = ctx.saved_tensors
-        d_x, d_w = _fused_bwd(node_states, weight_stack, ctx.adj, ctx.seed, out, inp, g, *ctx.config)
-        return d_x, d_w, None, None, None, None, None, None
+        node_states, weight_stack, out, inp, args = ctx.saved_tensors
+        d_x, d_w = _fused_bwd(node_states, weight_stack, ctx.adj, ctx.seed, out, args, inp, g, *ctx.config)
+        return d_x, d_w, None, None, None, None, None, None, None
 
 
 def fused_typed_message_aggregation(
@@ -310,15 +373,19 @@ def fused_typed_message_aggregation(
     use_target_state: bool,
     dropout_keep: float = 1.0,
     seed: Optional[torch.Tensor] = None,
+    argmax_routing: bool = False,
 ) -> torch.Tensor:
     """[num_nodes, M] aggregated messages. ``dropout_keep < 1`` drops message
-    inputs by the keyed mask of ``seed`` (an integer in [0, 2**32))."""
+    inputs by the keyed mask of ``seed`` (an integer in [0, 2**32)).
+    ``argmax_routing``: max/min route each cotangent to the first winning
+    slot alone instead of splitting it among ties."""
     if reduction not in ("sum", "add", "mean", "max", "min"):
         raise ValueError(f"Unknown reduction '{reduction}'")
     if dropout_keep < 1.0 and seed is None:
         raise ValueError("keyed message dropout needs a seed")
     return _FusedTypedMessageAggregation.apply(
-        node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, dropout_keep
+        node_states, weight_stack, adj, seed, num_nodes, reduction, use_target_state, dropout_keep,
+        argmax_routing,
     )
 
 
@@ -336,7 +403,7 @@ def tie_counts(
     wherever the node has in-edges, or that gradient would vanish."""
     n = node_states.shape[0]
     dtype = _compute_dtype(node_states)
-    out, inp = _fused_fwd_impl(node_states, weight_stack, adj, None, n, reduction, use_target_state, 1.0)
+    out, _, inp = _fused_fwd_impl(node_states, weight_stack, adj, None, n, reduction, use_target_state, 1.0)
     ties = adjacency_segment_reduce(
         _primary_indicator(inp, weight_stack, adj, out, dtype), adj, n, "sum", mask=adj.mask
     )

@@ -17,17 +17,20 @@ Kernels (sources in ``ptgnn_tpu_torch/csrc/``):
 
 * ``segment_sum.cu`` replaces ``_sum_kernel``;
 * ``segment_extremum.cu`` replaces ``_extremum_kernel``;
+* ``segment_extremum_argmax.cu`` replaces ``_extremum_argmax_kernel``;
 * ``broadcast_rows.cu`` replaces ``_broadcast_kernel``.
 
 Gradients mirror the JAX package's custom VJPs as ``torch.autograd.Function``s:
 the sum's backward is the broadcast, the broadcast's backward is the sum, and
 the extremum's backward splits the cotangent among tied extrema through one
-widened broadcast, a sum and a broadcast.
+widened broadcast, a sum and a broadcast. The argmax-carrying extremum is not
+differentiated itself: the fused op routes its cotangents by the winning
+slots (``ops/fused_mp.py``).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -213,6 +216,81 @@ def planned_segment_extremum(
 
 
 planned_segment_extremum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Segment extremum with its first winning slot (replaces _extremum_argmax_kernel)
+# ---------------------------------------------------------------------------
+
+
+def segment_extremum_argmax_plain(
+    data: torch.Tensor, plan: AggregationPlan, num_nodes: int, is_max: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the argmax extremum kernel: the float32 max/min per
+    plan row (as :func:`segment_extremum_plain`) and, per (row, column), the
+    smallest slot id whose value equals it (int32). Rows without slots, or
+    whose extremum is degenerate (|v| >= 1.5e38), give value 0 and arg -1;
+    -0.0 and +0.0 tie, and the value reads +0.0."""
+    num_blocks, r = plan.counts.shape
+    neutral = -_BIG if is_max else _BIG
+    rows = plan_rows(plan, num_blocks * r)
+    real = rows < num_blocks * r
+    work = torch.where(real[:, None], data.float(), torch.full((), neutral, device=data.device))
+    index = torch.where(real, rows, torch.zeros_like(rows))[:, None].expand_as(work)
+    vals = torch.full((num_blocks * r, data.shape[1]), neutral, dtype=torch.float32, device=data.device)
+    vals.scatter_reduce_(0, index, work, "amax" if is_max else "amin", include_self=True)
+    # The first occurrence: the least slot id among the slots equal to their
+    # row's extremum (sentinel and losing slots offer no id).
+    slots = torch.arange(data.shape[0], device=data.device)[:, None]
+    wins = real[:, None] & (work == vals.gather(0, index))
+    offer = torch.where(wins, slots, torch.full((), data.shape[0], device=data.device))
+    args = torch.full_like(vals, data.shape[0], dtype=torch.int64)
+    args.scatter_reduce_(0, index, offer, "amin", include_self=True)
+    vals, args = vals[:num_nodes], args[:num_nodes]
+    counts = plan.counts.reshape(-1)[:num_nodes]
+    invalid = (counts[:, None] == 0) | (vals.abs() >= _BIG / 2)
+    vals = torch.where(invalid, torch.zeros((), device=vals.device), vals) + 0.0
+    return vals, torch.where(invalid, torch.full((), -1, device=args.device), args).int()
+
+
+def planned_segment_extremum_with_argmax(
+    data: torch.Tensor, plan: AggregationPlan, num_nodes: int, is_max: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[E_pad, M] f32/bf16 slot data in plan order (masked slots already at
+    the neutral value) -> ([num_nodes, M] float32 per-node max/min, [num_nodes,
+    M] int32 first winning slot), 0 and -1 for empty rows. CPU: the plain
+    version; CUDA: the kernel. Not differentiable: callers route gradients by
+    the slots."""
+    if data.device.type == "cpu":
+        return segment_extremum_argmax_plain(data, plan, num_nodes, is_max)
+    _require_cuda(data, "planned_segment_extremum_with_argmax")
+    _check_plan(plan, data.device)
+    num_blocks, r = plan.counts.shape
+    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
+        raise ValueError("extremum data must be a contiguous [E, M] float32/bfloat16 tensor")
+    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
+        raise ValueError("extremum data and node count do not match the plan")
+    if data.shape[0] >= 2**31:
+        raise ValueError("slot ids must fit in int32")
+    block_tile_start = torch.searchsorted(
+        plan.tile_row_blocks,
+        torch.arange(num_blocks + 1, dtype=torch.int32, device=data.device),
+    )
+    m = data.shape[1]
+    vals = torch.empty((num_nodes, m), dtype=torch.float32, device=data.device)
+    args = torch.empty((num_nodes, m), dtype=torch.int32, device=data.device)
+    fn = cuda_build.kernel_function("extremum_argmax")
+    err = fn(
+        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.local_rows.data_ptr(),
+        block_tile_start.data_ptr(), plan.counts.data_ptr(), vals.data_ptr(), args.data_ptr(),
+        num_nodes, num_blocks, plan.tile, r, m, _stream(data.device),
+    )
+    cuda_build.check("extremum_argmax", err)
+    planned_segment_extremum_with_argmax.launches += 1
+    return vals, args
+
+
+planned_segment_extremum_with_argmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +508,7 @@ def adjacency_segment_reduce(
 
 _WRAPPERS = {
     "segment_extremum": planned_segment_extremum,
+    "segment_extremum_argmax": planned_segment_extremum_with_argmax,
     "broadcast_to_edges": planned_broadcast_to_edges,
     "segment_sum": planned_segment_sum,
     "typed_matmul": typed_matmul_kernel,

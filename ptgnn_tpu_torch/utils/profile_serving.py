@@ -2,7 +2,9 @@
 card, for Graph2Class or PPI.
 
 Builds the model's configuration with random seeded weights (Graph2Class:
-the benchmark configuration, ``train.default_padding()``, hidden 64; PPI:
+the benchmark configuration, ``train.default_padding()``, hidden 64, the
+``--architecture`` stack, with ``--argmax-routing`` single-winner max
+gradients; PPI:
 ``ppi_padding()``, hidden 256, synthetic graphs of the published PPI sizes,
 one graph a batch), keeps 6 batches on the device, and traces 3 passes over
 them with ``torch.profiler``: forwards, or with ``--train`` whole training
@@ -14,6 +16,7 @@ CUDA device:
 
     python -m ptgnn_tpu_torch.utils.profile_serving --trace serving_trace.json
     python -m ptgnn_tpu_torch.utils.profile_serving --train --trace train_trace.json
+    python -m ptgnn_tpu_torch.utils.profile_serving --train --architecture ggnn --argmax-routing
     python -m ptgnn_tpu_torch.utils.profile_serving --model ppi --train --amp
 """
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 # Kernel-name fragments -> class, first match wins.
 CLASSES = (
+    ("segment_extremum_argmax_kernel", "argmax extremum kernel"),
     ("segment_extremum_kernel", "extremum kernel"),
     ("broadcast_rows_kernel", "broadcast kernel"),
     ("segment_sum_kernel", "sum kernel"),
@@ -63,6 +67,9 @@ def main() -> None:
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
     parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
     parser.add_argument("--model", choices=("graph2class", "ppi"), default="graph2class")
+    parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp", help="Graph2Class's stack")
+    parser.add_argument("--argmax-routing", action="store_true",
+                        help="Graph2Class: single-winner gradients of the max aggregation")
     args = parser.parse_args()
 
     from torch.profiler import ProfilerActivity, profile
@@ -92,7 +99,7 @@ def main() -> None:
         _, module, minibatches = build_graph2class(
             padding=default_padding(), num_metadata_graphs=bench_graph_count(6), mean_nodes=2500,
             max_graph_nodes=8000, hidden_state_size=64, num_minibatches=6, minibatch_size=300,
-            device=dev,
+            architecture=args.architecture, argmax_routing=args.argmax_routing, device=dev,
         )
         lr = 2.5e-4
     batches = [tree_to(mb, dev) for mb in minibatches]
@@ -136,7 +143,8 @@ def main() -> None:
     device_ms = sum(by_class.values()) / 1e3
     summary = {
         "card": card,
-        "model": args.model,
+        "model": args.model if args.model == "ppi" else
+        f"graph2class {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
         "mode": ("train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
         "batches": n_batches,
         "wall_ms_per_batch_traced": 1e3 * wall / n_batches,

@@ -20,6 +20,15 @@ def _module_names():
         yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
 
 
+def test_the_import_check_covers_this_slices_modules():
+    names = set(_module_names())
+    assert {
+        "ptgnn_tpu_torch.graph.messagepassing.gated", "ptgnn_tpu_torch.utils.io",
+        "ptgnn_tpu_torch.utils.amlutils", "ptgnn_tpu_torch.implementations.typilus.train",
+        "ptgnn_tpu_torch.implementations.typilus.predict",
+    } <= names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -94,3 +103,28 @@ def test_ppi_entry_points_without_device_raise_when_cuda_is_missing(tmp_path):
     args = ppi_train.build_arg_parser().parse_args([str(tmp_path), str(tmp_path / "m.pkl.gz")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ppi_train.ModelTrainer(model, args.model_filename, device=args.device)
+
+
+def test_typilus_clis_without_device_raise_when_cuda_is_missing(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    monkeypatch.chdir(tmp_path)  # the train CLI's log file goes under the working directory
+    from ptgnn_tpu_torch.implementations.typilus import predict as typilus_predict
+    from ptgnn_tpu_torch.implementations.typilus import train as typilus_train
+    from ptgnn_tpu_torch.implementations.typilus.harness import build_graph2class, small_padding
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    (tmp_path / "data").mkdir()
+    write_jsonl_gz(tmp_path / "data" / "a.jsonl.gz", synthetic_typilus_graphs(2, seed=1, mean_nodes=40, max_nodes=80))
+    data = str(tmp_path / "data")
+    for architecture in ("mlp", "ggnn"):
+        args = typilus_train.build_arg_parser().parse_args(
+            [data, data, data, str(tmp_path / "m.pkl.gz"), "--architecture", architecture])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            typilus_train.run(args)
+    model, module, _ = build_graph2class(padding=small_padding(max_nodes=256), hidden_state_size=8,
+                                         architecture="ggnn", device="cpu")
+    model.save(tmp_path / "m.pkl.gz", module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        typilus_predict.run(typilus_predict.build_arg_parser().parse_args([str(tmp_path / "m.pkl.gz"), data]))

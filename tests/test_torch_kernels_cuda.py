@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions (bitwise for
-the broadcast and the extremum; for the sum within 1e-5 of each row's sum of
+the broadcast and the extremum; the argmax extremum's slots exactly and its
+values bitwise apart from the sign of zero; for the sum within 1e-5 of each row's sum of
 |x|, bitwise on 0/1 data and from run to run; for the typed matmul within
 2^-8 of each element plus 1e-5 of its sum of |x||w|, against float64, and
 bitwise from run to run and under tile and row permutations), and the small
@@ -75,6 +76,54 @@ def test_extremum_kernel_matches_plain_bitwise(cuda_device, reduction, dtype, m,
     assert not got[400:].float().any() and not got[[3, 11]].float().any()
 
 
+def _tied(plan, mask, m, dtype, is_max, seed):
+    """Coarse values (ties inside tiles), node 7's column 0 equal on all its
+    slots (ties across its tiles and types), -0.0 before +0.0 on node 9's
+    column 1, masked slots at the neutral value, as the fused op gives."""
+    g = torch.Generator().manual_seed(seed)
+    data = torch.round(torch.randn(plan.local_rows.shape[0], m, generator=g) * 2) / 2
+    rows = tsk.plan_rows(plan, plan.counts.numel())
+    data[rows == 7, 0] = 3.0 if is_max else -3.0
+    nine = torch.nonzero(rows == 9)[:, 0]
+    data[nine, 1] = -100.0 if is_max else 100.0
+    data[nine[0], 1], data[nine[1:], 1] = -0.0, 0.0
+    data = data.to(dtype)
+    info = torch.finfo(dtype)
+    neutral = {torch.float32: 3.0e38, torch.bfloat16: info.max}[dtype] * (-1 if is_max else 1)
+    return torch.where(mask[:, None], data, torch.full((), neutral, dtype=dtype))
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("m", [64, 128, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["max", "min"])
+def test_argmax_extremum_kernel_matches_plain(cuda_device, reduction, dtype, m, tile):
+    """M = 128 splits the columns over 8 CTAs of each row block, M = 40 ends
+    mid-chunk; values bitwise apart from the sign of zero, slots exactly, the
+    same bits on a second run."""
+    plan, mask = make_plan(m + tile + 1, tile, 4 * tile)
+    is_max = reduction == "max"
+    data = _tied(plan, mask, m, dtype, is_max, seed=m)
+    vals, args = tsk.planned_segment_extremum_with_argmax(data, plan, 450, is_max)
+    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    before = tsk.planned_segment_extremum_with_argmax.launches
+    cdata = data.to(cuda_device)
+    got_vals, got_args = tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max)
+    again_vals, again_args = tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max)
+    torch.cuda.synchronize()
+    assert tsk.planned_segment_extremum_with_argmax.launches == before + 2
+    assert got_vals.dtype == torch.float32 and got_args.dtype == torch.int32
+    np.testing.assert_array_equal(got_args.cpu().numpy(), args.numpy())
+    np.testing.assert_array_equal(_bits(got_vals + 0.0), _bits(vals + 0.0))
+    np.testing.assert_array_equal(_bits(got_vals), _bits(again_vals))
+    assert torch.equal(got_args, again_args)
+    # The planted cases: empty and all-masked rows, ties across tiles, zeros.
+    assert (got_args[400:] == -1).all() and (got_args[[3, 11]] == -1).all()
+    rows = tsk.plan_rows(plan, plan.counts.numel())
+    assert int(got_args[7, 0]) == int(torch.nonzero((rows == 7) & mask)[0, 0])
+    assert int(got_args[9, 1]) == int(torch.nonzero((rows == 9) & mask)[0, 0])
+
+
 @pytest.mark.parametrize("tile", [32, 128, 512])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -148,7 +197,8 @@ def test_graph2class_forward_on_card_matches_cpu(cuda_device):
         gpu = gpu_module._logits(batch.to(cuda_device), train=False)[0].cpu().numpy()
         counts = tsk.launch_counts()
         cpu = cpu_module._logits(batch.to("cpu"), train=False)[0].numpy()
-    assert counts == {"segment_extremum": 8, "broadcast_to_edges": 8, "segment_sum": 0, "typed_matmul": 0}
+    assert counts == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
+                      "segment_sum": 0, "typed_matmul": 0}
     # rtol 1e-4 and 1e-4 of the logit scale: float32 rounding differs
     # between the card's and the CPU's matmuls and transcendentals.
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=1e-4 * np.abs(cpu).max())
@@ -167,7 +217,8 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
                           generator=torch.Generator(device=cuda_device), amp=amp)
     loss.backward()
     torch.cuda.synchronize()
-    assert tsk.launch_counts() == {"segment_extremum": 8, "broadcast_to_edges": 24, "segment_sum": 16, "typed_matmul": 0}
+    assert tsk.launch_counts() == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 24,
+                                   "segment_sum": 16, "typed_matmul": 0}
     assert all(p.grad.dtype == torch.float32 for p in gpu_module.parameters())
     if amp:
         assert np.isfinite(float(loss.detach()))
@@ -181,12 +232,46 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
         np.testing.assert_allclose(g.grad.cpu().numpy(), c, rtol=1e-4, atol=1e-4 * np.abs(c).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("architecture,argmax_routing,per_step", [
+    ("mlp", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 16,
+                   "segment_sum": 8, "typed_matmul": 0}),
+    ("ggnn", False, {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 16,
+                     "segment_sum": 16, "typed_matmul": 0}),
+    ("ggnn", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 8,
+                    "segment_sum": 8, "typed_matmul": 0}),
+])
+def test_graph2class_paths_train_on_card_as_on_cpu(cuda_device, architecture, argmax_routing, per_step):
+    """A train step of the argmax-routed and the GGNN paths: the launches the
+    code gives, the loss to rtol 1e-5 and every gradient within 1e-2 of its
+    norm (a near-tie that the devices' few-ulp differences order differently
+    moves a single winner's gradient wholesale)."""
+    kw = dict(padding=small_padding(max_nodes=256), hidden_state_size=64, num_minibatches=1, dropout_rate=0.0,
+              architecture=architecture, argmax_routing=argmax_routing)
+    _, gpu_module, mbs = build_graph2class(device=cuda_device, **kw)
+    _, cpu_module, _ = build_graph2class(device="cpu", **kw)
+    tsk.reset_launch_counts()
+    loss, _ = module_loss(gpu_module, tree_to(mbs[0], cuda_device), train=True,
+                          generator=torch.Generator(device=cuda_device))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tsk.launch_counts() == per_step
+    cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
+                              generator=torch.Generator())
+    cpu_loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(cpu_loss.detach()), rtol=1e-5)
+    for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
+        assert float((g.grad.cpu() - c.grad).norm()) <= 1e-2 * float(c.grad.norm()), name
+
+
 @pytest.mark.parametrize("use_target_state", [True, False])
-@pytest.mark.parametrize("reduction", ["max", "min", "sum", "mean"])
-def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, use_target_state):
+@pytest.mark.parametrize("reduction,argmax_routing", [
+    ("max", False), ("min", False), ("sum", False), ("mean", False), ("max", True), ("min", True),
+])
+def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, argmax_routing, use_target_state):
     """The fused op's gradients through the kernels against the plain
     versions, every reduction (mean's widened table has an odd width, which
-    the broadcast pads): rtol/atol 1e-5, float32 sums in another order."""
+    the broadcast pads), both routings of max/min: rtol/atol 1e-5, float32
+    sums in another order."""
     pad = dict(max_nodes=256, max_edge_slots=8192, max_graphs=4, edge_tile=32, agg_rows=64, agg_sum_tile=128)
     batcher = GraphBatcher(2, BatchPadding(**pad), introduce_backwards_edges=True, add_self_edges=True)
     mb = batcher.initialize()
@@ -205,7 +290,7 @@ def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, use_target_s
         x = states.clone().to(device).requires_grad_()
         w = weights.clone().to(device).requires_grad_()
         out = fused_typed_message_aggregation(x, w, batch.to(device).adjacency, pad["max_nodes"], reduction,
-                                              use_target_state)
+                                              use_target_state, argmax_routing=argmax_routing)
         (out * cot.to(device)).sum().backward()
         grads.append((out.detach().cpu(), x.grad.cpu(), w.grad.cpu()))
     torch.cuda.synchronize()
@@ -333,8 +418,8 @@ def test_ppi_train_step_on_card_matches_cpu(cuda_device, amp, monkeypatch):
                           generator=torch.Generator(device=cuda_device), amp=amp)
     loss.backward()
     torch.cuda.synchronize()
-    assert tsk.launch_counts() == {"segment_extremum": 0, "broadcast_to_edges": 10, "segment_sum": 10,
-                                   "typed_matmul": 15 if amp else 0}
+    assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 10,
+                                   "segment_sum": 10, "typed_matmul": 15 if amp else 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator(), amp=amp)
     cpu_loss.backward()

@@ -36,6 +36,7 @@ from ptgnn_tpu_torch.implementations.ppi.harness import build_ppi, synthetic_ppi
 from ptgnn_tpu_torch.implementations.ppi.train import create_ppi_gnn_model
 from ptgnn_tpu_torch.ops import segment_kernels as tsk
 from ptgnn_tpu_torch.ops import typed_linear as ttl
+from ptgnn_tpu_torch.utils import io
 from ptgnn_tpu_torch.utils.synthetic import synthetic_ppi_graphs
 from tests.torch_port_helpers import force_jax_fused_interpret
 
@@ -115,8 +116,28 @@ def test_graphsage_loader_splits_and_rebases_graphs(tmp_path):
     np.testing.assert_array_equal(samples[1].adjacency_lists[0], [[0, 1]])
     np.testing.assert_array_equal(samples[1].node_labels, labels[3:].astype(bool))
     assert samples[0].node_labels.dtype == bool
-    with pytest.raises(NotImplementedError, match="remote"):
-        PPIDatasetLoader.load_data("az://container/ppi", "toy")
+    with pytest.raises(FileNotFoundError):
+        PPIDatasetLoader.load_data(tmp_path, "other")
+
+
+def test_graphsage_loader_reads_an_fsspec_memory_copy(tmp_path):
+    """A remote (``://``) path goes through fsspec: a ``memory://`` copy of
+    a small fold loads to the same samples as the local files."""
+    fsspec = pytest.importorskip("fsspec")
+    _write_graphsage(tmp_path, "train", synthetic_ppi_samples(3, 2, mean_nodes=30, num_labels=5, edges_per_node=3))
+    fs = fsspec.filesystem("memory")
+    remote = "memory://ppi-loader-test/data"
+    try:
+        for path in sorted(tmp_path.iterdir()):
+            fs.pipe(f"/ppi-loader-test/data/{path.name}", path.read_bytes())
+        local, copy = PPIDatasetLoader.load_data(tmp_path, "train"), PPIDatasetLoader.load_data(remote, "train")
+    finally:
+        fs.rm("/ppi-loader-test", recursive=True)
+    assert len(copy) == len(local) == 3
+    for a, b in zip(local, copy):
+        np.testing.assert_array_equal(a.adjacency_lists[0], b.adjacency_lists[0])
+        np.testing.assert_array_equal(a.node_features, b.node_features)
+        np.testing.assert_array_equal(a.node_labels, b.node_labels)
 
 
 def test_synthetic_ppi_graphs_equal_jax_bitwise():
@@ -260,9 +281,17 @@ def test_cli_trains_on_a_graphsage_directory(tmp_path):
                               "--minibatch-size", "2", "--max-nodes", "256", "--sequential-run", "--device", "cpu"])
     metrics = ppi_train.run(args)
     assert set(metrics) == {"f1_score", "pr_score", "re_score"}
-    for flag in (["--autotune"], ["--azure-info", "x.json"]):
-        with pytest.raises(NotImplementedError):
-            ppi_train.run(parser.parse_args([str(tmp_path), str(tmp_path / "m.pkl.gz"), *flag]))
+    with pytest.raises(NotImplementedError):
+        ppi_train.run(parser.parse_args([str(tmp_path), str(tmp_path / "m.pkl.gz"), "--autotune"]))
+    # --azure-info: a JSON object of fsspec storage options for remote paths.
+    (tmp_path / "auth.json").write_text(json.dumps({"anon": True}))
+    try:
+        with pytest.raises(FileNotFoundError):  # read before any data is
+            ppi_train.run(parser.parse_args([str(tmp_path / "none"), str(tmp_path / "m.pkl.gz"), "--azure-info",
+                                             str(tmp_path / "auth.json"), "--device", "cpu"]))
+        assert io._storage_options == {"anon": True}
+    finally:
+        io.configure_remote_io()
 
 
 def test_samples_from_synthetic_graphs():
