@@ -21,8 +21,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    8 extremum, 24 broadcast and 16 sum launches);
 5. parity: one batch on the card against the CPU with the same weights, and
    each kernel against its plain PyTorch version at the path's shapes
-   (bitwise for the broadcast and the extremum; within 1e-5 of each row's
-   sum of |x| for the sum, bitwise on 0/1 data and from run to run);
+   (bitwise for the broadcast and the extremum; the sum bitwise equal to its
+   plain version run on the CPU, within 1e-5 of each row's sum of |x| of the
+   one on the card, bitwise on 0/1 data and from run to run);
 6. train-parity: one train step (dropout 0) on the card against the CPU:
    the loss; each MP layer alone on the same inputs (the extremum kernel
    bitwise against the plain reduce of the card's messages, the aggregates
@@ -50,8 +51,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    the card against the CPU, elementwise; a bf16 AMP step (the typed matmul
    kernel) against the CPU's plain route; the typed matmul against float64
    at both PPI shapes in both dtypes, bitwise from run to run and under tile
-   and row permutations; the sum at 256 and 512 and the broadcast at 256 on
-   the PPI layout; a bf16 AMP step with dropout that repeats bit for bit;
+   and row permutations; the sum at 256 and 512 (bitwise equal to the CPU's
+   plain version too) and the broadcast at 256 on the PPI layout; a bf16 AMP
+   step with dropout that repeats bit for bit;
 10. argmax-train: Graph2Class at the benchmark configuration with argmax
    (single-winner) routing of the max aggregation: ModelTrainer.train for
    one epoch and train_steps in float32 and bf16 AMP (per step: 8 argmax
@@ -73,7 +75,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line; before it, the argmax extremum against
    its plain version at M 64 and 128, float32 and bf16, max and min, with
-   planted ties.
+   planted ties, and the extremum and the sum on a skewed layout (the
+   benchmark batch plus one hub row of 4,096 slots, which the kernels split)
+   against their plain versions, timed beside scatter_reduce and index_add_.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -780,6 +784,7 @@ def ppi_parity_phase(model, minibatches, batches, dev):
     max_abs_err = {}
     typed_matmul_checks(adj, dev, gen, max_abs_err)
     plan = sk.sum_plan_from_adjacency(adj)
+    cpu_plan = tree_to(plan, torch.device("cpu"))
     num_nodes = adj.agg_counts.numel()
     for width in (256, 512):
         for dtype in (torch.float32, torch.bfloat16):
@@ -790,6 +795,8 @@ def ppi_parity_phase(model, minibatches, batches, dev):
             max_abs_err[f"segment_sum {width} {str(dtype)[6:]}"] = float(err.max())
             if bool((err > 1e-5 * sk.segment_sum_plain(data.abs(), plan, num_nodes)).any()):
                 raise RuntimeError(f"sum kernel off by more than 1e-5 of sum|x| on the PPI layout at {width}/{dtype}")
+            if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)):
+                raise RuntimeError(f"sum kernel != its plain version on the CPU on the PPI layout at {width}/{dtype}")
             if not bitwise_equal(got, sk.planned_segment_sum(data, plan, num_nodes)):
                 raise RuntimeError(f"sum kernel gave other bits on a second run at {width}/{dtype}")
             ones = (torch.rand(data.shape, device=dev, generator=gen) < 0.5).to(dtype) * adj.mask[:, None].to(dtype)
@@ -801,9 +808,10 @@ def ppi_parity_phase(model, minibatches, batches, dev):
                                  sk.broadcast_plain(table.to(dtype), plan)):
                 raise RuntimeError(f"broadcast kernel != plain version on the PPI layout at 256/{dtype}")
     torch.cuda.synchronize()
-    phase("ppi-parity", f"on the PPI layout: sum kernel at 256 and 512 (f32, bf16) within 1e-5 x sum|x| "
-          f"(max abs err { {k: v for k, v in max_abs_err.items() if k.startswith('segment_sum')} }), bitwise "
-          f"on 0/1 data and run to run; broadcast at 256 (f32, bf16) bitwise equal to its plain version")
+    phase("ppi-parity", f"on the PPI layout: sum kernel at 256 and 512 (f32, bf16) bitwise equal to its plain "
+          f"version on the CPU, within 1e-5 x sum|x| of the one on the card (max abs err "
+          f"{ {k: v for k, v in max_abs_err.items() if k.startswith('segment_sum')} }), bitwise on 0/1 data and "
+          f"run to run; broadcast at 256 (f32, bf16) bitwise equal to its plain version")
 
     runs = []
     for _ in range(2):
@@ -1120,6 +1128,100 @@ def cli_phase(card):
     return counts
 
 
+HUB_SLOTS = 4096
+
+
+def skewed_layout_checks(host_adj, dev, gen, width: int = 64):
+    """The extremum and the sum at M = D = 64 on a skewed layout: one
+    benchmark batch's edges plus HUB_SLOTS more into one of its nodes, of
+    random types, laid out by the batcher's own assembler. The kernels split
+    the hub row into pieces of ROW_CHUNK slots. The extremum must equal its
+    plain version bitwise; the sum its plain version on the CPU bitwise on
+    every other row and within 1e-5 of the row's sum of |x| on the hub; both
+    the same bits on a second run. Both are timed beside scatter_reduce amax
+    and index_add_, on a line of their own."""
+    from ptgnn_tpu_torch.graph.batching import _assemble_layout_python, build_adjacency_struct
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    pad = default_padding()
+    real = host_adj.mask
+    rng = np.random.RandomState(SEED)
+    num_types = int(host_adj.edge_types.max()) + 1
+    hub = int(host_adj.receivers[real][0])
+    layout = _assemble_layout_python(
+        np.concatenate([host_adj.senders[real], rng.randint(0, pad.max_nodes, HUB_SLOTS)]).astype(np.int32),
+        np.concatenate([host_adj.receivers[real], np.full(HUB_SLOTS, hub)]).astype(np.int32),
+        np.concatenate([host_adj.edge_types[real], rng.randint(0, num_types, HUB_SLOTS)]).astype(np.int32),
+        np.full(int(real.sum()) + HUB_SLOTS, -1, np.int32),
+        max_nodes=pad.max_nodes, e_pad=pad.max_edge_slots + 2 * HUB_SLOTS, tile=pad.edge_tile,
+        agg_rows=pad.agg_rows, num_types=num_types, align=pad.agg_sum_tile,
+    )
+    if layout is None:
+        raise RuntimeError("the skewed layout does not fit its edge slots")
+    adj = tree_to(build_adjacency_struct(layout, tile=pad.edge_tile, align=pad.agg_sum_tile, num_fwd_types=num_types,
+                                         introduce_backwards_edges=False), dev)
+    ext_plan, sum_plan = sk.plan_from_adjacency(adj), sk.sum_plan_from_adjacency(adj)
+    num_nodes = adj.agg_counts.numel()
+    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
+    rows = sk.plan_rows(sum_plan, num_nodes)
+    lengths = torch.bincount(rows, minlength=num_nodes + 1)[:num_nodes]
+    short = lengths <= sk.ROW_CHUNK
+    if int((~short).sum()) != 1 or bool(short[hub]):
+        raise RuntimeError(f"the skewed layout should have one split row, node {hub}")
+
+    def masked(fill):
+        data = torch.randn(e_pad, width, device=dev, generator=gen)
+        return torch.where(adj.mask[:, None], data, torch.full((), fill, device=dev)).contiguous()
+
+    data = masked(-3.0e38)
+    got = sk.planned_segment_extremum(data, ext_plan, num_nodes, True)
+    ext_err = float((got - sk.segment_extremum_plain(data, ext_plan, num_nodes, True)).abs().max())
+    if not (bitwise_equal(got, sk.segment_extremum_plain(data, ext_plan, num_nodes, True))
+            and bitwise_equal(got, sk.planned_segment_extremum(data, ext_plan, num_nodes, True))):
+        raise RuntimeError("extremum kernel != plain version (or a second run) on the skewed layout")
+    data = masked(0.0)
+    got = sk.planned_segment_sum(data, sum_plan, num_nodes)
+    cpu_plan = tree_to(sum_plan, torch.device("cpu"))
+    cpu = sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)
+    err = (got.cpu() - cpu).abs()
+    if not (bitwise_equal(got.cpu()[short.cpu()], cpu[short.cpu()])
+            and bool((err <= 1e-5 * sk.segment_sum_plain(data.abs().cpu(), cpu_plan, num_nodes)).all())
+            and bitwise_equal(got, sk.planned_segment_sum(data, sum_plan, num_nodes))):
+        raise RuntimeError("sum kernel off its plain version on the CPU (or a second run) on the skewed layout")
+    phase("kernels", f"skewed layout ({e_real} real slots, node {hub} with {int(lengths[hub])} slots in "
+          f"{len(torch.unique(torch.nonzero(rows == hub)[:, 0] // adj.edge_tile))} tiles): extremum bitwise equal "
+          f"to its plain version, sum bitwise equal to the CPU's on every other row and within 1e-5 x sum|x| on the "
+          f"hub (its error {float(err[hub].max()):.3e}), both the same bits on a second run")
+
+    index = torch.where(adj.receivers < num_nodes, adj.receivers, num_nodes).long()[:, None].expand(-1, width)
+    index = index.contiguous()
+    sum_index = sk.plan_rows(sum_plan, num_nodes)
+    for name, fill, kernel, plain, library, err_abs in (
+        ("segment_extremum", -3.0e38, lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True),
+         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True),
+         lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(0, index, d, "amax",
+                                                                                 include_self=False), ext_err),
+        ("segment_sum", 0.0, lambda d: sk.planned_segment_sum(d, sum_plan, num_nodes),
+         lambda d: sk.segment_sum_plain(d, sum_plan, num_nodes),
+         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d), float(err.max())),
+    ):
+        datas = rotating(lambda: masked(fill), e_pad * width * 4)
+        calls = [[lambda d=datas[i % len(datas)], f=f: f(d) for i in range(16)] for f in (kernel, plain, library)]
+        extra = num_nodes * 4 if name == "segment_extremum" else 0  # the counts
+        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + extra + num_nodes * width * 4
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
+        entry = {
+            "name": name, "layout": f"bench batch + one hub row of {int(lengths[hub])} slots",
+            "ms": graph_time_ms(calls[0]), "plain_ms": graph_time_ms(calls[1]), "library_ms": graph_time_ms(calls[2]),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err_abs, "width": width, "dtype": "float32",
+        }
+        phase("kernels", "skewed layout " + json.dumps(entry))
+        del datas
+
+
 def argmax_kernel_checks(adj, dev, gen):
     """The argmax extremum kernel against its plain version on the benchmark
     layout at M 64 and 128, float32 and bf16, max and min, with planted ties:
@@ -1219,6 +1321,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import cuda_build
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
@@ -1349,6 +1452,7 @@ def main() -> None:
     num_nodes = adj.agg_counts.numel()
     ext_plan = sk.plan_from_adjacency(adj)
     bc_plan = sk.sum_plan_from_adjacency(adj)
+    cpu_bc_plan = tree_to(bc_plan, torch.device("cpu"))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     neutral = {  # the wrapper's masked value per (dtype, max?)
         (torch.float32, True): -3.0e38, (torch.float32, False): 3.0e38,
@@ -1383,8 +1487,10 @@ def main() -> None:
     torch.cuda.synchronize()
     phase("parity", f"kernels == plain versions bitwise at D/M and dtype {checks} (max and min)")
 
-    # The sum reorders a float32 sum: within 1e-5 of each row's sum of |x|;
-    # exact on 0/1 data (the tie counts), and the same bits on every run.
+    # The sum adds each row's slots in slot order, as index_add_ does on the
+    # CPU: bitwise equal to the plain version run there. index_add_ on the
+    # card adds in another order: within 1e-5 of each row's sum of |x|.
+    # Exact on 0/1 data (the tie counts), and the same bits on every run.
     sum_checks = []
     for width in (64, 128, 256):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1396,6 +1502,8 @@ def main() -> None:
             max_abs_err["segment_sum"] = max(max_abs_err["segment_sum"], float(err.max()))
             if bool((err > 1e-5 * sk.segment_sum_plain(data.abs(), bc_plan, num_nodes)).any()):
                 raise RuntimeError(f"sum kernel off by more than 1e-5 of the row's sum of |x| at {width}/{dtype}")
+            if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_bc_plan, num_nodes)):
+                raise RuntimeError(f"sum kernel != its plain version on the CPU at {width}/{dtype}")
             if not bitwise_equal(got, sk.planned_segment_sum(data, bc_plan, num_nodes)):
                 raise RuntimeError(f"sum kernel gave other bits on a second run at {width}/{dtype}")
             ones = (torch.rand(data.shape, device=dev, generator=gen) < 0.5).to(dtype) * adj.mask[:, None].to(dtype)
@@ -1404,8 +1512,9 @@ def main() -> None:
                 raise RuntimeError(f"sum kernel != plain version on 0/1 data at {width}/{dtype}")
             sum_checks.append(f"{width}/{str(dtype)[6:]}")
     torch.cuda.synchronize()
-    phase("parity", f"sum kernel within 1e-5 x sum|x| of its plain version (max abs err "
-          f"{max_abs_err['segment_sum']:.3e}), bitwise on 0/1 data and run to run, at {sum_checks}")
+    phase("parity", f"sum kernel bitwise equal to its plain version on the CPU, within 1e-5 x sum|x| of the "
+          f"plain version on the card (max abs err {max_abs_err['segment_sum']:.3e}), bitwise on 0/1 data and "
+          f"run to run, at {sum_checks}")
 
     # ---- 6. train parity ----------------------------------------------------
     train_parity_phase(model, batches[0], minibatches[0], dev)
@@ -1455,7 +1564,7 @@ def main() -> None:
             "library_ms": graph_time_ms(calls(
                 lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d), sums)),
         }
-        sum_bytes = e_real * width * 4 + e_pad * 4 + n_super * 4 + num_nodes * width * 4
+        sum_bytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4
         e = entry("segment_sum", segsum, sum_bytes, e_real * width, "ptgnn_tpu_torch/csrc/segment_sum.cu",
                   "ptgnn_tpu/ops/pallas/segment_kernels.py:197", width)
         if width == 64:
@@ -1484,7 +1593,7 @@ def main() -> None:
                 lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
                     0, scatter_index, d, "amax", include_self=False), datas)),
         }
-        ext_bytes = (e_real * width * 4 + e_pad * 4 + (num_blocks + 1) * 8 + num_nodes * 4
+        ext_bytes = (e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4
                      + num_nodes * width * 4)
         ext_ops = e_real * width
         for args in (
@@ -1517,8 +1626,7 @@ def main() -> None:
             "library_ms": graph_time_ms(calls(
                 lambda d: torch.zeros(ppi_nodes + 1, width, device=dev).index_add_(0, ppi_index, d), sums)),
         }
-        nbytes = (ppi_real * width * 4 + ppi_e_pad * 4 + ppi_plan.tile_row_blocks.numel() * 4
-                  + ppi_nodes * width * 4)
+        nbytes = ppi_real * width * 4 + ppi_real * 4 + (ppi_nodes + 1) * 4 + ppi_nodes * width * 4
         e = entry("segment_sum", times, nbytes, ppi_real * width, "ptgnn_tpu_torch/csrc/segment_sum.cu",
                   "ptgnn_tpu/ops/pallas/segment_kernels.py:197", width)
         e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"]
@@ -1539,6 +1647,7 @@ def main() -> None:
     phase("kernels", "PPI layout " + json.dumps(e))
     del tables
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
+    skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

@@ -11,10 +11,14 @@ serves both hot paths without device-side permutation:
   are one tile-batched matmul (ops/typed_linear.py);
 * every tile targets a single row block with receivers sorted inside it
   (``tile_row_blocks``, ``local_rows``): aggregation and the receiver
-  broadcast are block-local (ops/segment_kernels.py).
+  broadcast are block-local (ops/segment_kernels.py);
+* every row's real slots are listed in order (``row_offsets``,
+  ``row_slots``; the port's own): the segment max and sum kernels reduce
+  row by row.
 
 Backward edges (type id T+t) and self edges (last type id) are materialized
-here. All work is numpy; the arrays are bitwise those of the JAX package.
+here. All work is numpy; every array the JAX package also has is bitwise
+its own.
 """
 from __future__ import annotations
 
@@ -73,6 +77,24 @@ def _seg_counts_of(
     return delta
 
 
+def row_index(
+    local_rows: np.ndarray, tile_row_blocks: np.ndarray, counts: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The layout's real slots indexed by row: ``row_offsets``
+    [num_row_blocks * R + 1], the exclusive cumulative sum of the in-degrees
+    ``counts``, and ``row_slots`` [E_pad], each row's slots in increasing
+    order, row after row, then -1. Row g = block * R + local row."""
+    r = counts.shape[1]
+    tile = local_rows.shape[0] // tile_row_blocks.shape[0]
+    real = np.nonzero((local_rows >= 0) & (local_rows < r))[0]
+    rows = np.repeat(tile_row_blocks, tile)[real].astype(np.int64) * r + local_rows[real]
+    row_slots = np.full(local_rows.shape[0], -1, np.int32)
+    row_slots[: real.shape[0]] = real[np.argsort(rows, kind="stable")]
+    row_offsets = np.zeros(counts.size + 1, np.int32)
+    np.cumsum(counts.reshape(-1), out=row_offsets[1:])
+    return row_offsets, row_slots
+
+
 def build_adjacency_struct(
     layout_arrays: Tuple[np.ndarray, ...],
     *,
@@ -82,7 +104,7 @@ def build_adjacency_struct(
     introduce_backwards_edges: bool,
 ) -> AdjacencyStruct:
     """Wrap assembled layout arrays into an AdjacencyStruct with the derived
-    transpose tile-type map and supertile view."""
+    transpose tile-type map, supertile view and row index."""
     (senders, receivers, edge_types, local_rows, edge_mask, tile_types,
      tile_row_blocks, counts, feature_slot) = layout_arrays
     n_tiles = senders.shape[0] // tile
@@ -101,6 +123,7 @@ def build_adjacency_struct(
         grouped = tile_row_blocks.reshape(n_tiles // k, k)
         if bool(np.all(grouped == grouped[:, :1])):
             super_tile_row_blocks = np.ascontiguousarray(grouped[:, 0])
+    row_offsets, row_slots = row_index(local_rows, tile_row_blocks, counts)
 
     return AdjacencyStruct(
         senders=senders,
@@ -114,6 +137,8 @@ def build_adjacency_struct(
         agg_counts=counts,
         super_tile_row_blocks=super_tile_row_blocks,
         edge_feature_slot=feature_slot,
+        row_offsets=row_offsets,
+        row_slots=row_slots,
     )
 
 

@@ -133,6 +133,9 @@ class AdjacencyStruct(NamedTuple):
     ``local_rows``/``tile_row_blocks``/``agg_counts`` form the plan of the
     aggregation kernels; ``super_tile_row_blocks`` views the same slots at
     supertile granularity (one row block per ``agg_sum_tile`` slots).
+    ``row_offsets``/``row_slots`` index the real slots by row (the port's
+    own; the JAX package has no such arrays): row g's slots are
+    ``row_slots[row_offsets[g]:row_offsets[g + 1]]`` in increasing order.
     """
 
     senders: Any  # [E_pad] int32 (padding: 0)
@@ -146,6 +149,8 @@ class AdjacencyStruct(NamedTuple):
     agg_counts: Any = None  # [num_row_blocks, R] int32 in-degrees
     super_tile_row_blocks: Any = None  # [n_super] int32 or None
     edge_feature_slot: Any = None  # [E_pad] int32 (fwd/bwd pair ids) or None
+    row_offsets: Any = None  # [num_row_blocks * R + 1] int32, cumsum of agg_counts
+    row_slots: Any = None  # [E_pad] int32 real slots row after row (tail: -1)
 
     @property
     def edge_tile(self) -> int:

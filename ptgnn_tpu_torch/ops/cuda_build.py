@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``. Builds happen
 at first use, all sources at once (one ``nvcc`` process each, started
 together), into ``build/kernels/`` beside the package; a library's file name
-carries a hash of its source and flags, so a changed source rebuilds and an
-unchanged one is reused. Nothing is built or loaded at import.
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source or header rebuilds and an unchanged one is
+reused. Nothing is built or loaded at import.
 """
 from __future__ import annotations
 
@@ -40,8 +41,9 @@ _SIGNATURES = {
     "extremum": (
         "segment_extremum.cu",
         "ptgnn_segment_extremum",
-        [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+        [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P],
     ),
     "extremum_argmax": (
         "segment_extremum_argmax.cu",
@@ -52,8 +54,9 @@ _SIGNATURES = {
     "sum": (
         "segment_sum.cu",
         "ptgnn_segment_sum",
-        [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+        [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P],
     ),
     "typed_matmul": (
         "typed_matmul.cu",
@@ -80,7 +83,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     source = CSRC_DIR / _SIGNATURES[name][0]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -6,7 +6,11 @@ batcher lays edges out so that every tile of slots targets one row block of
 ``R`` receiver rows, with receivers sorted inside each (type-pure) tile; an
 ``AggregationPlan`` views that layout at edge-tile granularity
 (:func:`plan_from_adjacency`, for the extremum) or at supertile granularity
-(:func:`sum_plan_from_adjacency`, for sums and the broadcast).
+(:func:`sum_plan_from_adjacency`, for sums and the broadcast). A plan from a
+batch also carries the batch's row index (``row_offsets``, ``row_slots``:
+every row's real slots in increasing order, built once per batch on the
+host), over which the extremum and sum kernels reduce row by row; a plan
+built by hand gets it from :func:`with_row_index`.
 
 Each kernel has a plain PyTorch version in this module and a launch counter
 on its wrapper (``<wrapper>.launches``). A wrapper runs the plain version
@@ -29,8 +33,7 @@ slots (``ops/fused_mp.py``).
 """
 from __future__ import annotations
 
-import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,18 +42,25 @@ from ptgnn_tpu_torch.ops.typed_linear import typed_matmul_kernel
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SUM_COLS = 32  # columns per CTA of the sum kernel
+# Slots of one row that one lane group of the row-indexed kernels folds; a
+# longer row is split into pieces at multiples of it. Above every row of the
+# bench (14) and PPI (49) layouts.
+ROW_CHUNK = 128
 
 
 class AggregationPlan(NamedTuple):
     """Identity-order view of the unified layout: slot e belongs to tile
     e // tile, which targets row block ``tile_row_blocks[e // tile]``; its
     receiver is that block's row ``local_rows[e]`` (R = padding sentinel).
-    R = counts.shape[1]; tile = local_rows.numel() // tile_row_blocks.numel()."""
+    R = counts.shape[1]; tile = local_rows.numel() // tile_row_blocks.numel().
+    The row index lists row g's real slots as
+    ``row_slots[row_offsets[g]:row_offsets[g + 1]]``, in increasing order."""
 
     local_rows: torch.Tensor  # [E_pad] int32 in [0, R]
     tile_row_blocks: torch.Tensor  # [num_tiles] int32, non-decreasing
     counts: torch.Tensor  # [num_row_blocks, R] int32 in-degrees
+    row_offsets: Optional[torch.Tensor] = None  # [num_row_blocks * R + 1] int32
+    row_slots: Optional[torch.Tensor] = None  # [E_pad] int32, tail -1
 
     @property
     def tile(self) -> int:
@@ -59,8 +69,8 @@ class AggregationPlan(NamedTuple):
 
 def plan_from_adjacency(adj) -> AggregationPlan:
     """The layout at edge-tile granularity (type-pure, receiver-sorted tiles,
-    as the extremum kernel needs)."""
-    return AggregationPlan(adj.local_rows, adj.tile_row_blocks, adj.agg_counts)
+    as the argmax extremum kernel needs), with the batch's row index."""
+    return AggregationPlan(adj.local_rows, adj.tile_row_blocks, adj.agg_counts, adj.row_offsets, adj.row_slots)
 
 
 def sum_plan_from_adjacency(adj) -> AggregationPlan:
@@ -69,7 +79,9 @@ def sum_plan_from_adjacency(adj) -> AggregationPlan:
     at edge-tile granularity."""
     if adj.super_tile_row_blocks is None:
         return plan_from_adjacency(adj)
-    return AggregationPlan(adj.local_rows, adj.super_tile_row_blocks, adj.agg_counts)
+    return AggregationPlan(
+        adj.local_rows, adj.super_tile_row_blocks, adj.agg_counts, adj.row_offsets, adj.row_slots
+    )
 
 
 def plan_rows(plan: AggregationPlan, num_rows: int) -> torch.Tensor:
@@ -82,12 +94,34 @@ def plan_rows(plan: AggregationPlan, num_rows: int) -> torch.Tensor:
     return torch.where(real, rb * r + lr, torch.full_like(lr, num_rows))
 
 
+def with_row_index(plan: AggregationPlan) -> AggregationPlan:
+    """``plan`` with its row index, computed here with torch ops where it has
+    none (a plan built by hand; a batch's plans carry the index the batcher
+    built on the host). The offsets count the plan's real slots per row."""
+    if plan.row_offsets is not None and plan.row_slots is not None:
+        return plan
+    n = plan.counts.numel()
+    rows = plan_rows(plan, n)
+    order = torch.sort(rows, stable=True).indices
+    row_slots = torch.where(rows[order] < n, order, torch.full_like(order, -1)).int()
+    per_row = torch.bincount(rows, minlength=n + 1)[:n]
+    row_offsets = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)]).int()
+    return plan._replace(row_offsets=row_offsets, row_slots=row_slots)
+
+
 def _check_plan(plan: AggregationPlan, device: torch.device) -> None:
     for name, t in zip(plan._fields, plan):
+        if t is None and name in ("row_offsets", "row_slots"):
+            continue
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"plan.{name} must be a contiguous int32 tensor on {device}")
     if plan.local_rows.shape[0] % plan.tile_row_blocks.shape[0]:
         raise ValueError("plan slots are not a whole number of tiles")
+    if plan.row_offsets is not None and (
+        plan.row_offsets.shape != (plan.counts.numel() + 1,)
+        or plan.row_slots is None or plan.row_slots.shape != plan.local_rows.shape
+    ):
+        raise ValueError("the plan's row index does not match its slots and rows")
 
 
 def _stream(device: torch.device) -> int:
@@ -160,8 +194,54 @@ def adjacency_broadcast_to_edges(table: torch.Tensor, adj) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Segment extremum (replaces _extremum_kernel)
+# The row-indexed reductions: segment extremum and segment sum
 # ---------------------------------------------------------------------------
+
+
+def _row_reduce_setup(
+    data: torch.Tensor, plan: AggregationPlan, num_nodes: int, what: str
+) -> Tuple[AggregationPlan, torch.Tensor]:
+    """Checks the arguments of a row-indexed kernel; returns the plan with
+    its row index and the [num_nodes, D] float32 output."""
+    _check_plan(plan, data.device)
+    num_blocks, r = plan.counts.shape
+    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
+        raise ValueError(f"{what} data must be a contiguous [E, D] float32/bfloat16 tensor")
+    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
+        raise ValueError(f"{what} data and node count do not match the plan")
+    out = torch.empty((num_nodes, data.shape[1]), dtype=torch.float32, device=data.device)
+    return with_row_index(plan), out
+
+
+_SCRATCH: Dict[Tuple[Optional[int], str], torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []
+
+
+def _scratch(device: torch.device, name: str, size: int, dtype: torch.dtype) -> torch.Tensor:
+    """A per-device buffer of at least ``size`` elements, shared by the
+    launches on the device's stream. Grown, never shrunk; a replaced buffer
+    stays alive, since a captured CUDA graph may still point at it. New
+    buffers are zero (the kernels leave their counters at 0)."""
+    key = (device.index, name)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < size:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the row reductions' scratch must grow before a CUDA graph capture")
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(size, 2 * (0 if buf is None else buf.numel())), dtype=dtype, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def _row_reduce_scratch(data: torch.Tensor, num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 partials (a head and a body piece per ROW_CHUNK window of
+    slots) and the int32 counters (one per row and column chunk of at least
+    32 columns) of the rows that the kernels split."""
+    windows = -(-data.shape[0] // ROW_CHUNK)
+    partials = _scratch(data.device, "partials", 2 * windows * data.shape[1], torch.float32)
+    counters = _scratch(data.device, "counters", num_nodes * -(-data.shape[1] // 32), torch.int32)
+    return partials, counters
 
 
 def segment_extremum_plain(
@@ -193,22 +273,17 @@ def planned_segment_extremum(
     if data.device.type == "cpu":
         return segment_extremum_plain(data, plan, num_nodes, is_max)
     _require_cuda(data, "planned_segment_extremum")
-    _check_plan(plan, data.device)
-    num_blocks, r = plan.counts.shape
-    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
-        raise ValueError("extremum data must be a contiguous [E, M] float32/bfloat16 tensor")
-    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
-        raise ValueError("extremum data and node count do not match the plan")
-    block_tile_start = torch.searchsorted(
-        plan.tile_row_blocks,
-        torch.arange(num_blocks + 1, dtype=torch.int32, device=data.device),
-    )
-    out = torch.empty((num_nodes, data.shape[1]), dtype=torch.float32, device=data.device)
+    plan, out = _row_reduce_setup(data, plan, num_nodes, "extremum")
+    if out.numel() == 0:
+        return out
+    partials, counters = _row_reduce_scratch(data, num_nodes)
     fn = cuda_build.kernel_function("extremum")
     err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.local_rows.data_ptr(),
-        block_tile_start.data_ptr(), plan.counts.data_ptr(), out.data_ptr(), num_nodes,
-        num_blocks, plan.tile, r, data.shape[1], _stream(data.device),
+        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
+        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+        plan.counts.data_ptr(), out.data_ptr(), partials.data_ptr(), partials.numel(),
+        counters.data_ptr(), counters.numel(), num_nodes, data.shape[0], plan.tile,
+        plan.counts.shape[1], data.shape[1], ROW_CHUNK, _stream(data.device),
     )
     cuda_build.check("extremum", err)
     planned_segment_extremum.launches += 1
@@ -308,20 +383,6 @@ def segment_sum_plain(data: torch.Tensor, plan: AggregationPlan, num_nodes: int)
     return out[:num_nodes]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _sum_splits(device: torch.device, num_blocks: int, d: int) -> int:
-    """Parts of each row block's tile range, so the sum kernel runs about two
-    CTAs per SM: (row blocks x 32-column chunks) alone fill too few SMs at
-    the bench layout (32 row blocks)."""
-    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-    ctas = num_blocks * -(-d // _SUM_COLS)
-    return max(1, min(8, -(-2 * sms // max(ctas, 1))))
-
-
 def planned_segment_sum(
     data: torch.Tensor, plan: AggregationPlan, num_nodes: int
 ) -> torch.Tensor:
@@ -332,27 +393,17 @@ def planned_segment_sum(
     if data.device.type == "cpu":
         return segment_sum_plain(data, plan, num_nodes)
     _require_cuda(data, "planned_segment_sum")
-    _check_plan(plan, data.device)
-    num_blocks, r = plan.counts.shape
-    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
-        raise ValueError("sum data must be a contiguous [E, D] float32/bfloat16 tensor")
-    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
-        raise ValueError("sum data and node count do not match the plan")
-    d = data.shape[1]
-    out = torch.empty((num_nodes, d), dtype=torch.float32, device=data.device)
-    if d == 0 or num_nodes == 0:
+    plan, out = _row_reduce_setup(data, plan, num_nodes, "sum")
+    if out.numel() == 0:
         return out
-    splits = _sum_splits(data.device, num_blocks, d)
-    partial = (
-        torch.empty((splits, num_nodes, d), dtype=torch.float32, device=data.device)
-        if splits > 1 else None
-    )
+    partials, counters = _row_reduce_scratch(data, num_nodes)
     fn = cuda_build.kernel_function("sum")
     err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], plan.local_rows.data_ptr(),
-        plan.tile_row_blocks.data_ptr(), plan.tile_row_blocks.shape[0],
-        None if partial is None else partial.data_ptr(), out.data_ptr(), num_nodes,
-        num_blocks, plan.tile, r, d, splits, _stream(data.device),
+        data.data_ptr(), _KERNEL_DTYPES[data.dtype], plan.row_offsets.data_ptr(),
+        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+        out.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
+        counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1],
+        data.shape[1], ROW_CHUNK, _stream(data.device),
     )
     cuda_build.check("sum", err)
     planned_segment_sum.launches += 1

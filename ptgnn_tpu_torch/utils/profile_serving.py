@@ -35,7 +35,6 @@ CLASSES = (
     ("segment_extremum_kernel", "extremum kernel"),
     ("broadcast_rows_kernel", "broadcast kernel"),
     ("segment_sum_kernel", "sum kernel"),
-    ("combine_partials_kernel", "sum kernel"),
     ("typed_matmul", "typed matmul kernel"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("gemm", "matmul"),

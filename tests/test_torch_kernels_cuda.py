@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions (bitwise for
-the broadcast and the extremum; the argmax extremum's slots exactly and its
-values bitwise apart from the sign of zero; for the sum within 1e-5 of each row's sum of
-|x|, bitwise on 0/1 data and from run to run; for the typed matmul within
+the broadcast and the extremum, a hub row of thousands of slots included; the
+argmax extremum's slots exactly and its values bitwise apart from the sign of
+zero; the sum bitwise from run to run and on 0/1 data, bitwise equal to the
+CPU's at rows of at most ROW_CHUNK slots and within 1e-5 of each row's sum
+of |x| on longer ones; for the typed matmul within
 2^-8 of each element plus 1e-5 of its sum of |x||w|, against float64, and
 bitwise from run to run and under tile and row permutations), and the small
 Graph2Class and PPI forward and train steps on the card against the CPU.
@@ -38,11 +40,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_plan(seed, tile, align):
+def make_plan(seed, tile, align, hub=0):
     """A unified layout: nodes >= 400 have no edges, node 7 has enough edges
-    to span several tiles, receivers 3 and 11 have all their edges masked."""
+    to span several tiles (300 + ``hub``, more than ROW_CHUNK: a split row),
+    receivers 3 and 11 have all their edges masked. The plan carries no row
+    index: the wrappers compute it (``with_row_index``)."""
     rng = np.random.RandomState(seed)
-    recv = np.concatenate([rng.randint(0, 400, 3000), np.full(300, 7)]).astype(np.int32)
+    recv = np.concatenate([rng.randint(0, 400, 3000), np.full(300 + hub, 7)]).astype(np.int32)
     types = rng.randint(0, 5, len(recv)).astype(np.int32)
     layout = _assemble_layout_python(
         np.zeros_like(recv), recv, types, np.full(len(recv), -1, np.int32),
@@ -58,22 +62,64 @@ def _bits(t):
     return t.cpu().view(torch.int16 if t.element_size() == 2 else torch.int32).numpy()
 
 
+def _signed_zeros(data, plan, is_max):
+    """Node 9's column 0 ties at zero: -0.0 on its first slot, +0.0 on the
+    others, every other value of the row on the losing side."""
+    rows = tsk.plan_rows(plan, plan.counts.numel())
+    nine = torch.nonzero(rows == 9)[:, 0]
+    data[nine, 0] = -5.0 if is_max else 5.0
+    data[nine[0], 0], data[nine[1:], 0] = -0.0, 0.0
+    return data
+
+
 @pytest.mark.parametrize("tile", [32, 128])
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [1, 40, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reduction", ["max", "min"])
 def test_extremum_kernel_matches_plain_bitwise(cuda_device, reduction, dtype, m, tile):
+    """M = 1 and 40 take the scalar and the partial-group paths; empty and
+    all-masked rows, a last row block that 450 rows fill in part, the split
+    row 7, and -0.0 tied with +0.0 (read +0.0)."""
     plan, mask = make_plan(m + tile, tile, 4 * tile)
     g = torch.Generator().manual_seed(m)
-    data = torch.randn(plan.local_rows.shape[0], m, generator=g).to(dtype)
+    data = _signed_zeros(torch.randn(plan.local_rows.shape[0], m, generator=g), plan, reduction == "max").to(dtype)
     plain = tsk.planned_segment_reduce(data, plan, 450, reduction, mask)
-    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    cplan = tree_to(plan, cuda_device)
     before = tsk.planned_segment_extremum.launches
     got = tsk.planned_segment_reduce(data.to(cuda_device), cplan, 450, reduction, mask.to(cuda_device))
     torch.cuda.synchronize()
     assert tsk.planned_segment_extremum.launches == before + 1
     np.testing.assert_array_equal(_bits(got), _bits(plain))
     assert not got[400:].float().any() and not got[[3, 11]].float().any()
+    assert _bits(got)[9, 0] == 0  # +0.0
+
+
+@pytest.mark.parametrize("m", [1, 40, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["max", "min"])
+def test_extremum_kernel_splits_a_hub_row_bitwise(cuda_device, reduction, dtype, m):
+    """Node 7 with 4,396 slots over many tiles of five types: its pieces are
+    combined by the last to finish, bitwise equal to the plain version, the
+    same bits on a second run; the batcher's index (from the host) gives the
+    same result as the one the wrapper computes."""
+    from ptgnn_tpu_torch.graph.batching import row_index
+
+    plan, mask = make_plan(m + 3, 128, 512, hub=4096)
+    assert int((tsk.plan_rows(plan, plan.counts.numel()) == 7).sum()) > 32 * tsk.ROW_CHUNK
+    g = torch.Generator().manual_seed(m + 3)
+    data = torch.randn(plan.local_rows.shape[0], m, generator=g).to(dtype)
+    plain = tsk.planned_segment_reduce(data, plan, 450, reduction, mask)
+    offsets, slots = row_index(plan.local_rows.numpy(), plan.tile_row_blocks.numpy(), plan.counts.numpy())
+    indexed = plan._replace(row_offsets=torch.from_numpy(offsets), row_slots=torch.from_numpy(slots))
+    cdata, cmask = data.to(cuda_device), mask.to(cuda_device)
+    before = tsk.planned_segment_extremum.launches
+    runs = [tsk.planned_segment_reduce(cdata, tree_to(p, cuda_device), 450, reduction, cmask)
+            for p in (plan, indexed, plan)]
+    torch.cuda.synchronize()
+    assert tsk.planned_segment_extremum.launches == before + 3
+    for got in runs:
+        np.testing.assert_array_equal(_bits(got), _bits(plain))
+    assert bool((runs[0][7] != 0).all())
 
 
 def _tied(plan, mask, m, dtype, is_max, seed):
@@ -105,7 +151,7 @@ def test_argmax_extremum_kernel_matches_plain(cuda_device, reduction, dtype, m, 
     is_max = reduction == "max"
     data = _tied(plan, mask, m, dtype, is_max, seed=m)
     vals, args = tsk.planned_segment_extremum_with_argmax(data, plan, 450, is_max)
-    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    cplan = tree_to(plan, cuda_device)
     before = tsk.planned_segment_extremum_with_argmax.launches
     cdata = data.to(cuda_device)
     got_vals, got_args = tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max)
@@ -131,7 +177,7 @@ def test_broadcast_kernel_matches_plain_bitwise(cuda_device, dtype, d, tile):
     plan, _ = make_plan(d + tile, tile, tile)
     table = torch.randn(500, d, generator=torch.Generator().manual_seed(d)).to(dtype)
     plain = tsk.planned_broadcast_to_edges(table, plan)
-    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    cplan = tree_to(plan, cuda_device)
     before = tsk.planned_broadcast_to_edges.launches
     got = tsk.planned_broadcast_to_edges(table.to(cuda_device), cplan)
     torch.cuda.synchronize()
@@ -145,13 +191,23 @@ def supertile_plan(plan, tile, align):
     return tsk.AggregationPlan(plan.local_rows, trb, plan.counts)
 
 
+def _short_rows(plan, num_nodes):
+    """Rows of at most ROW_CHUNK slots: the kernel adds them in slot order,
+    as index_add_ does on the CPU."""
+    counts = torch.bincount(tsk.plan_rows(plan, plan.counts.numel()), minlength=plan.counts.numel() + 1)
+    return counts[:num_nodes] <= tsk.ROW_CHUNK
+
+
 @pytest.mark.parametrize("tile,align", [(32, 128), (128, 512)])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [1, 40, 64, 128, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sum_kernel_matches_plain_and_is_deterministic(cuda_device, dtype, d, tile, align):
+    """Bitwise equal to the CPU's plain version on every row of at most
+    ROW_CHUNK slots; on the split row 7 a float32 sum in another order,
+    within 1e-5 of its sum of |x|; the same bits on every run."""
     plan, mask = make_plan(d + tile, tile, align)
     plan = supertile_plan(plan, tile, align)
-    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    cplan = tree_to(plan, cuda_device)
     g = torch.Generator().manual_seed(d)
     data = torch.randn(plan.local_rows.shape[0], d, generator=g).to(dtype)
     data = torch.where(mask[:, None], data, torch.zeros((), dtype=dtype))
@@ -162,7 +218,9 @@ def test_sum_kernel_matches_plain_and_is_deterministic(cuda_device, dtype, d, ti
     torch.cuda.synchronize()
     assert tsk.planned_segment_sum.launches == before + 2
     assert got.dtype == torch.float32 and tuple(got.shape) == (450, d)
-    # A float32 sum in another order: within 1e-5 of each row's sum of |x|.
+    short = _short_rows(plan, 450)
+    assert not bool(short[7])
+    np.testing.assert_array_equal(_bits(got[short.to(cuda_device)]), _bits(plain[short]))
     bound = 1e-5 * tsk.planned_segment_sum(data.abs(), plan, 450)
     assert bool(((got.cpu() - plain).abs() <= bound).all())
     np.testing.assert_array_equal(_bits(got), _bits(again))  # the same bits on every run
@@ -175,13 +233,40 @@ def test_sum_kernel_matches_plain_and_is_deterministic(cuda_device, dtype, d, ti
     )
 
 
+@pytest.mark.parametrize("d", [1, 40, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_kernel_splits_a_hub_row(cuda_device, dtype, d):
+    """Node 7 with 4,396 slots: its pieces added in piece order, within 1e-5
+    of its sum of |x| and the same bits on every run; every other row
+    bitwise equal to the CPU's; exact on 0/1 data."""
+    plan, mask = make_plan(d + 5, 128, 512, hub=4096)
+    plan = supertile_plan(plan, 128, 512)
+    cplan = tree_to(plan, cuda_device)
+    g = torch.Generator().manual_seed(d + 5)
+    data = torch.where(mask[:, None], torch.randn(plan.local_rows.shape[0], d, generator=g), 0.0).to(dtype)
+    plain = tsk.planned_segment_sum(data, plan, 450)
+    before = tsk.planned_segment_sum.launches
+    runs = [tsk.planned_segment_sum(data.to(cuda_device), cplan, 450) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tsk.planned_segment_sum.launches == before + 2
+    short = _short_rows(plan, 450)
+    assert int(short.logical_not().sum()) == 1
+    np.testing.assert_array_equal(_bits(runs[0][short.to(cuda_device)]), _bits(plain[short]))
+    bound = 1e-5 * tsk.planned_segment_sum(data.abs(), plan, 450)
+    assert bool(((runs[0].cpu() - plain).abs() <= bound).all())
+    np.testing.assert_array_equal(_bits(runs[0]), _bits(runs[1]))
+    ones = (torch.rand(data.shape, generator=g) < 0.5).to(dtype) * mask[:, None].to(dtype)
+    np.testing.assert_array_equal(_bits(tsk.planned_segment_sum(ones.to(cuda_device), cplan, 450)),
+                                  _bits(tsk.planned_segment_sum(ones, plan, 450)))
+
+
 @pytest.mark.parametrize("reduction", ["sum", "mean"])
 def test_sum_and_mean_reduce_run_the_kernel_on_cuda(cuda_device, reduction):
     plan, mask = make_plan(5, 128, 512)
     plan = supertile_plan(plan, 128, 512)
     data = torch.randn(plan.local_rows.shape[0], 64, generator=torch.Generator().manual_seed(1))
     plain = tsk.planned_segment_reduce(data, plan, 450, reduction, mask)
-    cplan = tsk.AggregationPlan(*(t.to(cuda_device) for t in plan))
+    cplan = tree_to(plan, cuda_device)
     got = tsk.planned_segment_reduce(data.to(cuda_device), cplan, 450, reduction, mask.to(cuda_device))
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5, atol=1e-5)
