@@ -75,9 +75,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line; before it, the argmax extremum against
    its plain version at M 64 and 128, float32 and bf16, max and min, with
-   planted ties, and the extremum and the sum on a skewed layout (the
-   benchmark batch plus one hub row of 4,096 slots, which the kernels split)
-   against their plain versions, timed beside scatter_reduce and index_add_.
+   planted ties, and the extremum, the argmax extremum and the sum on a
+   skewed layout (the benchmark batch plus one hub row of 4,096 slots, which
+   the kernels split) against their plain versions, timed beside
+   scatter_reduce and index_add_.
+
+14. sanitizer: every kernel once at a small size under compute-sanitizer's
+   memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
+   is what it runs), or a line saying why the tool could not run.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi reports them.
@@ -87,6 +92,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1132,14 +1138,16 @@ HUB_SLOTS = 4096
 
 
 def skewed_layout_checks(host_adj, dev, gen, width: int = 64):
-    """The extremum and the sum at M = D = 64 on a skewed layout: one
-    benchmark batch's edges plus HUB_SLOTS more into one of its nodes, of
-    random types, laid out by the batcher's own assembler. The kernels split
-    the hub row into pieces of ROW_CHUNK slots. The extremum must equal its
-    plain version bitwise; the sum its plain version on the CPU bitwise on
-    every other row and within 1e-5 of the row's sum of |x| on the hub; both
-    the same bits on a second run. Both are timed beside scatter_reduce amax
-    and index_add_, on a line of their own."""
+    """The extremum, the argmax extremum and the sum at M = D = 64 on a
+    skewed layout: one benchmark batch's edges plus HUB_SLOTS more into one
+    of its nodes, of random types, laid out by the batcher's own assembler.
+    The kernels split the hub row into pieces of ROW_CHUNK slots. The
+    extremum must equal its plain version bitwise, the argmax extremum too
+    (slots exactly, a tie across the hub's pieces to its first slot); the
+    sum its plain version on the CPU bitwise on every other row and within
+    1e-5 of the row's sum of |x| on the hub; all the same bits on a second
+    run. Each is timed beside scatter_reduce amax (values only, for the
+    argmax) or index_add_, on a line of its own."""
     from ptgnn_tpu_torch.graph.batching import _assemble_layout_python, build_adjacency_struct
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.implementations.typilus.train import default_padding
@@ -1181,6 +1189,17 @@ def skewed_layout_checks(host_adj, dev, gen, width: int = 64):
     if not (bitwise_equal(got, sk.segment_extremum_plain(data, ext_plan, num_nodes, True))
             and bitwise_equal(got, sk.planned_segment_extremum(data, ext_plan, num_nodes, True))):
         raise RuntimeError("extremum kernel != plain version (or a second run) on the skewed layout")
+    data = masked(-3.0e38)
+    data[torch.nonzero(rows == hub)[::7, 0], 1] = 9.0  # a tie across the hub's pieces
+    vals, args = sk.planned_segment_extremum_with_argmax(data, ext_plan, num_nodes, True)
+    plain_vals, plain_args = sk.segment_extremum_argmax_plain(data, ext_plan, num_nodes, True)
+    again_vals, again_args = sk.planned_segment_extremum_with_argmax(data, ext_plan, num_nodes, True)
+    argmax_err = float((vals - plain_vals).abs().max())
+    if not (bitwise_equal(vals, plain_vals) and torch.equal(args, plain_args)
+            and bitwise_equal(vals, again_vals) and torch.equal(args, again_args)):
+        raise RuntimeError("argmax extremum kernel != plain version (or a second run) on the skewed layout")
+    if int(args[hub, 1]) != int(torch.nonzero((rows == hub) & adj.mask)[0, 0]):
+        raise RuntimeError("argmax extremum kernel did not keep the first slot of the hub's tie")
     data = masked(0.0)
     got = sk.planned_segment_sum(data, sum_plan, num_nodes)
     cpu_plan = tree_to(sum_plan, torch.device("cpu"))
@@ -1192,25 +1211,31 @@ def skewed_layout_checks(host_adj, dev, gen, width: int = 64):
         raise RuntimeError("sum kernel off its plain version on the CPU (or a second run) on the skewed layout")
     phase("kernels", f"skewed layout ({e_real} real slots, node {hub} with {int(lengths[hub])} slots in "
           f"{len(torch.unique(torch.nonzero(rows == hub)[:, 0] // adj.edge_tile))} tiles): extremum bitwise equal "
-          f"to its plain version, sum bitwise equal to the CPU's on every other row and within 1e-5 x sum|x| on the "
-          f"hub (its error {float(err[hub].max()):.3e}), both the same bits on a second run")
+          f"to its plain version, argmax extremum too (values bitwise, slots exactly; a tie over "
+          f"every seventh hub slot went to its first slot), sum bitwise equal "
+          f"to the CPU's on every other row and within 1e-5 x sum|x| on the hub (its error "
+          f"{float(err[hub].max()):.3e}), all the same bits on a second run")
 
     index = torch.where(adj.receivers < num_nodes, adj.receivers, num_nodes).long()[:, None].expand(-1, width)
     index = index.contiguous()
     sum_index = sk.plan_rows(sum_plan, num_nodes)
+    scatter_amax = lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(  # noqa: E731
+        0, index, d, "amax", include_self=False)
     for name, fill, kernel, plain, library, err_abs in (
         ("segment_extremum", -3.0e38, lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True),
-         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True),
-         lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(0, index, d, "amax",
-                                                                                 include_self=False), ext_err),
+         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True), scatter_amax, ext_err),
+        ("segment_extremum_argmax", -3.0e38,
+         lambda d: sk.planned_segment_extremum_with_argmax(d, ext_plan, num_nodes, True),
+         lambda d: sk.segment_extremum_argmax_plain(d, ext_plan, num_nodes, True), scatter_amax, argmax_err),
         ("segment_sum", 0.0, lambda d: sk.planned_segment_sum(d, sum_plan, num_nodes),
          lambda d: sk.segment_sum_plain(d, sum_plan, num_nodes),
          lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d), float(err.max())),
     ):
         datas = rotating(lambda: masked(fill), e_pad * width * 4)
         calls = [[lambda d=datas[i % len(datas)], f=f: f(d) for i in range(16)] for f in (kernel, plain, library)]
-        extra = num_nodes * 4 if name == "segment_extremum" else 0  # the counts
-        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + extra + num_nodes * width * 4
+        extra = num_nodes * 4 if name != "segment_sum" else 0  # the counts
+        slots_out = num_nodes * width * 4 if name == "segment_extremum_argmax" else 0
+        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + extra + num_nodes * width * 4 + slots_out
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
         entry = {
             "name": name, "layout": f"bench batch + one hub row of {int(lengths[hub])} slots",
@@ -1276,7 +1301,6 @@ def argmax_kernel_entry(adj, dev, gen, max_abs_err, launches, launches_by_path):
 
     plan = sk.plan_from_adjacency(adj)
     num_nodes = adj.agg_counts.numel()
-    num_blocks = adj.agg_counts.shape[0]
     valid = adj.receivers < num_nodes
     e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
     entries = []
@@ -1298,7 +1322,8 @@ def argmax_kernel_entry(adj, dev, gen, max_abs_err, launches, launches_by_path):
             "library_ms": graph_time_ms(calls(lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
                 0, scatter_index, d, "amax", include_self=False))),
         }
-        nbytes = e_real * width * 4 + e_pad * 4 + (num_blocks + 1) * 8 + num_nodes * 4 + num_nodes * width * 8
+        # the real slots' rows and ids, the offsets and counts, the values and slots out
+        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4 + num_nodes * width * 8
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
         entry = {
             "name": "segment_extremum_argmax", "route": "cuda",
@@ -1317,10 +1342,72 @@ def argmax_kernel_entry(adj, dev, gen, max_abs_err, launches, launches_by_path):
     return entries[0]
 
 
+SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck")
+
+
+def sanitizer_target() -> None:
+    """What compute-sanitizer runs (``chip_smoke.py --sanitizer-target``):
+    every kernel once at a small size, on a layout with a row that the row
+    reductions split into pieces, then a synchronise."""
+    from ptgnn_tpu_torch.graph.batching import _assemble_layout_python
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED)
+    recv = np.concatenate([rng.randint(0, 200, 900), np.full(300, 7)]).astype(np.int32)
+    layout = _assemble_layout_python(
+        rng.randint(0, 200, len(recv)).astype(np.int32), recv, rng.randint(0, 3, len(recv)).astype(np.int32),
+        np.full(len(recv), -1, np.int32), max_nodes=256, e_pad=4096, tile=32, agg_rows=64, num_types=3, align=128,
+    )
+    plan = sk.with_row_index(sk.AggregationPlan(*(torch.from_numpy(layout[i]).to(dev) for i in (3, 6, 7))))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    data = torch.randn(4096, 64, device=dev, generator=g)
+    sk.planned_segment_sum(data, plan, 256)
+    sk.planned_segment_extremum(data, plan, 256, True)
+    sk.planned_segment_extremum_with_argmax(data, plan, 256, True)
+    sk.planned_broadcast_to_edges(torch.randn(256, 64, device=dev, generator=g), plan)
+    tile_types = torch.randint(0, 3, (4096 // 32,), device=dev, generator=g, dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        ttl.typed_matmul_kernel(torch.randn(4096, 128, device=dev, generator=g).to(dtype),
+                                torch.randn(3, 128, 256, device=dev, generator=g).to(dtype), tile_types, 32)
+    torch.cuda.synchronize()
+    print("sanitizer target: every kernel launched", flush=True)
+
+
+def sanitizer_phase() -> None:
+    """Each kernel once under compute-sanitizer's memcheck, racecheck and
+    synccheck, where the tool is installed and can attach to the card; a
+    line saying why not otherwise. Fails on any error the tool reports."""
+    tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if not Path(tool).exists():
+        phase("sanitizer", "compute-sanitizer is not installed here: no kernel was checked by it")
+        return
+    summaries = []
+    for name in SANITIZER_TOOLS:
+        proc = subprocess.run(
+            [tool, "--tool", name, "--error-exitcode", "97", sys.executable, str(Path(__file__).resolve()),
+             "--sanitizer-target"], capture_output=True, text=True, timeout=300,
+        )
+        out = proc.stdout + proc.stderr
+        if "Device not supported" in out:
+            phase("sanitizer", f"{tool} is installed but cannot attach to this card here (it reports "
+                  f"'Device not supported'): no kernel was checked by it")
+            return
+        summary = [line.strip("= ") for line in out.splitlines() if "SUMMARY" in line]
+        if proc.returncode != 0 or "every kernel launched" not in out:
+            raise RuntimeError(f"compute-sanitizer {name} exit {proc.returncode}: {out[-2000:]}")
+        summaries.append(f"{name}: {summary[-1] if summary else 'no summary'}")
+    phase("sanitizer", f"every kernel once under compute-sanitizer ({tool}): {summaries}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:] == ["--sanitizer-target"]:
+        sanitizer_target()
+        return
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import cuda_build
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -1529,7 +1616,6 @@ def main() -> None:
     e_real = int(real.sum())
     recv_rows = int(torch.unique(adj.receivers[real]).numel())
     n_super = bc_plan.tile_row_blocks.numel()
-    num_blocks = adj.agg_counts.shape[0]
     valid = adj.receivers < num_nodes
     safe_recv = torch.where(valid, adj.receivers, 0).long()
     sum_index = sk.plan_rows(bc_plan, num_nodes)  # sentinel slots -> row num_nodes
@@ -1652,6 +1738,7 @@ def main() -> None:
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))
     torch.cuda.synchronize()
+    sanitizer_phase()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

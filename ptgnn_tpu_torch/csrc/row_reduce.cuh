@@ -1,5 +1,6 @@
 // Row-indexed segmented reductions over the batch's edge slots: the shared
-// body of segment_extremum.cu (max/min) and segment_sum.cu (sum).
+// body of segment_extremum.cu (max/min), segment_sum.cu (sum) and
+// segment_extremum_argmax.cu (max/min with the first winning slot).
 //
 // Input. data [e_pad, m] float32 or bfloat16 in slot order; the plan's row
 // index: row_offsets [n_plan_rows + 1] and row_slots [e_pad] (the real slots
@@ -14,19 +15,23 @@
 // The group walks its row's slot list in batches of kBatch slots whose loads
 // are all issued before any is folded, and folds in float32 registers: no
 // shared memory, no barrier. Each (row, column) is folded by one lane, in
-// increasing slot order.
+// increasing slot order. ArgMax/ArgMin carry the slot of the running value
+// beside it and replace it only on a strict compare, so the first
+// occurrence wins, -0.0 and +0.0 keep the earlier slot, and NaN never wins.
 //
 // Long rows. A row of more than `chunk` slots is cut at the multiples of
 // `chunk` in the slot-list positions: its owner group folds the head piece
 // (from the row's first position to the next multiple), and window group w
 // folds the body piece that starts at position w * chunk, for the row that
-// holds that position. Each piece writes a float32 partial (head pieces to
-// partials[window of the row's start], body pieces to partials[n_windows +
-// w]; no two pieces share one) and takes a ticket from the (row, column
-// chunk)'s counter; the piece that takes the last ticket folds the partials
-// in piece order, writes the row and sets the counter back to 0, so the
-// counters are 0 between launches. Rows of at most `chunk` slots never touch
-// the partials or the counters.
+// holds that position. Each piece writes a float32 partial (and, for the
+// argmax ops, an int32 slot partial) (head pieces to partials[window of the
+// row's start], body pieces to partials[n_windows + w]; no two pieces share
+// one) and takes a ticket from the (row, column chunk)'s counter; the piece
+// that takes the last ticket folds the partials in piece order (a strict
+// compare for the argmax ops, so an earlier piece wins a tie), writes the
+// row and sets the counter back to 0, so the counters are 0 between
+// launches. Rows of at most `chunk` slots never touch the partials or the
+// counters.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,26 +43,49 @@ namespace row_reduce {
 constexpr int kThreads = 256;
 constexpr int kBatch = 8;  // slots whose loads one lane keeps in flight
 
-// kExtremum: the extremum's output rule applies (see finish).
+// kExtremum: the extremum's output rule applies (see emit). kArg: the op
+// carries the slot of its value (wins(x, v): x replaces v).
 struct Max {
   static constexpr float kInit = -3.0e38f;
   static constexpr bool kExtremum = true;
+  static constexpr bool kArg = false;
   __device__ static float fold(float a, float b) { return fmaxf(a, b); }
 };
 struct Min {
   static constexpr float kInit = 3.0e38f;
   static constexpr bool kExtremum = true;
+  static constexpr bool kArg = false;
   __device__ static float fold(float a, float b) { return fminf(a, b); }
 };
 struct Sum {
   static constexpr float kInit = 0.0f;
   static constexpr bool kExtremum = false;
+  static constexpr bool kArg = false;
   __device__ static float fold(float a, float b) { return __fadd_rn(a, b); }
+};
+struct ArgMax {
+  static constexpr float kInit = -3.0e38f;
+  static constexpr bool kExtremum = true;
+  static constexpr bool kArg = true;
+  __device__ static bool wins(float x, float v) { return x > v; }
+};
+struct ArgMin {
+  static constexpr float kInit = 3.0e38f;
+  static constexpr bool kExtremum = true;
+  static constexpr bool kArg = true;
+  __device__ static bool wins(float x, float v) { return x < v; }
 };
 
 template <int V>
 struct Vec {
   float v[V];
+};
+
+// A lane's running result: V values and, for the argmax ops, their slots.
+template <class Op, int V>
+struct Acc {
+  Vec<V> val;
+  int slot[Op::kArg ? V : 1];
 };
 
 template <class Op, int V>
@@ -69,9 +97,29 @@ __device__ __forceinline__ Vec<V> init() {
 }
 
 template <class Op, int V>
-__device__ __forceinline__ void fold(Vec<V>& acc, const Vec<V>& x) {
+__device__ __forceinline__ Acc<Op, V> init_acc() {
+  Acc<Op, V> acc;
+  acc.val = init<Op, V>();
 #pragma unroll
-  for (int k = 0; k < V; ++k) acc.v[k] = Op::fold(acc.v[k], x.v[k]);
+  for (int k = 0; k < (Op::kArg ? V : 1); ++k) acc.slot[k] = -1;
+  return acc;
+}
+
+// Folds x (from `slot`, for the argmax ops) into acc; also combines a later
+// piece's partial into an earlier one's.
+template <class Op, int V>
+__device__ __forceinline__ void fold(Acc<Op, V>& acc, const Vec<V>& x, const int* slot) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if constexpr (Op::kArg) {
+      if (Op::wins(x.v[k], acc.val.v[k])) {
+        acc.val.v[k] = x.v[k];
+        acc.slot[k] = slot[k];
+      }
+    } else {
+      acc.val.v[k] = Op::fold(acc.val.v[k], x.v[k]);
+    }
+  }
 }
 
 __device__ __forceinline__ float bf16_bits_to_float(unsigned bits) { return __uint_as_float(bits << 16); }
@@ -111,6 +159,15 @@ __device__ __forceinline__ void store(float* p, const Vec<V>& x) {
   }
 }
 
+template <int V>
+__device__ __forceinline__ void store_slots(int* p, const int* s) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(s[0], s[1], s[2], s[3]);
+  } else {
+    *p = s[0];
+  }
+}
+
 // The partials are written and read by different CTAs of one launch: both
 // go through L2 (L1 is not coherent between SMs).
 template <int V>
@@ -132,9 +189,28 @@ __device__ __forceinline__ Vec<V> load_l2(const float* p) {
   }
 }
 
+template <int V>
+__device__ __forceinline__ void store_slots_l2(int* p, const int* s) {
+  if constexpr (V == 4) {
+    __stcg(reinterpret_cast<int4*>(p), make_int4(s[0], s[1], s[2], s[3]));
+  } else {
+    __stcg(p, s[0]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_slots_l2(int* s, const int* p) {
+  if constexpr (V == 4) {
+    const int4 v = __ldcg(reinterpret_cast<const int4*>(p));
+    s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
+  } else {
+    s[0] = __ldcg(p);
+  }
+}
+
 // Folds data rows row_slots[begin:end) into acc, in position order.
 template <class Op, typename T, int V>
-__device__ __forceinline__ void walk(Vec<V>& acc, const T* __restrict__ data,
+__device__ __forceinline__ void walk(Acc<Op, V>& acc, const T* __restrict__ data,
                                      const int* __restrict__ row_slots, long long begin,
                                      long long end, int m, int col, bool active) {
   for (long long i = begin; i < end; i += kBatch) {
@@ -146,8 +222,14 @@ __device__ __forceinline__ void walk(Vec<V>& acc, const T* __restrict__ data,
     for (int j = 0; j < kBatch; ++j)
       x[j] = (active && slot[j] >= 0) ? load<T, V>(data + (long long)slot[j] * m + col) : init<Op, V>();
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      if (slot[j] >= 0) fold<Op, V>(acc, x[j]);
+    for (int j = 0; j < kBatch; ++j) {
+      if (slot[j] >= 0) {
+        int slots[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) slots[k] = slot[j];
+        fold<Op, V>(acc, x[j], slots);
+      }
+    }
   }
 }
 
@@ -159,24 +241,30 @@ struct Args {
   const int* tile_row_blocks;
   const int* agg_counts;  // read by the extremum only
   float* out;             // [n_rows, m]
+  int* out_slots;         // [n_rows, m], the argmax ops only
   float* partials;        // [2 * n_windows, m]
+  int* partial_slots;     // [2 * n_windows, m], the argmax ops only
   unsigned* counters;     // [n_rows * column chunks], 0 between launches
   long long n_rows, e_pad;
   int tile, r, m, chunk;
 };
 
-// The extremum's output rule: rows whose count is 0 or whose value is
-// degenerate (|v| >= 1.5e38) read 0, and + 0.0f turns -0.0 into +0.0. The
-// sum has none.
+// Writes a row's result with the extremum's output rule: rows whose count
+// is 0 or whose value is degenerate (|v| >= 1.5e38) read 0 (and slot -1),
+// and + 0.0f turns -0.0 into +0.0. The sum has none.
 template <class Op, int V>
-__device__ __forceinline__ Vec<V> finish(Vec<V> acc, const Args& a, long long row) {
+__device__ __forceinline__ void emit(Acc<Op, V> acc, const Args& a, long long row, int col) {
   if constexpr (Op::kExtremum) {
     const bool empty_row = __ldg(a.agg_counts + row) == 0;
 #pragma unroll
-    for (int k = 0; k < V; ++k)
-      acc.v[k] = (empty_row || fabsf(acc.v[k]) >= 1.5e38f) ? 0.0f : __fadd_rn(acc.v[k], 0.0f);
+    for (int k = 0; k < V; ++k) {
+      const bool invalid = empty_row || fabsf(acc.val.v[k]) >= 1.5e38f;
+      acc.val.v[k] = invalid ? 0.0f : __fadd_rn(acc.val.v[k], 0.0f);
+      if constexpr (Op::kArg) acc.slot[k] = invalid ? -1 : acc.slot[k];
+    }
   }
-  return acc;
+  store<V>(a.out + row * a.m + col, acc.val);
+  if constexpr (Op::kArg) store_slots<V>(a.out_slots + row * a.m + col, acc.slot);
 }
 
 template <class Op, typename T, int V>
@@ -198,10 +286,10 @@ __device__ __forceinline__ void row_reduce(const Args& a, int group_log2, int co
     row = item / col_chunks;
     start = __ldg(a.row_offsets + row);
     count = __ldg(a.row_offsets + row + 1) - start;
-    Vec<V> acc = init<Op, V>();
+    Acc<Op, V> acc = init_acc<Op, V>();
     if (count <= a.chunk) {  // the whole row: every row on a batch of bounded degree
       walk<Op, T, V>(acc, data, a.row_slots, start, start + count, a.m, col, active);
-      if (active) store<V>(a.out + row * a.m + col, finish<Op, V>(acc, a, row));
+      if (active) emit<Op, V>(acc, a, row, col);
       return;
     }
     begin = start;
@@ -223,9 +311,12 @@ __device__ __forceinline__ void row_reduce(const Args& a, int group_log2, int co
   }
 
   // One piece of a long row: its partial, then the ticket.
-  Vec<V> acc = init<Op, V>();
+  Acc<Op, V> acc = init_acc<Op, V>();
   walk<Op, T, V>(acc, data, a.row_slots, begin, end, a.m, col, active);
-  if (active) store_l2<V>(a.partials + piece * a.m + col, acc);
+  if (active) {
+    store_l2<V>(a.partials + piece * a.m + col, acc.val);
+    if constexpr (Op::kArg) store_slots_l2<V>(a.partial_slots + piece * a.m + col, acc.slot);
+  }
   __threadfence();
   __syncwarp(group_mask);
   unsigned* counter = a.counters + row * col_chunks + c;
@@ -237,10 +328,16 @@ __device__ __forceinline__ void row_reduce(const Args& a, int group_log2, int co
   if (ticket != (unsigned)(last - first)) return;  // not the last piece
   __threadfence();
   if (active) {
-    Vec<V> total = load_l2<V>(a.partials + first * a.m + col);
-    for (long long w = first + 1; w <= last; ++w)
-      fold<Op, V>(total, load_l2<V>(a.partials + (n_windows + w) * a.m + col));
-    store<V>(a.out + row * a.m + col, finish<Op, V>(total, a, row));
+    Acc<Op, V> total;
+    total.val = load_l2<V>(a.partials + first * a.m + col);
+    if constexpr (Op::kArg) load_slots_l2<V>(total.slot, a.partial_slots + first * a.m + col);
+    for (long long w = first + 1; w <= last; ++w) {
+      const long long p = (n_windows + w) * a.m + col;
+      int slots[V];
+      if constexpr (Op::kArg) load_slots_l2<V>(slots, a.partial_slots + p);
+      fold<Op, V>(total, load_l2<V>(a.partials + p), slots);
+    }
+    emit<Op, V>(total, a, row, col);
   }
   if (lane == 0) *counter = 0u;
 }

@@ -83,7 +83,9 @@ extern "C" int ptgnn_segment_extremum(const void* data, int dtype, int is_max,
                            static_cast<const int*>(tile_row_blocks),
                            static_cast<const int*>(agg_counts),
                            static_cast<float*>(out),
+                           nullptr,
                            static_cast<float*>(partials),
+                           nullptr,
                            static_cast<unsigned*>(counters),
                            n_rows, e_pad, tile, r, m, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

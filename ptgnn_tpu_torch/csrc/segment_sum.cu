@@ -66,7 +66,9 @@ extern "C" int ptgnn_segment_sum(const void* data, int dtype, const void* row_of
                            static_cast<const int*>(tile_row_blocks),
                            nullptr,
                            static_cast<float*>(out),
+                           nullptr,
                            static_cast<float*>(partials),
+                           nullptr,
                            static_cast<unsigned*>(counters),
                            n_rows, e_pad, tile, r, d, chunk};
   return row_reduce::launch(

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "extremum_argmax": (
         "segment_extremum_argmax.cu",
         "ptgnn_segment_extremum_argmax",
-        [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+        [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P],
     ),
     "sum": (
         "segment_sum.cu",

@@ -339,26 +339,23 @@ def planned_segment_extremum_with_argmax(
     if data.device.type == "cpu":
         return segment_extremum_argmax_plain(data, plan, num_nodes, is_max)
     _require_cuda(data, "planned_segment_extremum_with_argmax")
-    _check_plan(plan, data.device)
-    num_blocks, r = plan.counts.shape
-    if data.dtype not in _KERNEL_DTYPES or data.ndim != 2 or not data.is_contiguous():
-        raise ValueError("extremum data must be a contiguous [E, M] float32/bfloat16 tensor")
-    if data.shape[0] != plan.local_rows.shape[0] or num_nodes > num_blocks * r:
-        raise ValueError("extremum data and node count do not match the plan")
+    plan, vals = _row_reduce_setup(data, plan, num_nodes, "extremum")
     if data.shape[0] >= 2**31:
         raise ValueError("slot ids must fit in int32")
-    block_tile_start = torch.searchsorted(
-        plan.tile_row_blocks,
-        torch.arange(num_blocks + 1, dtype=torch.int32, device=data.device),
-    )
-    m = data.shape[1]
-    vals = torch.empty((num_nodes, m), dtype=torch.float32, device=data.device)
-    args = torch.empty((num_nodes, m), dtype=torch.int32, device=data.device)
+    args = torch.empty(vals.shape, dtype=torch.int32, device=data.device)
+    if vals.numel() == 0:
+        return vals, args
+    partials, counters = _row_reduce_scratch(data, num_nodes)
+    # The int32 slot partials beside the float32 ones, of the same capacity.
+    partial_slots = _scratch(data.device, "partial_slots", partials.numel(), torch.int32)
     fn = cuda_build.kernel_function("extremum_argmax")
     err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.local_rows.data_ptr(),
-        block_tile_start.data_ptr(), plan.counts.data_ptr(), vals.data_ptr(), args.data_ptr(),
-        num_nodes, num_blocks, plan.tile, r, m, _stream(data.device),
+        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
+        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+        plan.counts.data_ptr(), vals.data_ptr(), args.data_ptr(), partials.data_ptr(),
+        partial_slots.data_ptr(), partials.numel(), counters.data_ptr(),
+        counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1], data.shape[1],
+        ROW_CHUNK, _stream(data.device),
     )
     cuda_build.check("extremum_argmax", err)
     planned_segment_extremum_with_argmax.launches += 1

@@ -71,10 +71,12 @@ def typed_matmul_kernel(
     x: torch.Tensor, weight_stack: torch.Tensor, tile_types: torch.Tensor, edge_tile: int
 ) -> torch.Tensor:
     """The typed matmul kernel (``csrc/typed_matmul.cu``) on CUDA tensors:
-    x [E, D] float32/bf16, weight_stack [T, D, M] (cast to x's dtype and made
-    contiguous here: the fused backward passes strided halves of W^T),
-    tile_types [E // edge_tile] int32. Raises on what the kernel does not
-    take; counts its launches in ``typed_matmul_kernel.launches``."""
+    x [E, D] float32/bf16, weight_stack [T, D, M], tile_types [E // edge_tile]
+    int32. The kernel takes each type's block transposed ([T, M, D], D
+    contiguous), cast to x's dtype here: a copy of the forward's stack, and
+    none for the backward's dx call, which passes W's transpose. Raises on
+    what the kernel does not take; counts its launches in
+    ``typed_matmul_kernel.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"typed_matmul_kernel: no kernel for a tensor on {x.device}")
     if x.dtype not in _KERNEL_DTYPES or x.ndim != 2 or weight_stack.ndim != 3:
@@ -94,14 +96,14 @@ def typed_matmul_kernel(
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
-    w = weight_stack.to(x.dtype).contiguous()
-    if w.data_ptr() % 16:
-        w = w.clone()
+    w_t = weight_stack.transpose(1, 2)
+    if w_t.dtype != x.dtype or not w_t.is_contiguous() or w_t.data_ptr() % 16:
+        w_t = torch.empty(w_t.shape, dtype=x.dtype, device=x.device).copy_(w_t)
     tile_types = tile_types.contiguous()
     y = torch.empty((e, m), dtype=x.dtype, device=x.device)
     fn = cuda_build.kernel_function("typed_matmul")
     err = fn(
-        x.data_ptr(), w.data_ptr(), tile_types.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype],
+        x.data_ptr(), w_t.data_ptr(), tile_types.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype],
         e // edge_tile, edge_tile, d, m, num_types, torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_build.check("typed_matmul", err)

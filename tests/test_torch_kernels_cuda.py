@@ -1,12 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions (bitwise for
 the broadcast and the extremum, a hub row of thousands of slots included; the
 argmax extremum's slots exactly and its values bitwise apart from the sign of
-zero; the sum bitwise from run to run and on 0/1 data, bitwise equal to the
+zero, and on a hub row split into pieces bitwise with slots exactly; the sum
+bitwise from run to run and on 0/1 data, bitwise equal to the
 CPU's at rows of at most ROW_CHUNK slots and within 1e-5 of each row's sum
 of |x| on longer ones; for the typed matmul within
 2^-8 of each element plus 1e-5 of its sum of |x||w|, against float64, and
-bitwise from run to run and under tile and row permutations), and the small
-Graph2Class and PPI forward and train steps on the card against the CPU.
+bitwise from run to run and under tile and row permutations; the argmax
+extremum and the typed matmul replayed from a CUDA graph as run eagerly),
+and the small Graph2Class and PPI forward and train steps on the card
+against the CPU.
 
 These tests need a card and skip elsewhere. This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
@@ -168,6 +171,68 @@ def test_argmax_extremum_kernel_matches_plain(cuda_device, reduction, dtype, m, 
     rows = tsk.plan_rows(plan, plan.counts.numel())
     assert int(got_args[7, 0]) == int(torch.nonzero((rows == 7) & mask)[0, 0])
     assert int(got_args[9, 1]) == int(torch.nonzero((rows == 9) & mask)[0, 0])
+
+
+def _hub_ties(plan, mask, m, dtype, is_max, seed):
+    """Node 7's 4,396 slots, split into pieces at the multiples of ROW_CHUNK of
+    the slot list: column 0 takes its extremum on the last slot of one piece
+    and the first of the next, column 1 on one slot of each of three pieces,
+    column 2 ties at zero (-0.0 on its first slot, +0.0 on two later pieces'
+    first slots, every other value on the losing side), and column 3 holds
+    a NaN on the first slot of a piece and its extremum three pieces on.
+    Returns the data (masked slots at the neutral value) and the data with
+    the NaN at the neutral value, whose plain version the kernel must give
+    (NaN never wins)."""
+    g = torch.Generator().manual_seed(seed)
+    data = torch.round(torch.randn(plan.local_rows.shape[0], m, generator=g) * 2) / 2
+    indexed = tsk.with_row_index(plan)
+    start, end = int(indexed.row_offsets[7]), int(indexed.row_offsets[8])
+    cut = [p for p in range(start + 1, end) if p % tsk.ROW_CHUNK == 0]
+    assert len(cut) >= 8
+    slot = lambda p: int(indexed.row_slots[p])  # noqa: E731
+    sign = 1.0 if is_max else -1.0
+    seven = torch.nonzero(tsk.plan_rows(plan, plan.counts.numel()) == 7)[:, 0]
+    data[seven, :4] = -sign * torch.rand(len(seven), 4, generator=g) - sign  # the losing side of 0
+    data[[slot(cut[1] - 1), slot(cut[1])], 0] = 9.0 * sign
+    data[[slot(cut[2] + 5), slot(cut[4]), slot(cut[6] + 1)], 1] = 9.0 * sign
+    data[slot(start), 2] = -0.0
+    data[[slot(cut[3]), slot(cut[5])], 2] = 0.0
+    data[slot(cut[4]), 3] = 9.0 * sign
+    data = data.to(dtype)
+    neutral = {torch.float32: 3.0e38, torch.bfloat16: torch.finfo(torch.bfloat16).max}[dtype] * -sign
+    data = torch.where(mask[:, None], data, torch.full((), neutral, dtype=dtype))
+    without_nan = data.clone()
+    data[slot(cut[1]), 3] = float("nan")
+    without_nan[slot(cut[1]), 3] = neutral
+    winners = {0: slot(cut[1] - 1), 1: slot(cut[2] + 5), 2: slot(start), 3: slot(cut[4])}
+    return data, without_nan, winners
+
+
+@pytest.mark.parametrize("m", [40, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["max", "min"])
+def test_argmax_extremum_kernel_splits_a_hub_row(cuda_device, reduction, dtype, m):
+    """Node 7 with 4,396 slots over many tiles: its pieces' (value, slot)
+    partials folded in piece order with a strict compare. Ties across the
+    piece boundaries go to the first slot, -0.0 keeps its earlier slot and
+    reads +0.0, a NaN never wins; values bitwise and slots exactly equal to
+    the plain version, the same bits on a second run."""
+    plan, mask = make_plan(m + 11, 128, 512, hub=4096)
+    is_max = reduction == "max"
+    data, without_nan, winners = _hub_ties(plan, mask, m, dtype, is_max, seed=m + 11)
+    vals, args = tsk.planned_segment_extremum_with_argmax(without_nan, plan, 450, is_max)
+    cplan = tree_to(plan, cuda_device)
+    cdata = data.to(cuda_device)
+    before = tsk.planned_segment_extremum_with_argmax.launches
+    runs = [tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tsk.planned_segment_extremum_with_argmax.launches == before + 2
+    for got_vals, got_args in runs:
+        np.testing.assert_array_equal(got_args.cpu().numpy(), args.numpy())
+        np.testing.assert_array_equal(_bits(got_vals), _bits(vals))
+    for column, slot in winners.items():
+        assert int(runs[0][1][7, column]) == slot, column
+    assert _bits(runs[0][0])[7, 2] == 0  # +0.0
 
 
 @pytest.mark.parametrize("tile", [32, 128, 512])
@@ -383,9 +448,12 @@ def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, argmax_routi
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5, atol=1e-5)
 
 
-# (tiles, tile, D, M, types): PPI's widths; rows and columns that fill no
-# whole CTA block, with a depth that ends mid-chunk.
-TYPED_SHAPES = [(40, 128, 512, 256, 3), (30, 48, 72, 40, 4)]
+# (tiles, tile, D, M, types): PPI's widths, and a whole PPI batch's 960
+# tiles; rows and columns that fill no whole CTA block, with a depth that
+# ends mid-chunk; a tile of 32; M = 384, two column passes of the bf16
+# kernel. _typed_inputs gives the last tile a type out of range.
+TYPED_SHAPES = [(40, 128, 512, 256, 3), (30, 48, 72, 40, 4), (960, 128, 512, 256, 3), (50, 32, 128, 64, 3),
+                (20, 128, 256, 384, 3)]
 
 
 def _typed_inputs(shape, dtype, device, seed=0):
@@ -450,6 +518,41 @@ def test_typed_matmul_kernel_bits_repeat_and_ignore_row_positions(cuda_device, d
 
 def _bits_t(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _graph_replays(fn, static_input, new_input):
+    """fn on new_input replayed from a CUDA graph captured on static_input,
+    and fn run eagerly on new_input."""
+    fn(static_input)  # warm-up: builds, opts in, grows scratch before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(static_input)
+    static_input.copy_(new_input)
+    graph.replay()
+    torch.cuda.synchronize()
+    return captured, fn(new_input)
+
+
+def test_kernels_replay_in_a_cuda_graph(cuda_device):
+    """The argmax extremum (a split hub row) and the typed matmul (bf16
+    and float32; its tensor maps are built on the host at every call, so the
+    capture bakes valid ones) replayed from a CUDA graph on new inputs give
+    the bits they give eagerly."""
+    plan, mask = make_plan(17, 128, 512, hub=4096)
+    cplan = tree_to(tsk.with_row_index(plan), cuda_device)  # the index is computed before the capture
+    first, _, _ = _hub_ties(plan, mask, 64, torch.float32, True, seed=1)
+    second, _, _ = _hub_ties(plan, mask, 64, torch.float32, True, seed=2)
+    (cv, ca), (ev, ea) = _graph_replays(
+        lambda d: tsk.planned_segment_extremum_with_argmax(d, cplan, 450, True),
+        first.to(cuda_device), second.to(cuda_device))
+    np.testing.assert_array_equal(_bits(cv), _bits(ev))
+    assert torch.equal(ca, ea)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, tt = _typed_inputs(TYPED_SHAPES[0], dtype, cuda_device, seed=5)
+        x2, _, _ = _typed_inputs(TYPED_SHAPES[0], dtype, cuda_device, seed=6)
+        captured, eager = _graph_replays(lambda a: ttl.typed_matmul_kernel(a, w, tt, 128), x.clone(), x2)
+        assert torch.equal(_bits_t(captured), _bits_t(eager)), dtype
 
 
 def test_typed_matmul_gradient_on_card_matches_cpu(cuda_device):
