@@ -71,21 +71,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 12. cli: the Typilus train CLI for one epoch on synthetic folds written
    under build/ ('mlp' under PTGNN_TPU_ARGMAX_ROUTING, then 'ggnn'), then
    the predict CLI on the saved model;
-13. kernels: each kernel's time (CUDA events over a CUDA graph of launches
+13. varmisuse: VarMisuse at full width (``vm_padding()``: 8,192 nodes,
+   65,536 edge slots, 64 graphs; hidden 64; the char CNN 256-3-128-3-3 over
+   15 chars of 96 ids; 9 materialized edge types) on synthetic samples
+   whose ``mean_tokens`` rises until the batches fill 75 % of the node
+   budget, for the 'mlp' and the 'ggnn' factory: the host pipeline with the
+   graphs, nodes and edges of each batch, report_accuracy, the eval forward
+   over device-resident batches, ModelTrainer.train for one epoch with
+   validation, train_steps in float32 and bf16 AMP (per 'mlp' step: 8
+   extremum, 24 broadcast, 16 sum launches; per 'ggnn' step: 8 broadcast,
+   16 sum), the launches of K1-K5 over each path, and a float32 train step
+   (dropout 0) card against CPU on the card's routing decisions, with the
+   candidate scores;
+14. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line; before it, the argmax extremum against
    its plain version at M 64 and 128, float32 and bf16, max and min, with
    planted ties, and the extremum, the argmax extremum and the sum on a
    skewed layout (the benchmark batch plus one hub row of 4,096 slots, which
    the kernels split) against their plain versions, timed beside
-   scatter_reduce and index_add_.
-
-14. sanitizer: every kernel once at a small size under compute-sanitizer's
+   scatter_reduce and index_add_; then the extremum, the broadcast and the
+   sum on a VarMisuse batch's layout at the path's widths against their
+   plain versions, and timed;
+15. sanitizer: every kernel once at a small size under compute-sanitizer's
    memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
    is what it runs), or a line saying why the tool could not run.
 
-The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit as nvidia-smi reports them.
+Then the total seconds. The last line is {"ok": true, "device": {...}};
+the line before it is the card's name and power limit as nvidia-smi
+reports them, and the one before that the kernels JSON line.
 """
 from __future__ import annotations
 
@@ -138,6 +152,15 @@ PPI_PER_TRAIN_STEP = {
     "float32": counts_of(broadcast=10, segsum=10),
     "bf16": counts_of(broadcast=10, segsum=10, typed=15),
 }
+# VarMisuse: the 'mlp' stack is Graph2Class's, so are its launches. The
+# 'ggnn' stack's gated layer (8 positions, sum aggregation, no target state):
+# the sum forward; the g-row broadcast and the cotangent sum backward. The
+# global updates and the head run stock ops. K5's gate stays closed (no
+# message weight block reaches 128 KB in bf16).
+VM_BATCHES = 6
+VM_TRAIN_STEPS = 20
+VM_PER_FORWARD = {"mlp": PER_FORWARD, "ggnn": counts_of(segsum=8)}
+VM_PER_TRAIN_STEP = {"mlp": PER_TRAIN_STEP, "ggnn": counts_of(broadcast=8, segsum=16)}
 
 
 def phase(name: str, msg: str) -> None:
@@ -395,7 +418,8 @@ def train_parity_phase(model, device_batch, host_minibatch, dev):
             handles += [layer.register_forward_hook(keep_upstream(i)) for i, layer in enumerate(mlp_layers(module))]
         return handles
 
-    gpu, cpu, step_grads = step_against_cpu(model, device_batch, host_minibatch, dev, "train-parity", keep)
+    gpu, cpu, step_grads = step_against_cpu(model, g2c_minibatch(device_batch), host_minibatch, dev, "train-parity",
+                                            keep)
     initial = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
     batch = device_batch[0]
     cpu_batch = host_minibatch["batch"].to("cpu")
@@ -898,10 +922,17 @@ def mp_layers(module):
     return [layer for layer in module.gnn.message_passing_layers if hasattr(layer, "aggregation_fn")]
 
 
-def step_against_cpu(model, device_batch, host_minibatch, dev, name, hook=None):
+def g2c_minibatch(device_batch):
+    """A Graph2Class (batch, targets) pair as the module's keyword arguments."""
+    batch, targets = device_batch
+    return {"batch": batch, "target_classes": targets}
+
+
+def step_against_cpu(model, device_mb, host_mb, dev, name, hook=None):
     """One float32 train step (dropout 0) from the same weights on the card,
     on the CPU, and on the CPU with the card's routing decisions
-    (``routing_tape``).
+    (``routing_tape``), of a task module's minibatch: ``device_mb`` on the
+    card, ``host_mb`` its host arrays.
 
     Max aggregation routes each (node, column)'s cotangent to the slots that
     attain the maximum. Where the devices' few-ulp forward differences order
@@ -918,10 +949,9 @@ def step_against_cpu(model, device_batch, host_minibatch, dev, name, hook=None):
     returns the handles. Returns (card module, CPU module, [(name, card
     gradient on the host, CPU gradient)])."""
     from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
 
-    batch, targets = device_batch
-    cpu_batch = {"batch": host_minibatch["batch"].to("cpu"),
-                 "target_classes": torch.from_numpy(host_minibatch["target_classes"])}
+    cpu_mb = tree_to(host_mb, torch.device("cpu"))
 
     def step(side, tape, replay=False):
         device = dev if side == "gpu" else "cpu"
@@ -929,7 +959,7 @@ def step_against_cpu(model, device_batch, host_minibatch, dev, name, hook=None):
         set_dropout(module, 0.0)
         handles = hook(module, side) if hook is not None and not replay else []
         with routing_tape(tape, replay):
-            loss, _ = module_loss(module, {"batch": batch, "target_classes": targets} if side == "gpu" else cpu_batch,
+            loss, _ = module_loss(module, device_mb if side == "gpu" else cpu_mb,
                                   train=True, generator=torch.Generator(device=device))
             loss.backward()
         for handle in handles:
@@ -979,7 +1009,7 @@ def argmax_phase(dev, card):
         return [layer.register_forward_pre_hook(lambda mod, args: inputs.append(args[0].detach()))
                 for layer in mp_layers(module)] if side == "gpu" else []
 
-    gpu, _, _ = step_against_cpu(model, batches[0], minibatches[0], dev, "argmax-train", keep_inputs)
+    gpu, _, _ = step_against_cpu(model, g2c_minibatch(batches[0]), minibatches[0], dev, "argmax-train", keep_inputs)
     adj = batches[0][0].adjacency
     cpu_adj = minibatches[0]["batch"].to("cpu").adjacency
     plan = sk.plan_from_adjacency(adj)
@@ -1063,7 +1093,7 @@ def ggnn_phase(dev, card, reps: int = 3):
     np.testing.assert_allclose(gpu_logits, cpu_logits, rtol=1e-4, atol=atol)
     phase("ggnn", f"logits card vs CPU: max abs err {float(np.abs(gpu_logits - cpu_logits).max()):.3e} "
           f"(rtol 1e-4, atol {atol:.3e} = 1e-4 x max|logit|)")
-    step_against_cpu(model, batches[0], minibatches[0], dev, "ggnn")
+    step_against_cpu(model, g2c_minibatch(batches[0]), minibatches[0], dev, "ggnn")
     repeat_check(model, batches[0], dev, "ggnn")
     return counts
 
@@ -1132,6 +1162,236 @@ def cli_phase(card):
     phase("cli", f"predict on the ggnn model: {printed} suggestions for the 4 test graphs in "
           f"{time.perf_counter() - t0:.2f} s, e.g. {lines[0]!r}; launches over the cli path {counts}")
     return counts
+
+
+def varmisuse_samples():
+    """(padding, mean_tokens, samples, validation samples): VarMisuse's
+    ``vm_padding()`` and synthetic samples whose ``mean_tokens`` rises in
+    steps of 10 until the batches hold at least 75 % of the 8,192-node
+    budget (or the edge slots bind first)."""
+    from ptgnn_tpu_torch.implementations.varmisuse.harness import full_width_samples
+    from ptgnn_tpu_torch.implementations.varmisuse.train import vm_padding
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_varmisuse_samples
+
+    padding = vm_padding()
+    t0 = time.perf_counter()
+    mean_tokens, samples, tries = full_width_samples(VM_BATCHES * padding.max_graphs, padding, seed=SEED)
+    valid = list(synthetic_varmisuse_samples(padding.max_graphs, seed=SEED + 1, mean_tokens=mean_tokens))
+    phase("varmisuse", f"mean_tokens search (mean_tokens, node fill of the first batches, graphs) {tries} in "
+          f"{time.perf_counter() - t0:.2f} s: mean_tokens {mean_tokens}, {len(samples)} training samples")
+    return padding, mean_tokens, samples, valid
+
+
+def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int = 3):
+    """VarMisuse at full width in the ``architecture`` stack: the host
+    pipeline, report_accuracy, the eval forward over device-resident
+    batches, ModelTrainer.train for an epoch with validation, train_steps in
+    float32 and bf16 AMP, with the launches of every part; then a float32
+    step (dropout 0) card against CPU. Returns (the launch counts of the
+    path, the host and device minibatches)."""
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = f"varmisuse-{architecture}"
+    per_forward, per_step = VM_PER_FORWARD[architecture], VM_PER_TRAIN_STEP[architecture]
+    t0 = time.perf_counter()
+    model, module, minibatches = build_varmisuse(padding=padding, samples=samples, architecture=architecture,
+                                                 seed=SEED, device=dev)
+    t_host = time.perf_counter() - t0
+    drops = sum(model.tensorize(s) is None for s in samples)
+    batches = [tree_to(mb, dev) for mb in minibatches[:VM_BATCHES]]
+    torch.cuda.synchronize()
+    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in minibatches]
+    fill = min(n for g, n, _ in sizes[:VM_BATCHES]) / padding.max_nodes
+    edges_bind = any(g < padding.max_graphs for g, _, _ in sizes[:VM_BATCHES - 1])
+    stacks = {tuple(p.shape) for n, p in module.named_parameters() if n.endswith(("weights_0", "message_weights"))}
+    phase(name, f"host metadata + tensorize + batching of {len(samples)} samples in {t_host:.2f} s "
+          f"({1e3 * t_host / len(minibatches):.0f} ms/batch); {drops} samples dropped by the budgets; "
+          f"{len(minibatches)} batches of (graphs, nodes, materialized edges) {sizes}, "
+          f"{padding.max_edge_slots} edge slots each; smallest node fill {fill:.4f}; "
+          f"{sum(p.numel() for p in module.parameters())} parameters; message weight stacks {sorted(stacks)}")
+    if drops or not (fill >= 0.75 or edges_bind):
+        raise RuntimeError(f"the batches fill {fill:.4f} of the node budget with {drops} samples dropped")
+
+    module.eval()
+    forwards, backwards = [0], [0]
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sk.reset_launch_counts()  # the varmisuse path starts here
+    t0 = time.perf_counter()
+    accuracy = model.report_accuracy(samples, module, max_minibatch_size=300, device=dev)
+    t_acc = time.perf_counter() - t0
+    if not 0.0 <= accuracy <= 1.0:
+        raise RuntimeError(f"report_accuracy gave {accuracy}")
+    phase(name, f"report_accuracy {accuracy:.4f} over {len(samples)} samples in {t_acc:.2f} s "
+          f"({forwards[0]} forwards; host tensorize + batching included)")
+    g, n, e = (reps * sum(s[i] for s in sizes[:VM_BATCHES]) for i in range(3))
+    with torch.inference_mode():
+        for mb in batches:  # warm-up
+            module_loss(module, mb, train=False)
+        torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for mb in batches:
+                losses.append(module_loss(module, mb, train=False)[0])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    counter.remove()
+    serving = sk.launch_counts()
+    if serving != {k: v * forwards[0] for k, v in per_forward.items()}:
+        raise RuntimeError(f"expected {per_forward} launches per {name} forward, got {serving} over {forwards[0]}")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite {name} eval losses {losses}")
+    phase(name, f"eval forward over {reps * len(batches)} device-resident batches: loss "
+          f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
+          f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
+          f"launches over {forwards[0]} forwards {serving}")
+
+    checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
+    trainer = ModelTrainer(
+        model, checkpoint, max_num_epochs=1, minibatch_size=300, clip_gradient_norm=0.5,
+        optimizer_creator=lambda p: torch.optim.Adam(p, lr=1e-4), target_validation_metric="Accuracy",
+        target_validation_metric_higher_is_better=True, device=dev, seed=SEED,
+    )
+    trainer.load_metadata_and_create_network(samples, parallelize=False)
+    hooks = [
+        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+        trainer.neural_module.candidate_scores.weight.register_hook(
+            lambda grad: backwards.__setitem__(0, backwards[0] + 1)),
+    ]
+    valid_metrics = []
+    trainer.register_validation_epoch_end_hook(lambda m, mod, ep, metrics: valid_metrics.append(metrics))
+    before_fw = forwards[0]
+    t0 = time.perf_counter()
+    trainer.train(samples, valid, initialize_metadata=False, patience=0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    for hook in hooks:
+        hook.remove()
+    fw, bw = forwards[0] - before_fw, backwards[0]
+    phase(name, f"ModelTrainer.train: 1 epoch over {len(samples)} samples with validation over {len(valid)} "
+          f"before and after in {t_train:.2f} s (host tensorize + batching included): {bw} train steps, "
+          f"{fw - bw} validation forwards; validation metrics {valid_metrics}")
+    if bw == 0 or not checkpoint.exists():
+        raise RuntimeError(f"{name}: ModelTrainer.train took no step or wrote no checkpoint")
+    expected = {k: serving[k] + per_forward[k] * fw + (per_step[k] - per_forward[k]) * bw for k in serving}
+    for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
+        steps_module = model.build_neural_module(device=dev, seed=SEED)
+        before = sk.launch_counts()
+        stats = train_steps(steps_module, batches, steps=VM_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-4,
+                            clip_gradient_norm=0.5, seed=SEED)
+        got = {k: v / (VM_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        if got != per_step:
+            raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
+        if not math.isfinite(stats["loss"]):
+            raise RuntimeError(f"{name} train_steps ({dtype_name}) gave a non-finite loss {stats['loss']}")
+        phase(name, f"train_steps {dtype_name}: {VM_TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
+              f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
+              f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
+              f"launches per step {got}")
+        expected = add_counts(expected, {k: v * (VM_TRAIN_STEPS + 1) for k, v in per_step.items()})
+    counts = sk.launch_counts()  # the varmisuse path ends here
+    phase(name, f"launches of K1 (segment_sum), K2 (segment_extremum), K3 (broadcast_to_edges), K4 "
+          f"(segment_extremum_argmax) and K5 (typed_matmul) over the {name} path: {counts}; K5's bf16 gate "
+          f"{'opened' if counts['typed_matmul'] else 'stayed closed'} (it needs D and M multiples of 128 and "
+          f"128 KB weight blocks)")
+    if counts != expected:
+        raise RuntimeError(f"{name} launches {counts} != {expected} expected")
+    needed = ("segment_sum", "segment_extremum", "broadcast_to_edges") if architecture == "mlp" else (
+        "segment_sum", "broadcast_to_edges")
+    if min(counts[k] for k in needed) <= 0:
+        raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
+
+    scores = {}
+
+    def keep_scores(m, side):
+        return [m.candidate_scores.register_forward_hook(
+            lambda mod, args, out: scores.__setitem__(side, out.detach().float().cpu()))]
+
+    step_against_cpu(model, batches[0], minibatches[0], dev, name, keep_scores)
+    got, want = scores["gpu"].numpy(), scores["cpu"].numpy()
+    atol = 1e-4 * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
+    phase(name, f"candidate scores (the logits) of that step card vs CPU: max abs err "
+          f"{float(np.abs(got - want).max()):.3e} (rtol 1e-4, atol {atol:.3e} = 1e-4 x max|score|)")
+    return counts, minibatches, batches
+
+
+def varmisuse_kernel_checks(adj, dev, gen):
+    """K1, K2 and K3 against their plain versions on a VarMisuse batch's
+    layout (9 edge types, 65,536 slots) at the path's widths: K2 at M 64
+    and 128 (max; bitwise), K3 at 64, 128, 192 and 384 (the node states and
+    the backward's widened rows; bitwise), K1 at 64, 128 and 256 (bitwise
+    equal to its plain version on the CPU). Then K1, K2 and K3 at width 64
+    timed beside their plain versions and library calls, a line each."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    ext_plan, sum_plan = sk.plan_from_adjacency(adj), sk.sum_plan_from_adjacency(adj)
+    cpu_plan = tree_to(sum_plan, torch.device("cpu"))
+    num_nodes = adj.agg_counts.numel()
+    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
+
+    def masked(width, fill):
+        data = torch.randn(e_pad, width, device=dev, generator=gen)
+        return torch.where(adj.mask[:, None], data, torch.full((), fill, device=dev)).contiguous()
+
+    for width in (64, 128):
+        data = masked(width, -3.0e38)
+        if not bitwise_equal(sk.planned_segment_extremum(data, ext_plan, num_nodes, True),
+                             sk.segment_extremum_plain(data, ext_plan, num_nodes, True)):
+            raise RuntimeError(f"extremum kernel != plain version on the VarMisuse layout at {width}")
+    for width in (64, 128, 192, 384):
+        table = torch.randn(num_nodes, width, device=dev, generator=gen)
+        if not bitwise_equal(sk.planned_broadcast_to_edges(table, sum_plan), sk.broadcast_plain(table, sum_plan)):
+            raise RuntimeError(f"broadcast kernel != plain version on the VarMisuse layout at {width}")
+    for width in (64, 128, 256):
+        data = masked(width, 0.0)
+        if not bitwise_equal(sk.planned_segment_sum(data, sum_plan, num_nodes).cpu(),
+                             sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)):
+            raise RuntimeError(f"sum kernel != its plain version on the CPU on the VarMisuse layout at {width}")
+    torch.cuda.synchronize()
+    phase("kernels", f"VarMisuse layout ({e_real} real slots of {e_pad}, {int(adj.tile_types.max()) + 1} types): "
+          f"extremum at 64 and 128, broadcast at 64, 128, 192 and 384 bitwise equal to their plain versions, "
+          f"the sum at 64, 128 and 256 bitwise equal to its plain version on the CPU")
+
+    width = 64
+    valid = adj.receivers < num_nodes
+    rows = torch.where(valid, adj.receivers, num_nodes).long()
+    sum_index = sk.plan_rows(sum_plan, num_nodes)
+    recv_rows = int(torch.unique(adj.receivers[adj.mask]).numel())
+    for name, inputs, kernel, plain, library, nbytes in (
+        ("segment_sum", lambda: masked(width, 0.0),
+         lambda d: sk.planned_segment_sum(d, sum_plan, num_nodes), lambda d: sk.segment_sum_plain(d, sum_plan, num_nodes),
+         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d),
+         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4),
+        ("segment_extremum", lambda: masked(width, -3.0e38),
+         lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True),
+         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True),
+         lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
+             0, rows[:, None].expand(-1, width), d, "amax", include_self=False),
+         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4 + num_nodes * width * 4),
+        ("broadcast_to_edges", lambda: torch.randn(num_nodes, width, device=dev, generator=gen),
+         lambda t: sk.planned_broadcast_to_edges(t, sum_plan), lambda t: sk.broadcast_plain(t, sum_plan),
+         lambda t: torch.where(valid[:, None], t.index_select(0, torch.where(valid, adj.receivers, 0).long()), 0.0),
+         recv_rows * width * 4 + e_pad * 4 + sum_plan.tile_row_blocks.numel() * 4 + e_pad * width * 4),
+    ):
+        datas = rotating(inputs, e_pad * width * 4)
+        calls = [[lambda d=datas[i % len(datas)], f=f: f(d) for i in range(16)] for f in (kernel, plain, library)]
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * (e_real * width if name != "broadcast_to_edges" else 0) / F32_OPS_PER_S
+        entry = {
+            "name": name, "layout": "VarMisuse batch", "ms": graph_time_ms(calls[0]),
+            "plain_ms": graph_time_ms(calls[1]), "library_ms": graph_time_ms(calls[2]),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "width": width, "dtype": "float32",
+        }
+        phase("kernels", "VarMisuse layout " + json.dumps(entry))
+        del datas
 
 
 HUB_SLOTS = 4096
@@ -1412,6 +1672,7 @@ def main() -> None:
     from ptgnn_tpu_torch.ops import cuda_build
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1494,9 +1755,17 @@ def main() -> None:
     argmax_counts = argmax_phase(dev, card)
     ggnn_counts = ggnn_phase(dev, card)
     cli_counts = cli_phase(card)
+
+    # ---- 13. VarMisuse at full width, both factories -----------------------
+    vm_pad, _, vm_samples, vm_valid = varmisuse_samples()
+    vm_counts = {}
+    for architecture in ("mlp", "ggnn"):
+        vm_counts[architecture], _, vm_batches = varmisuse_phase(dev, card, architecture, vm_pad, vm_samples,
+                                                                  vm_valid)
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
-             "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts}
+             "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
+             "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"]}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -1734,12 +2003,14 @@ def main() -> None:
     del tables
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
+    varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))
     torch.cuda.synchronize()
     sanitizer_phase()
 
+    phase("total", f"{time.perf_counter() - t_start:.1f} s from the start, the kernel builds included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

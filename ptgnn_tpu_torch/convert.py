@@ -1,13 +1,17 @@
-"""Load the JAX package's task-model parameters (Graph2Class, PPI) into the
-port's module.
+"""Load the JAX package's task-model parameters (Graph2Class, PPI,
+VarMisuse) into the port's module.
 
 The JAX params are nested dicts and lists of numpy arrays:
 
     {"gnn": {"node_embedder": {...}, "mp_layers": [<one per unique layer>]},
      <head>: {"weight": [C, H], "bias": [C]}}
 
-with the head ``node_to_class`` (Graph2Class) or ``to_logits`` (PPI), the
-name of the port module's attribute too. TypedMLP ``weights_0`` is
+with the head ``node_to_class`` (Graph2Class), ``to_logits`` (PPI) or
+``candidate_scores`` (VarMisuse), the name of the port module's attribute
+too. VarMisuse's char CNN is ``node_embedder.embedder.conv{1,2,3}.{weight,
+bias}`` (``[out, in, k]``; conv3 has no bias), and a global update's entry
+holds ``summary`` (the reduce's params, e.g. ``weights.weight``) and
+``update`` (its GRU cell); the port's modules use these names. TypedMLP ``weights_0`` is
 ``[T, d_in, d_out]`` and every Linear ``weight`` ``[out, in]`` (PPI's
 embedder: ``node_embedder.linear.weight`` ``[H, F]``): the port's layouts,
 so each array loads as is. The gated (GGNN) layer's ``message_weights`` is

@@ -1,21 +1,23 @@
-"""Node embedders: float feature vectors (PPI) and string labels split into
-subtokens.
+"""Node embedders: float feature vectors (PPI) and string labels, split into
+subtokens (Graph2Class) or chars (VarMisuse's char CNN).
 
 Minibatches are statically padded: every finalize takes ``pad_to`` (the node
-budget) and the subtoken width is the static ``max_num_subtokens``.
+budget), and the subtoken and char widths are the static
+``max_num_subtokens`` and ``max_num_chars``.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.nn import initializers as init
-from ptgnn_tpu_torch.nn.layers import Embedding, Linear, dropout
-from ptgnn_tpu_torch.utils.text import Vocabulary, split_identifier_into_parts
+from ptgnn_tpu_torch.nn.layers import Conv1d, Embedding, Linear, dropout
+from ptgnn_tpu_torch.utils.text import CharTensorizer, Vocabulary, split_identifier_into_parts
 
 _ACTIVATIONS = {"tanh": torch.tanh}  # the activations a ported factory uses
 
@@ -118,8 +120,39 @@ class SubtokenUnitEmbedder(torch.nn.Module):
         return dropout(self.out_layer(out), self.dropout_rate, train, generator)
 
 
+class CnnConfig(NamedTuple):
+    l1_filters: int
+    l1_window_size: int
+    l2_filters: int
+    l2_window_size: int
+    lout_window_size: int
+
+
+class CharUnitEmbedder(torch.nn.Module):
+    """A 3-layer char CNN over one-hot chars (relu between the layers, the
+    last without bias), max-pooled over positions, then dropout."""
+
+    def __init__(self, num_chars: int, embedding_size: int, config: CnnConfig, dropout_rate: float = 0.0):
+        super().__init__()
+        self.num_chars = num_chars
+        self.conv1 = Conv1d(num_chars, config.l1_filters, config.l1_window_size)
+        self.conv2 = Conv1d(config.l1_filters, config.l2_filters, config.l2_window_size)
+        self.conv3 = Conv1d(config.l2_filters, embedding_size, config.lout_window_size, use_bias=False)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, chars: torch.Tensor, *, train: bool = False, generator=None) -> torch.Tensor:
+        """chars: [B, max_num_chars] int -> [B, D] float32 (the one-hot is
+        float32, as the JAX package's, and so is every conv under AMP)."""
+        x = F.one_hot(chars.long(), self.num_chars).float().transpose(1, 2)  # [B, C, L]
+        x = self.conv1(x)
+        x = self.conv2(torch.relu(x))
+        x = self.conv3(torch.relu(x))  # [B, D, L']
+        return dropout(x.amax(dim=-1), self.dropout_rate, train, generator)
+
+
 class StrElementRepresentationModel(AbstractNeuralModel):
-    """String node-label embedder; the port has the subtoken splitting."""
+    """String node-label embedder with subtoken or char splitting (the
+    ``token`` and ``bpe`` splittings are not ported)."""
 
     def __init__(
         self,
@@ -131,42 +164,62 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         min_freq_threshold: int = 5,
         max_num_subtokens: Optional[int] = 5,
         subtoken_combination: str = "sum",
+        cnn_config: CnnConfig = CnnConfig(256, 3, 128, 3, 3),
+        max_num_chars: int = 15,
     ):
         super().__init__()
-        if token_splitting != "subtoken":
+        if token_splitting not in ("subtoken", "char"):
             raise NotImplementedError(f"token splitting {token_splitting!r} is not ported yet")
+        self.splitting_kind = token_splitting
         self.embedding_size = embedding_size
         self.dropout_rate = dropout_rate
-        self.max_num_subtokens = max_num_subtokens if max_num_subtokens is not None else 5
-        self.subtoken_combination = subtoken_combination
-        self.max_vocabulary_size = vocabulary_size
-        self.min_freq_threshold = min_freq_threshold
+        if token_splitting == "subtoken":
+            self.max_num_subtokens = max_num_subtokens if max_num_subtokens is not None else 5
+            self.subtoken_combination = subtoken_combination
+            self.max_vocabulary_size = vocabulary_size
+            self.min_freq_threshold = min_freq_threshold
+        else:
+            self.cnn_config = cnn_config
+            self.max_num_chars = max_num_chars
+
+    def representation_size(self) -> int:
+        return self.embedding_size
 
     def initialize_metadata(self) -> None:
         self.__tok_counter: Counter = Counter()
 
     def update_metadata_from(self, datapoint: str) -> None:
-        self.__tok_counter.update(split_identifier_into_parts(datapoint))
+        if self.splitting_kind == "subtoken":
+            self.__tok_counter.update(split_identifier_into_parts(datapoint))
 
     def finalize_metadata(self) -> None:
-        self.__vocabulary = Vocabulary.create_vocabulary(
-            self.__tok_counter,
-            max_size=self.max_vocabulary_size,
-            count_threshold=self.min_freq_threshold,
-        )
+        if self.splitting_kind == "subtoken":
+            self.__vocabulary = Vocabulary.create_vocabulary(
+                self.__tok_counter,
+                max_size=self.max_vocabulary_size,
+                count_threshold=self.min_freq_threshold,
+            )
+        else:
+            self.__vocabulary = CharTensorizer(self.max_num_chars, lower_case_all=False, include_space=False)
         del self.__tok_counter
 
     @property
-    def vocabulary(self) -> Vocabulary:
+    def vocabulary(self) -> Union[Vocabulary, CharTensorizer]:
         return self.__vocabulary
 
-    def build_neural_module(self) -> SubtokenUnitEmbedder:
-        return SubtokenUnitEmbedder(
-            len(self.vocabulary), self.embedding_size, self.dropout_rate,
-            self.subtoken_combination,
+    def build_neural_module(self) -> torch.nn.Module:
+        if self.splitting_kind == "subtoken":
+            return SubtokenUnitEmbedder(
+                len(self.vocabulary), self.embedding_size, self.dropout_rate,
+                self.subtoken_combination,
+            )
+        return CharUnitEmbedder(
+            self.vocabulary.num_chars_in_vocabulary(), self.embedding_size, self.cnn_config, self.dropout_rate
         )
 
-    def tensorize(self, datapoint: str) -> List[int]:
+    def tensorize(self, datapoint: str):
+        if self.splitting_kind == "char":
+            return self.vocabulary.tensorize_str(datapoint)
         subtoks = split_identifier_into_parts(datapoint)
         if len(subtoks) == 0:
             subtoks = [Vocabulary.get_unk()]
@@ -182,6 +235,11 @@ class StrElementRepresentationModel(AbstractNeuralModel):
     def finalize_minibatch(self, accumulated_minibatch_data, pad_to: Optional[int] = None):
         items: List = accumulated_minibatch_data["token_idxs"]
         total = pad_to if pad_to is not None else len(items)
+        if self.splitting_kind == "char":
+            chars = np.zeros((total, self.max_num_chars), np.int32)
+            if items:
+                chars[: len(items)] = np.stack(items, axis=0)
+            return {"chars": chars}
         width = self.max_num_subtokens
         subtoken_idxs = np.zeros((total, width), np.int32)
         lengths = np.zeros(total, np.int32)

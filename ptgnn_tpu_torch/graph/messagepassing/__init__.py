@@ -3,6 +3,10 @@ from ptgnn_tpu_torch.graph.messagepassing.base import (
     GraphContext,
 )
 from ptgnn_tpu_torch.graph.messagepassing.gated import GatedMessagePassingLayer
+from ptgnn_tpu_torch.graph.messagepassing.global_exchange import (
+    AbstractGlobalGraphExchange,
+    GruGlobalStateUpdate,
+)
 from ptgnn_tpu_torch.graph.messagepassing.mlp_mp import MlpMessagePassingLayer, TypedMLP
 from ptgnn_tpu_torch.graph.messagepassing.residual import (
     AbstractResidualLayer,
@@ -11,11 +15,13 @@ from ptgnn_tpu_torch.graph.messagepassing.residual import (
 )
 
 __all__ = [
+    "AbstractGlobalGraphExchange",
     "AbstractMessagePassingLayer",
     "AbstractResidualLayer",
     "ConcatResidualLayer",
     "GatedMessagePassingLayer",
     "GraphContext",
+    "GruGlobalStateUpdate",
     "MeanResidualLayer",
     "MlpMessagePassingLayer",
     "TypedMLP",

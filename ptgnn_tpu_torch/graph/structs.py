@@ -15,6 +15,8 @@ from typing import Any, Dict, Generic, List, NamedTuple, Optional, Tuple, TypeVa
 import numpy as np
 import torch
 
+from ptgnn_tpu_torch.ops.segment import masked_take
+
 TNodeData = TypeVar("TNodeData")
 TEdgeData = TypeVar("TEdgeData")
 TTensorizedNodeData = TypeVar("TTensorizedNodeData")
@@ -204,8 +206,13 @@ class GnnOutput(NamedTuple):
             return self.input_node_representations
         raise ValueError(f"no node table {which!r}")
 
+    def node_rows(self, node_ids: torch.Tensor) -> torch.Tensor:
+        """Output representations by node id, NaN at an out-of-range id (the
+        JAX package's ``jnp.take`` default). Padding references carry node
+        id 0, so the task heads read only real rows and mask the padding
+        ones."""
+        return masked_take(self.output_node_representations, node_ids, float("nan"))
+
     def reference_rows(self, name: str) -> torch.Tensor:
         """``[R_pad, D]`` output representations of the named reference set."""
-        return self.output_node_representations.index_select(
-            0, self.node_idx_references[name].long()
-        )
+        return self.node_rows(self.node_idx_references[name])

@@ -1,5 +1,7 @@
 from ptgnn_tpu_torch.nn.layers import (
+    Conv1d,
     Embedding,
+    GRUCell,
     LayerNorm,
     Linear,
     dropout,
@@ -8,7 +10,9 @@ from ptgnn_tpu_torch.nn.layers import (
 from ptgnn_tpu_torch.nn.module import Module, init_parameters
 
 __all__ = [
+    "Conv1d",
     "Embedding",
+    "GRUCell",
     "LayerNorm",
     "Linear",
     "Module",

@@ -101,6 +101,19 @@ class orthogonal(Initializer):
         tensor.copy_((self.gain * q).reshape(tensor.shape))
 
 
+class kaiming_uniform(Initializer):
+    """torch.nn.init.kaiming_uniform_ with the leaky_relu gain (torch's
+    Linear and Conv1d default): U(-b, b), b = gain * sqrt(3 / fan_in)."""
+
+    def __init__(self, a: float = math.sqrt(5.0)):
+        self.a = a
+
+    def __call__(self, tensor, generator):
+        fan_in, _ = _fan_in_out(tensor.shape)
+        bound = math.sqrt(2.0 / (1.0 + self.a * self.a)) * math.sqrt(3.0 / fan_in)
+        tensor.uniform_(-bound, bound, generator=generator)
+
+
 def torch_linear_bias(fan_in: int) -> uniform:
     """torch.nn.Linear default bias: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0

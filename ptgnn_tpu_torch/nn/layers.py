@@ -118,6 +118,34 @@ class Embedding(torch.nn.Module):
         return _EmbeddingLookup.apply(ids.long(), self.weight)
 
 
+class Conv1d(torch.nn.Module):
+    """torch.nn.Conv1d at stride 1 with VALID padding: [B, C_in, L] ->
+    [B, C_out, L - k + 1], weight ``[out, in, k]`` (kaiming-uniform), bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)). As the JAX package's, it convolves in
+    float32 (under bf16 AMP too), casts back to the input's dtype, then adds
+    the bias in that dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, use_bias: bool = True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self._bias_init = init.torch_linear_bias(in_channels * kernel_size)
+        self.weight = torch.nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
+        self.bias = torch.nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init.kaiming_uniform()(self.weight.data, generator)
+        if self.bias is not None:
+            self._bias_init(self.bias.data, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.float(), self.weight.float()).to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[None, :, None]
+        return y
+
+
 class LayerNorm(torch.nn.Module):
     """LayerNorm over the last dim (eps 1e-5, affine), computed in float32
     with the JAX package's formula and cast back."""

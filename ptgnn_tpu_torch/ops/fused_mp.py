@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ptgnn_tpu_torch.ops.segment import masked_take
 from ptgnn_tpu_torch.ops.segment_kernels import (
     adjacency_broadcast_to_edges,
     adjacency_segment_reduce,
@@ -163,20 +164,11 @@ def _transpose_indicator(x_recv, x_send, weight_stack, adj, out_send, drop_tr, d
     return ((msgs_tr.float() == out_send) & adj.mask[:, None]).to(dtype)
 
 
-def _masked_take(values: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
-    """values[idx] along dim 0, ``fill`` where idx is out of range (JAX's
-    ``take(mode="fill")``)."""
-    valid = (idx >= 0) & (idx < values.shape[0])
-    got = values.index_select(0, torch.where(valid, idx, torch.zeros_like(idx)).long())
-    valid = valid.reshape(valid.shape + (1,) * (got.ndim - 1))
-    return torch.where(valid, got, torch.full((), fill, dtype=values.dtype, device=values.device))
-
-
 def _primary_winners(args, adj, dtype) -> torch.Tensor:
     """[E, M] 1 where a slot is its receiver's winning slot (argmax routing).
     Padding receivers read -2, which no slot id equals; padding slots are
     masked by the caller."""
-    arg_e = _masked_take(args, adj.receivers, -2)
+    arg_e = masked_take(args, adj.receivers, -2)
     slots = torch.arange(arg_e.shape[0], dtype=arg_e.dtype, device=arg_e.device)[:, None]
     return (slots == arg_e).to(dtype)
 
@@ -191,10 +183,10 @@ def _transpose_winners(args, adj, dtype) -> torch.Tensor:
     m = args.shape[1]
     flat = args.reshape(-1)
     of_arg = torch.cat([
-        _masked_take(pair, flat, -7).reshape(args.shape),
-        _masked_take(adj.edge_types, flat, -7).reshape(args.shape),
+        masked_take(pair, flat, -7).reshape(args.shape),
+        masked_take(adj.edge_types, flat, -7).reshape(args.shape),
     ], dim=1)  # [N, 2M]: the winner's pair id and type
-    at_sender = _masked_take(of_arg, adj.senders, -8)
+    at_sender = masked_take(of_arg, adj.senders, -8)
     tau = adj.tile_types_transposed.repeat_interleave(adj.edge_tile)
     return ((pair[:, None] == at_sender[:, :m]) & (tau[:, None] == at_sender[:, m:])).to(dtype)
 
@@ -287,7 +279,7 @@ def _fused_bwd(node_states, weight_stack, adj, seed, out, args, inp, g,
     def per_node_divisor(rows, idx, g_e):
         if counts_widened:
             return rows[:, m:m + 1].float().clamp_min(1.0).to(g_e.dtype)
-        return _masked_take(counts_flat, idx, 1.0).clamp_min(1.0)[:, None].to(g_e.dtype)
+        return masked_take(counts_flat, idx, 1.0).clamp_min(1.0)[:, None].to(g_e.dtype)
 
     # Primary orientation: the per-slot message cotangent. The broadcast
     # zeroed the padding rows and the tie indicator carries the mask, so no

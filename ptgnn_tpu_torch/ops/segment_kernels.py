@@ -38,6 +38,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.ops.segment import masked_take
 from ptgnn_tpu_torch.ops.typed_linear import typed_matmul_kernel
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
@@ -138,19 +139,11 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def masked_take_rows(table: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """table[rows] with 0 at out-of-range rows."""
-    valid = (rows >= 0) & (rows < num_rows)
-    safe = torch.where(valid, rows, torch.zeros_like(rows)).long()
-    out = table.index_select(0, safe)
-    return torch.where(valid[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
-
-
 def broadcast_plain(table: torch.Tensor, plan: AggregationPlan) -> torch.Tensor:
     """Plain version of the broadcast kernel: the plan's row of every slot,
     0 at sentinel slots and at rows past the table."""
     n = table.shape[0]
-    return masked_take_rows(table, plan_rows(plan, n), n)
+    return masked_take(table, plan_rows(plan, n), 0.0)
 
 
 def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """Where the time of a serving forward, or of a training step, goes on the
-card, for Graph2Class or PPI.
+card, for Graph2Class, PPI or VarMisuse.
 
 Builds the model's configuration with random seeded weights (Graph2Class:
 the benchmark configuration, ``train.default_padding()``, hidden 64, the
 ``--architecture`` stack, with ``--argmax-routing`` single-winner max
 gradients; PPI:
 ``ppi_padding()``, hidden 256, synthetic graphs of the published PPI sizes,
-one graph a batch), keeps 6 batches on the device, and traces 3 passes over
-them with ``torch.profiler``: forwards, or with ``--train`` whole training
-steps (forward, backward, clip(1.0) + Adam: 2.5e-4 for Graph2Class, 1e-3 for
-PPI); ``--amp`` runs either in bf16 AMP. Prints the wall time per batch, the
+one graph a batch; VarMisuse: ``vm_padding()``, hidden 64, the
+``--architecture`` stack, synthetic samples that fill at least 75 % of the
+node budget, ``harness.full_width_samples``), keeps 6 batches on the device,
+and traces 3 passes over them with ``torch.profiler``: forwards, or with
+``--train`` whole training steps (forward, backward, clip + Adam: clip 1.0
+and 2.5e-4 for Graph2Class, 1.0 and 1e-3 for PPI, 0.5 and 1e-4 for
+VarMisuse); ``--amp`` runs either in bf16 AMP. Prints the wall time per batch, the
 device's busy share, the device time by kernel class and the 15 costliest
 kernels, and writes a Chrome trace to ``--trace``. Run on a machine with a
 CUDA device:
@@ -18,6 +21,7 @@ CUDA device:
     python -m ptgnn_tpu_torch.utils.profile_serving --train --trace train_trace.json
     python -m ptgnn_tpu_torch.utils.profile_serving --train --architecture ggnn --argmax-routing
     python -m ptgnn_tpu_torch.utils.profile_serving --model ppi --train --amp
+    python -m ptgnn_tpu_torch.utils.profile_serving --model varmisuse --architecture ggnn --train
 """
 from __future__ import annotations
 
@@ -37,6 +41,10 @@ CLASSES = (
     ("segment_sum_kernel", "sum kernel"),
     ("typed_matmul", "typed matmul kernel"),
     ("multi_tensor_apply", "optimizer (foreach)"),
+    ("convolve", "convolution"),  # cuDNN's kernels of VarMisuse's char CNN
+    ("fprop", "convolution"),
+    ("dgrad", "convolution"),
+    ("wgrad", "convolution"),
     ("gemm", "matmul"),
     ("nvjet", "matmul"),  # cuBLAS's bf16 GEMMs on Hopper
     ("cutlass", "matmul"),
@@ -65,8 +73,9 @@ def main() -> None:
     parser.add_argument("--passes", type=int, default=3)
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
     parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
-    parser.add_argument("--model", choices=("graph2class", "ppi"), default="graph2class")
-    parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp", help="Graph2Class's stack")
+    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse"), default="graph2class")
+    parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp",
+                        help="Graph2Class's or VarMisuse's stack")
     parser.add_argument("--argmax-routing", action="store_true",
                         help="Graph2Class: single-winner gradients of the max aggregation")
     args = parser.parse_args()
@@ -76,7 +85,8 @@ def main() -> None:
     from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
     from ptgnn_tpu_torch.graph.structs import tree_to
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as chip_smoke.py holds it against the CPU
+    torch.backends.cudnn.allow_tf32 = False  # VarMisuse's char CNN
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,7 +100,18 @@ def main() -> None:
             padding=ppi_padding(), samples=synthetic_ppi_samples(6, 0, **PPI_GRAPH_SIZES),
             hidden_state_size=256, device=dev,
         )
-        lr = 1e-3
+        lr, clip = 1e-3, 1.0
+    elif args.model == "varmisuse":
+        from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse, full_width_samples
+        from ptgnn_tpu_torch.implementations.varmisuse.train import vm_padding
+
+        padding = vm_padding()
+        _, samples, _ = full_width_samples(6 * padding.max_graphs, padding)
+        _, module, minibatches = build_varmisuse(
+            padding=padding, samples=samples, architecture=args.architecture, device=dev,
+        )
+        minibatches = minibatches[:6]
+        lr, clip = 1e-4, 0.5
     else:
         from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
         from ptgnn_tpu_torch.implementations.typilus.train import default_padding
@@ -100,7 +121,7 @@ def main() -> None:
             max_graph_nodes=8000, hidden_state_size=64, num_minibatches=6, minibatch_size=300,
             architecture=args.architecture, argmax_routing=args.argmax_routing, device=dev,
         )
-        lr = 2.5e-4
+        lr, clip = 2.5e-4, 1.0
     batches = [tree_to(mb, dev) for mb in minibatches]
     optimizer = torch.optim.Adam(module.parameters(), lr=lr)
     generator = torch.Generator(device=dev)
@@ -113,7 +134,7 @@ def main() -> None:
         generator.manual_seed(step)
         loss, _ = module_loss(module, minibatch, train=True, generator=generator, amp=args.amp)
         loss.backward()
-        optimizer_step(module, optimizer, [lr], clip_gradient_norm=1.0)
+        optimizer_step(module, optimizer, [lr], clip_gradient_norm=clip)
 
     for step, minibatch in enumerate(batches):  # warm-up
         work(step, minibatch)
@@ -143,7 +164,7 @@ def main() -> None:
     summary = {
         "card": card,
         "model": args.model if args.model == "ppi" else
-        f"graph2class {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
+        f"{args.model} {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
         "mode": ("train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
         "batches": n_batches,
         "wall_ms_per_batch_traced": 1e3 * wall / n_batches,

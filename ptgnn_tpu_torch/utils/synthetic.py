@@ -1,9 +1,9 @@
-"""Synthetic Typilus-schema graphs and PPI-like graphs for tests and the
-chip smoke run.
+"""Synthetic Typilus-schema graphs, VarMisuse samples and PPI-like graphs
+for tests and the chip smoke run.
 
-The same generators as the JAX package's ``synthetic_typilus_graphs`` and
-``synthetic_ppi_graphs``: for a seed both packages see the same graphs, so
-their batches can be compared bitwise.
+The same generators as the JAX package's ``synthetic_typilus_graphs``,
+``synthetic_varmisuse_samples`` and ``synthetic_ppi_graphs``: for a seed
+both packages see the same data, so their batches can be compared bitwise.
 """
 from __future__ import annotations
 
@@ -111,6 +111,50 @@ def synthetic_typilus_graphs(
             "token-sequence": token_sequence,
             "supernodes": supernodes,
             "filename": f"synthetic_{gi}.py",
+        }
+
+
+def synthetic_varmisuse_samples(
+    num_samples: int,
+    seed: int = 0,
+    mean_tokens: int = 40,
+    num_candidates: int = 4,
+) -> Iterator[Dict]:
+    """VarMisuse-schema samples: a chain of identifier tokens (NextToken),
+    random Child edges, ``num_candidates`` candidate dummy nodes and one slot
+    dummy node, each joined to a token by a Uses edge. The slot's label is
+    the correct candidate's symbol name, and the slot uses the same token as
+    the correct candidate, so the task is learnable."""
+    rng = np.random.RandomState(seed)
+    for _ in range(num_samples):
+        n_tok = int(np.clip(rng.poisson(mean_tokens), 10, 4 * mean_tokens))
+        labels = {str(i): _IDENTIFIERS[rng.randint(len(_IDENTIFIERS))] for i in range(n_tok)}
+        cand_names = list(rng.choice(_IDENTIFIERS, size=num_candidates, replace=False))
+        correct = int(rng.randint(num_candidates))
+        cand_nodes = []
+        for k, name in enumerate(cand_names):
+            labels[str(n_tok + k)] = str(name)
+            cand_nodes.append(n_tok + k)
+        slot_node = n_tok + num_candidates
+        labels[str(slot_node)] = str(cand_names[correct])
+
+        next_token = [(i, i + 1) for i in range(n_tok - 1)]
+        child = [(int(a), int(b)) for a, b in zip(rng.randint(0, n_tok, n_tok // 2), rng.randint(0, n_tok, n_tok // 2))]
+        cand_tokens = rng.choice(n_tok, size=num_candidates, replace=False)
+        uses = [(int(c), int(t)) for c, t in zip(cand_nodes, cand_tokens)]
+        uses.append((slot_node, int(cand_tokens[correct])))
+        yield {
+            "ContextGraph": {
+                "Edges": {"NextToken": next_token, "Child": child, "Uses": uses},
+                "NodeLabels": labels,
+                "NodeTypes": {},
+            },
+            "slotTokenIdx": 0,
+            "SlotDummyNode": slot_node,
+            "SymbolCandidates": [
+                {"SymbolDummyNode": int(c), "SymbolName": str(name), "IsCorrect": bool(k == correct)}
+                for k, (c, name) in enumerate(zip(cand_nodes, cand_names))
+            ],
         }
 
 

@@ -1,11 +1,13 @@
-"""Vocabulary and identifier splitting (dpu-utils semantics), as the JAX
-package's ``utils/text.py`` has them for the subtoken embedder and the
-Graph2Class target vocabulary."""
+"""Vocabulary, identifier splitting and char tensorization (dpu-utils
+semantics), as the JAX package's ``utils/text.py`` has them for the
+subtoken and char embedders and the Graph2Class target vocabulary."""
 from __future__ import annotations
 
 import re
 from collections import Counter
 from typing import Dict, Iterable, List, Optional
+
+import numpy as np
 
 _CAMEL_RE = re.compile(r"(?<=[a-z0-9])(?=[A-Z])|(?<=[A-Z])(?=[A-Z][a-z])|(?<=[A-Za-z])(?=[0-9])|(?<=[0-9])(?=[A-Za-z])")
 
@@ -92,3 +94,37 @@ class Vocabulary:
             if count >= count_threshold:
                 vocab.add_or_get_id(token)
         return vocab
+
+
+class CharTensorizer:
+    """Strings to fixed-length char-id arrays over a fixed alphabet: id 0 is
+    PAD, 1 is UNK, then the alphabet in order (the JAX package's ids)."""
+
+    ALPHABET = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789,;.!?:'\"/\\|_@#$%^&*~`+-=<>()[]{}"
+
+    def __init__(self, max_num_chars: int, lower_case_all: bool = False, include_space: bool = False):
+        self.max_num_chars = max_num_chars
+        self.lower_case_all = lower_case_all
+        alphabet = self.ALPHABET
+        if lower_case_all:
+            alphabet = "".join(dict.fromkeys(alphabet.lower()))
+        if include_space:
+            alphabet += " "
+        self.__char_to_id = {c: i + 2 for i, c in enumerate(alphabet)}
+
+    @property
+    def max_char_length(self) -> int:
+        return self.max_num_chars
+
+    def num_chars_in_vocabulary(self) -> int:
+        return len(self.__char_to_id) + 2
+
+    def tensorize_str(self, data: str) -> np.ndarray:
+        """[max_num_chars] int32: the first ``max_num_chars`` chars' ids, 0
+        past the string's end."""
+        if self.lower_case_all:
+            data = data.lower()
+        out = np.zeros(self.max_num_chars, dtype=np.int32)
+        for i, c in enumerate(data[: self.max_num_chars]):
+            out[i] = self.__char_to_id.get(c, 1)
+        return out

@@ -26,6 +26,11 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.graph.messagepassing.gated", "ptgnn_tpu_torch.utils.io",
         "ptgnn_tpu_torch.utils.amlutils", "ptgnn_tpu_torch.implementations.typilus.train",
         "ptgnn_tpu_torch.implementations.typilus.predict",
+        "ptgnn_tpu_torch.ops.segment", "ptgnn_tpu_torch.reduceops", "ptgnn_tpu_torch.reduceops.varsizedsummary",
+        "ptgnn_tpu_torch.graph.messagepassing.global_exchange",
+        "ptgnn_tpu_torch.implementations.varmisuse.candidateannotatedembeddings",
+        "ptgnn_tpu_torch.implementations.varmisuse.varmisuse", "ptgnn_tpu_torch.implementations.varmisuse.train",
+        "ptgnn_tpu_torch.implementations.varmisuse.harness",
     } <= names
 
 
@@ -128,3 +133,36 @@ def test_typilus_clis_without_device_raise_when_cuda_is_missing(tmp_path, monkey
     model.save(tmp_path / "m.pkl.gz", module)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         typilus_predict.run(typilus_predict.build_arg_parser().parse_args([str(tmp_path / "m.pkl.gz"), data]))
+
+
+def test_varmisuse_entry_points_without_device_raise_when_cuda_is_missing(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    monkeypatch.chdir(tmp_path)
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.graph.structs import BatchPadding
+    from ptgnn_tpu_torch.implementations.varmisuse import train as vm_train
+    from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_varmisuse_samples
+
+    padding = BatchPadding(max_nodes=512, max_edge_slots=512 * 10, max_graphs=4, edge_tile=64,
+                           reference_budgets=(("candidate_nodes", 32), ("slot_node_idx", 4)))
+    samples = list(synthetic_varmisuse_samples(3, seed=1, mean_tokens=15))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_varmisuse(padding=padding, samples=samples, hidden_state_size=8)
+    model, module, _ = build_varmisuse(padding=padding, samples=samples, hidden_state_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.report_accuracy(samples, module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.build_neural_module()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelTrainer(model, "unused.pkl.gz")
+    (tmp_path / "data").mkdir()
+    write_jsonl_gz(tmp_path / "data" / "a.jsonl.gz", samples)
+    data = str(tmp_path / "data")
+    for architecture in ("mlp", "ggnn"):
+        args = vm_train.build_arg_parser().parse_args(
+            [data, data, data, str(tmp_path / "m.pkl.gz"), "--architecture", architecture])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            vm_train.run(args)
