@@ -83,7 +83,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    16 sum), the launches of K1-K5 over each path, and a float32 train step
    (dropout 0) card against CPU on the card's routing decisions, with the
    candidate scores;
-14. kernels: each kernel's time (CUDA events over a CUDA graph of launches
+14. graph2seq: Graph2Seq at full width (``create_graph2seq_model()``
+   defaults: a token-vocabulary node embedder at 128, one gated layer
+   object at 7 positions and a fresh one in a mean residual block, sum
+   aggregation, 4 forward edge types and 8 materialized; the GRU copy
+   decoder at hidden 128 and embedding 256, ``max_seq_len`` 8; the 8-head
+   self-attention summariser; ``g2s_padding()``: 16,384 nodes, 131,072 edge
+   slots, 64 graphs, 16,384 memory slots) on synthetic samples whose
+   ``mean_nodes`` rises until the batches fill 75 % of the node budget: the
+   host pipeline with the graphs, nodes, edges and memories of each batch;
+   greedy and beam-5 decode over 2 test batches, ``test.evaluate`` and the
+   eval forward, with ms per batch and graphs/s; the greedy and beam loops
+   under ``torch.cuda.set_sync_debug_mode("error")``; ModelTrainer.train
+   for one epoch with validation and train_steps in float32 and bf16 AMP
+   (per step 8 broadcast and 16 sum launches, per forward 8 sum); a float32
+   train step (dropout 0) card against CPU; greedy decode card against CPU,
+   the device loop against the host loop, beam 1 against greedy; the
+   decoder alone at its 20,000-token vocabulary cap (eval loss, a train
+   step and a greedy decode batch, timed); the decoder's and the
+   summariser's stock segment sums (``index_add_`` into 64 rows), timed;
+15. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line; before it, the argmax extremum against
    its plain version at M 64 and 128, float32 and bf16, max and min, with
@@ -92,8 +111,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    the kernels split) against their plain versions, timed beside
    scatter_reduce and index_add_; then the extremum, the broadcast and the
    sum on a VarMisuse batch's layout at the path's widths against their
-   plain versions, and timed;
-15. sanitizer: every kernel once at a small size under compute-sanitizer's
+   plain versions, and timed; then the sum and the broadcast on a Graph2Seq
+   batch's layout at width 128 against their plain versions, and timed
+   (entries of the kernels line);
+16. sanitizer: every kernel once at a small size under compute-sanitizer's
    memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
    is what it runs), or a line saying why the tool could not run.
 
@@ -104,6 +125,7 @@ reports them, and the one before that the kernels JSON line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -161,6 +183,15 @@ VM_BATCHES = 6
 VM_TRAIN_STEPS = 20
 VM_PER_FORWARD = {"mlp": PER_FORWARD, "ggnn": counts_of(segsum=8)}
 VM_PER_TRAIN_STEP = {"mlp": PER_TRAIN_STEP, "ggnn": counts_of(broadcast=8, segsum=16)}
+# Graph2Seq: 8 gated positions (one layer object at 7 of them, sum
+# aggregation): the sum forward; the g-row broadcast and the cotangent sum
+# backward. The decoder and the summariser run stock ops.
+G2S_BATCHES = 6
+G2S_TEST_BATCHES = 2
+G2S_TRAIN_STEPS = 20
+G2S_BEAM = 5
+G2S_PER_FORWARD = counts_of(segsum=8)
+G2S_PER_TRAIN_STEP = counts_of(broadcast=8, segsum=16)
 
 
 def phase(name: str, msg: str) -> None:
@@ -347,7 +378,7 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
           f"validation metrics {valid_metrics}")
     if backwards[0] == 0 or not checkpoint.exists():
         raise RuntimeError("ModelTrainer.train took no step or wrote no checkpoint")
-    train_steps_phase(model, batches, dev, card, name, per_step)
+    train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, name, per_step)
     counts = sk.launch_counts()  # the train path ends here
     for hook in hooks:
         hook.remove()
@@ -363,26 +394,57 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
     return counts
 
 
-def train_steps_phase(model, batches, dev, card, name, per_step):
-    """train_steps in float32 and in bf16 AMP from fresh seeded weights,
-    with the launches of every step checked."""
+def eval_forward_phase(module, batches, card, name, reps, amp=False):
+    """The eval loss of device-resident batches, ``reps`` timed passes after
+    a warm-up pass, with ms per batch and graphs, nodes and edges per
+    second. Returns the first pass's mean loss."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+
+    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in batches]
+    g, n, e = (reps * sum(s[i] for s in sizes) for i in range(3))
+    with torch.inference_mode():
+        for mb in batches:  # warm-up
+            module_loss(module, mb, train=False, amp=amp)
+        torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for mb in batches:
+                losses.append(module_loss(module, mb, train=False, amp=amp)[0])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite {name} eval losses {losses}")
+    loss = float(losses[:len(batches)].mean())
+    phase(name, f"{'bf16 AMP' if amp else 'float32'} eval forward over {reps * len(batches)} device-resident "
+          f"batches: loss {loss:.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, {g / elapsed:.1f} "
+          f"graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}")
+    return loss
+
+
+def train_steps_phase(model, minibatches, dev, card, name, per_step, steps=TRAIN_STEPS, **train_kw):
+    """train_steps (``train_kw``: its learning rate and clip) in float32 and
+    in bf16 AMP from fresh seeded weights, over device-resident minibatches
+    of the module's keyword arguments, with the launches of every step
+    checked. Returns the launch counts of both loops."""
     from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
         before = sk.launch_counts()
-        stats = train_steps(steps_module, [{"batch": b, "target_classes": t} for b, t in batches],
-                            steps=TRAIN_STEPS, enable_amp=amp, seed=SEED)
-        got = {k: v / (TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        stats = train_steps(steps_module, minibatches, steps=steps, enable_amp=amp, seed=SEED, **train_kw)
+        got = {k: v / (steps + 1) for k, v in delta(sk.launch_counts(), before).items()}
         if got != per_step:
             raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
         if not math.isfinite(stats["loss"]):
             raise RuntimeError(f"train_steps ({name}, {dtype_name}) gave a non-finite loss {stats['loss']}")
-        phase(name, f"train_steps {dtype_name}: {TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
+        phase(name, f"train_steps {dtype_name}: {steps} steps after 1 warm-up, loss {stats['loss']:.6f}, "
               f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
               f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
               f"launches per step {got}")
+    return {k: v * 2 * (steps + 1) for k, v in per_step.items()}
 
 
 def train_parity_phase(model, device_batch, host_minibatch, dev):
@@ -575,7 +637,6 @@ def ppi_setup(dev, card):
 def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3):
     """report_metrics, then the forward over device-resident batches in
     float32 and in bf16 AMP eval. Returns the launch counts of the path."""
-    from ptgnn_tpu_torch.core.trainer import module_loss
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     module.eval()
@@ -590,33 +651,14 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
         raise RuntimeError(f"report_metrics gave {metrics}")
     phase("ppi-serving", f"report_metrics {metrics} over {len(samples)} graphs in {t_report:.2f} s "
           f"({report_forwards} forwards; host tensorize + batching included)")
-    sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in batches]
-    g, n, e = (reps * sum(s[i] for s in sizes) for i in range(3))
     eval_losses = {}
     for name, amp in (("float32", False), ("bf16", True)):
         before, before_forwards = sk.launch_counts(), forwards[0]
-        with torch.inference_mode():
-            for mb in batches:  # warm-up
-                module_loss(module, mb, train=False, amp=amp)
-            torch.cuda.synchronize()
-            losses = []
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                for mb in batches:
-                    losses.append(module_loss(module, mb, train=False, amp=amp)[0])
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
+        eval_losses[name] = eval_forward_phase(module, batches, card, "ppi-serving", reps, amp)
         per_forward = {k: v / (forwards[0] - before_forwards) for k, v in delta(sk.launch_counts(), before).items()}
         if per_forward != PPI_PER_FORWARD[name]:
             raise RuntimeError(f"expected {PPI_PER_FORWARD[name]} launches per {name} forward, got {per_forward}")
-        losses = torch.stack(losses).cpu().numpy()
-        if not np.isfinite(losses).all():
-            raise RuntimeError(f"non-finite {name} eval losses {losses}")
-        eval_losses[name] = float(losses[:len(batches)].mean())
-        phase("ppi-serving", f"{name} forward over {reps * len(batches)} device-resident batches: eval loss "
-              f"{eval_losses[name]:.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
-              f"{g / elapsed:.2f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
-              f"launches per forward {per_forward}")
+        phase("ppi-serving", f"{name} launches per forward {per_forward}")
     counts = sk.launch_counts()  # the ppi-serving path ends here
     counter.remove()
     if abs(eval_losses["bf16"] - eval_losses["float32"]) > 2e-2 * abs(eval_losses["float32"]):
@@ -1078,7 +1120,7 @@ def ggnn_phase(dev, card, reps: int = 3):
           f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
           f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
           f"launches over {forwards[0]} forwards {serving}")
-    train_steps_phase(model, batches, dev, card, "ggnn", GGNN_PER_TRAIN_STEP)
+    train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, "ggnn", GGNN_PER_TRAIN_STEP)
     counts = sk.launch_counts()  # the ggnn path ends here
     expected = add_counts(serving, {k: v * 2 * (TRAIN_STEPS + 1) for k, v in GGNN_PER_TRAIN_STEP.items()})
     phase("ggnn", f"launches over the ggnn path: {counts}")
@@ -1189,9 +1231,8 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     float32 and bf16 AMP, with the launches of every part; then a float32
     step (dropout 0) card against CPU. Returns (the launch counts of the
     path, the host and device minibatches)."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer, module_loss
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
     from ptgnn_tpu_torch.graph.structs import tree_to
-    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
@@ -1227,29 +1268,12 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
         raise RuntimeError(f"report_accuracy gave {accuracy}")
     phase(name, f"report_accuracy {accuracy:.4f} over {len(samples)} samples in {t_acc:.2f} s "
           f"({forwards[0]} forwards; host tensorize + batching included)")
-    g, n, e = (reps * sum(s[i] for s in sizes[:VM_BATCHES]) for i in range(3))
-    with torch.inference_mode():
-        for mb in batches:  # warm-up
-            module_loss(module, mb, train=False)
-        torch.cuda.synchronize()
-        losses = []
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            for mb in batches:
-                losses.append(module_loss(module, mb, train=False)[0])
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+    eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
     serving = sk.launch_counts()
     if serving != {k: v * forwards[0] for k, v in per_forward.items()}:
         raise RuntimeError(f"expected {per_forward} launches per {name} forward, got {serving} over {forwards[0]}")
-    losses = torch.stack(losses).cpu().numpy()
-    if not np.isfinite(losses).all():
-        raise RuntimeError(f"non-finite {name} eval losses {losses}")
-    phase(name, f"eval forward over {reps * len(batches)} device-resident batches: loss "
-          f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
-          f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
-          f"launches over {forwards[0]} forwards {serving}")
+    phase(name, f"launches over the serving path's {forwards[0]} forwards {serving}")
 
     checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
     trainer = ModelTrainer(
@@ -1279,21 +1303,8 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     if bw == 0 or not checkpoint.exists():
         raise RuntimeError(f"{name}: ModelTrainer.train took no step or wrote no checkpoint")
     expected = {k: serving[k] + per_forward[k] * fw + (per_step[k] - per_forward[k]) * bw for k in serving}
-    for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
-        steps_module = model.build_neural_module(device=dev, seed=SEED)
-        before = sk.launch_counts()
-        stats = train_steps(steps_module, batches, steps=VM_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-4,
-                            clip_gradient_norm=0.5, seed=SEED)
-        got = {k: v / (VM_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
-        if got != per_step:
-            raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
-        if not math.isfinite(stats["loss"]):
-            raise RuntimeError(f"{name} train_steps ({dtype_name}) gave a non-finite loss {stats['loss']}")
-        phase(name, f"train_steps {dtype_name}: {VM_TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
-              f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
-              f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
-              f"launches per step {got}")
-        expected = add_counts(expected, {k: v * (VM_TRAIN_STEPS + 1) for k, v in per_step.items()})
+    expected = add_counts(expected, train_steps_phase(model, batches, dev, card, name, per_step, VM_TRAIN_STEPS,
+                                                      learning_rate=1e-4, clip_gradient_norm=0.5))
     counts = sk.launch_counts()  # the varmisuse path ends here
     phase(name, f"launches of K1 (segment_sum), K2 (segment_extremum), K3 (broadcast_to_edges), K4 "
           f"(segment_extremum_argmax) and K5 (typed_matmul) over the {name} path: {counts}; K5's bf16 gate "
@@ -1392,6 +1403,402 @@ def varmisuse_kernel_checks(adj, dev, gen):
         }
         phase("kernels", "VarMisuse layout " + json.dumps(entry))
         del datas
+
+
+def graph2seq_samples():
+    """(padding, mean_nodes, training, validation and test samples):
+    Graph2Seq's ``g2s_padding()`` and synthetic samples whose ``mean_nodes``
+    rises in steps of 10 until the batches hold at least 75 % of the
+    16,384-node budget (or the edge slots bind first)."""
+    from ptgnn_tpu_torch.implementations.graph2seq.harness import full_width_samples
+    from ptgnn_tpu_torch.implementations.graph2seq.train import g2s_padding
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
+
+    padding = g2s_padding()
+    t0 = time.perf_counter()
+    mean_nodes, samples, tries = full_width_samples(G2S_BATCHES * padding.max_graphs, padding, seed=SEED)
+
+    def more(n, seed):
+        return list(synthetic_graph2seq_samples(n, seed=seed, mean_nodes=mean_nodes, max_nodes=5 * mean_nodes // 2))
+
+    valid, test = more(padding.max_graphs, SEED + 1), more(G2S_TEST_BATCHES * padding.max_graphs, SEED + 2)
+    phase("graph2seq", f"mean_nodes search (mean_nodes, node fill of the first batches, graphs) {tries} in "
+          f"{time.perf_counter() - t0:.2f} s: mean_nodes {mean_nodes}, {len(samples)} training, {len(valid)} "
+          f"validation and {len(test)} test samples")
+    return padding, samples, valid, test
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """Any call that waits for the card raises inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def decode_parity(model, module, test, dev, batch_graphs):
+    """Greedy decode of one test batch on the card against the CPU (same
+    weights), the device loop against the host loop on the card, and beam 1
+    against greedy."""
+    data = test[:batch_graphs]
+    card = model.greedy_decode(data, module, max_minibatch_size=batch_graphs, device=dev)
+    cpu_module = model.build_neural_module(device="cpu", seed=SEED)
+    for (k, a), b in zip(module.state_dict().items(), cpu_module.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError(f"the CPU module's weights differ at {k}")
+    cpu = model.greedy_decode(data, cpu_module, max_minibatch_size=batch_graphs, device="cpu")
+    if [t for t, _ in card] != [t for t, _ in cpu]:
+        diffs = [i for i, (a, b) in enumerate(zip(card, cpu)) if a[0] != b[0]]
+        raise RuntimeError(f"greedy tokens differ between card and CPU at samples {diffs}")
+    lp_err = max(abs(a[1] - b[1]) for a, b in zip(card, cpu))
+    if lp_err > 1e-4:
+        raise RuntimeError(f"greedy log-probabilities card vs CPU differ by {lp_err}")
+    vocab_size = len(model.decoder_model.vocabulary)
+    host = model._decode_minibatches(
+        data, module, functools.partial(model.decoder_model.greedy_decode, device_resident=False, top_k=vocab_size),
+        batch_graphs, dev)
+    if [t for t, _ in card] != [t for t, _ in host]:
+        raise RuntimeError("the device loop's greedy tokens differ from the host loop's on the card")
+    host_err = max(abs(a[1] - b[1]) for a, b in zip(card, host))
+    beam1 = model.beam_decode(data, module, beam_size=1, max_minibatch_size=batch_graphs, device=dev)
+    if [b[0][0] for b in beam1] != [t for t, _ in card]:
+        raise RuntimeError("beam 1 tokens differ from greedy's on the card")
+    beam_err = max(abs(b[0][1] - a[1]) for a, b in zip(card, beam1))
+    copies = sum(bool(set(t) & {label.lower() for label in s["node_labels"]}) for (t, _), s in zip(card, data))
+    phase("graph2seq", f"greedy decode of {len(data)} samples card vs CPU: the same tokens, log-probabilities "
+          f"within {lp_err:.3e} (limit 1e-4); the device loop vs the host loop on the card: the same tokens "
+          f"(log-probabilities within {host_err:.3e}); beam 1 vs greedy: the same tokens (within "
+          f"{beam_err:.3e}); {copies} of the sequences hold a token of their graph, e.g. {card[0]}")
+
+
+def graph2seq_vocabulary_cap(dev, card, host_batch, reps: int = 3):
+    """The decoder alone with an output vocabulary at its 20,000-token cap,
+    on one Graph2Seq batch's memory layout with random memories, initial
+    states and targets: the eval loss, one train step and one greedy decode
+    batch, timed."""
+    from ptgnn_tpu_torch.core.trainer import optimizer_step
+    from ptgnn_tpu_torch.implementations.graph2seq.harness import decoder_at_vocabulary_cap
+    from ptgnn_tpu_torch.nn.module import init_parameters
+
+    model = decoder_at_vocabulary_cap()
+    decoder = model.build_neural_module()
+    init_parameters(decoder, SEED)
+    decoder = decoder.to(dev)
+    vocab = model.vocabulary
+    ref = host_batch["batch"].references["backbone_nodes"]
+    origin, mask = torch.from_numpy(ref.graph_ids).to(dev), torch.from_numpy(ref.mask).to(dev)
+    m_pad, b_pad, s = ref.mask.shape[0], host_batch["target_token_ids"].shape[0], model.max_seq_len
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    memories = torch.randn(m_pad, model.memories_hidden_dim, device=dev, generator=gen)
+    initial = torch.randn(b_pad, model.hidden_size, device=dev, generator=gen)
+    real = int(ref.mask.sum())
+    concrete = [f"tok{i}" for i in rng.randint(0, 2 * len(vocab), real)]  # half of them out of vocabulary
+    token_ids = np.zeros((b_pad, s), np.int32)
+    lengths = host_batch["target_lengths"]
+    token_ids[:, 0] = vocab.get_id_or_unk(model.START)
+    for b in range(b_pad):
+        if lengths[b]:
+            token_ids[b, 1:lengths[b]] = rng.randint(3, len(vocab), lengths[b] - 1)
+            token_ids[b, lengths[b] - 1] = vocab.get_id_or_unk(model.END)
+    batch = {
+        "input_memories": memories, "input_memories_origin_idx": origin, "memory_mask": mask,
+        "initial_states": initial, "target_token_ids": torch.from_numpy(token_ids).to(dev),
+        "target_lengths": torch.from_numpy(lengths).to(dev),
+        "copy_matrix": torch.from_numpy(host_batch["copy_matrix"]).to(dev),
+    }
+    optimizer = torch.optim.Adam(decoder.parameters(), lr=1e-3)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps, out
+
+    def eval_loss():
+        with torch.inference_mode():
+            return decoder(**batch)[0]
+
+    def train_step():
+        loss, _ = decoder(**batch, train=True, generator=gen)
+        loss.backward()
+        optimizer_step(decoder, optimizer, [1e-3])
+        return loss.detach()
+
+    def greedy():
+        return model.greedy_decode(input_concrete_values=concrete, input_memories=memories,
+                                   input_memories_origin_idx=origin, memory_mask=mask, initial_states=initial,
+                                   neural_module=decoder, num_real_targets=int((lengths > 0).sum()))
+
+    eval_ms, loss = timed(eval_loss)
+    step_ms, step_loss = timed(train_step)
+    decode_ms, decoded = timed(greedy)
+    if not (math.isfinite(float(loss)) and math.isfinite(float(step_loss))):
+        raise RuntimeError(f"the vocabulary-cap decoder gave losses {float(loss)}, {float(step_loss)}")
+    if not decoded or not all(math.isfinite(lp) for _, lp in decoded):
+        raise RuntimeError("the vocabulary-cap greedy decode gave no or non-finite results")
+    phase("graph2seq", f"decoder at the {len(vocab)}-token vocabulary cap ([{b_pad}, {s - 1}, {len(vocab)}] "
+          f"vocabulary scores, {m_pad} memory slots of which {real} real, copy merge over {b_pad} x "
+          f"{len(vocab)} segments): eval loss {float(loss):.4f} in {eval_ms:.3f} ms, train step {step_ms:.3f} ms "
+          f"(loss {float(step_loss):.4f}), greedy decode of {len(decoded)} sequences {decode_ms:.3f} ms/batch "
+          f"on {card}; e.g. {decoded[0]}")
+
+
+def graph2seq_stock_sums(dev, card, host_batch):
+    """The two stock segment sums of Graph2Seq with the most data, each into
+    the batch's 64 graph rows through ``index_add_`` (atomics on a few
+    rows): the decoder's attention readout ``[M_pad, T, H]`` by memory origin,
+    and the summariser's ``[N_pad, heads x 2D]`` by node graph. Timed as one
+    call of ``ops.segment.segment_sum`` each, beside their bounds (each real
+    element read once, the ids read, the rows written)."""
+    from ptgnn_tpu_torch.ops.segment import segment_sum
+
+    batch = host_batch["batch"]
+    ref = batch.references["backbone_nodes"]
+    b_pad = host_batch["target_token_ids"].shape[0]
+    steps = host_batch["target_token_ids"].shape[1] - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lines = []
+    for label, ids, mask, shape in (
+        ("decoder attention readout", ref.graph_ids, ref.mask, (ref.mask.shape[0], steps, 128)),
+        ("summariser sum", batch.node_graph, batch.node_mask, (batch.node_mask.shape[0], 8 * 256)),
+    ):
+        ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+        datas = rotating(lambda: torch.randn(shape, device=dev, generator=gen), math.prod(shape) * 4)
+        ms = graph_time_ms([lambda d=datas[i % len(datas)]: segment_sum(d, ids, b_pad, mask) for i in range(16)])
+        real = int(mask.sum()) * math.prod(shape[1:])
+        nbytes = real * 4 + int(mask.sum()) * 4 + b_pad * math.prod(shape[1:]) * 4
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * real / F32_OPS_PER_S
+        lines.append(f"{label} {list(shape)} -> [{b_pad}, ...] {ms:.4f} ms (bound {max(bytes_ms, ops_ms):.4f} ms, "
+                     f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        del datas
+    phase("graph2seq", f"stock segment sums (index_add_ into {b_pad} rows) on {card}: " + "; ".join(lines))
+
+
+def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
+    """Graph2Seq at full width (``create_graph2seq_model()`` defaults,
+    ``g2s_padding()``): the host pipeline; serving (greedy and beam-5 decode
+    over the test samples, ``test.evaluate``, the eval-loss forward over
+    device-resident batches, and the decode loops under sync debug mode
+    "error"); training (ModelTrainer.train for an epoch with validation,
+    train_steps in float32 and bf16 AMP), with the launches of every part;
+    a float32 step (dropout 0) and the greedy decode card against CPU; the
+    decoder at the 20,000-token vocabulary cap. Returns (the launch counts
+    of the path, the device minibatches)."""
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.graph2seq import test as g2s_test
+    from ptgnn_tpu_torch.implementations.graph2seq.harness import batch_sizes, build_graph2seq
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "graph2seq"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model, module, minibatches = build_graph2seq(padding=padding, samples=samples, seed=SEED, device=dev,
+                                                 minibatch_size=padding.max_graphs)
+    t_host = time.perf_counter() - t0
+    drops = sum(model.tensorize(s) is None for s in samples)
+    batches = [tree_to(mb, dev) for mb in minibatches[:G2S_BATCHES]]
+    torch.cuda.synchronize()
+    sizes = batch_sizes(minibatches)
+    fill = min(n for _, n, _, _ in sizes[:G2S_BATCHES]) / padding.max_nodes
+    edges_bind = any(g < padding.max_graphs for g, _, _, _ in sizes[:G2S_BATCHES - 1])
+    phase(name, f"host metadata + tensorize + batching of {len(samples)} samples in {t_host:.2f} s "
+          f"({1e3 * t_host / len(minibatches):.0f} ms/batch); {drops} samples dropped by the budgets; "
+          f"{len(minibatches)} batches of (graphs, nodes, materialized edges, memories) {sizes}, "
+          f"{padding.max_edge_slots} edge slots and {padding.reference_budget('backbone_nodes')} memory slots "
+          f"each; smallest node fill {fill:.4f}; {len(model.gnn_model.node_embedding_model.vocabulary)} node "
+          f"tokens, {len(model.decoder_model.vocabulary)} output tokens, "
+          f"{sum(p.numel() for p in module.parameters())} parameters")
+    if drops or not (fill >= 0.75 or edges_bind):
+        raise RuntimeError(f"the batches fill {fill:.4f} of the node budget with {drops} samples dropped")
+
+    module.eval()
+    forwards, backwards = [0], [0]
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sk.reset_launch_counts()  # the graph2seq path starts here
+    for warm_up in (model.greedy_decode, functools.partial(model.beam_decode, beam_size=G2S_BEAM)):
+        warm_up(test[:padding.max_graphs], module, max_minibatch_size=padding.max_graphs, device=dev)
+    timings = {}
+    for label, fn in (
+        ("greedy_decode", lambda: model.greedy_decode(test, module, max_minibatch_size=padding.max_graphs,
+                                                      device=dev)),
+        ("beam_decode(beam_size=5)", lambda: model.beam_decode(test, module, beam_size=G2S_BEAM,
+                                                               max_minibatch_size=padding.max_graphs, device=dev)),
+        ("test.evaluate", lambda: g2s_test.evaluate(model, module, test, verbose=False, device=dev)),
+    ):
+        before = forwards[0]
+        t0 = time.perf_counter()
+        out = fn()
+        elapsed = time.perf_counter() - t0
+        timings[label] = (out, elapsed, forwards[0] - before)
+    greedy, beams, metrics = (timings[k][0] for k in timings)
+    if any(r is None for r in greedy) or not all(math.isfinite(lp) and lp <= 1e-6 for _, lp in greedy):
+        raise RuntimeError("greedy decode dropped a sample or gave a non-finite log-probability")
+    for sample_beams in beams:
+        scores = [s for _, s in sample_beams]
+        if len(scores) != G2S_BEAM or scores != sorted(scores, reverse=True) or not math.isfinite(scores[0]):
+            raise RuntimeError(f"beam decode gave unsorted or non-finite beams {sample_beams}")
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()):
+        raise RuntimeError(f"test.evaluate gave {metrics}")
+    for label, (_, elapsed, n) in timings.items():
+        phase(name, f"{label} over {len(test)} test samples: {n} batches in {elapsed:.3f} s, "
+              f"{1e3 * elapsed / n:.3f} ms/batch, {len(test) / elapsed:.1f} graphs/s on {card} (host tensorize "
+              f"+ batching included)")
+    phase(name, f"test.evaluate metrics (random weights) {metrics}; greedy e.g. {greedy[0]}; beams e.g. {beams[0][:2]}")
+
+    # The decode loops of one test batch under sync debug mode "error": no
+    # step waits for the card.
+    decoder_model = model.decoder_model
+    test_mb, raw = next(iter(model.minibatch_iterator(
+        model.tensorize_dataset(iter(test), parallelize=False, return_input_data=True),
+        max_minibatch_size=padding.max_graphs, parallelize=False)))
+    values = [s["node_labels"][k].lower() for s in raw for k in s["backbone_sequence"]]
+    with torch.inference_mode():
+        memories, origin, memory_mask, initial_states, _ = module.encode(tree_to(test_mb["batch"], dev))
+        vocab_size, unk_id = module.decoder.vocabulary_size, module.decoder.unk_id
+        groups = [decoder_model._copy_groups(k, values, memories, origin, memory_mask, len(raw),
+                                             padding.max_graphs, vocab_size, unk_id) for k in (1, G2S_BEAM)]
+        torch.cuda.synchronize()
+        with sync_debug_error():
+            emitted, _ = decoder_model._greedy_loop(module.decoder, groups[0], initial_states)
+            emits, _, _ = decoder_model._beam_loop(module.decoder, groups[1], initial_states, G2S_BEAM)
+        loop_ms = []
+        for loop in (lambda: decoder_model._greedy_loop(module.decoder, groups[0], initial_states),
+                     lambda: decoder_model._beam_loop(module.decoder, groups[1], initial_states, G2S_BEAM)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                loop()
+            torch.cuda.synchronize()
+            loop_ms.append(1e3 * (time.perf_counter() - t0) / reps)
+    phase(name, f"the greedy loop ({decoder_model.max_seq_len} steps, emitted {tuple(emitted.shape)}) and the "
+          f"beam-{G2S_BEAM} loop (emitted {tuple(emits.shape)}) ran under torch.cuda.set_sync_debug_mode('error'): "
+          f"no step waits for the card; {groups[0].g_pad} copy groups budgeted; on the device-resident test "
+          f"batch the greedy loop takes {loop_ms[0]:.3f} ms and the beam loop {loop_ms[1]:.3f} ms (the encode, "
+          f"the host pipeline and the transfers excluded) on {card}")
+
+    eval_forward_phase(module, batches, card, name, reps)
+    counter.remove()
+    serving = sk.launch_counts()
+    if serving != {k: v * forwards[0] for k, v in G2S_PER_FORWARD.items()}:
+        raise RuntimeError(f"expected {G2S_PER_FORWARD} launches per {name} forward, got {serving} over "
+                           f"{forwards[0]}")
+    phase(name, f"launches over the serving path's {forwards[0]} forwards {serving}")
+
+    checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
+    trainer = ModelTrainer(model, checkpoint, max_num_epochs=1, minibatch_size=padding.max_graphs, device=dev,
+                           seed=SEED)
+    trainer.load_metadata_and_create_network(samples, parallelize=False)
+    hooks = [
+        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+        trainer.neural_module.decoder.vocab_bias.register_hook(
+            lambda grad: backwards.__setitem__(0, backwards[0] + 1)),
+    ]
+    valid_metrics = []
+    trainer.register_validation_epoch_end_hook(lambda m, mod, ep, metrics: valid_metrics.append(metrics))
+    before_fw = forwards[0]
+    t0 = time.perf_counter()
+    trainer.train(samples, valid, initialize_metadata=False, patience=0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    for hook in hooks:
+        hook.remove()
+    fw, bw = forwards[0] - before_fw, backwards[0]
+    phase(name, f"ModelTrainer.train: 1 epoch over {len(samples)} samples with validation over {len(valid)} "
+          f"before and after in {t_train:.2f} s (host tensorize + batching included): {bw} train steps, "
+          f"{fw - bw} validation forwards; validation metrics {valid_metrics}")
+    if bw == 0 or not checkpoint.exists():
+        raise RuntimeError(f"{name}: ModelTrainer.train took no step or wrote no checkpoint")
+    expected = {k: serving[k] + G2S_PER_FORWARD[k] * fw + (G2S_PER_TRAIN_STEP[k] - G2S_PER_FORWARD[k]) * bw
+                for k in serving}
+    expected = add_counts(expected, train_steps_phase(model, batches, dev, card, name, G2S_PER_TRAIN_STEP,
+                                                      G2S_TRAIN_STEPS, learning_rate=1e-3, clip_gradient_norm=None))
+    counts = sk.launch_counts()  # the graph2seq path ends here
+    phase(name, f"launches of K1 (segment_sum), K2 (segment_extremum), K3 (broadcast_to_edges), K4 "
+          f"(segment_extremum_argmax) and K5 (typed_matmul) over the {name} path: {counts}; K5's bf16 gate "
+          f"{'opened' if counts['typed_matmul'] else 'stayed closed'}")
+    if counts != expected:
+        raise RuntimeError(f"{name} launches {counts} != {expected} expected")
+    if min(counts[k] for k in ("segment_sum", "broadcast_to_edges")) <= 0:
+        raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
+
+    step_against_cpu(model, batches[0], minibatches[0], dev, name)
+    decode_parity(model, module, test, dev, padding.max_graphs)
+    graph2seq_vocabulary_cap(dev, card, minibatches[0])
+    graph2seq_stock_sums(dev, card, minibatches[0])
+    phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
+    return counts, batches
+
+
+def graph2seq_kernel_entries(adj, dev, gen, entry):
+    """K1 and K3 on a Graph2Seq batch's layout (8 edge types, 131,072 slots)
+    at the path's width 128: bitwise against their plain versions (K1 against
+    its plain version on the CPU, as on the VarMisuse layout), then timed
+    beside index_add_ / index_select; kernels-line entries through
+    ``entry``."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    width = 128
+    plan = sk.sum_plan_from_adjacency(adj)
+    cpu_plan = tree_to(plan, torch.device("cpu"))
+    num_nodes = adj.agg_counts.numel()
+    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
+    valid = adj.receivers < num_nodes
+    safe_recv = torch.where(valid, adj.receivers, 0).long()
+    sum_index = sk.plan_rows(plan, num_nodes)
+    recv_rows = int(torch.unique(adj.receivers[adj.mask]).numel())
+
+    def messages():
+        return torch.where(adj.mask[:, None], torch.randn(e_pad, width, device=dev, generator=gen), 0.0)
+
+    data = messages()
+    got = sk.planned_segment_sum(data, plan, num_nodes)
+    if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)):
+        raise RuntimeError("sum kernel != its plain version on the CPU on the Graph2Seq layout")
+    sum_err = float((got - sk.segment_sum_plain(data, plan, num_nodes)).abs().max())
+    table = torch.randn(num_nodes, width, device=dev, generator=gen)
+    if not bitwise_equal(sk.planned_broadcast_to_edges(table, plan), sk.broadcast_plain(table, plan)):
+        raise RuntimeError("broadcast kernel != plain version on the Graph2Seq layout")
+    torch.cuda.synchronize()
+    degrees = torch.bincount(adj.receivers[adj.mask].long(), minlength=num_nodes)
+    phase("kernels", f"Graph2Seq layout ({e_real} real slots of {e_pad}, {int(adj.tile_types.max()) + 1} types, "
+          f"in-degree max {int(degrees.max())}, mean {float(degrees[degrees > 0].float().mean()):.2f}): the sum at "
+          f"{width} bitwise equal to its plain version on the CPU (max abs err against the plain version on the "
+          f"card {sum_err:.3e}), the broadcast at {width} bitwise equal to its plain version")
+
+    entries = []
+    for name, make, kernel, plain, library, nbytes, ops, err in (
+        ("segment_sum", messages, lambda d: sk.planned_segment_sum(d, plan, num_nodes),
+         lambda d: sk.segment_sum_plain(d, plan, num_nodes),
+         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d),
+         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4, e_real * width, sum_err),
+        ("broadcast_to_edges", lambda: torch.randn(num_nodes, width, device=dev, generator=gen),
+         lambda t: sk.planned_broadcast_to_edges(t, plan), lambda t: sk.broadcast_plain(t, plan),
+         lambda t: torch.where(valid[:, None], t.index_select(0, safe_recv), 0.0),
+         recv_rows * width * 4 + e_pad * 4 + plan.tile_row_blocks.numel() * 4 + e_pad * width * 4, 0, 0.0),
+    ):
+        inputs = rotating(make, e_pad * width * 4)
+        calls = [[lambda x=inputs[i % len(inputs)], f=f: f(x) for i in range(16)] for f in (kernel, plain, library)]
+        times = {"ms": graph_time_ms(calls[0]), "plain_ms": graph_time_ms(calls[1]),
+                 "library_ms": graph_time_ms(calls[2])}
+        source = {"segment_sum": "ptgnn_tpu_torch/csrc/segment_sum.cu",
+                  "broadcast_to_edges": "ptgnn_tpu_torch/csrc/broadcast_rows.cu"}[name]
+        replaces = {"segment_sum": "ptgnn_tpu/ops/pallas/segment_kernels.py:197",
+                    "broadcast_to_edges": "ptgnn_tpu/ops/pallas/segment_kernels.py:233"}[name]
+        e = entry(name, times, nbytes, ops, source, replaces, width)
+        e.update(layout="Graph2Seq batch", max_abs_err=err, launches_per_forward=G2S_PER_FORWARD[name],
+                 launches_per_train_step=G2S_PER_TRAIN_STEP[name])
+        phase("kernels", "Graph2Seq layout " + json.dumps(e))
+        entries.append(e)
+        del inputs
+    return entries
 
 
 HUB_SLOTS = 4096
@@ -1762,10 +2169,14 @@ def main() -> None:
     for architecture in ("mlp", "ggnn"):
         vm_counts[architecture], _, vm_batches = varmisuse_phase(dev, card, architecture, vm_pad, vm_samples,
                                                                   vm_valid)
+
+    # ---- 14. Graph2Seq at full width -----------------------------------------
+    g2s_counts, g2s_batches = graph2seq_phase(dev, card, *graph2seq_samples())
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
-             "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"]}
+             "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"],
+             "graph2seq": g2s_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -2004,6 +2415,7 @@ def main() -> None:
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
+    kernels += graph2seq_kernel_entries(g2s_batches[0]["batch"].adjacency, dev, gen, entry)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

@@ -1,5 +1,5 @@
 """Load the JAX package's task-model parameters (Graph2Class, PPI,
-VarMisuse) into the port's module.
+VarMisuse, Graph2Seq) into the port's module.
 
 The JAX params are nested dicts and lists of numpy arrays:
 
@@ -8,10 +8,19 @@ The JAX params are nested dicts and lists of numpy arrays:
 
 with the head ``node_to_class`` (Graph2Class), ``to_logits`` (PPI) or
 ``candidate_scores`` (VarMisuse), the name of the port module's attribute
-too. VarMisuse's char CNN is ``node_embedder.embedder.conv{1,2,3}.{weight,
-bias}`` (``[out, in, k]``; conv3 has no bias), and a global update's entry
+too; Graph2Seq has two heads, ``decoder`` and ``summarizer``. VarMisuse's
+char CNN is ``node_embedder.embedder.conv{1,2,3}.{weight, bias}`` (``[out,
+in, k]``; conv3 has no bias), and a global update's entry
 holds ``summary`` (the reduce's params, e.g. ``weights.weight``) and
-``update`` (its GRU cell); the port's modules use these names. TypedMLP ``weights_0`` is
+``update`` (its GRU cell); the port's modules use these names.
+Graph2Seq's node embedder is ``node_embedder.embeddings.weight`` ``[V, D]``.
+Its ``decoder`` holds ``embedding.weight`` ``[V_out, E]``, ``gru`` (the GRU
+cell's four arrays, as a gated layer's ``state_update``: ``weight_ih``
+``[3H, E]``), ``mem_to_std.weight`` and ``mem_to_copy.weight`` ``[H, D]``,
+and two raw arrays, ``hidden_to_vocab`` ``[2H, E]`` and ``vocab_bias``
+``[V_out]``. Its ``summarizer`` (the multi-head self-attention reduce) holds
+``key.weight`` ``[2D, 2D]`` and ``output.weight`` ``[D, 2D x heads]``; the
+nested ``query`` summariser has no params (``{}``). TypedMLP ``weights_0`` is
 ``[T, d_in, d_out]`` and every Linear ``weight`` ``[out, in]`` (PPI's
 embedder: ``node_embedder.linear.weight`` ``[H, F]``): the port's layouts,
 so each array loads as is. The gated (GGNN) layer's ``message_weights`` is

@@ -1,5 +1,6 @@
-"""Node embedders: float feature vectors (PPI) and string labels, split into
-subtokens (Graph2Class) or chars (VarMisuse's char CNN).
+"""Node embedders: float feature vectors (PPI) and string labels, whole
+(Graph2Seq's token vocabulary) or split into subtokens (Graph2Class) or chars
+(VarMisuse's char CNN).
 
 Minibatches are statically padded: every finalize takes ``pad_to`` (the node
 budget), and the subtoken and char widths are the static
@@ -88,6 +89,19 @@ class FeatureRepresentationModel(AbstractNeuralModel):
         return {"features": feats}
 
 
+class TokenUnitEmbedder(torch.nn.Module):
+    """One xavier-uniform embedding row per token id, then dropout."""
+
+    def __init__(self, vocabulary_size: int, embedding_size: int, dropout_rate: float):
+        super().__init__()
+        self.embeddings = Embedding(vocabulary_size, embedding_size, weight_init=init.xavier_uniform())
+        self.dropout_rate = dropout_rate
+
+    def forward(self, token_idxs: torch.Tensor, *, train: bool = False, generator=None) -> torch.Tensor:
+        """token_idxs: [B] -> [B, D]."""
+        return dropout(self.embeddings(token_idxs), self.dropout_rate, train, generator)
+
+
 class SubtokenUnitEmbedder(torch.nn.Module):
     """Subtoken embedding with masked mean/sum pooling, then a bias-free
     dense layer."""
@@ -151,8 +165,8 @@ class CharUnitEmbedder(torch.nn.Module):
 
 
 class StrElementRepresentationModel(AbstractNeuralModel):
-    """String node-label embedder with subtoken or char splitting (the
-    ``token`` and ``bpe`` splittings are not ported)."""
+    """String node-label embedder with token, subtoken or char splitting
+    (the ``bpe`` splitting is not ported)."""
 
     def __init__(
         self,
@@ -168,7 +182,7 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         max_num_chars: int = 15,
     ):
         super().__init__()
-        if token_splitting not in ("subtoken", "char"):
+        if token_splitting not in ("token", "subtoken", "char"):
             raise NotImplementedError(f"token splitting {token_splitting!r} is not ported yet")
         self.splitting_kind = token_splitting
         self.embedding_size = embedding_size
@@ -176,11 +190,12 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         if token_splitting == "subtoken":
             self.max_num_subtokens = max_num_subtokens if max_num_subtokens is not None else 5
             self.subtoken_combination = subtoken_combination
-            self.max_vocabulary_size = vocabulary_size
-            self.min_freq_threshold = min_freq_threshold
-        else:
+        elif token_splitting == "char":
             self.cnn_config = cnn_config
             self.max_num_chars = max_num_chars
+        if token_splitting != "char":
+            self.max_vocabulary_size = vocabulary_size
+            self.min_freq_threshold = min_freq_threshold
 
     def representation_size(self) -> int:
         return self.embedding_size
@@ -189,11 +204,13 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         self.__tok_counter: Counter = Counter()
 
     def update_metadata_from(self, datapoint: str) -> None:
-        if self.splitting_kind == "subtoken":
+        if self.splitting_kind == "token":
+            self.__tok_counter[datapoint] += 1
+        elif self.splitting_kind == "subtoken":
             self.__tok_counter.update(split_identifier_into_parts(datapoint))
 
     def finalize_metadata(self) -> None:
-        if self.splitting_kind == "subtoken":
+        if self.splitting_kind != "char":
             self.__vocabulary = Vocabulary.create_vocabulary(
                 self.__tok_counter,
                 max_size=self.max_vocabulary_size,
@@ -208,6 +225,8 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         return self.__vocabulary
 
     def build_neural_module(self) -> torch.nn.Module:
+        if self.splitting_kind == "token":
+            return TokenUnitEmbedder(len(self.vocabulary), self.embedding_size, self.dropout_rate)
         if self.splitting_kind == "subtoken":
             return SubtokenUnitEmbedder(
                 len(self.vocabulary), self.embedding_size, self.dropout_rate,
@@ -218,6 +237,8 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         )
 
     def tensorize(self, datapoint: str):
+        if self.splitting_kind == "token":
+            return self.vocabulary.get_id_or_unk(datapoint)
         if self.splitting_kind == "char":
             return self.vocabulary.tensorize_str(datapoint)
         subtoks = split_identifier_into_parts(datapoint)
@@ -235,6 +256,10 @@ class StrElementRepresentationModel(AbstractNeuralModel):
     def finalize_minibatch(self, accumulated_minibatch_data, pad_to: Optional[int] = None):
         items: List = accumulated_minibatch_data["token_idxs"]
         total = pad_to if pad_to is not None else len(items)
+        if self.splitting_kind == "token":
+            token_idxs = np.zeros(total, np.int32)
+            token_idxs[: len(items)] = np.asarray(items, np.int32)
+            return {"token_idxs": token_idxs}
         if self.splitting_kind == "char":
             chars = np.zeros((total, self.max_num_chars), np.int32)
             if items:

@@ -1,6 +1,7 @@
 from ptgnn_tpu_torch.nn.layers import (
     Conv1d,
     Embedding,
+    GRU,
     GRUCell,
     LayerNorm,
     Linear,
@@ -12,6 +13,7 @@ from ptgnn_tpu_torch.nn.module import Module, init_parameters
 __all__ = [
     "Conv1d",
     "Embedding",
+    "GRU",
     "GRUCell",
     "LayerNorm",
     "Linear",

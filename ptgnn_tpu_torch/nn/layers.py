@@ -212,3 +212,19 @@ class GRUCell(torch.nn.Module):
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
+
+
+class GRU(GRUCell):
+    """A single-layer batch-first GRU (torch.nn.GRU(num_layers=1,
+    batch_first=True)): the cell, stepped over time. It holds the cell's
+    parameters under the cell's names, as the JAX package's GRU does, so a
+    converted ``gru`` entry loads as a gated layer's ``state_update``."""
+
+    def forward(self, x: torch.Tensor, h0: torch.Tensor):
+        """x: [B, T, I]; h0: [B, H] -> (outputs [B, T, H], final state [B, H])."""
+        outputs = []
+        h = h0
+        for t in range(x.shape[1]):
+            h = super().forward(x[:, t], h)
+            outputs.append(h)
+        return torch.stack(outputs, dim=1), h

@@ -1,5 +1,5 @@
-"""Where the time of a serving forward, or of a training step, goes on the
-card, for Graph2Class, PPI or VarMisuse.
+"""Where the time of a serving forward, of a training step or of a decode
+goes on the card, for Graph2Class, PPI, VarMisuse or Graph2Seq.
 
 Builds the model's configuration with random seeded weights (Graph2Class:
 the benchmark configuration, ``train.default_padding()``, hidden 64, the
@@ -8,11 +8,17 @@ gradients; PPI:
 ``ppi_padding()``, hidden 256, synthetic graphs of the published PPI sizes,
 one graph a batch; VarMisuse: ``vm_padding()``, hidden 64, the
 ``--architecture`` stack, synthetic samples that fill at least 75 % of the
-node budget, ``harness.full_width_samples``), keeps 6 batches on the device,
-and traces 3 passes over them with ``torch.profiler``: forwards, or with
-``--train`` whole training steps (forward, backward, clip + Adam: clip 1.0
-and 2.5e-4 for Graph2Class, 1.0 and 1e-3 for PPI, 0.5 and 1e-4 for
-VarMisuse); ``--amp`` runs either in bf16 AMP. Prints the wall time per batch, the
+node budget, ``harness.full_width_samples``; Graph2Seq: ``g2s_padding()``,
+``create_graph2seq_model()`` defaults, synthetic samples that fill at least
+75 % of the node budget, its ``harness.full_width_samples``), keeps 6
+batches on the device, and traces 3 passes over them with
+``torch.profiler``: forwards, or with ``--train`` whole training steps
+(forward, backward, clip + Adam: clip 1.0 and 2.5e-4 for Graph2Class, 1.0
+and 1e-3 for PPI, 0.5 and 1e-4 for VarMisuse, no clip and 1e-3 for
+Graph2Seq); ``--amp`` runs either in bf16 AMP. Graph2Seq's ``--decode``
+traces ``Graph2Seq.greedy_decode`` of each batch's samples, or
+``beam_decode`` with ``--beam-size`` above 1, the host's tensorize and
+batching included (the path a serving user waits on). Prints the wall time per batch, the
 device's busy share, the device time by kernel class and the 15 costliest
 kernels, and writes a Chrome trace to ``--trace``. Run on a machine with a
 CUDA device:
@@ -22,6 +28,8 @@ CUDA device:
     python -m ptgnn_tpu_torch.utils.profile_serving --train --architecture ggnn --argmax-routing
     python -m ptgnn_tpu_torch.utils.profile_serving --model ppi --train --amp
     python -m ptgnn_tpu_torch.utils.profile_serving --model varmisuse --architecture ggnn --train
+    python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --train
+    python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --decode --beam-size 5
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ CLASSES = (
     ("segment_sum_kernel", "sum kernel"),
     ("typed_matmul", "typed matmul kernel"),
     ("multi_tensor_apply", "optimizer (foreach)"),
+    ("sort", "sort"),  # Graph2Seq's beam selection
     ("convolve", "convolution"),  # cuDNN's kernels of VarMisuse's char CNN
     ("fprop", "convolution"),
     ("dgrad", "convolution"),
@@ -73,12 +82,16 @@ def main() -> None:
     parser.add_argument("--passes", type=int, default=3)
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
     parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
-    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse"), default="graph2class")
+    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse", "graph2seq"), default="graph2class")
+    parser.add_argument("--decode", action="store_true", help="Graph2Seq: trace the decode of each batch")
+    parser.add_argument("--beam-size", type=int, default=1, help="Graph2Seq --decode: 1 is greedy")
     parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp",
                         help="Graph2Class's or VarMisuse's stack")
     parser.add_argument("--argmax-routing", action="store_true",
                         help="Graph2Class: single-winner gradients of the max aggregation")
     args = parser.parse_args()
+    if args.decode and (args.model != "graph2seq" or args.train or args.amp):
+        parser.error("--decode traces Graph2Seq's float32 decode, not a training step")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -112,6 +125,21 @@ def main() -> None:
         )
         minibatches = minibatches[:6]
         lr, clip = 1e-4, 0.5
+    elif args.model == "graph2seq":
+        from ptgnn_tpu_torch.implementations.graph2seq import harness as g2s
+        from ptgnn_tpu_torch.implementations.graph2seq.train import g2s_padding
+
+        padding = g2s_padding()
+        _, samples, _ = g2s.full_width_samples(6 * padding.max_graphs, padding)
+        model, module, minibatches = g2s.build_graph2seq(
+            padding=padding, samples=samples, device=dev, minibatch_size=padding.max_graphs)
+        minibatches = minibatches[:6]
+        print("batches (graphs, nodes, materialized edges, memories):", g2s.batch_sizes(minibatches))
+        sample_runs, start = [], 0
+        for graphs, *_ in g2s.batch_sizes(minibatches):  # each batch's samples, for --decode
+            sample_runs.append(samples[start:start + graphs])
+            start += graphs
+        lr, clip = 1e-3, None
     else:
         from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
         from ptgnn_tpu_torch.implementations.typilus.train import default_padding
@@ -127,6 +155,13 @@ def main() -> None:
     generator = torch.Generator(device=dev)
 
     def work(step: int, minibatch) -> None:
+        if args.decode:
+            data = sample_runs[step % len(sample_runs)]
+            if args.beam_size > 1:
+                model.beam_decode(data, module, beam_size=args.beam_size, max_minibatch_size=len(data), device=dev)
+            else:
+                model.greedy_decode(data, module, max_minibatch_size=len(data), device=dev)
+            return
         if not args.train:
             with torch.inference_mode():
                 module_loss(module, minibatch, train=False, amp=args.amp)
@@ -163,9 +198,10 @@ def main() -> None:
     device_ms = sum(by_class.values()) / 1e3
     summary = {
         "card": card,
-        "model": args.model if args.model == "ppi" else
+        "model": args.model if args.model in ("ppi", "graph2seq") else
         f"{args.model} {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
-        "mode": ("train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
+        "mode": (("greedy decode" if args.beam_size == 1 else f"beam-{args.beam_size} decode") if args.decode
+                 else "train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
         "batches": n_batches,
         "wall_ms_per_batch_traced": 1e3 * wall / n_batches,
         "device_ms_per_batch": device_ms / n_batches,

@@ -1,9 +1,10 @@
-"""Synthetic Typilus-schema graphs, VarMisuse samples and PPI-like graphs
-for tests and the chip smoke run.
+"""Synthetic Typilus-schema graphs, Graph2Seq and VarMisuse samples and
+PPI-like graphs for tests and the chip smoke run.
 
 The same generators as the JAX package's ``synthetic_typilus_graphs``,
-``synthetic_varmisuse_samples`` and ``synthetic_ppi_graphs``: for a seed
-both packages see the same data, so their batches can be compared bitwise.
+``synthetic_graph2seq_samples``, ``synthetic_varmisuse_samples`` and
+``synthetic_ppi_graphs``: for a seed both packages see the same data, so
+their batches can be compared bitwise.
 """
 from __future__ import annotations
 
@@ -111,6 +112,49 @@ def synthetic_typilus_graphs(
             "token-sequence": token_sequence,
             "supernodes": supernodes,
             "filename": f"synthetic_{gi}.py",
+        }
+
+
+def synthetic_graph2seq_samples(
+    num_samples: int,
+    seed: int = 0,
+    mean_nodes: int = 60,
+    max_nodes: int = 150,
+    backbone_fraction: float = 0.4,
+    name_len: int = 3,
+) -> Iterator[Dict]:
+    """CodeGraph2Seq-schema samples: labelled nodes, three random edge
+    families, a sorted backbone of nodes, and a method name that the graph
+    determines. Node 0 is a fixed-label root that points at the name's source
+    nodes over a ``RETURNS_TO`` edge family, so message passing can mark them
+    and the copy attention can pick them out. Name tokens are lowercased, as
+    the Graph2Seq model lowercases node labels; with probability 0.2 a token
+    that may not be copyable is appended, so the vocabulary and UNK paths run
+    too."""
+    rng = np.random.RandomState(seed)
+    for _ in range(num_samples):
+        n = int(np.clip(rng.poisson(mean_nodes), 12, max_nodes))
+        node_labels = [_IDENTIFIERS[rng.randint(len(_IDENTIFIERS))] for _ in range(n)]
+        node_labels[0] = "method_root"
+        edges: Dict[str, List] = {}
+        for et in _EDGE_TYPES[:3]:
+            num_e = rng.poisson(1.5 * n / 3)
+            if num_e:
+                edges[et] = [(int(a), int(b)) for a, b in zip(rng.randint(0, n, num_e), rng.randint(0, n, num_e))]
+        # node 0 is excluded, so at most n - 1 backbone nodes
+        backbone_size = min(max(2, int(n * backbone_fraction)), n - 1)
+        backbone = sorted(rng.choice(np.arange(1, n), size=backbone_size, replace=False).tolist())
+        k = min(rng.randint(1, name_len + 1), len(backbone))
+        name_nodes = sorted(rng.choice(backbone, size=k, replace=False).tolist())
+        edges["RETURNS_TO"] = [(0, int(v)) for v in name_nodes]
+        name = [node_labels[v].lower() for v in name_nodes]
+        if rng.rand() < 0.2:
+            name.append(_IDENTIFIERS[rng.randint(len(_IDENTIFIERS))].lower())
+        yield {
+            "backbone_sequence": backbone,
+            "node_labels": node_labels,
+            "edges": edges,
+            "method_name": name,
         }
 
 

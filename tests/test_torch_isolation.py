@@ -31,6 +31,11 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.implementations.varmisuse.candidateannotatedembeddings",
         "ptgnn_tpu_torch.implementations.varmisuse.varmisuse", "ptgnn_tpu_torch.implementations.varmisuse.train",
         "ptgnn_tpu_torch.implementations.varmisuse.harness",
+        "ptgnn_tpu_torch.utils.strsim", "ptgnn_tpu_torch.sequence", "ptgnn_tpu_torch.sequence.grucopydecoder",
+        "ptgnn_tpu_torch.sequence.luongattention", "ptgnn_tpu_torch.implementations.graph2seq.graph2seq",
+        "ptgnn_tpu_torch.implementations.graph2seq.train", "ptgnn_tpu_torch.implementations.graph2seq.test",
+        "ptgnn_tpu_torch.implementations.graph2seq.trainandtest",
+        "ptgnn_tpu_torch.implementations.graph2seq.harness",
     } <= names
 
 
@@ -166,3 +171,42 @@ def test_varmisuse_entry_points_without_device_raise_when_cuda_is_missing(tmp_pa
             [data, data, data, str(tmp_path / "m.pkl.gz"), "--architecture", architecture])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             vm_train.run(args)
+
+
+def test_graph2seq_entry_points_without_device_raise_when_cuda_is_missing(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    monkeypatch.chdir(tmp_path)
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.graph.structs import BatchPadding
+    from ptgnn_tpu_torch.implementations.graph2seq import test as g2s_test
+    from ptgnn_tpu_torch.implementations.graph2seq import train as g2s_train
+    from ptgnn_tpu_torch.implementations.graph2seq import trainandtest as g2s_trainandtest
+    from ptgnn_tpu_torch.implementations.graph2seq.harness import build_graph2seq
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
+
+    padding = BatchPadding(max_nodes=256, max_edge_slots=256 * 8, max_graphs=4, edge_tile=64,
+                           reference_budgets=(("backbone_nodes", 128),))
+    samples = list(synthetic_graph2seq_samples(3, seed=1, mean_nodes=20, max_nodes=40))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_graph2seq(padding=padding, samples=samples, embedding_size=8)
+    model, module, _ = build_graph2seq(padding=padding, samples=samples, embedding_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.greedy_decode(samples, module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.beam_decode(samples, module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.build_neural_module()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelTrainer(model, "unused.pkl.gz")
+    data = tmp_path / "data.jsonl.gz"
+    write_jsonl_gz(data, samples)
+    model.save(tmp_path / "m.pkl.gz", module)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        g2s_train.run(g2s_train.build_arg_parser().parse_args([str(data), str(data), str(tmp_path / "n.pkl.gz")]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        g2s_test.run(g2s_test.build_arg_parser().parse_args([str(tmp_path / "m.pkl.gz"), str(data)]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        g2s_trainandtest.run(g2s_trainandtest.build_arg_parser().parse_args(
+            [str(data), str(data), str(tmp_path / "n.pkl.gz"), str(data)]))

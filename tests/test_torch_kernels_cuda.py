@@ -8,8 +8,8 @@ of |x| on longer ones; for the typed matmul within
 2^-8 of each element plus 1e-5 of its sum of |x||w|, against float64, and
 bitwise from run to run and under tile and row permutations; the argmax
 extremum and the typed matmul replayed from a CUDA graph as run eagerly),
-and the small Graph2Class and PPI forward and train steps on the card
-against the CPU.
+the small Graph2Class, PPI and Graph2Seq forward and train steps on the card
+against the CPU, and K1 and K3 on a Graph2Seq batch's layout at width 128.
 
 These tests need a card and skip elsewhere. This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
@@ -23,11 +23,13 @@ import torch
 from ptgnn_tpu_torch.core.trainer import module_loss
 from ptgnn_tpu_torch.graph.batching import GraphBatcher, _assemble_layout_python
 from ptgnn_tpu_torch.graph.structs import BatchPadding, TensorizedGraphData, tree_to
+from ptgnn_tpu_torch.implementations.graph2seq.harness import build_graph2seq
 from ptgnn_tpu_torch.implementations.typilus.harness import build_graph2class, small_padding
 from ptgnn_tpu_torch.implementations.ppi.harness import build_ppi, synthetic_ppi_samples
 from ptgnn_tpu_torch.ops import segment_kernels as tsk
 from ptgnn_tpu_torch.ops import typed_linear as ttl
 from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
+from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
 
 pytestmark = pytest.mark.cuda
 
@@ -616,6 +618,63 @@ def test_ppi_train_step_on_card_matches_cpu(cuda_device, amp, monkeypatch):
         for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
             assert float((g.grad.cpu() - c.grad).norm()) <= 2e-2 * float(c.grad.norm()), name
         return
+    np.testing.assert_allclose(float(loss.detach()), float(cpu_loss.detach()), rtol=1e-5)
+    for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
+        c = c.grad.numpy()
+        np.testing.assert_allclose(g.grad.cpu().numpy(), c, rtol=1e-4, atol=1e-4 * np.abs(c).max(), err_msg=name)
+
+
+def _graph2seq_small(device):
+    pad = BatchPadding(max_nodes=1024, max_edge_slots=1024 * 8, max_graphs=8, edge_tile=64,
+                       reference_budgets=(("backbone_nodes", 1024),))
+    samples = list(synthetic_graph2seq_samples(8, seed=3, mean_nodes=100, max_nodes=250))
+    return build_graph2seq(padding=pad, samples=samples, embedding_size=128, device=device, minibatch_size=8)
+
+
+@pytest.mark.parametrize("kernel", ["segment_sum", "broadcast_to_edges"])
+def test_kernels_on_a_graph2seq_layout_match_plain(cuda_device, kernel):
+    """K1 and K3 at Graph2Seq's width 128 on one of its batch layouts (8
+    materialized edge types, a tile of 64): the sum bitwise equal to its
+    plain version on the CPU (no row here exceeds ROW_CHUNK), the broadcast
+    bitwise equal to its plain version."""
+    _, _, mbs = _graph2seq_small("cpu")
+    adj = mbs[0]["batch"].adjacency
+    plan = tsk.sum_plan_from_adjacency(tree_to(adj, torch.device("cpu")))
+    num_nodes = adj.agg_counts.shape[0] * adj.agg_counts.shape[1]
+    g = torch.Generator().manual_seed(11)
+    if kernel == "segment_sum":
+        mask = torch.from_numpy(adj.mask)
+        data = torch.where(mask[:, None], torch.randn(mask.shape[0], 128, generator=g), 0.0)
+        want = tsk.planned_segment_sum(data, plan, num_nodes)
+        got = tsk.planned_segment_sum(data.to(cuda_device), tree_to(plan, cuda_device), num_nodes)
+    else:
+        table = torch.randn(num_nodes, 128, generator=g)
+        want = tsk.planned_broadcast_to_edges(table, plan)
+        got = tsk.planned_broadcast_to_edges(table.to(cuda_device), tree_to(plan, cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
+    """A Graph2Seq train step (dropout 0) at width 128: 16 sum and 8
+    broadcast launches (8 gated positions), the loss to rtol 1e-5, every
+    gradient to rtol 1e-4 and 1e-4 of its tensor's largest magnitude."""
+    _, gpu_module, mbs = _graph2seq_small(cuda_device)
+    _, cpu_module, _ = _graph2seq_small("cpu")
+    for m in (gpu_module, cpu_module):
+        for sub in m.modules():
+            if hasattr(sub, "dropout_rate"):
+                sub.dropout_rate = 0.0
+    tsk.reset_launch_counts()
+    loss, _ = module_loss(gpu_module, tree_to(mbs[0], cuda_device), train=True,
+                          generator=torch.Generator(device=cuda_device))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
+                                   "segment_sum": 16, "typed_matmul": 0}
+    cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
+                              generator=torch.Generator())
+    cpu_loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(cpu_loss.detach()), rtol=1e-5)
     for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
         c = c.grad.numpy()
