@@ -116,7 +116,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (entries of the kernels line);
 16. sanitizer: every kernel once at a small size under compute-sanitizer's
    memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
-   is what it runs), or a line saying why the tool could not run.
+   is what it runs), or a line saying why the tool could not run;
+17. layers (run after graph2seq, its kernel entries in phase 15): Graph2Class
+   at the benchmark layout and width with the 'layers' stack of the other
+   message-passing families (``harness.LayersStackCreator``: an MLP-MP
+   layer with a hidden layer and PNA aggregation, GraphNorm, EGC with max
+   aggregation on the fused route, block self-attention over the batch's
+   ``att_order``, an MLP-MP layer with a [128] hidden layer and mean
+   aggregation, self-attention among the supernodes, the benchmark's MLP-MP
+   layer): eval forwards in float32 and bf16 AMP, train_steps in both (per
+   forward 3 sum, 4 extremum and 1 broadcast launches; per step 9, 4 and
+   12), train steps with edge dropout 0.1 (per step 9, 4 and 11; no fused-op
+   call; finite gradients; an eval forward that the rate leaves alone), the
+   logits (rtol 1e-4, atol 1e-4 x max|logit|, with each entry's output and
+   the card's and the CPU's run-to-run spread) and a train step (dropout 0;
+   the loss to rtol 1e-5, every gradient within 1e-4 of its largest
+   magnitude on the card's routing decisions, relu's active sets among
+   them) on weights loaded through ``convert.py``, card against CPU; then K1
+   and K2 on PNA's messages at 64,
+   K3 at 64, K2 at 256 on EGC's fused messages and K1 at width 1 on an
+   edge-dropout mask against their plain versions, timed.
 
 Then the total seconds. The last line is {"ok": true, "device": {...}};
 the line before it is the card's name and power limit as nvidia-smi
@@ -133,6 +152,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -192,6 +212,22 @@ G2S_TRAIN_STEPS = 20
 G2S_BEAM = 5
 G2S_PER_FORWARD = counts_of(segsum=8)
 G2S_PER_TRAIN_STEP = counts_of(broadcast=8, segsum=16)
+# The 'layers' stack (harness.LayersStackCreator). Forward: PNA on the
+# per-slot route (degrees from the plan's counts under the static mask) two
+# sums and two extrema; EGC's fused max (no target state) one extremum; the
+# per-slot mean (the plan's counts) one sum; the fused max MLP-MP layer a
+# broadcast and an extremum. Backward: each per-slot sum one broadcast, each
+# per-slot extremum two broadcasts and a sum (the tie count), each fused max
+# two broadcasts and two sums. Under edge dropout the fused layers take the
+# per-slot route, and the live in-degrees of PNA and of the mean are the sum
+# at width 1. K5's gate stays closed: no weight block is 128 wide on both sides.
+LAYERS_TRAIN_STEPS = 20
+LAYERS_EDGE_DROPOUT = 0.1
+LAYERS_EDGE_DROPOUT_STEPS = 5
+LAYERS_PER_FORWARD = counts_of(extremum=4, broadcast=1, segsum=3)
+LAYERS_PER_TRAIN_STEP = counts_of(extremum=4, broadcast=12, segsum=9)
+LAYERS_PER_EDGE_DROPOUT_STEP = counts_of(extremum=4, broadcast=11, segsum=9)
+LAYERS_FUSED_PER_FORWARD = 2  # EGC and the last MLP-MP layer
 
 
 def phase(name: str, msg: str) -> None:
@@ -283,28 +319,143 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
+KERNEL_FILES = {  # kernel -> (its source, the TPU kernel it replaces)
+    "segment_sum": ("ptgnn_tpu_torch/csrc/segment_sum.cu", "ptgnn_tpu/ops/pallas/segment_kernels.py:197"),
+    "segment_extremum": ("ptgnn_tpu_torch/csrc/segment_extremum.cu", "ptgnn_tpu/ops/pallas/segment_kernels.py:370"),
+    "segment_extremum_argmax": ("ptgnn_tpu_torch/csrc/segment_extremum_argmax.cu",
+                                "ptgnn_tpu/ops/pallas/segment_kernels.py:726"),
+    "broadcast_to_edges": ("ptgnn_tpu_torch/csrc/broadcast_rows.cu", "ptgnn_tpu/ops/pallas/segment_kernels.py:233"),
+}
+
+
+class LayoutKernel(NamedTuple):
+    """A row kernel on one layout at one width: its wrapper, its plain
+    version, one library call for the same function, a maker of random
+    inputs, the bytes of one input, and the bytes and operations one call
+    must move and do."""
+
+    kernel: Callable
+    plain: Callable
+    library: Callable
+    make: Callable
+    input_bytes: int
+    nbytes: int
+    ops: int
+
+
+def layout_kernel(kind: str, adj, width: int, dev, gen) -> LayoutKernel:
+    """``kind`` (the sum, the max extremum, the max extremum with its
+    winning slots, or the broadcast) on ``adj``'s layout at ``width``,
+    float32. Bytes, each input read once and each output written once: a
+    reduction reads the real slots' rows and slot ids and the row offsets
+    (an extremum the counts too) and writes a row per node (and the slots);
+    the broadcast reads the receivers' rows, the slot rows and the tile rows
+    and writes a row per slot. Operations: one per real element of a
+    reduction. Library calls: ``index_add_``; ``scatter_reduce`` amax
+    (values only for the argmax: a partial stand-in); ``index_select`` and
+    the mask."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    num_nodes = adj.agg_counts.numel()
+    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
+    valid = adj.receivers < num_nodes
+    if kind == "broadcast_to_edges":
+        plan = sk.sum_plan_from_adjacency(adj)
+        safe = torch.where(valid, adj.receivers, 0).long()
+        rows = int(torch.unique(adj.receivers[adj.mask]).numel())
+        return LayoutKernel(
+            lambda t: sk.planned_broadcast_to_edges(t, plan), lambda t: sk.broadcast_plain(t, plan),
+            lambda t: torch.where(valid[:, None], t.index_select(0, safe), 0.0),
+            lambda: torch.randn(num_nodes, width, device=dev, generator=gen), num_nodes * width * 4,
+            rows * width * 4 + e_pad * 4 + plan.tile_row_blocks.numel() * 4 + e_pad * width * 4, 0)
+    nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4
+    fill = 0.0 if kind == "segment_sum" else -3.0e38
+
+    def make():
+        data = torch.randn(e_pad, width, device=dev, generator=gen)
+        return torch.where(adj.mask[:, None], data, torch.full((), fill, device=dev)).contiguous()
+
+    if kind == "segment_sum":
+        plan = sk.sum_plan_from_adjacency(adj)
+        index = sk.plan_rows(plan, num_nodes)
+        return LayoutKernel(
+            lambda d: sk.planned_segment_sum(d, plan, num_nodes), lambda d: sk.segment_sum_plain(d, plan, num_nodes),
+            lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, index, d),
+            make, e_pad * width * 4, nbytes, e_real * width)
+    plan = sk.plan_from_adjacency(adj)
+    index = torch.where(valid, adj.receivers, num_nodes).long()[:, None].expand(-1, width).contiguous()
+
+    def library(d):
+        return torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(0, index, d, "amax", include_self=False)
+
+    if kind == "segment_extremum":
+        return LayoutKernel(
+            lambda d: sk.planned_segment_extremum(d, plan, num_nodes, True),
+            lambda d: sk.segment_extremum_plain(d, plan, num_nodes, True), library,
+            make, e_pad * width * 4, nbytes + num_nodes * 4, e_real * width)
+    return LayoutKernel(
+        lambda d: sk.planned_segment_extremum_with_argmax(d, plan, num_nodes, True),
+        lambda d: sk.segment_extremum_argmax_plain(d, plan, num_nodes, True), library,
+        make, e_pad * width * 4, nbytes + num_nodes * 4 + num_nodes * width * 4, e_real * width)
+
+
+def layout_times(k: LayoutKernel, make=None) -> dict:
+    """ms of one call of the kernel, of its plain version and of the library
+    call (``graph_time_ms`` over 16 calls on inputs from ``make``, else
+    ``k.make``, rotated past the L2)."""
+    inputs = rotating(make or k.make, k.input_bytes)
+    times = {key: graph_time_ms([lambda x=inputs[i % len(inputs)], f=f: f(x) for i in range(16)])
+             for key, f in (("ms", k.kernel), ("plain_ms", k.plain), ("library_ms", k.library))}
+    del inputs
+    return times
+
+
+def bound(nbytes: int, ops: int, peak: float = F32_OPS_PER_S) -> dict:
+    """The least time the card could take: the bytes over the memory rate or
+    the operations over ``peak``, whichever is longer."""
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def beyond(got: torch.Tensor, want: torch.Tensor) -> int:
     """Elements outside rtol 1e-4, atol 1e-4 x max|want|."""
     return int(((got - want).abs() > 1e-4 * want.abs() + 1e-4 * want.abs().max()).sum())
 
 
-ROUTING = ("planned_segment_extremum_with_argmax", "_primary_indicator", "_transpose_indicator")
+ROUTING = ("planned_segment_extremum_with_argmax", "_primary_indicator", "_transpose_indicator",
+           "extremum_indicator")
 
 
 @contextlib.contextmanager
-def routing_tape(tape: list, replay: bool = False):
+def routing_tape(tape: list, replay: bool = False, relu: bool = False):
     """Records in ``tape``, in call order, the routing decisions that the
-    fused op takes in the steps run inside it: the argmax extremum's winning
-    slots, and the tie indicators of value routing in both orientations.
-    With ``replay``, the steps take the decisions of ``tape`` in place of
-    their own. A CPU step that replays the card's tape resolves every
-    near-tie as the card did, so what is left between the two is float32
-    rounding. Under argmax routing its values are its own messages at the
-    card's winning slots."""
+    steps run inside it take: in the fused op, the argmax extremum's winning
+    slots and the tie indicators of value routing in both orientations; in
+    the differentiable extremum of the per-slot route, its tie indicator;
+    with ``relu``, the active set of every ``torch.relu`` (and of the
+    activations named "relu"). With ``replay``, the steps take the decisions
+    of ``tape`` in place of their own. A CPU step that replays the card's
+    tape resolves every near-tie as the card did, so what is left between
+    the two is float32 rounding. Under argmax routing its values are its
+    own messages at the card's winning slots; a replayed relu passes its own
+    input where the card's was positive."""
+    from ptgnn_tpu_torch.nn import layers as nn_layers
     from ptgnn_tpu_torch.ops import fused_mp
+    from ptgnn_tpu_torch.ops import segment_kernels
 
-    real = {name: getattr(fused_mp, name) for name in ROUTING}
+    owner = {name: segment_kernels if name == "extremum_indicator" else fused_mp for name in ROUTING}
+    real = {name: getattr(owner[name], name) for name in ROUTING}
     recorded = iter(list(tape))
+    real_relu = torch.relu
+
+    def taped_relu(x):
+        if not replay:
+            tape.append(("relu", x > 0))
+            return real_relu(x)
+        kind, theirs = next(recorded)
+        if kind != "relu":
+            raise RuntimeError(f"the step calls relu where the tape holds {kind}")
+        return torch.where(theirs.to(x.device), x, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def taped(name):
         def call(*args):
@@ -323,19 +474,24 @@ def routing_tape(tape: list, replay: bool = False):
         return call
 
     for name in ROUTING:
-        setattr(fused_mp, name, taped(name))
+        setattr(owner[name], name, taped(name))
+    if relu:
+        torch.relu = nn_layers.ACTIVATIONS["relu"] = taped_relu
     try:
         yield
     finally:
         for name, fn in real.items():
-            setattr(fused_mp, name, fn)
+            setattr(owner[name], name, fn)
+        if relu:
+            torch.relu = nn_layers.ACTIVATIONS["relu"] = real_relu
     if replay and next(recorded, None) is not None:
         raise RuntimeError("the step took fewer routing decisions than the tape holds")
 
 
 def routing_differences(tape_a: list, tape_b: list) -> list[int]:
-    """Per fused-op routing call, the decisions on which two tapes differ:
-    winning slots under argmax routing, tie-indicator entries otherwise."""
+    """Per routing call, the decisions on which two tapes differ: winning
+    slots under argmax routing, tie-indicator or relu-mask entries
+    otherwise."""
     diffs = []
     for (kind, a), (_, b) in zip(tape_a, tape_b, strict=True):
         if kind == "planned_segment_extremum_with_argmax":
@@ -1026,7 +1182,7 @@ def step_against_cpu(model, device_mb, host_mb, dev, name, hook=None):
     phase(name, f"train step (dropout 0) card vs CPU: loss {gpu_loss:.7f} vs {cpu_loss:.7f} (rtol 1e-5); on the "
           f"card's routing decisions, loss {pinned_loss:.7f} and all {len(grads)} gradients within rtol 1e-4, "
           f"atol 1e-4 x max|g| (worst {worst:.3e} of max); on its own, the CPU takes "
-          f"{routing_differences(card_tape, own_tape)} routing decisions differently per fused-op call, and "
+          f"{routing_differences(card_tape, own_tape)} routing decisions differently per routing call, and "
           f"its gradients lie up to {free[0]:.3e} of their norm from the card's ({free[1]})")
     return gpu, cpu, [(pname, got, own) for pname, got, own, _ in grads]
 
@@ -1371,38 +1527,11 @@ def varmisuse_kernel_checks(adj, dev, gen):
           f"the sum at 64, 128 and 256 bitwise equal to its plain version on the CPU")
 
     width = 64
-    valid = adj.receivers < num_nodes
-    rows = torch.where(valid, adj.receivers, num_nodes).long()
-    sum_index = sk.plan_rows(sum_plan, num_nodes)
-    recv_rows = int(torch.unique(adj.receivers[adj.mask]).numel())
-    for name, inputs, kernel, plain, library, nbytes in (
-        ("segment_sum", lambda: masked(width, 0.0),
-         lambda d: sk.planned_segment_sum(d, sum_plan, num_nodes), lambda d: sk.segment_sum_plain(d, sum_plan, num_nodes),
-         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d),
-         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4),
-        ("segment_extremum", lambda: masked(width, -3.0e38),
-         lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True),
-         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True),
-         lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
-             0, rows[:, None].expand(-1, width), d, "amax", include_self=False),
-         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4 + num_nodes * width * 4),
-        ("broadcast_to_edges", lambda: torch.randn(num_nodes, width, device=dev, generator=gen),
-         lambda t: sk.planned_broadcast_to_edges(t, sum_plan), lambda t: sk.broadcast_plain(t, sum_plan),
-         lambda t: torch.where(valid[:, None], t.index_select(0, torch.where(valid, adj.receivers, 0).long()), 0.0),
-         recv_rows * width * 4 + e_pad * 4 + sum_plan.tile_row_blocks.numel() * 4 + e_pad * width * 4),
-    ):
-        datas = rotating(inputs, e_pad * width * 4)
-        calls = [[lambda d=datas[i % len(datas)], f=f: f(d) for i in range(16)] for f in (kernel, plain, library)]
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * (e_real * width if name != "broadcast_to_edges" else 0) / F32_OPS_PER_S
-        entry = {
-            "name": name, "layout": "VarMisuse batch", "ms": graph_time_ms(calls[0]),
-            "plain_ms": graph_time_ms(calls[1]), "library_ms": graph_time_ms(calls[2]),
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "width": width, "dtype": "float32",
-        }
+    for name in ("segment_sum", "segment_extremum", "broadcast_to_edges"):
+        k = layout_kernel(name, adj, width, dev, gen)
+        entry = {"name": name, "layout": "VarMisuse batch", **layout_times(k), **bound(k.nbytes, k.ops),
+                 "width": width, "dtype": "float32"}
         phase("kernels", "VarMisuse layout " + json.dumps(entry))
-        del datas
 
 
 def graph2seq_samples():
@@ -1750,15 +1879,7 @@ def graph2seq_kernel_entries(adj, dev, gen, entry):
     cpu_plan = tree_to(plan, torch.device("cpu"))
     num_nodes = adj.agg_counts.numel()
     e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
-    valid = adj.receivers < num_nodes
-    safe_recv = torch.where(valid, adj.receivers, 0).long()
-    sum_index = sk.plan_rows(plan, num_nodes)
-    recv_rows = int(torch.unique(adj.receivers[adj.mask]).numel())
-
-    def messages():
-        return torch.where(adj.mask[:, None], torch.randn(e_pad, width, device=dev, generator=gen), 0.0)
-
-    data = messages()
+    data = torch.where(adj.mask[:, None], torch.randn(e_pad, width, device=dev, generator=gen), 0.0)
     got = sk.planned_segment_sum(data, plan, num_nodes)
     if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)):
         raise RuntimeError("sum kernel != its plain version on the CPU on the Graph2Seq layout")
@@ -1774,30 +1895,13 @@ def graph2seq_kernel_entries(adj, dev, gen, entry):
           f"card {sum_err:.3e}), the broadcast at {width} bitwise equal to its plain version")
 
     entries = []
-    for name, make, kernel, plain, library, nbytes, ops, err in (
-        ("segment_sum", messages, lambda d: sk.planned_segment_sum(d, plan, num_nodes),
-         lambda d: sk.segment_sum_plain(d, plan, num_nodes),
-         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d),
-         e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4, e_real * width, sum_err),
-        ("broadcast_to_edges", lambda: torch.randn(num_nodes, width, device=dev, generator=gen),
-         lambda t: sk.planned_broadcast_to_edges(t, plan), lambda t: sk.broadcast_plain(t, plan),
-         lambda t: torch.where(valid[:, None], t.index_select(0, safe_recv), 0.0),
-         recv_rows * width * 4 + e_pad * 4 + plan.tile_row_blocks.numel() * 4 + e_pad * width * 4, 0, 0.0),
-    ):
-        inputs = rotating(make, e_pad * width * 4)
-        calls = [[lambda x=inputs[i % len(inputs)], f=f: f(x) for i in range(16)] for f in (kernel, plain, library)]
-        times = {"ms": graph_time_ms(calls[0]), "plain_ms": graph_time_ms(calls[1]),
-                 "library_ms": graph_time_ms(calls[2])}
-        source = {"segment_sum": "ptgnn_tpu_torch/csrc/segment_sum.cu",
-                  "broadcast_to_edges": "ptgnn_tpu_torch/csrc/broadcast_rows.cu"}[name]
-        replaces = {"segment_sum": "ptgnn_tpu/ops/pallas/segment_kernels.py:197",
-                    "broadcast_to_edges": "ptgnn_tpu/ops/pallas/segment_kernels.py:233"}[name]
-        e = entry(name, times, nbytes, ops, source, replaces, width)
+    for name, err in (("segment_sum", sum_err), ("broadcast_to_edges", 0.0)):
+        k = layout_kernel(name, adj, width, dev, gen)
+        e = entry(name, width, layout_times(k), k)
         e.update(layout="Graph2Seq batch", max_abs_err=err, launches_per_forward=G2S_PER_FORWARD[name],
                  launches_per_train_step=G2S_PER_TRAIN_STEP[name])
         phase("kernels", "Graph2Seq layout " + json.dumps(e))
         entries.append(e)
-        del inputs
     return entries
 
 
@@ -1883,35 +1987,13 @@ def skewed_layout_checks(host_adj, dev, gen, width: int = 64):
           f"to the CPU's on every other row and within 1e-5 x sum|x| on the hub (its error "
           f"{float(err[hub].max()):.3e}), all the same bits on a second run")
 
-    index = torch.where(adj.receivers < num_nodes, adj.receivers, num_nodes).long()[:, None].expand(-1, width)
-    index = index.contiguous()
-    sum_index = sk.plan_rows(sum_plan, num_nodes)
-    scatter_amax = lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(  # noqa: E731
-        0, index, d, "amax", include_self=False)
-    for name, fill, kernel, plain, library, err_abs in (
-        ("segment_extremum", -3.0e38, lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True),
-         lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True), scatter_amax, ext_err),
-        ("segment_extremum_argmax", -3.0e38,
-         lambda d: sk.planned_segment_extremum_with_argmax(d, ext_plan, num_nodes, True),
-         lambda d: sk.segment_extremum_argmax_plain(d, ext_plan, num_nodes, True), scatter_amax, argmax_err),
-        ("segment_sum", 0.0, lambda d: sk.planned_segment_sum(d, sum_plan, num_nodes),
-         lambda d: sk.segment_sum_plain(d, sum_plan, num_nodes),
-         lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d), float(err.max())),
-    ):
-        datas = rotating(lambda: masked(fill), e_pad * width * 4)
-        calls = [[lambda d=datas[i % len(datas)], f=f: f(d) for i in range(16)] for f in (kernel, plain, library)]
-        extra = num_nodes * 4 if name != "segment_sum" else 0  # the counts
-        slots_out = num_nodes * width * 4 if name == "segment_extremum_argmax" else 0
-        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + extra + num_nodes * width * 4 + slots_out
-        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
-        entry = {
-            "name": name, "layout": f"bench batch + one hub row of {int(lengths[hub])} slots",
-            "ms": graph_time_ms(calls[0]), "plain_ms": graph_time_ms(calls[1]), "library_ms": graph_time_ms(calls[2]),
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err_abs, "width": width, "dtype": "float32",
-        }
+    for name, err_abs in (("segment_extremum", ext_err), ("segment_extremum_argmax", argmax_err),
+                          ("segment_sum", float(err.max()))):
+        k = layout_kernel(name, adj, width, dev, gen)
+        entry = {"name": name, "layout": f"bench batch + one hub row of {int(lengths[hub])} slots",
+                 **layout_times(k), **bound(k.nbytes, k.ops), "max_abs_err": err_abs, "width": width,
+                 "dtype": "float32"}
         phase("kernels", "skewed layout " + json.dumps(entry))
-        del datas
 
 
 def argmax_kernel_checks(adj, dev, gen):
@@ -1964,49 +2046,364 @@ def argmax_kernel_entry(adj, dev, gen, max_abs_err, launches, launches_by_path):
     path's widths), float32; returns the M = 64 one. Library call:
     scatter_reduce amax into zeros, the values alone (no PyTorch call gives
     first-occurrence slots too): a partial stand-in."""
-    from ptgnn_tpu_torch.ops import segment_kernels as sk
-
-    plan = sk.plan_from_adjacency(adj)
-    num_nodes = adj.agg_counts.numel()
-    valid = adj.receivers < num_nodes
-    e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
     entries = []
     for width in (64, 128):
-        scatter_index = torch.where(valid, adj.receivers, num_nodes).long()[:, None].expand(-1, width).contiguous()
-
-        def make():
-            data = torch.randn(e_pad, width, device=dev, generator=gen)
-            return torch.where(adj.mask[:, None], data, torch.full((), -3.0e38, device=dev)).contiguous()
-
-        datas = rotating(make, e_pad * width * 4)
-
-        def calls(fn):
-            return [lambda d=datas[i % len(datas)]: fn(d) for i in range(16)]
-
-        times = {
-            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_extremum_with_argmax(d, plan, num_nodes, True))),
-            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_extremum_argmax_plain(d, plan, num_nodes, True))),
-            "library_ms": graph_time_ms(calls(lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
-                0, scatter_index, d, "amax", include_self=False))),
-        }
-        # the real slots' rows and ids, the offsets and counts, the values and slots out
-        nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4 + num_nodes * width * 8
-        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * e_real * width / F32_OPS_PER_S
+        k = layout_kernel("segment_extremum_argmax", adj, width, dev, gen)
         entry = {
             "name": "segment_extremum_argmax", "route": "cuda",
-            "source": "ptgnn_tpu_torch/csrc/segment_extremum_argmax.cu",
-            "replaces": "ptgnn_tpu/ops/pallas/segment_kernels.py:726",
+            "source": KERNEL_FILES["segment_extremum_argmax"][0],
+            "replaces": KERNEL_FILES["segment_extremum_argmax"][1],
             "launches": launches, "launches_by_path": launches_by_path,
             "launches_per_train_step": ARGMAX_PER_TRAIN_STEP["segment_extremum_argmax"],
-            "max_abs_err": max_abs_err, **times,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max_abs_err, **layout_times(k), **bound(k.nbytes, k.ops),
             "library_call": "scatter_reduce amax, values only (partial stand-in)",
             "width": width, "dtype": "float32",
         }
         phase("kernels", json.dumps(entry))
         entries.append(entry)
-        del datas
     return entries[0]
+
+
+def jax_layout_params(module):
+    """The module's weights as the JAX package's params pytree of numpy
+    arrays (``{"gnn": {"node_embedder": ..., "mp_layers": [...]}, <head>:
+    ...}``, one ``mp_layers`` entry per unique layer object, ``{}`` for
+    PNA's aggregation): what ``convert.load_jax_params`` loads."""
+    index = module.gnn._layer_param_index
+    layers = [{} for _ in range(max(index) + 1)]
+    tree = {"gnn": {"node_embedder": {}, "mp_layers": layers}}
+    for position, layer in enumerate(module.gnn.message_passing_layers):
+        if hasattr(layer, "aggregation"):
+            layers[index[position]]["aggregation"] = {}
+    for key, value in module.state_dict().items():
+        parts = key.split(".")
+        if parts[:2] == ["gnn", "node_embedder"]:
+            node, rest = tree["gnn"]["node_embedder"], parts[2:]
+        elif parts[:2] == ["gnn", "message_passing_layers"]:
+            node, rest = layers[index[int(parts[2])]], parts[3:]
+        else:
+            node, rest = tree.setdefault(parts[0], {}), parts[1:]
+        for part in rest[:-1]:
+            node = node.setdefault(part, {})
+        node[rest[-1]] = value.detach().cpu().numpy()
+    return tree
+
+
+def cpu_arithmetic() -> str:
+    """The CPU reference's arithmetic: ATen's vector capability, AMX, the
+    float32 matmul precision, oneDNN and the thread count."""
+    amx = getattr(torch.cpu, "_is_amx_tile_supported", lambda: "unknown")()
+    return (f"CPU capability {torch.backends.cpu.get_cpu_capability()}, AMX {amx}, float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}, oneDNN {'on' if torch.backends.mkldnn.is_available() and torch.backends.mkldnn.enabled else 'off'}, "
+            f"{torch.get_num_threads()} threads")
+
+
+@contextlib.contextmanager
+def cpu_reference():
+    """The CPU reference's float32 route: the highest matmul precision and
+    oneDNN off (with it on, GELU runs oneDNN's own kernel, whose rounding
+    follows the host's instruction set), whatever the host offers."""
+    precision, onednn = torch.get_float32_matmul_precision(), torch.backends.mkldnn.enabled
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.mkldnn.enabled = onednn
+
+
+def layers_against_cpu(model, host_minibatch, device_batch, device_minibatch, dev, name="layers"):
+    """The 'layers' stack on the card against the CPU on weights converted
+    through ``convert.py`` (dropout 0): the logits (rtol 1e-4, atol 1e-4 x
+    max|logit|) with the error after the embedder and each stack entry, a
+    second forward on each side, then a train step: the loss (rtol 1e-5)
+    and every gradient within 1e-4 x its max |g| on the card's routing
+    decisions, relu's active sets among them. The CPU side runs under
+    ``cpu_reference()``. Returns the logits of both sides and the largest
+    errors."""
+    from ptgnn_tpu_torch.convert import load_jax_params
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
+
+    tree = jax_layout_params(model.build_neural_module(device="cpu", seed=SEED + 1))
+    sides = {}
+    for side in ("gpu", "cpu", "own"):
+        m = model.build_neural_module(device=dev if side == "gpu" else torch.device("cpu"), seed=SEED)
+        load_jax_params(m, tree)
+        set_dropout(m, 0.0)
+        sides[side] = m
+    host = tree_to(host_minibatch, torch.device("cpu"))
+    outs = {"gpu": [], "cpu": []}
+    hooks = [entry.register_forward_hook(lambda mod, args, out, side=side: outs[side].append(out.float().cpu()))
+             for side in outs for entry in [sides[side].gnn.node_embedder, *sides[side].gnn.message_passing_layers]]
+    with torch.inference_mode():
+        gpu_logits = sides["gpu"]._logits(device_batch, train=False)[0].cpu()
+        with cpu_reference():
+            cpu_logits = sides["cpu"]._logits(host["batch"], train=False)[0]
+    for hook in hooks:
+        hook.remove()
+    with torch.inference_mode():
+        gpu_again = sides["gpu"]._logits(device_batch, train=False)[0].cpu()
+        with cpu_reference():
+            cpu_again = sides["cpu"]._logits(host["batch"], train=False)[0]
+            arithmetic = cpu_arithmetic()
+    layer_err = [f"{float((g - c).abs().max()):.2e}/{float(c.abs().max()):.2e}" for g, c in zip(outs["gpu"], outs["cpu"])]
+    # rtol 1e-4 and 1e-4 of the logit scale, as the parity phase holds the
+    # 'mlp' stack: GraphNorm's sums add in atomic order on the card, which
+    # moves the logits by up to half of 1e-5 x max|logit| from run to run.
+    atol = 1e-4 * float(cpu_logits.abs().max())
+    logit_err = float((gpu_logits - cpu_logits).abs().max())
+    phase(name, f"card vs CPU ({arithmetic}) max abs err / max |x| after the embedder and each stack entry: "
+          f"{layer_err}; logits {logit_err:.3e} ({int(((gpu_logits - cpu_logits).abs() > 1e-5).sum())} of "
+          f"{gpu_logits.numel()} past 1e-5); a second forward: card vs card "
+          f"{float((gpu_again - gpu_logits).abs().max()):.3e}, CPU vs CPU {float((cpu_again - cpu_logits).abs().max()):.3e}")
+    torch.testing.assert_close(gpu_logits, cpu_logits, rtol=1e-4, atol=atol)
+
+    def step(side, mb, tape, replay=False):
+        device = dev if side == "gpu" else torch.device("cpu")
+        with routing_tape(tape, replay, relu=True), (cpu_reference() if side != "gpu" else contextlib.nullcontext()):
+            loss, _ = module_loss(sides[side], mb, train=True, generator=torch.Generator(device=device))
+            loss.backward()
+        return float(loss.detach())
+
+    card_tape, own_tape = [], []
+    gpu_loss = step("gpu", device_minibatch, card_tape)
+    cpu_loss = step("cpu", host, card_tape, replay=True)
+    own_loss = step("own", host, own_tape)
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-5)
+    np.testing.assert_allclose(gpu_loss, own_loss, rtol=1e-5)
+    worst, reached, failed = 0.0, 0, []
+    for (pname, pg), pc in zip(sides["gpu"].named_parameters(), sides["cpu"].parameters()):
+        if pc.grad is None:
+            if pg.grad is not None and bool(pg.grad.any()):
+                raise RuntimeError(f"{name}: {pname} has a gradient on the card alone")
+            continue
+        got, want = pg.grad.cpu(), pc.grad
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= 1e-4 * scale):
+            failed.append(f"{pname}: {err / scale:.2e} of max |g|")
+        worst = max(worst, err / scale)
+        reached += 1
+    if failed:
+        raise RuntimeError(f"{name}: gradients beyond 1e-4 x their max |g| on the card's routing decisions: {failed}")
+    phase(name, f"card vs CPU on converted weights (dropout 0): logits max abs err {logit_err:.3e} (rtol 1e-4, "
+          f"atol {atol:.3e} = 1e-4 x max|logit|); train step loss {gpu_loss:.7f} vs {cpu_loss:.7f} (rtol 1e-5); "
+          f"on the card's routing decisions all {reached} gradients within 1e-4 x their max |g| (worst "
+          f"{worst:.3e}); on its own the CPU's loss is {own_loss:.7f} and it takes "
+          f"{routing_differences(card_tape, own_tape)} routing decisions differently per call")
+    return {"gpu_logits": gpu_logits, "cpu_logits": cpu_logits, "logit_err": logit_err, "atol": atol,
+            "worst_gradient": worst, "cpu_module": sides["cpu"], "host_batch": host["batch"]}
+
+
+def layers_gate_repeats(runs: int) -> None:
+    """``chip_smoke.py --layers-gate RUNS``: the 'layers' card-against-CPU
+    gate (``layers_against_cpu``) RUNS times in one process on the
+    benchmark batches, each run's logits also held against the first run's
+    on the same side (the card's move by GraphNorm's atomic sums, the CPU's
+    should not move) and against the CPU's logits on its default route
+    (oneDNN on, outside ``cpu_reference``), then a summary line. Exits 1 if
+    a run failed."""
+    from ptgnn_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    phase("build", f"{cuda_build.build_all():.2f} s")
+    model, _, minibatches, batches = build_bench(dev, architecture="layers")
+    first, errors, failures = None, [], []
+    for run in range(runs):
+        try:
+            got = layers_against_cpu(model, minibatches[0], batches[0][0], g2c_minibatch(batches[0]), dev,
+                                     name=f"layers-gate {run + 1}/{runs}")
+        except (AssertionError, RuntimeError) as failure:
+            failures.append(run + 1)
+            phase(f"layers-gate {run + 1}/{runs}", f"FAILED: {failure}")
+            continue
+        first = first or got
+        errors.append(got["logit_err"])
+        with torch.inference_mode():
+            default = got["cpu_module"]._logits(got["host_batch"], train=False)[0]
+        phase(f"layers-gate {run + 1}/{runs}", f"against the first run: card "
+              f"{float((got['gpu_logits'] - first['gpu_logits']).abs().max()):.3e}, CPU "
+              f"{float((got['cpu_logits'] - first['cpu_logits']).abs().max()):.3e}; the CPU's default route "
+              f"({cpu_arithmetic()}) against the pinned one {float((default - got['cpu_logits']).abs().max()):.3e}, "
+              f"against the card {float((default - got['gpu_logits']).abs().max()):.3e}")
+    phase("layers-gate", f"{runs} runs on {card}: {len(failures)} failed {failures}; logits card vs CPU "
+          f"{['%.3e' % e for e in errors]} (limit {first['atol'] if first else float('nan'):.3e})")
+    if failures:
+        sys.exit(1)
+
+
+def layers_phase(dev, card, reps: int = 3):
+    """The 'layers' stack (PNA, GraphNorm, EGC, block self-attention, an
+    MLP-MP layer with a hidden layer, reference self-attention, the
+    benchmark's MLP-MP layer) at hidden 64 on the benchmark batches: eval
+    forwards in float32 and bf16 AMP, train_steps in both, train steps with
+    edge dropout (no fused-op call, finite gradients, an eval forward that
+    the rate leaves alone), then the logits and a train step (dropout 0) on
+    converted weights on the card against the CPU. Returns the launch counts
+    of the path, its device batches and the inputs that the PNA and EGC
+    layers saw in a float32 eval forward of the first batch."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.messagepassing import base as mp_base
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "layers"
+    t_phase = time.perf_counter()
+    model, module, minibatches, batches = build_bench(dev, architecture="layers")
+    mbs = [g2c_minibatch(b) for b in batches]
+    layers = module.gnn.message_passing_layers
+    torch.cuda.synchronize()
+    phase(name, f"setup {time.perf_counter() - t_phase:.2f} s; stack {[type(layer).__name__ for layer in layers]}; "
+          f"{sum(p.numel() for p in module.parameters())} parameters; typed weights "
+          f"{[tuple(p.shape) for n, p in module.named_parameters() if 'weights_' in n or n.endswith('bases')]}; "
+          f"att_order {tuple(batches[0][0].att_order.shape)}")
+
+    fused = [0]
+    real_fused = mp_base.fused_typed_message_aggregation
+
+    def counted_fused(*args, **kwargs):
+        fused[0] += 1
+        return real_fused(*args, **kwargs)
+
+    mp_base.fused_typed_message_aggregation = counted_fused
+    try:
+        module.eval()
+        forwards = [0]
+        counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        sk.reset_launch_counts()  # the layers path starts here
+        for amp in (False, True):
+            eval_forward_phase(module, mbs, card, name, reps, amp=amp)
+        counter.remove()
+        serving = sk.launch_counts()
+        phase(name, f"launches over {forwards[0]} eval forwards {serving}; fused-op calls {fused[0]}")
+        if serving != {k: v * forwards[0] for k, v in LAYERS_PER_FORWARD.items()}:
+            raise RuntimeError(f"expected {LAYERS_PER_FORWARD} launches per layers forward, got {serving}")
+        if fused[0] != LAYERS_FUSED_PER_FORWARD * forwards[0]:
+            raise RuntimeError(f"{fused[0]} fused-op calls in {forwards[0]} forwards")
+        train_counts = train_steps_phase(model, mbs, dev, card, name, LAYERS_PER_TRAIN_STEP,
+                                         steps=LAYERS_TRAIN_STEPS)
+
+        # Edge dropout: every layer leaves the fused route.
+        drop = model.build_neural_module(device=dev, seed=SEED)
+        drop.gnn.edge_dropout_rate = LAYERS_EDGE_DROPOUT
+        fused[0] = 0
+        before = sk.launch_counts()
+        stats = train_steps(drop, mbs, steps=LAYERS_EDGE_DROPOUT_STEPS, seed=SEED)
+        loss, _ = module_loss(drop, mbs[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
+        loss.backward()
+        steps = LAYERS_EDGE_DROPOUT_STEPS + 2
+        per_step = {k: v / steps for k, v in delta(sk.launch_counts(), before).items()}
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in drop.parameters() if p.grad is not None)
+        if per_step != LAYERS_PER_EDGE_DROPOUT_STEP or fused[0]:
+            raise RuntimeError(f"edge dropout step: launches {per_step} (expected {LAYERS_PER_EDGE_DROPOUT_STEP}), "
+                               f"{fused[0]} fused-op calls")
+        if not (math.isfinite(stats["loss"]) and math.isfinite(float(loss.detach())) and grads_finite):
+            raise RuntimeError(f"edge dropout step: loss {stats['loss']} / {float(loss)}, finite grads {grads_finite}")
+        counts = sk.launch_counts()  # the layers path ends here
+        phase(name, f"train_steps float32 with edge dropout {LAYERS_EDGE_DROPOUT}: {LAYERS_EDGE_DROPOUT_STEPS} steps "
+              f"after 1 warm-up, loss {stats['loss']:.6f}, {stats['ms_per_step']:.3f} ms/step, "
+              f"{stats['graphs_per_s']:.1f} graphs/s, {stats['edges_per_s']:.0f} edges/s on {card}; launches per "
+              f"step {per_step}; 0 fused-op calls; one more step: loss {float(loss.detach()):.6f}, all gradients finite")
+        expected = add_counts(add_counts(serving, train_counts),
+                              {k: v * steps for k, v in LAYERS_PER_EDGE_DROPOUT_STEP.items()})
+        phase(name, f"launches over the layers path: {counts}")
+        if counts != expected:
+            raise RuntimeError(f"layers launches {counts} != {expected} expected")
+
+        # The rate leaves an eval forward alone: the fused route, the same logits.
+        drop.eval()
+        fused[0] = 0
+        with torch.inference_mode():
+            with_rate = drop._logits(batches[0][0], train=False)[0]
+            drop.gnn.edge_dropout_rate = 0.0
+            without = drop._logits(batches[0][0], train=False)[0]
+        err = float((with_rate - without).abs().max())
+        if fused[0] != 2 * LAYERS_FUSED_PER_FORWARD or err > 1e-5 * float(without.abs().max()):
+            raise RuntimeError(f"edge dropout changed an eval forward: {fused[0]} fused calls, max abs err {err}")
+        phase(name, f"an eval forward with edge dropout {LAYERS_EDGE_DROPOUT} takes the fused route "
+              f"({LAYERS_FUSED_PER_FORWARD} calls) and gives the logits of rate 0 (max abs err {err:.3e}; "
+              f"GraphNorm's index_add_ adds in atomic order)")
+    finally:
+        mp_base.fused_typed_message_aggregation = real_fused
+
+    # The inputs of PNA's and EGC's layers in a float32 eval forward, for the
+    # kernels against their plain versions.
+    seen = {}
+    hooks = [layers[i].register_forward_pre_hook(lambda mod, args, i=i: seen.__setitem__(i, args[0].detach()))
+             for i in (0, 2)]
+    hooks.append(layers[0].aggregation.register_forward_pre_hook(
+        lambda mod, args: seen.__setitem__("pna", args[0].detach())))
+    with torch.inference_mode():
+        module._logits(batches[0][0], train=False)
+    for hook in hooks:
+        hook.remove()
+    seen["bases"] = layers[2].bases.detach()
+
+    layers_against_cpu(model, minibatches[0], batches[0][0], mbs[0], dev)
+    phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
+    return counts, batches, seen
+
+
+def layers_kernel_entries(adj, seen, dev, gen, entry):
+    """The kernels at the layers path's new shapes against their plain
+    versions, then timed beside a library call (kernels-line entries through
+    ``entry``): K1 (the sum) and K2 (the extremum) on PNA's messages at width
+    64, K3 (the broadcast) of PNA's input states at 64, K2 at width 256 on
+    EGC's fused messages, and K1 at width 1 on an edge-dropout mask (the
+    live-slot count)."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
+
+    num_nodes = adj.agg_counts.numel()
+    sum_plan = sk.sum_plan_from_adjacency(adj)
+    cpu_sum_plan = tree_to(sum_plan, torch.device("cpu"))
+    neutral = torch.full((), -3.0e38, device=dev)
+    with torch.no_grad():
+        egc_messages = typed_tile_matmul(seen[2].index_select(0, adj.senders.clamp(max=num_nodes - 1).long()),
+                                         seen["bases"], adj.tile_types, adj.edge_tile)
+    keep = torch.rand(adj.mask.shape, device=dev, generator=gen) >= LAYERS_EDGE_DROPOUT
+    cases = {
+        "sum 64 (PNA messages)": ("segment_sum", torch.where(adj.mask[:, None], seen["pna"].float(), 0.0)),
+        "sum 1 (live slots under edge dropout)": ("segment_sum", (adj.mask & keep)[:, None].float()),
+        "extremum 64 (PNA messages)": ("segment_extremum", torch.where(adj.mask[:, None], seen["pna"].float(),
+                                                                       neutral)),
+        "extremum 256 (EGC's fused messages)": ("segment_extremum", torch.where(adj.mask[:, None], egc_messages,
+                                                                                neutral)),
+        "broadcast 64 (PNA's input states)": ("broadcast_to_edges", seen[0].float()),
+    }
+    entries = []
+    for case, (kname, data) in cases.items():
+        data = data.contiguous()
+        width = data.shape[1]
+        k = layout_kernel(kname, adj, width, dev, gen)
+        got = k.kernel(data)
+        if kname == "segment_sum":
+            if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_sum_plan, num_nodes)):
+                raise RuntimeError(f"sum kernel != its plain version on the CPU at {case}")
+            err = float((got - k.plain(data)).abs().max())
+            if err > 1e-5 * float(sk.segment_sum_plain(data.abs(), sum_plan, num_nodes).max()):
+                raise RuntimeError(f"sum kernel off its plain version on the card at {case}")
+        else:
+            if not bitwise_equal(got, k.plain(data)):
+                raise RuntimeError(f"{kname} kernel != its plain version at {case}")
+            err = 0.0
+        e = entry(kname, width, layout_times(k, lambda d=data: d.clone()), k)
+        e.update(layout="Graph2Class batch, layers stack", case=case, max_abs_err=err,
+                 launches_per_forward=LAYERS_PER_FORWARD[kname],
+                 launches_per_train_step=LAYERS_PER_TRAIN_STEP[kname],
+                 launches_per_edge_dropout_step=LAYERS_PER_EDGE_DROPOUT_STEP[kname])
+        phase("kernels", "layers path " + json.dumps(e))
+        entries.append(e)
+    torch.cuda.synchronize()
+    phase("kernels", f"layers path: {list(cases)} equal to their plain versions (the sums bitwise to their plain "
+          f"versions on the CPU, the extrema and the broadcast bitwise on the card)")
+    return entries
 
 
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck")
@@ -2074,6 +2471,9 @@ def main() -> None:
         sys.exit(2)
     if sys.argv[1:] == ["--sanitizer-target"]:
         sanitizer_target()
+        return
+    if sys.argv[1:2] == ["--layers-gate"]:
+        layers_gate_repeats(int(sys.argv[2]))
         return
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import cuda_build
@@ -2172,11 +2572,14 @@ def main() -> None:
 
     # ---- 14. Graph2Seq at full width -----------------------------------------
     g2s_counts, g2s_batches = graph2seq_phase(dev, card, *graph2seq_samples())
+
+    # ---- 17. the other message-passing families at full width ---------------
+    layers_counts, layers_batches, layers_seen = layers_phase(dev, card)
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
              "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"],
-             "graph2seq": g2s_counts}
+             "graph2seq": g2s_counts, "layers": layers_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -2291,131 +2694,43 @@ def main() -> None:
     ppi_max_abs_err = ppi_parity_phase(ppi_model, ppi_minibatches, ppi_batches, dev)
 
     # ---- 7. kernel timings -------------------------------------------------
-    e_pad = adj.mask.shape[0]
-    real = adj.mask
-    e_real = int(real.sum())
-    recv_rows = int(torch.unique(adj.receivers[real]).numel())
-    n_super = bc_plan.tile_row_blocks.numel()
-    valid = adj.receivers < num_nodes
-    safe_recv = torch.where(valid, adj.receivers, 0).long()
-    sum_index = sk.plan_rows(bc_plan, num_nodes)  # sentinel slots -> row num_nodes
     kernels = []
 
-    def calls(fn, inputs):
-        return [lambda x=inputs[i % len(inputs)]: fn(x) for i in range(16)]
-
-    def entry(name, times, nbytes, ops, source, replaces, width):
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops / F32_OPS_PER_S
+    def entry(name, width, times, k):
         return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": KERNEL_FILES[name][0], "replaces": KERNEL_FILES[name][1],
             "launches": main_counts[name],
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "launches_per_forward": PER_FORWARD[name], "launches_per_train_step": PER_TRAIN_STEP[name],
             "max_abs_err": max_abs_err[name],
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ms": times["ms"], "plain_ms": times["plain_ms"], **bound(k.nbytes, k.ops),
             "library_ms": times["library_ms"], "width": width, "dtype": "float32",
         }
 
-    for width in (64, 128, 256):
-        # the path's float32 widths: tie counts 64 and 128, the combined node
-        # cotangent 128 and 256
-        sums = rotating(lambda: torch.where(adj.mask[:, None], torch.randn(
-            e_pad, width, device=dev, generator=gen), 0.0), e_pad * width * 4)
-        segsum = {
-            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_sum(d, bc_plan, num_nodes), sums)),
-            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_sum_plain(d, bc_plan, num_nodes), sums)),
-            "library_ms": graph_time_ms(calls(
-                lambda d: torch.zeros(num_nodes + 1, width, device=dev).index_add_(0, sum_index, d), sums)),
-        }
-        sum_bytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4
-        e = entry("segment_sum", segsum, sum_bytes, e_real * width, "ptgnn_tpu_torch/csrc/segment_sum.cu",
-                  "ptgnn_tpu/ops/pallas/segment_kernels.py:197", width)
-        if width == 64:
-            kernels.append(e)
-        phase("kernels", json.dumps(e))
-        del sums
-
-    for width in (64, 128):
-        # the path's float32 shapes: D = M = 64 before the residuals, 128 after
-        tables = rotating(lambda: torch.randn(num_nodes, width, device=dev, generator=gen),
-                          num_nodes * width * 4)
-        datas = rotating(lambda: masked_messages(width, torch.float32, True), e_pad * width * 4)
-        scatter_index = torch.where(valid, adj.receivers, num_nodes).long()[:, None].expand(-1, width).contiguous()
-
-        bc = {
-            "ms": graph_time_ms(calls(lambda t: sk.planned_broadcast_to_edges(t, bc_plan), tables)),
-            "plain_ms": graph_time_ms(calls(lambda t: sk.broadcast_plain(t, bc_plan), tables)),
-            "library_ms": graph_time_ms(calls(
-                lambda t: torch.where(valid[:, None], t.index_select(0, safe_recv), 0.0), tables)),
-        }
-        bc_bytes = recv_rows * width * 4 + e_pad * 4 + n_super * 4 + e_pad * width * 4
-        ext = {
-            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_extremum(d, ext_plan, num_nodes, True), datas)),
-            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_extremum_plain(d, ext_plan, num_nodes, True), datas)),
-            "library_ms": graph_time_ms(calls(
-                lambda d: torch.zeros(num_nodes + 1, width, device=dev).scatter_reduce_(
-                    0, scatter_index, d, "amax", include_self=False), datas)),
-        }
-        ext_bytes = (e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * 4
-                     + num_nodes * width * 4)
-        ext_ops = e_real * width
-        for args in (
-            ("broadcast_to_edges", bc, bc_bytes, 0, "ptgnn_tpu_torch/csrc/broadcast_rows.cu",
-             "ptgnn_tpu/ops/pallas/segment_kernels.py:233", width),
-            ("segment_extremum", ext, ext_bytes, ext_ops, "ptgnn_tpu_torch/csrc/segment_extremum.cu",
-             "ptgnn_tpu/ops/pallas/segment_kernels.py:370", width),
-        ):
-            e = entry(*args)
+    # The path's float32 widths: the sum's tie counts 64 and 128 and combined
+    # node cotangent 128 and 256; D = M = 64 before the residuals, 128 after.
+    for name, widths in (("segment_sum", (64, 128, 256)), ("broadcast_to_edges", (64, 128)),
+                         ("segment_extremum", (64, 128))):
+        for width in widths:
+            k = layout_kernel(name, adj, width, dev, gen)
+            e = entry(name, width, layout_times(k), k)
             if width == 64:
                 kernels.append(e)
             phase("kernels", json.dumps(e))
     # The PPI layout's sum widths (the forward 256, the backward's combined
     # cotangents 512) and broadcast width (256).
     ppi_adj = ppi_batches[0]["batch"].adjacency
-    ppi_plan = sk.sum_plan_from_adjacency(ppi_adj)
-    ppi_nodes = ppi_adj.agg_counts.numel()
-    ppi_real = int(ppi_adj.mask.sum())
-    ppi_e_pad = ppi_adj.mask.shape[0]
-    ppi_index = sk.plan_rows(ppi_plan, ppi_nodes)
-    ppi_valid = ppi_adj.receivers < ppi_nodes
-    ppi_recv = torch.where(ppi_valid, ppi_adj.receivers, 0).long()
-    ppi_recv_rows = int(torch.unique(ppi_adj.receivers[ppi_adj.mask]).numel())
-    for width in (256, 512):
-        sums = rotating(lambda: torch.where(ppi_adj.mask[:, None], torch.randn(
-            ppi_e_pad, width, device=dev, generator=gen), 0.0), ppi_e_pad * width * 4)
-        times = {
-            "ms": graph_time_ms(calls(lambda d: sk.planned_segment_sum(d, ppi_plan, ppi_nodes), sums)),
-            "plain_ms": graph_time_ms(calls(lambda d: sk.segment_sum_plain(d, ppi_plan, ppi_nodes), sums)),
-            "library_ms": graph_time_ms(calls(
-                lambda d: torch.zeros(ppi_nodes + 1, width, device=dev).index_add_(0, ppi_index, d), sums)),
-        }
-        nbytes = ppi_real * width * 4 + ppi_real * 4 + (ppi_nodes + 1) * 4 + ppi_nodes * width * 4
-        e = entry("segment_sum", times, nbytes, ppi_real * width, "ptgnn_tpu_torch/csrc/segment_sum.cu",
-                  "ptgnn_tpu/ops/pallas/segment_kernels.py:197", width)
-        e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"]
+    for name, width in (("segment_sum", 256), ("segment_sum", 512), ("broadcast_to_edges", 256)):
+        k = layout_kernel(name, ppi_adj, width, dev, gen)
+        e = entry(name, width, layout_times(k), k)
+        # the broadcast bitwise equal to its plain version (ppi-parity)
+        e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"] if name == "segment_sum" else 0.0
         phase("kernels", "PPI layout " + json.dumps(e))
-        del sums
-    tables = rotating(lambda: torch.randn(ppi_nodes, 256, device=dev, generator=gen), ppi_nodes * 256 * 4)
-    times = {
-        "ms": graph_time_ms(calls(lambda t: sk.planned_broadcast_to_edges(t, ppi_plan), tables)),
-        "plain_ms": graph_time_ms(calls(lambda t: sk.broadcast_plain(t, ppi_plan), tables)),
-        "library_ms": graph_time_ms(calls(
-            lambda t: torch.where(ppi_valid[:, None], t.index_select(0, ppi_recv), 0.0), tables)),
-    }
-    nbytes = (ppi_recv_rows * 256 * 4 + ppi_e_pad * 4 + ppi_plan.tile_row_blocks.numel() * 4
-              + ppi_e_pad * 256 * 4)
-    e = entry("broadcast_to_edges", times, nbytes, 0, "ptgnn_tpu_torch/csrc/broadcast_rows.cu",
-              "ptgnn_tpu/ops/pallas/segment_kernels.py:233", 256)
-    e["max_abs_err"] = 0.0  # bitwise equal (ppi-parity)
-    phase("kernels", "PPI layout " + json.dumps(e))
-    del tables
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
     kernels += graph2seq_kernel_entries(g2s_batches[0]["batch"].adjacency, dev, gen, entry)
+    kernels += layers_kernel_entries(layers_batches[0][0].adjacency, layers_seen, dev, gen, entry)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

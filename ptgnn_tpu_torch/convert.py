@@ -26,7 +26,16 @@ embedder: ``node_embedder.linear.weight`` ``[H, F]``): the port's layouts,
 so each array loads as is. The gated (GGNN) layer's ``message_weights`` is
 ``[T, D, M]`` and its ``state_update`` holds the GRU cell's ``weight_ih``
 ``[3H, M]``, ``weight_hh`` ``[3H, H]``, ``bias_ih`` and ``bias_hh``
-``[3H]``, under the same names in the port. ``mp_layers`` holds one entry
+``[3H]``, under the same names in the port. The other layers' entries
+load under their JAX names too: an MLP-MP layer's ``message_mlp`` holds
+``weights_{i}`` ``[T, d_in, d_out]`` (one per MLP layer), beside
+``layer_norm`` and ``dense`` where the layer has them, and an
+``aggregation`` entry that is ``{}`` for PNA; EGC holds ``bases`` ``[T, D,
+B x O]`` and ``weight_coeffs`` (a Linear); GraphNorm ``gamma``, ``alpha``
+and ``bias``, each ``[1, D]``; self-attention ``head_transforms`` and
+``summarization`` (bias-free Linears), ``intermediate`` and ``output``
+(Linears), ``layer_norm1`` and ``layer_norm2``. An ``MLP`` holds
+``layer_{i}`` Linears. ``mp_layers`` holds one entry
 per unique layer object, in stack order; a layer object used at several
 positions (the GGNN stack's shared layer) loads its one entry at each of
 them, and residual entries are ``{}`` and map to nothing. A JAX key without

@@ -455,4 +455,39 @@ class GraphBatcher:
             num_edges=np.int32(mb["num_edges_in_mb"]),
             num_graphs=np.int32(num_graphs),
             graph_mask=np.arange(g_pad) < num_graphs,
+            att_order=self._build_att_order(mb["num_nodes_per_graph"]),
         )
+
+    def _build_att_order(self, num_nodes_per_graph: Sequence[int]) -> Optional[np.ndarray]:
+        """[n_blocks, att_block] node permutation: Next-Fit packing of the
+        graphs into attention blocks, so that no graph of at most one block
+        straddles a block boundary. A larger graph starts at a block
+        boundary and fills consecutive blocks; the block after it starts
+        fresh.
+
+        The budget is the exact worst case: each graph costs at most a
+        sealed partial block (block - 1) plus ceil(n / block) * block <= n +
+        block - 1 slots, so the total is bounded by both n_pad + 2 * block *
+        max_graphs and, pairing each seal with the real node that forced it,
+        3 * n_pad."""
+        block = self.padding.att_block
+        if not block:
+            return None
+        n_pad = self.padding.max_nodes
+        worst = min(n_pad + 2 * block * self.padding.max_graphs, 3 * n_pad)
+        n_blocks = -(-worst // block) + 1
+        order = np.full(n_blocks * block, n_pad, np.int32)
+        cursor = 0  # the next free slot of the flat order
+        offset = 0  # the node id of the current graph's first node
+        for n in num_nodes_per_graph:
+            remaining = block - cursor % block
+            if n > remaining and remaining < block:
+                cursor += remaining  # seal the partial block
+            order[cursor:cursor + n] = np.arange(offset, offset + n, dtype=np.int32)
+            cursor += n
+            if n > block and cursor % block:
+                cursor += block - cursor % block  # a large graph ends its block
+            offset += n
+        if cursor > len(order):
+            raise RuntimeError("the attention packing overran its budget")
+        return order.reshape(n_blocks, block)

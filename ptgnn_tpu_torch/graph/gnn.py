@@ -2,8 +2,8 @@
 
 The module runs over a statically shaped GraphBatch: backward and self
 edges are materialized by the batcher, residual layers compose through an
-explicit stash. Edge dropout is not ported (the factories that use this
-engine set its rate to 0).
+explicit stash. Edge dropout is one keep mask over the fused edge array,
+ANDed with the batch's static mask while training.
 """
 from __future__ import annotations
 
@@ -39,8 +39,12 @@ class GraphNeuralNetwork(torch.nn.Module):
         self,
         message_passing_layers: List[AbstractMessagePassingLayer],
         node_embedder: torch.nn.Module,
+        edge_dropout_rate: float = 0.0,
     ):
         super().__init__()
+        if not 0.0 <= edge_dropout_rate < 1.0:
+            raise ValueError(f"edge_dropout_rate {edge_dropout_rate} is not in [0, 1)")
+        self.edge_dropout_rate = edge_dropout_rate
         # A layer object used at several positions shares its parameters.
         self.message_passing_layers = torch.nn.ModuleList(message_passing_layers)
         self._layer_param_index: List[int] = []
@@ -58,8 +62,16 @@ class GraphNeuralNetwork(torch.nn.Module):
         return self.message_passing_layers[-1].output_state_dimension
 
     def gnn(self, node_representations, ctx: GraphContext, *, train: bool = False,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Run the message-passing layer stack."""
+            generator: Optional[torch.Generator] = None, return_all_states: bool = False) -> torch.Tensor:
+        """Run the message-passing layer stack; with ``return_all_states``,
+        the input and every entry's output concatenated on the last dim."""
+        if self.edge_dropout_rate > 0 and train:
+            if generator is None:
+                raise ValueError("edge dropout during training needs a torch.Generator")
+            mask = ctx.adjacency.mask
+            keep = torch.rand(mask.shape, generator=generator, device=mask.device) < 1.0 - self.edge_dropout_rate
+            ctx = ctx._replace(adjacency=ctx.adjacency._replace(mask=mask & keep), edge_mask_is_static=False)
+        all_states = [node_representations] if return_all_states else None
         stash: Dict[int, torch.Tensor] = {}
         for layer in self.message_passing_layers:
             if isinstance(layer, _ResidualOriginLayer):
@@ -69,10 +81,15 @@ class GraphNeuralNetwork(torch.nn.Module):
                 node_representations = layer.combine(original, node_representations, train=train)
             else:
                 node_representations = layer(node_representations, ctx, train=train, generator=generator)
+            if return_all_states:
+                all_states.append(node_representations)
+        if return_all_states:
+            return torch.cat(all_states, dim=-1)
         return node_representations
 
     def forward(
-        self, batch: GraphBatch, *, train: bool = False, generator: Optional[torch.Generator] = None
+        self, batch: GraphBatch, *, train: bool = False, generator: Optional[torch.Generator] = None,
+        return_all_states: bool = False,
     ) -> Tuple[GnnOutput, Dict[str, Any]]:
         """Returns (GnnOutput, metric accumulators). ``generator`` draws every
         dropout mask when training."""
@@ -83,8 +100,9 @@ class GraphNeuralNetwork(torch.nn.Module):
             node_mask=batch.node_mask,
             graph_mask=batch.graph_mask,
             references=batch.references,
+            att_order=batch.att_order,
         )
-        output = self.gnn(initial, ctx, train=train, generator=generator)
+        output = self.gnn(initial, ctx, train=train, generator=generator, return_all_states=return_all_states)
         metrics = {
             "num_graphs": batch.num_graphs,
             "num_nodes": batch.num_nodes,
@@ -118,6 +136,7 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
         introduce_backwards_edges: bool = True,
         stop_extending_minibatch_after_num_nodes: Optional[int] = None,
         add_self_edges: bool = False,
+        edge_dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.__message_passing_layers_creator = message_passing_layer_creator
@@ -132,6 +151,7 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             else padding.max_nodes
         )
         self.add_self_edges = add_self_edges
+        self.edge_dropout_rate = edge_dropout_rate
 
     @property
     def node_embedding_model(self) -> AbstractNeuralModel:
@@ -185,6 +205,7 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
         return GraphNeuralNetwork(
             layers,
             node_embedder=self.__node_embedding_model.build_neural_module(),
+            edge_dropout_rate=self.edge_dropout_rate,
         )
 
     def _make_batcher(self) -> GraphBatcher:

@@ -1,24 +1,31 @@
 """GGNN-style gated message passing: per-edge-type bias-free linear messages
-from the source states, aggregated to receivers by the fused route, then a
-GRU state update. The counterpart of the JAX package's
-``graph/messagepassing/gated.py`` without edge features (the port's batches
-carry none)."""
+from the source states, aggregated to receivers (by the fused route where
+the batch allows it, else per slot), then a GRU state update. The
+counterpart of the JAX package's ``graph/messagepassing/gated.py`` without
+edge features (the port's batches carry none)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from ptgnn_tpu_torch.graph.messagepassing.base import AbstractMessagePassingLayer, GraphContext
+from ptgnn_tpu_torch.graph.messagepassing.base import (
+    AbstractMessagePassingLayer,
+    GraphContext,
+    fused_linear_message_aggregation_or_none,
+)
 from ptgnn_tpu_torch.nn import initializers as init
-from ptgnn_tpu_torch.nn.layers import GRUCell
-from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
+from ptgnn_tpu_torch.nn.layers import GRUCell, dropout
+from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
 
 class GatedMessagePassingLayer(AbstractMessagePassingLayer):
     """Messages ``x[src] @ message_weights[type]`` (keyed message-input
     dropout while training), aggregated by ``message_aggregation_function``,
-    update the state through a GRU cell. ``argmax_routing``: max/min
+    update the state through a GRU cell. Where the fused route is closed
+    (a non-static edge mask, under edge dropout), the messages are computed
+    per slot: gather, message-input dropout, typed tile matmul, aggregation
+    dispatch. ``argmax_routing`` applies to the fused route: max/min
     aggregation routes each gradient to the first winning edge alone
     (``ops/fused_mp.py``)."""
 
@@ -61,16 +68,17 @@ class GatedMessagePassingLayer(AbstractMessagePassingLayer):
 
     def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        keep = 1.0 - (self.dropout_rate if train else 0.0)
-        seed = None
-        if keep < 1.0:  # the keyed message dropout's seed, in [0, 2**32)
-            if generator is None:
-                raise ValueError("message dropout during training needs a torch.Generator")
-            seed = torch.randint(0, 2**32, (), generator=generator, device=node_states.device)
-        aggregated = fused_typed_message_aggregation(
-            node_states, self.message_weights, ctx.adjacency, node_states.shape[0],
-            self.aggregation_fn, False, keep, seed, argmax_routing=self.argmax_routing,
+        aggregated = fused_linear_message_aggregation_or_none(
+            self.message_weights, node_states, ctx, reduction=self.aggregation_fn, use_target_state=False,
+            dropout_rate=self.dropout_rate, train=train, generator=generator, argmax_routing=self.argmax_routing,
         )
+        if aggregated is None:
+            adj = ctx.adjacency
+            n = node_states.shape[0]
+            msg_input = node_states.index_select(0, adj.senders.clamp(max=n - 1).long())
+            msg_input = dropout(msg_input, self.dropout_rate, train, generator)
+            messages = typed_tile_matmul(msg_input, self.message_weights, adj.tile_types, adj.edge_tile)
+            aggregated = self._aggregate_messages(messages, ctx, n, self.aggregation_fn)
         return self.state_update(aggregated, node_states)
 
     @property

@@ -81,6 +81,10 @@ class BatchPadding:
     self edges), each (row block, type) segment rounded up to ``edge_tile``.
     ``agg_rows`` receiver rows form one aggregation row block; each block's
     slot run is padded to ``agg_sum_tile`` (the sum supertile).
+    ``att_block`` is the self-attention block: the batcher packs each graph's
+    nodes into blocks of this many rows (``GraphBatch.att_order``), so
+    block-diagonal attention is exact for every graph of at most one block;
+    0 turns the packing off.
     """
 
     max_nodes: int
@@ -88,6 +92,7 @@ class BatchPadding:
     max_graphs: int
     edge_tile: int = 128
     agg_rows: int = 256
+    att_block: int = 256
     agg_sum_tile: int = 512
     reference_budgets: Tuple[Tuple[str, int], ...] = field(default_factory=tuple)
     default_reference_budget: int = 512
@@ -175,6 +180,9 @@ class GraphBatch(NamedTuple):
     num_edges: Any  # scalar int32 (incl. materialized bwd/self edges)
     num_graphs: Any  # scalar int32
     graph_mask: Any  # [max_graphs] bool
+    # [n_blocks, att_block] int32 node permutation for exact block-diagonal
+    # self-attention (padding slots: max_nodes); None when att_block is 0.
+    att_order: Any = None
 
     def to(self, device) -> "GraphBatch":
         return tree_to(self, torch.device(device))

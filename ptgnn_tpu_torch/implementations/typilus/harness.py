@@ -1,7 +1,12 @@
 """Build the Graph2Class model on synthetic Typilus-schema data, produce
 finalized, statically shaped minibatches, and time the training step over
 device-resident minibatches as ``bench.py`` times the JAX package's (the
-step loop serves any task module: PPI's too)."""
+step loop serves any task module: PPI's too).
+
+Besides the CLI's 'mlp' and 'ggnn' stacks, ``architecture="layers"``
+builds :class:`LayersStackCreator`'s stack of the library's other
+message-passing families (for the smoke run, the tests and the profiler; it
+is no CLI option)."""
 from __future__ import annotations
 
 import time
@@ -11,9 +16,16 @@ import torch
 
 from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
 from ptgnn_tpu_torch.device import DeviceLike
+from ptgnn_tpu_torch.graph.messagepassing import (
+    EGCMessagePassingLayer,
+    GraphNorm,
+    MlpMessagePassingLayer,
+    MultiHeadSelfAttentionMessagePassing,
+    PnaMessageAggregation,
+)
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class, Graph2ClassModule
-from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model
+from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, graph2class_model
 from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
 
 
@@ -36,6 +48,43 @@ def bench_graph_count(num_batches: int, max_nodes: int = 8192) -> int:
     return max(32, 2 * num_batches * (max_nodes // 2500 + 1))
 
 
+class LayersStackCreator:
+    """Seven positions over the library's message-passing families at state
+    ``hidden_state_size`` (h): an MLP-MP layer with one hidden layer and PNA
+    aggregation (per-slot route), GraphNorm, EGC with max aggregation (4
+    bases, 8 heads; fused route), block self-attention over the batch's
+    ``att_order``, an MLP-MP layer with a [2h] hidden layer, mean
+    aggregation and no target state (per-slot route), self-attention among
+    the supernodes, and the benchmark's MLP-MP layer with max aggregation
+    (fused route). Attention uses 4 heads of key and value width h / 4 and
+    an FFN of 2h. A class, not a closure, so a model that holds it pickles
+    into a checkpoint."""
+
+    def __init__(self, hidden_state_size: int, dropout_rate: float):
+        self.hidden_state_size = hidden_state_size
+        self.dropout_rate = dropout_rate
+
+    def _attention(self, **kw) -> MultiHeadSelfAttentionMessagePassing:
+        h = self.hidden_state_size
+        return MultiHeadSelfAttentionMessagePassing(
+            h, h // 4, h // 4, h, 2 * h, num_heads=4, dropout_rate=self.dropout_rate, **kw
+        )
+
+    def __call__(self, num_edges: int):
+        h, rate = self.hidden_state_size, self.dropout_rate
+        return [
+            MlpMessagePassingLayer(h, h, h, num_edges, PnaMessageAggregation(), mlp_hidden_layers=1,
+                                   dropout_rate=rate),
+            GraphNorm(h),
+            EGCMessagePassingLayer(h, h, num_edges, "max", num_bases=4, num_heads=8, dropout_rate=rate),
+            self._attention(),
+            MlpMessagePassingLayer(h, h, h, num_edges, "mean", use_target_state_as_message_input=False,
+                                   mlp_hidden_layers=[2 * h], dropout_rate=rate),
+            self._attention(target_reference="supernodes"),
+            MlpMessagePassingLayer(h, h, h, num_edges, "max", dropout_rate=rate),
+        ]
+
+
 def build_graph2class(
     *,
     padding: BatchPadding,
@@ -53,12 +102,20 @@ def build_graph2class(
     device: DeviceLike = None,
 ) -> Tuple[Graph2Class, Graph2ClassModule, List[Dict[str, Any]]]:
     """Returns (model, module on ``device`` with seeded weights, host
-    minibatches). ``architecture``: 'mlp' or 'ggnn'; ``argmax_routing``:
-    single-winner gradients of the max aggregation."""
-    model = create_graph2class_gnn_model(
-        hidden_state_size=hidden_state_size, padding=padding,
-        architecture=architecture, dropout_rate=dropout_rate, argmax_routing=argmax_routing,
-    )
+    minibatches). ``architecture``: 'mlp', 'ggnn' or 'layers'
+    (:class:`LayersStackCreator`); ``argmax_routing``: single-winner
+    gradients of the max aggregation (the fused routes of 'mlp' and
+    'ggnn'). Edge dropout is the module's ``gnn.edge_dropout_rate``."""
+    if architecture == "layers":
+        model = graph2class_model(
+            LayersStackCreator(hidden_state_size, dropout_rate), hidden_state_size=hidden_state_size,
+            dropout_rate=dropout_rate, padding=padding,
+        )
+    else:
+        model = create_graph2class_gnn_model(
+            hidden_state_size=hidden_state_size, padding=padding,
+            architecture=architecture, dropout_rate=dropout_rate, argmax_routing=argmax_routing,
+        )
 
     def data():
         return synthetic_typilus_graphs(

@@ -20,7 +20,7 @@ import argparse
 import logging
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -145,8 +145,24 @@ def create_graph2class_gnn_model(
     dropout is 0. ``argmax_routing`` goes to every MP layer."""
     if architecture not in _STACKS:
         raise ValueError(f"unknown architecture {architecture!r}: one of {sorted(_STACKS)}")
-    padding = padding if padding is not None else default_padding()
+    return graph2class_model(
+        _STACKS[architecture](hidden_state_size, dropout_rate, argmax_routing),
+        hidden_state_size=hidden_state_size, dropout_rate=dropout_rate, padding=padding,
+        min_freq_threshold=min_freq_threshold,
+    )
 
+
+def graph2class_model(
+    layer_creator: Callable[[int], list],
+    *,
+    hidden_state_size: int = 64,
+    dropout_rate: float = 0.1,
+    padding: Optional[BatchPadding] = None,
+    min_freq_threshold: int = 5,
+) -> Graph2Class:
+    """Graph2Class with the factory's node embedder and batching around the
+    message-passing stack that ``layer_creator(num_edge_types)`` builds."""
+    padding = padding if padding is not None else default_padding()
     return Graph2Class(
         gnn_model=GraphNeuralNetworkModel(
             node_representation_model=StrElementRepresentationModel(
@@ -157,9 +173,7 @@ def create_graph2class_gnn_model(
                 min_freq_threshold=min_freq_threshold,
                 dropout_rate=dropout_rate,
             ),
-            message_passing_layer_creator=_STACKS[architecture](
-                hidden_state_size, dropout_rate, argmax_routing
-            ),
+            message_passing_layer_creator=layer_creator,
             padding=padding,
             max_nodes_per_graph=100000,
             max_graph_edges=500000,

@@ -5,8 +5,9 @@ Weights keep the torch layouts of the JAX package (Linear weight
 """
 from __future__ import annotations
 
+import logging
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +18,43 @@ from ptgnn_tpu_torch.nn import initializers as init
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as the JAX package's ``gelu_exact``."""
     return F.gelu(x, approximate="none")
+
+
+def identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": gelu_exact,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "leaky_relu": F.leaky_relu,
+    "elu": F.elu,
+    "identity": identity,
+    None: identity,
+}
+
+
+class Activation:
+    """An activation by name (one of ``ACTIVATIONS``), which pickles with the
+    model that holds it."""
+
+    def __init__(self, name: Optional[str]):
+        if name not in ACTIVATIONS:
+            raise ValueError(f"Unknown activation '{name}'")
+        self.name = name
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return ACTIVATIONS[self.name](x)
+
+    def __repr__(self):
+        return f"Activation({self.name!r})"
+
+
+def get_activation(name: Optional[str]) -> Activation:
+    """The activation of a name, or the identity for None."""
+    return Activation(name)
 
 
 def dropout(
@@ -228,3 +266,56 @@ class GRU(GRUCell):
             h = super().forward(x[:, t], h)
             outputs.append(h)
         return torch.stack(outputs, dim=1), h
+
+
+class MLP(torch.nn.Module):
+    """The JAX package's ``MLP``: ``hidden_layers`` is an int (that many
+    hidden layers of ``output_dimension`` units; a size-1 output widens them
+    to 32) or a list of sizes. Xavier-uniform ``Linear``s (bias-free unless
+    ``use_biases``) held as ``layer_{i}``, dropout before every layer, the
+    activation between layers and none after the last."""
+
+    def __init__(
+        self,
+        input_dimension: int,
+        output_dimension: int,
+        hidden_layers: Union[int, Sequence[int]] = 1,
+        use_biases: bool = False,
+        activation="relu",
+        dropout_rate: float = 0.0,
+    ):
+        super().__init__()
+        if isinstance(hidden_layers, int):
+            if output_dimension == 1:
+                logging.getLogger(__name__).warning(
+                    "MLP was created with %d layers of size 1, which is most likely wrong. Switching to "
+                    "%d layers of size 32; to get hidden layers of size 1, use hidden_layers=[1,...,1] "
+                    "explicitly.", hidden_layers, hidden_layers,
+                )
+                hidden_sizes = [32] * hidden_layers
+            else:
+                hidden_sizes = [output_dimension] * hidden_layers
+        else:
+            hidden_sizes = list(hidden_layers)
+        # A single hidden layer without an activation is allowed.
+        if len(hidden_sizes) > 1 and activation is None:
+            raise ValueError("Multiple linear layers without an activation")
+        self.input_dimension = input_dimension
+        self.output_dimension = output_dimension
+        self.dropout_rate = dropout_rate
+        self.activation = get_activation(activation)
+        self._has_activation = activation is not None
+        sizes = [input_dimension] + hidden_sizes + [output_dimension]
+        self.num_layers = len(sizes) - 1
+        for i in range(self.num_layers):
+            self.add_module(f"layer_{i}", Linear(sizes[i], sizes[i + 1], use_bias=use_biases,
+                                                 weight_init=init.xavier_uniform()))
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = dropout(x, self.dropout_rate, train, generator)
+            x = getattr(self, f"layer_{i}")(x)
+            if self._has_activation and i < self.num_layers - 1:
+                x = self.activation(x)
+        return x

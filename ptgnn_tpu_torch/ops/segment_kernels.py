@@ -441,6 +441,12 @@ class _BroadcastToEdges(torch.autograd.Function):
         return d_table.to(g.dtype), None
 
 
+def extremum_indicator(data: torch.Tensor, extremum_rows: torch.Tensor) -> torch.Tensor:
+    """[E, D] float32 1 where a slot's value equals its row's extremum: the
+    slots among which the extremum's backward splits the cotangent."""
+    return (data == extremum_rows).float()
+
+
 class _SegmentExtremum(torch.autograd.Function):
     """planned_segment_extremum; backward: the cotangent split evenly among
     the slots that equal their row's extremum (jax segment_max semantics)."""
@@ -460,7 +466,7 @@ class _SegmentExtremum(torch.autograd.Function):
         # One widened broadcast carries the extremum and the cotangent; slots
         # at the sentinel read 0 rows, so their cotangent is 0.
         rows = planned_broadcast_to_edges(torch.cat([out, g.to(out.dtype)], dim=1), ctx.plan)
-        is_ext = (data == rows[:, :d]).float()
+        is_ext = extremum_indicator(data, rows[:, :d])
         ties = planned_segment_sum(is_ext, ctx.plan, ctx.num_nodes)
         ties_per_edge = planned_broadcast_to_edges(ties, ctx.plan).clamp_min(1.0)
         d_data = is_ext * rows[:, d:].to(g.dtype) / ties_per_edge
@@ -537,14 +543,17 @@ def adjacency_segment_reduce(
     mask: Optional[torch.Tensor] = None,
     counts_exact: bool = False,
 ) -> torch.Tensor:
-    """Masked segment reduce of [E_pad, D] slot data over a batch's unified
-    edge layout. Sum/mean use the supertile plan; max/min need the
-    receiver-sorted edge tiles."""
+    """Masked segment reduce of [E_pad, ...] slot data over a batch's unified
+    edge layout; trailing dims are flattened for the kernels and restored
+    after. Sum/mean use the supertile plan; max/min need the receiver-sorted
+    edge tiles."""
     if reduction in ("sum", "add", "mean"):
         plan = sum_plan_from_adjacency(adj)
     else:
         plan = plan_from_adjacency(adj)
-    return planned_segment_reduce(data, plan, num_nodes, reduction, mask, counts_exact)
+    trailing = data.shape[1:]
+    out = planned_segment_reduce(data.reshape(data.shape[0], -1), plan, num_nodes, reduction, mask, counts_exact)
+    return out.reshape((num_nodes,) + trailing)
 
 
 _WRAPPERS = {

@@ -1,5 +1,6 @@
 """Where the time of a serving forward, of a training step or of a decode
-goes on the card, for Graph2Class, PPI, VarMisuse or Graph2Seq.
+goes on the card, for Graph2Class, PPI, VarMisuse or Graph2Seq, or for
+Graph2Class over the stack of the other message-passing families.
 
 Builds the model's configuration with random seeded weights (Graph2Class:
 the benchmark configuration, ``train.default_padding()``, hidden 64, the
@@ -18,7 +19,13 @@ and 1e-3 for PPI, 0.5 and 1e-4 for VarMisuse, no clip and 1e-3 for
 Graph2Seq); ``--amp`` runs either in bf16 AMP. Graph2Seq's ``--decode``
 traces ``Graph2Seq.greedy_decode`` of each batch's samples, or
 ``beam_decode`` with ``--beam-size`` above 1, the host's tensorize and
-batching included (the path a serving user waits on). Prints the wall time per batch, the
+batching included (the path a serving user waits on). ``--model layers``
+is Graph2Class at the benchmark configuration with
+``harness.LayersStackCreator``'s stack (PNA, GraphNorm, EGC, self-attention
+and MLP-MP layers), and adds the device time of each stack entry, forward
+and backward: a kernel counts for the entry in whose forward it ran, or
+whose forward op's backward launched it (the profiler's sequence numbers).
+Prints the wall time per batch, the
 device's busy share, the device time by kernel class and the 15 costliest
 kernels, and writes a Chrome trace to ``--trace``. Run on a machine with a
 CUDA device:
@@ -30,6 +37,7 @@ CUDA device:
     python -m ptgnn_tpu_torch.utils.profile_serving --model varmisuse --architecture ggnn --train
     python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --train
     python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --decode --beam-size 5
+    python -m ptgnn_tpu_torch.utils.profile_serving --model layers --train
 """
 from __future__ import annotations
 
@@ -76,13 +84,86 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def layer_label(position: int, layer) -> str:
+    """A stack entry's profiler range: its position and family."""
+    family = type(layer).__name__
+    aggregation = getattr(layer, "aggregation_fn", None)
+    if aggregation is not None:
+        family += f"({aggregation if isinstance(aggregation, str) else type(aggregation).__name__})"
+    if getattr(layer, "target_reference", "all") != "all":
+        family += f"({layer.target_reference})"
+    return f"layer {position} {family}"
+
+
+def label_layer_ranges(layers) -> list:
+    """Hooks that run each stack entry's forward inside a profiler range
+    named by :func:`layer_label`; returns their handles."""
+    from torch.autograd.profiler import record_function
+
+    open_ranges = []
+
+    def enter(label):
+        def hook(module, args):
+            ranged = record_function(label)
+            ranged.__enter__()
+            open_ranges.append(ranged)
+        return hook
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    handles = []
+    for position, layer in enumerate(layers):
+        handles.append(layer.register_forward_pre_hook(enter(layer_label(position, layer))))
+        handles.append(layer.register_forward_hook(leave))
+    return handles
+
+
+def device_us_by_layer(events) -> dict:
+    """{label: [forward us, backward us]} of the kernels that host ops
+    launched (each kernel is listed under the op that launched it): an op
+    inside a stack entry's range counts for it (forward), and so does an op
+    under the autograd engine's evaluation of a backward node whose forward
+    op ran in that range (by sequence number). The other ops' kernels go to
+    ``"outside the stack"``."""
+    def ancestor(evt, prefix):
+        while evt is not None:
+            if evt.name.startswith(prefix):
+                return evt
+            evt = evt.cpu_parent
+        return None
+
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    forward_of = {}
+    for evt in cpu:
+        ranged = ancestor(evt, "layer ")
+        if ranged is not None and evt.sequence_nr >= 0:
+            forward_of[evt.sequence_nr] = ranged.name
+    totals = defaultdict(lambda: [0.0, 0.0])
+    for evt in cpu:
+        us = sum(kernel.duration for kernel in evt.kernels)
+        if us <= 0:
+            continue
+        ranged = ancestor(evt, "layer ")
+        if ranged is not None:
+            totals[ranged.name][0] += us
+            continue
+        node = ancestor(evt, "autograd::engine::evaluate_function")
+        if node is not None and node.sequence_nr in forward_of:
+            totals[forward_of[node.sequence_nr]][1] += us
+        else:
+            totals["outside the stack"][0 if node is None else 1] += us
+    return dict(totals)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", default=None, help="Chrome trace output path")
     parser.add_argument("--passes", type=int, default=3)
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
     parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
-    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse", "graph2seq"), default="graph2class")
+    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse", "graph2seq", "layers"),
+                        default="graph2class")
     parser.add_argument("--decode", action="store_true", help="Graph2Seq: trace the decode of each batch")
     parser.add_argument("--beam-size", type=int, default=1, help="Graph2Seq --decode: 1 is greedy")
     parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp",
@@ -147,9 +228,12 @@ def main() -> None:
         _, module, minibatches = build_graph2class(
             padding=default_padding(), num_metadata_graphs=bench_graph_count(6), mean_nodes=2500,
             max_graph_nodes=8000, hidden_state_size=64, num_minibatches=6, minibatch_size=300,
-            architecture=args.architecture, argmax_routing=args.argmax_routing, device=dev,
+            architecture="layers" if args.model == "layers" else args.architecture,
+            argmax_routing=args.argmax_routing, device=dev,
         )
         lr, clip = 2.5e-4, 1.0
+        if args.model == "layers":
+            label_layer_ranges(module.gnn.message_passing_layers)
     batches = [tree_to(mb, dev) for mb in minibatches]
     optimizer = torch.optim.Adam(module.parameters(), lr=lr)
     generator = torch.Generator(device=dev)
@@ -191,14 +275,14 @@ def main() -> None:
             device_us = getattr(evt, "self_cuda_time_total", 0.0)
         if device_us <= 0 or getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
+        if getattr(evt, "is_user_annotation", False) or evt.key.startswith(("Optimizer.", "layer ")):
             continue  # a named range (Optimizer.step#Adam.step) spans kernels counted on their own
         by_class[kernel_class(evt.key)] += device_us
         kernels.append((device_us, evt.count, evt.key))
     device_ms = sum(by_class.values()) / 1e3
     summary = {
         "card": card,
-        "model": args.model if args.model in ("ppi", "graph2seq") else
+        "model": args.model if args.model in ("ppi", "graph2seq", "layers") else
         f"{args.model} {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
         "mode": (("greedy decode" if args.beam_size == 1 else f"beam-{args.beam_size} decode") if args.decode
                  else "train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
@@ -210,6 +294,13 @@ def main() -> None:
             k: v / 1e3 / n_batches for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])
         },
     }
+    if args.model == "layers":
+        by_layer = device_us_by_layer(prof.events())
+        summary["device_ms_per_batch_by_layer"] = {
+            label: {"forward": fwd / 1e3 / n_batches, "backward": bwd / 1e3 / n_batches}
+            for label, (fwd, bwd) in sorted(by_layer.items())
+        }
+        summary["device_ms_per_batch_attributed"] = sum(map(sum, by_layer.values())) / 1e3 / n_batches
     print(json.dumps(summary, indent=1))
     for device_us, count, name in sorted(kernels, reverse=True)[:15]:
         print(f"{device_us / 1e3 / n_batches:9.4f} ms/batch  {count // n_batches:4d}/batch  {name[:110]}")

@@ -36,6 +36,10 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.implementations.graph2seq.train", "ptgnn_tpu_torch.implementations.graph2seq.test",
         "ptgnn_tpu_torch.implementations.graph2seq.trainandtest",
         "ptgnn_tpu_torch.implementations.graph2seq.harness",
+        "ptgnn_tpu_torch.graph.messagepassing.pna", "ptgnn_tpu_torch.graph.messagepassing.egc",
+        "ptgnn_tpu_torch.graph.messagepassing.graphnorm", "ptgnn_tpu_torch.graph.messagepassing.selfatt",
+        "ptgnn_tpu_torch.graph.messagepassing.mlp_mp", "ptgnn_tpu_torch.graph.messagepassing.base",
+        "ptgnn_tpu_torch.utils.profile_serving",
     } <= names
 
 

@@ -9,7 +9,10 @@ of |x| on longer ones; for the typed matmul within
 bitwise from run to run and under tile and row permutations; the argmax
 extremum and the typed matmul replayed from a CUDA graph as run eagerly),
 the small Graph2Class, PPI and Graph2Seq forward and train steps on the card
-against the CPU, and K1 and K3 on a Graph2Seq batch's layout at width 128.
+against the CPU, K1 and K3 on a Graph2Seq batch's layout at width 128, and
+K1-K3 through the aggregation dispatch on N-D messages, at width 1 and
+under a mask with emptied rows, alone and in a PNA layer, and each
+Graph2Class stack under edge dropout, off the fused op.
 
 These tests need a card and skip elsewhere. This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
@@ -339,6 +342,96 @@ def test_sum_and_mean_reduce_run_the_kernel_on_cuda(cuda_device, reduction):
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _layers_batch(max_nodes=512):
+    """A small Graph2Class batch: its adjacency on the CPU, the live mask
+    with two real nodes emptied, and those nodes."""
+    _, _, mbs = build_graph2class(padding=small_padding(max_nodes=max_nodes), hidden_state_size=16,
+                                  num_minibatches=1, device="cpu")
+    adj = tree_to(mbs[0]["batch"].adjacency, torch.device("cpu"))
+    live = adj.receivers[adj.mask]
+    emptied = torch.unique(live)[[2, 40]]
+    g = torch.Generator().manual_seed(0)
+    mask = adj.mask & (torch.rand(adj.mask.shape, generator=g) >= 0.2) & ~torch.isin(adj.receivers, emptied)
+    return adj, mask, emptied
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 8), (1,), (64,)])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("reduction", ["sum", "mean", "max", "min"])
+def test_reduce_on_nd_messages_and_a_non_static_mask_matches_plain(cuda_device, reduction, static, shape):
+    """adjacency_segment_reduce on [E, 4, 2, 8] (EGC's N-D messages), [E, 1]
+    and [E, 64] slot data, under the static mask and under one with emptied
+    rows (a mean then counts its live slots with the sum kernel at width 1):
+    the card's forward bitwise equal to the plain version's on the CPU, its
+    gradient (the broadcast, the sum) within 1e-6, emptied rows 0, and the
+    launches the code gives."""
+    adj, live, emptied = _layers_batch()
+    mask = adj.mask if static else live
+    n = adj.agg_counts.numel()
+    g = torch.Generator().manual_seed(len(shape))
+    data = torch.randn((adj.mask.shape[0],) + shape, generator=g)
+    cot = torch.randn((n,) + shape, generator=g)
+    x = data.clone().requires_grad_()
+    plain = tsk.adjacency_segment_reduce(x, adj, n, reduction, mask=mask, counts_exact=static)
+    (plain * cot).sum().backward()
+    cadj = tree_to(adj, cuda_device)
+    cx = data.to(cuda_device).requires_grad_()
+    tsk.reset_launch_counts()
+    got = tsk.adjacency_segment_reduce(cx, cadj, n, reduction, mask=mask.to(cuda_device), counts_exact=static)
+    forward = tsk.launch_counts()
+    (got * cot.to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    backward = {k: v - forward[k] for k, v in tsk.launch_counts().items()}
+    assert got.shape == (n,) + shape
+    np.testing.assert_array_equal(_bits(got), _bits(plain))
+    torch.testing.assert_close(cx.grad.cpu(), x.grad, rtol=1e-6, atol=1e-6)
+    if not static:
+        assert not got[emptied.to(cuda_device)].any()
+    is_sum = reduction in ("sum", "mean")
+    counting = reduction == "mean" and not static
+    assert forward["segment_sum"] == int(is_sum) + int(counting)
+    assert forward["segment_extremum"] == int(not is_sum)
+    assert backward["broadcast_to_edges"] == (1 if is_sum else 2)
+    assert backward["segment_sum"] == (0 if is_sum else 1)
+
+
+def test_pna_layer_on_card_matches_cpu_with_emptied_nodes(cuda_device):
+    """An MLP-MP layer with a hidden layer and PNA aggregation at width 64
+    under a mask that empties two real nodes: the forward runs K1 twice and
+    K2 twice (K1 at width 1 once more for the live in-degrees), the backward
+    K3 and K1; outputs and gradients finite and within rtol 1e-4 and 1e-4 of
+    each tensor's largest magnitude of the CPU's."""
+    from ptgnn_tpu_torch.graph.messagepassing import GraphContext, MlpMessagePassingLayer, PnaMessageAggregation
+    from ptgnn_tpu_torch.nn.module import init_parameters
+
+    adj, live, emptied = _layers_batch()
+    n = adj.agg_counts.numel()
+    num_types = int(adj.tile_types.max()) + 1
+    outs, grads = [], []
+    for device in (torch.device("cpu"), cuda_device):
+        layer = MlpMessagePassingLayer(64, 64, 64, num_types, PnaMessageAggregation(), mlp_hidden_layers=1)
+        init_parameters(layer, 0)
+        layer.to(device)
+        ctx = GraphContext(adjacency=tree_to(adj._replace(mask=live), device), node_graph=None, node_mask=None,
+                           graph_mask=None, references={}, edge_mask_is_static=False)
+        x = torch.randn(n, 64, generator=torch.Generator().manual_seed(1)).to(device).requires_grad_()
+        tsk.reset_launch_counts()
+        out = layer(x, ctx)
+        forward = tsk.launch_counts()
+        out.square().sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert forward["segment_sum"] == 3 and forward["segment_extremum"] == 2
+            assert tsk.launch_counts()["broadcast_to_edges"] == 6 and tsk.launch_counts()["segment_sum"] == 5
+        outs.append(out.detach().cpu())
+        grads.append([x.grad.cpu()] + [p.grad.cpu() for p in layer.parameters()])
+    assert torch.isfinite(outs[1]).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4 * float(outs[0].abs().max()))
+    for got, want in zip(grads[1], grads[0]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
 def test_graph2class_forward_on_card_matches_cpu(cuda_device):
     kw = dict(padding=small_padding(max_nodes=256), hidden_state_size=64, num_minibatches=1)
     _, gpu_module, mbs = build_graph2class(device=cuda_device, **kw)
@@ -413,6 +506,65 @@ def test_graph2class_paths_train_on_card_as_on_cpu(cuda_device, architecture, ar
     np.testing.assert_allclose(float(loss.detach()), float(cpu_loss.detach()), rtol=1e-5)
     for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
         assert float((g.grad.cpu() - c.grad).norm()) <= 1e-2 * float(c.grad.norm()), name
+
+
+@pytest.mark.parametrize("architecture", ["mlp", "ggnn", "layers"])
+def test_edge_dropout_on_card_leaves_the_fused_op(cuda_device, architecture, monkeypatch):
+    """Each Graph2Class stack with edge dropout 0.3 on the card: a train step
+    reaches the fused op no time and launches the per-slot route's kernels
+    (the extremum, the sum, the broadcast), with a finite loss and finite
+    gradients. Then the stack under one mask that empties two real nodes on
+    the card and on the CPU: the value to rtol 1e-5 and every gradient within
+    1e-2 of its norm (a near-tie that the devices order differently moves a
+    max's gradient wholesale, as in the paths' steps above)."""
+    from ptgnn_tpu_torch.graph.messagepassing import GraphContext
+    from ptgnn_tpu_torch.graph.messagepassing import base
+
+    calls = []
+    real = base.fused_typed_message_aggregation
+    monkeypatch.setattr(base, "fused_typed_message_aggregation", lambda *a, **k: calls.append(1) or real(*a, **k))
+    kw = dict(padding=small_padding(max_nodes=512), hidden_state_size=64, num_minibatches=1, dropout_rate=0.0,
+              architecture=architecture)
+    _, gpu_module, mbs = build_graph2class(device=cuda_device, **kw)
+    gpu_module.gnn.edge_dropout_rate = 0.3
+    tsk.reset_launch_counts()
+    loss, _ = module_loss(gpu_module, tree_to(mbs[0], cuda_device), train=True,
+                          generator=torch.Generator(device=cuda_device).manual_seed(0))
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = tsk.launch_counts()
+    assert not calls
+    assert min(counts[k] for k in ("segment_extremum", "segment_sum", "broadcast_to_edges")) > 0, counts
+    assert np.isfinite(float(loss.detach()))
+    assert all(bool(torch.isfinite(p.grad).all()) for p in gpu_module.parameters() if p.grad is not None)
+
+    adj, live, _ = _layers_batch()
+    batch = mbs[0]["batch"]
+    assert torch.equal(adj.receivers, torch.as_tensor(batch.adjacency.receivers).cpu())
+    n = batch.node_graph.shape[0]
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randn(n, gpu_module.gnn.input_node_state_dim, generator=g)
+    cot = torch.randn(n, gpu_module.gnn.output_node_state_dim, generator=g)
+    _, cpu_module, _ = build_graph2class(device="cpu", **kw)
+    results = []
+    for module, device in ((gpu_module, cuda_device), (cpu_module, torch.device("cpu"))):
+        module.load_state_dict(cpu_module.state_dict())
+        module.zero_grad(set_to_none=True)
+        b = tree_to(batch, device)
+        ctx = GraphContext(adjacency=b.adjacency._replace(mask=live.to(device)), node_graph=b.node_graph,
+                           node_mask=b.node_mask, graph_mask=b.graph_mask, references=b.references,
+                           edge_mask_is_static=False, att_order=b.att_order)
+        x = x0.to(device).requires_grad_()
+        value = (module.gnn.gnn(x, ctx) * cot.to(device)).sum()
+        value.backward()
+        results.append((float(value.detach()), [x.grad.cpu()] + [p.grad.cpu() for p in module.parameters()
+                                                                   if p.grad is not None]))
+    assert not calls
+    np.testing.assert_allclose(results[0][0], results[1][0], rtol=1e-5)
+    assert len(results[0][1]) == len(results[1][1])
+    for got, want in zip(results[0][1], results[1][1]):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).norm()) <= 1e-2 * float(want.norm())
 
 
 @pytest.mark.parametrize("use_target_state", [True, False])
