@@ -135,7 +135,31 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    them) on weights loaded through ``convert.py``, card against CPU; then K1
    and K2 on PNA's messages at 64,
    K3 at 64, K2 at 256 on EGC's fused messages and K1 at width 1 on an
-   edge-dropout mask against their plain versions, timed.
+   edge-dropout mask against their plain versions, timed;
+18. edge-features (after layers): the generic engine with edge features at
+   PPI's width and layout (``ppi.harness.build_edge_feature_gnn``: a Tanh
+   feature embedder of the 50 node features to 256, a feature embedder of 4
+   seeded floats per forward edge to 128, 5 MLP-MP layers with sum
+   aggregation, target state and 128 feature columns, so a 640-wide message
+   input; and the variant with a gated layer in place of the last) on
+   synthetic graphs of PPI's sizes: eval forwards in float32 and bf16 AMP and
+   train_steps in both (per forward 5 sum launches and in bf16 5 typed
+   matmul launches; per step 5 sum, 5 broadcast and in bf16 10 typed
+   matmul), no fused-op call, and for the MLP-MP stack the output states and
+   a float32 train step card against CPU on weights converted through
+   ``convert.py`` (the PPI phase's limits); the typed matmul at the path's
+   bf16 shapes against float64 and timed (entries of the kernels line);
+19. bpe: Graph2Class at the benchmark configuration with the ``bpe``
+   splitting (a 64-entry vocabulary) and ``max`` pooling: the eval forward
+   (8 extremum and 8 broadcast launches per forward) and the logits card
+   against CPU under the parity phase's limits;
+20. data-parallel: DistributedModelTrainer at world size 1 over NCCL with
+   ZeRO-1 for 3 optimizer steps at the benchmark configuration against
+   ModelTrainer's same steps (every parameter within 1e-6 of its tensor's
+   largest magnitude; bitwise equality printed), with the all-reduce calls
+   and bytes per step and the trainer's launches; then the distributed
+   Typilus CLI with ``--world-size 1`` for one epoch on synthetic folds. The
+   2-rank path runs on the CPU over gloo in the tests.
 
 Then the total seconds. The last line is {"ok": true, "device": {...}};
 the line before it is the card's name and power limit as nvidia-smi
@@ -228,6 +252,22 @@ LAYERS_PER_FORWARD = counts_of(extremum=4, broadcast=1, segsum=3)
 LAYERS_PER_TRAIN_STEP = counts_of(extremum=4, broadcast=12, segsum=9)
 LAYERS_PER_EDGE_DROPOUT_STEP = counts_of(extremum=4, broadcast=11, segsum=9)
 LAYERS_FUSED_PER_FORWARD = 2  # EGC and the last MLP-MP layer
+# Edge features (PPI's layout, hidden 256, 128 feature columns): every layer
+# takes the per-slot route (the fused op takes no features), so per layer
+# one sum forward and its broadcast backward; the typed matmul where its
+# gate opens (bf16: D = 2 x 256 + 128 = 640 or, in the gated layer,
+# 256 + 128 = 384, M = 256) once forward and once backward (dx). Five
+# layers in both stacks.
+EDGE_TRAIN_STEPS = 10
+EDGE_PER_FORWARD = {"float32": counts_of(segsum=5), "bf16": counts_of(segsum=5, typed=5)}
+EDGE_PER_TRAIN_STEP = {"float32": counts_of(broadcast=5, segsum=5),
+                       "bf16": counts_of(broadcast=5, segsum=5, typed=10)}
+EDGE_TYPED_SHAPES = ((640, 256), (256, 640), (384, 256), (256, 384))  # forward and dx, both stacks
+# BPE: a vocabulary of 64 entries splits the synthetic labels into 1-8
+# pieces (5 kept); at the factory's 10,000 every label is one piece.
+BPE_VOCABULARY = 64
+BPE_BATCHES = 3
+DP_STEPS = 3
 
 
 def phase(name: str, msg: str) -> None:
@@ -503,7 +543,7 @@ def routing_differences(tape_a: list, tape_b: list) -> list[int]:
 def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD, per_step=PER_TRAIN_STEP):
     """ModelTrainer.train for one epoch, then train_steps in float32 and in
     bf16 AMP. Returns the launch counts over the whole phase."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     train_graphs, valid_graphs = list(graphs(SEED)), list(graphs(SEED + 1))
@@ -831,7 +871,7 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
 def ppi_train_phase(model, samples, batches, dev, card):
     """ModelTrainer.train for one epoch under bf16 AMP, then train_steps in
     float32 and in bf16 AMP. Returns the launch counts of the path."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
     from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, synthetic_ppi_samples
     from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -899,11 +939,12 @@ def _typed_reference(x, w, tt, tile):
     return torch.bmm(xt, wt).reshape(-1, m), torch.bmm(xt.abs(), wt.abs()).reshape(-1, m)
 
 
-def typed_matmul_checks(adj, dev, gen, max_abs_err):
-    """The typed matmul kernel at both PPI shapes in both dtypes: within
-    2^-8 |ref| + 1e-5 sum|x||w| of float64 (its plain version too), the same
-    bits on a second run and under a permutation of same-type tiles and of
-    the rows inside each tile."""
+def typed_matmul_checks(adj, dev, gen, max_abs_err, shapes=((512, 256), (256, 256)),
+                        dtypes=(torch.bfloat16, torch.float32), name="ppi-parity"):
+    """The typed matmul kernel at ``shapes`` (both PPI shapes by default) in
+    ``dtypes``: within 2^-8 |ref| + 1e-5 sum|x||w| of float64 (its plain
+    version too), the same bits on a second run and under a permutation of
+    same-type tiles and of the rows inside each tile."""
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
     tt, tile = adj.tile_types, adj.edge_tile
@@ -915,8 +956,8 @@ def typed_matmul_checks(adj, dev, gen, max_abs_err):
         tile_perm[idx] = idx[torch.randperm(len(idx), generator=g)]
     rows = torch.cat([tile_perm[i] * tile + torch.randperm(tile, generator=g) for i in range(nt)]).to(dev)
     done = []
-    for din, m in ((512, 256), (256, 256)):
-        for dtype in (torch.bfloat16, torch.float32):
+    for din, m in shapes:
+        for dtype in dtypes:
             x = torch.randn(nt * tile, din, device=dev, generator=gen).to(dtype)
             w = (torch.randn(3, din, m, device=dev, generator=gen) / din ** 0.5).to(dtype)
             got = ttl.typed_matmul_kernel(x, w, tt, tile)
@@ -934,9 +975,9 @@ def typed_matmul_checks(adj, dev, gen, max_abs_err):
                 raise RuntimeError(f"typed matmul bits depend on row positions at {din}x{m}/{dtype}")
             done.append(f"{din}x{m}/{str(dtype)[6:]}")
     torch.cuda.synchronize()
-    phase("ppi-parity", f"typed matmul kernel at [{nt * tile}, D] x [3, D, M], D x M and dtype {done}: within "
+    phase(name, f"typed matmul kernel at [{nt * tile}, D] x [3, D, M], D x M and dtype {done}: within "
           f"2^-8 |ref| + 1e-5 sum|x||w| of float64 (its plain version too; kernel vs plain max abs err "
-          f"{ {k: v for k, v in max_abs_err.items() if k.startswith('typed')} }), bitwise from run to run "
+          f"{ {k: v for k, v in max_abs_err.items() if k.startswith('typed') and k.split()[1] in [f'{d}x{m}' for d, m in shapes]} }), bitwise from run to run "
           f"and under a permutation of same-type tiles and of the rows inside each tile")
 
 
@@ -1056,17 +1097,19 @@ def ppi_parity_phase(model, minibatches, batches, dev):
     return max_abs_err
 
 
-def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path):
-    """kernels-line entries of the typed matmul at both PPI shapes and both
-    dtypes. Library call: today's bmm route (index_select + torch.bmm)."""
+def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path, shapes=((512, 256), (256, 256)),
+                       dtypes=((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)), layout="ppi"):
+    """kernels-line entries of the typed matmul at ``shapes`` (both PPI
+    shapes by default) and ``dtypes`` on the ``layout``'s tiles. Library
+    call: today's bmm route (index_select + torch.bmm)."""
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
     tt, tile = adj.tile_types, adj.edge_tile
     nt = tt.shape[0]
     e = nt * tile
     entries = []
-    for din, m in ((512, 256), (256, 256)):
-        for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)):
+    for din, m in shapes:
+        for dtype, peak in dtypes:
             size = torch.finfo(dtype).bits // 8
             xs = rotating(lambda: torch.randn(e, din, device=dev, generator=gen).to(dtype), e * din * size)
             w = (torch.randn(3, din, m, device=dev, generator=gen) / din ** 0.5).to(dtype)
@@ -1089,11 +1132,13 @@ def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path):
                 "replaces": "ptgnn_tpu/ops/typed_linear.py:62",
                 "launches": counts["typed_matmul"],
                 "launches_by_path": {k: v["typed_matmul"] for k, v in launches_by_path.items()},
-                "launches_per_ppi_train_step": PPI_PER_TRAIN_STEP["bf16"]["typed_matmul"] if dtype == torch.bfloat16 else 0,
+                f"launches_per_{layout.replace('-', '_')}_train_step":
+                    (PPI_PER_TRAIN_STEP if layout == "ppi" else EDGE_PER_TRAIN_STEP)["bf16"]["typed_matmul"]
+                    if dtype == torch.bfloat16 else 0,
                 "max_abs_err": max_abs_err[f"typed_matmul {din}x{m} {dname}"],
                 "ms": times["ms"], "plain_ms": times["plain_ms"],
                 "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": times["library_ms"], "shape": [e, din, m, 3], "dtype": dname,
+                "library_ms": times["library_ms"], "shape": [e, din, m, 3], "dtype": dname, "layout": layout,
             }
             entries.append(entry)
             phase("kernels", json.dumps(entry))
@@ -1387,7 +1432,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     float32 and bf16 AMP, with the launches of every part; then a float32
     step (dropout 0) card against CPU. Returns (the launch counts of the
     path, the host and device minibatches)."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -1719,7 +1764,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     a float32 step (dropout 0) and the greedy decode card against CPU; the
     decoder at the 20,000-token vocabulary cap. Returns (the launch counts
     of the path, the device minibatches)."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.implementations.graph2seq import test as g2s_test
     from ptgnn_tpu_torch.implementations.graph2seq.harness import batch_sizes, build_graph2seq
@@ -2068,7 +2113,8 @@ def jax_layout_params(module):
     """The module's weights as the JAX package's params pytree of numpy
     arrays (``{"gnn": {"node_embedder": ..., "mp_layers": [...]}, <head>:
     ...}``, one ``mp_layers`` entry per unique layer object, ``{}`` for
-    PNA's aggregation): what ``convert.load_jax_params`` loads."""
+    PNA's aggregation, the edge embedder under ``gnn.edge_embedder``): what
+    ``convert.load_jax_params`` loads."""
     index = module.gnn._layer_param_index
     layers = [{} for _ in range(max(index) + 1)]
     tree = {"gnn": {"node_embedder": {}, "mp_layers": layers}}
@@ -2079,6 +2125,8 @@ def jax_layout_params(module):
         parts = key.split(".")
         if parts[:2] == ["gnn", "node_embedder"]:
             node, rest = tree["gnn"]["node_embedder"], parts[2:]
+        elif parts[:2] == ["gnn", "edge_feature_embedder"]:
+            node, rest = tree["gnn"].setdefault("edge_embedder", {}), parts[2:]
         elif parts[:2] == ["gnn", "message_passing_layers"]:
             node, rest = layers[index[int(parts[2])]], parts[3:]
         else:
@@ -2248,7 +2296,6 @@ def layers_phase(dev, card, reps: int = 3):
     of the path, its device batches and the inputs that the PNA and EGC
     layers saw in a float32 eval forward of the first batch."""
     from ptgnn_tpu_torch.core.trainer import module_loss
-    from ptgnn_tpu_torch.graph.messagepassing import base as mp_base
     from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
@@ -2263,15 +2310,8 @@ def layers_phase(dev, card, reps: int = 3):
           f"{[tuple(p.shape) for n, p in module.named_parameters() if 'weights_' in n or n.endswith('bases')]}; "
           f"att_order {tuple(batches[0][0].att_order.shape)}")
 
-    fused = [0]
-    real_fused = mp_base.fused_typed_message_aggregation
-
-    def counted_fused(*args, **kwargs):
-        fused[0] += 1
-        return real_fused(*args, **kwargs)
-
-    mp_base.fused_typed_message_aggregation = counted_fused
-    try:
+    fused = []
+    with counting_fused_calls(fused):
         module.eval()
         forwards = [0]
         counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
@@ -2280,18 +2320,18 @@ def layers_phase(dev, card, reps: int = 3):
             eval_forward_phase(module, mbs, card, name, reps, amp=amp)
         counter.remove()
         serving = sk.launch_counts()
-        phase(name, f"launches over {forwards[0]} eval forwards {serving}; fused-op calls {fused[0]}")
+        phase(name, f"launches over {forwards[0]} eval forwards {serving}; fused-op calls {len(fused)}")
         if serving != {k: v * forwards[0] for k, v in LAYERS_PER_FORWARD.items()}:
             raise RuntimeError(f"expected {LAYERS_PER_FORWARD} launches per layers forward, got {serving}")
-        if fused[0] != LAYERS_FUSED_PER_FORWARD * forwards[0]:
-            raise RuntimeError(f"{fused[0]} fused-op calls in {forwards[0]} forwards")
+        if len(fused) != LAYERS_FUSED_PER_FORWARD * forwards[0]:
+            raise RuntimeError(f"{len(fused)} fused-op calls in {forwards[0]} forwards")
         train_counts = train_steps_phase(model, mbs, dev, card, name, LAYERS_PER_TRAIN_STEP,
                                          steps=LAYERS_TRAIN_STEPS)
 
         # Edge dropout: every layer leaves the fused route.
         drop = model.build_neural_module(device=dev, seed=SEED)
         drop.gnn.edge_dropout_rate = LAYERS_EDGE_DROPOUT
-        fused[0] = 0
+        fused.clear()
         before = sk.launch_counts()
         stats = train_steps(drop, mbs, steps=LAYERS_EDGE_DROPOUT_STEPS, seed=SEED)
         loss, _ = module_loss(drop, mbs[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -2299,9 +2339,9 @@ def layers_phase(dev, card, reps: int = 3):
         steps = LAYERS_EDGE_DROPOUT_STEPS + 2
         per_step = {k: v / steps for k, v in delta(sk.launch_counts(), before).items()}
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in drop.parameters() if p.grad is not None)
-        if per_step != LAYERS_PER_EDGE_DROPOUT_STEP or fused[0]:
+        if per_step != LAYERS_PER_EDGE_DROPOUT_STEP or fused:
             raise RuntimeError(f"edge dropout step: launches {per_step} (expected {LAYERS_PER_EDGE_DROPOUT_STEP}), "
-                               f"{fused[0]} fused-op calls")
+                               f"{len(fused)} fused-op calls")
         if not (math.isfinite(stats["loss"]) and math.isfinite(float(loss.detach())) and grads_finite):
             raise RuntimeError(f"edge dropout step: loss {stats['loss']} / {float(loss)}, finite grads {grads_finite}")
         counts = sk.launch_counts()  # the layers path ends here
@@ -2317,19 +2357,17 @@ def layers_phase(dev, card, reps: int = 3):
 
         # The rate leaves an eval forward alone: the fused route, the same logits.
         drop.eval()
-        fused[0] = 0
+        fused.clear()
         with torch.inference_mode():
             with_rate = drop._logits(batches[0][0], train=False)[0]
             drop.gnn.edge_dropout_rate = 0.0
             without = drop._logits(batches[0][0], train=False)[0]
         err = float((with_rate - without).abs().max())
-        if fused[0] != 2 * LAYERS_FUSED_PER_FORWARD or err > 1e-5 * float(without.abs().max()):
-            raise RuntimeError(f"edge dropout changed an eval forward: {fused[0]} fused calls, max abs err {err}")
+        if len(fused) != 2 * LAYERS_FUSED_PER_FORWARD or err > 1e-5 * float(without.abs().max()):
+            raise RuntimeError(f"edge dropout changed an eval forward: {len(fused)} fused calls, max abs err {err}")
         phase(name, f"an eval forward with edge dropout {LAYERS_EDGE_DROPOUT} takes the fused route "
               f"({LAYERS_FUSED_PER_FORWARD} calls) and gives the logits of rate 0 (max abs err {err:.3e}; "
               f"GraphNorm's index_add_ adds in atomic order)")
-    finally:
-        mp_base.fused_typed_message_aggregation = real_fused
 
     # The inputs of PNA's and EGC's layers in a float32 eval forward, for the
     # kernels against their plain versions.
@@ -2465,6 +2503,352 @@ def sanitizer_phase() -> None:
     phase("sanitizer", f"every kernel once under compute-sanitizer ({tool}): {summaries}")
 
 
+
+@contextlib.contextmanager
+def counting_fused_calls(calls: list):
+    """Appends to ``calls`` once per call of the fused message op while the
+    block runs."""
+    from ptgnn_tpu_torch.graph.messagepassing import base as mp_base
+
+    real = mp_base.fused_typed_message_aggregation
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    mp_base.fused_typed_message_aggregation = counted
+    try:
+        yield
+    finally:
+        mp_base.fused_typed_message_aggregation = real
+
+
+def edge_features_against_cpu(model, host_minibatch, device_minibatch, dev, name="edge-features"):
+    """The edge-feature stack on converted weights (``convert.py``, dropout
+    0), card against CPU (``cpu_reference()``): the real nodes' output
+    states (rtol 1e-4, atol 1e-4 x max|x|) and one float32 train step (the
+    loss to rtol 1e-5, every gradient, the edge embedder's included, to rtol
+    1e-4 and 1e-4 of its largest magnitude): the PPI phase's limits."""
+    from ptgnn_tpu_torch.convert import load_jax_params
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
+
+    tree = jax_layout_params(model.build_neural_module(device="cpu", seed=SEED + 1))
+    if "edge_embedder" not in tree["gnn"]:
+        raise RuntimeError("the converted tree holds no edge embedder")
+    sides = {}
+    for side, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        sides[side] = load_jax_params(model.build_neural_module(device=device, seed=SEED), tree)
+        set_dropout(sides[side], 0.0)
+    host = tree_to(host_minibatch, torch.device("cpu"))
+    mask = host["batch"].node_mask
+    with torch.inference_mode():
+        g_out = sides["gpu"].gnn(device_minibatch["batch"])[0].output_node_representations.cpu()[mask]
+        with cpu_reference():
+            c_out = sides["cpu"].gnn(host["batch"])[0].output_node_representations[mask]
+            arithmetic = cpu_arithmetic()
+    atol = 1e-4 * float(c_out.abs().max())
+    out_err = float((g_out - c_out).abs().max())
+    torch.testing.assert_close(g_out, c_out, rtol=1e-4, atol=atol)
+    losses = {}
+    for side in ("gpu", "cpu"):
+        device = dev if side == "gpu" else torch.device("cpu")
+        with cpu_reference() if side == "cpu" else contextlib.nullcontext():
+            loss, _ = module_loss(sides[side], device_minibatch if side == "gpu" else host, train=True,
+                                  generator=torch.Generator(device=device))
+            loss.backward()
+        losses[side] = float(loss.detach())
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-5)
+    worst, names = (0.0, ""), []
+    for (pname, pg), pc in zip(sides["gpu"].named_parameters(), sides["cpu"].parameters()):
+        got, want = pg.grad.cpu(), pc.grad
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                                   err_msg=pname)
+        worst = max(worst, (float((got - want).abs().max() / want.abs().max().clamp_min(1e-30)), pname))
+        names.append(pname)
+    if not any(n.startswith("gnn.edge_feature_embedder.") for n in names):
+        raise RuntimeError("the edge embedder got no gradient")
+    phase(name, f"card vs CPU ({arithmetic}) on converted weights (dropout 0): output states max abs err "
+          f"{out_err:.3e} (rtol 1e-4, atol {atol:.3e} = 1e-4 x max|x|); float32 train step loss {losses['gpu']:.4f} "
+          f"vs {losses['cpu']:.4f} (rtol 1e-5), all {len(names)} gradients (the edge embedder's among them) within "
+          f"rtol 1e-4, atol 1e-4 x max|g| (worst {worst[0]:.3e} of max, {worst[1]})")
+
+
+def edge_features_phase(dev, card, reps: int = 3):
+    """The generic engine with edge features at PPI's width and layout: the
+    5-layer MLP-MP stack reading 128 embedded feature columns, and the
+    variant with a gated layer. For each: eval forwards in float32 and bf16
+    AMP and train_steps in both, with the launches of every forward and step
+    checked and no fused-op call; for the MLP-MP stack, the output states
+    and a float32 step card against CPU on converted weights. Returns the
+    launch counts of the path and the first batch's adjacency."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.ppi.harness import (
+        PPI_GRAPH_SIZES,
+        build_edge_feature_gnn,
+        synthetic_edge_feature_graphs,
+    )
+    from ptgnn_tpu_torch.implementations.ppi.train import ppi_padding
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "edge-features"
+    t_phase = time.perf_counter()
+    graphs = synthetic_edge_feature_graphs(PPI_GRAPHS, SEED, **PPI_GRAPH_SIZES)
+    fused, checks = [], []
+    sk.reset_launch_counts()  # the edge-features path starts here
+    with counting_fused_calls(fused):
+        for gated in (False, True):
+            stack = "gated" if gated else "mlp"
+            t0 = time.perf_counter()
+            model, module, minibatches = build_edge_feature_gnn(padding=ppi_padding(), graphs=graphs, gated=gated,
+                                                                seed=SEED, device=dev)
+            t_host = time.perf_counter() - t0
+            mbs = [tree_to(mb, dev) for mb in minibatches]
+            torch.cuda.synchronize()
+            batch = minibatches[0]["batch"]
+            slot = batch.adjacency.edge_feature_slot
+            phase(name, f"{stack} stack: host metadata + tensorize + batching of {len(graphs)} graphs {t_host:.2f} s; "
+                  f"{len(mbs)} batches of (graphs, nodes, edges) "
+                  f"{[(int(m['batch'].num_graphs), int(m['batch'].num_nodes), int(m['batch'].num_edges)) for m in minibatches]}; "
+                  f"first batch {int((slot >= 0).sum())} of {slot.shape[0]} slots read a feature row "
+                  f"({int(slot.max()) + 1} rows of {batch.edge_feature_data['features'].shape[1]} floats); layers "
+                  f"{[type(l).__name__ for l in module.gnn.message_passing_layers]}; typed weights "
+                  f"{[tuple(p.shape) for n, p in module.named_parameters() if 'weights' in n]}")
+            module.eval()
+            forwards = [0]
+            counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+            for amp in (False, True):
+                dtype = "bf16" if amp else "float32"
+                before, n0 = sk.launch_counts(), forwards[0]
+                eval_forward_phase(module, mbs, card, f"{name} {stack}", reps, amp=amp)
+                got = delta(sk.launch_counts(), before)
+                want = {k: v * (forwards[0] - n0) for k, v in EDGE_PER_FORWARD[dtype].items()}
+                if got != want:
+                    raise RuntimeError(f"{stack} {dtype} eval forwards launched {got}, expected {want}")
+                checks.append(f"{stack} {dtype} forward")
+            counter.remove()
+            for amp in (False, True):
+                dtype = "bf16" if amp else "float32"
+                steps_module = model.build_neural_module(device=dev, seed=SEED)
+                before = sk.launch_counts()
+                stats = train_steps(steps_module, mbs, steps=EDGE_TRAIN_STEPS, enable_amp=amp, seed=SEED)
+                per_step = {k: v / (EDGE_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+                if per_step != EDGE_PER_TRAIN_STEP[dtype]:
+                    raise RuntimeError(f"{stack} {dtype} step launched {per_step}, expected {EDGE_PER_TRAIN_STEP[dtype]}")
+                if not math.isfinite(stats["loss"]):
+                    raise RuntimeError(f"{stack} {dtype} train_steps gave a non-finite loss {stats['loss']}")
+                phase(name, f"{stack} stack train_steps {'bf16 AMP' if amp else 'float32'}: {EDGE_TRAIN_STEPS} steps "
+                      f"after 1 warm-up, loss {stats['loss']:.4f}, {stats['ms_per_step']:.3f} ms/step, "
+                      f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; launches "
+                      f"per step {per_step}")
+                checks.append(f"{stack} {dtype} step")
+            if not gated:
+                first = (model, minibatches[0], mbs[0])
+    counts = sk.launch_counts()  # the edge-features path ends here
+    phase(name, f"launches over the edge-features path {counts}, each forward and step as counted "
+          f"({checks}); fused-op calls {len(fused)}")
+    if fused:
+        raise RuntimeError(f"{len(fused)} fused-op calls on the edge-feature path")
+    edge_features_against_cpu(*first, dev)
+    phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
+    return counts, first[2]["batch"].adjacency
+
+
+def bpe_phase(dev, card, reps: int = 3):
+    """Graph2Class at the benchmark configuration with the ``bpe`` splitting
+    (a 64-entry vocabulary) and ``max`` pooling of the pieces: the eval
+    forward over device-resident batches (per forward 8 extremum and 8
+    broadcast launches), then the logits card against CPU under the parity
+    phase's limits. Returns the launch counts of the path."""
+    from ptgnn_tpu_torch.implementations.typilus.train import MlpStackCreator, default_padding, graph2class_model
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "bpe"
+    t0 = time.perf_counter()
+    model = graph2class_model(MlpStackCreator(64, 0.1), hidden_state_size=64, padding=default_padding(),
+                              token_splitting="bpe", subtoken_combination="max")
+    embedder = model.gnn_model.node_embedding_model
+    embedder.max_vocabulary_size = BPE_VOCABULARY
+    model.compute_metadata(graphs(), parallelize=False)
+    minibatches = []
+    for mb, _ in model.minibatch_iterator(model.tensorize_dataset(graphs(), parallelize=False),
+                                          max_minibatch_size=300, parallelize=False):
+        minibatches.append(mb)
+        if len(minibatches) == BPE_BATCHES:
+            break
+    module = model.build_neural_module(device=dev, seed=SEED).eval()
+    mbs = [{"batch": mb["batch"].to(dev), "target_classes": torch.from_numpy(mb["target_classes"]).to(dev)}
+           for mb in minibatches]
+    lengths = np.concatenate([mb["batch"].node_data["lengths"][:int(mb["batch"].num_nodes)] for mb in minibatches])
+    phase(name, f"setup {time.perf_counter() - t0:.2f} s; BPE vocabulary {len(embedder.vocabulary)} entries; "
+          f"pieces per node label (count of labels with 0..5 pieces kept) {np.bincount(lengths, minlength=6).tolist()}")
+    forwards = [0]
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sk.reset_launch_counts()  # the bpe path starts here
+    eval_forward_phase(module, mbs, card, name, reps)
+    counts = sk.launch_counts()  # the bpe path ends here
+    counter.remove()
+    if counts != {k: v * forwards[0] for k, v in PER_FORWARD.items()}:
+        raise RuntimeError(f"bpe forwards launched {counts}, expected {PER_FORWARD} x {forwards[0]}")
+    cpu_module = model.build_neural_module(device="cpu", seed=SEED).eval()
+    worst = 0.0
+    for mb, host in zip(mbs, minibatches):
+        with torch.inference_mode():
+            gpu_logits = module._logits(mb["batch"], train=False)[0].cpu().numpy()
+            cpu_logits = cpu_module._logits(host["batch"].to("cpu"), train=False)[0].numpy()
+        atol = 1e-4 * float(np.abs(cpu_logits).max())
+        np.testing.assert_allclose(gpu_logits, cpu_logits, rtol=1e-4, atol=atol)
+        top2 = np.sort(cpu_logits, axis=-1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+        np.testing.assert_array_equal(gpu_logits.argmax(-1)[decided], cpu_logits.argmax(-1)[decided])
+        worst = max(worst, float(np.abs(gpu_logits - cpu_logits).max()) / max(float(np.abs(cpu_logits).max()), 1e-30))
+    phase(name, f"launches over {forwards[0]} forwards {counts}; logits card vs CPU on {len(mbs)} batches within "
+          f"rtol 1e-4, atol 1e-4 x max|logit| (worst {worst:.3e} of max|logit|), argmax equal on decided slots")
+    return counts
+
+
+def data_parallel_phase(dev, card):
+    """DistributedModelTrainer at world size 1 over NCCL (a ``file://``
+    rendezvous), ZeRO-1 on, at the benchmark configuration, for one
+    shuffled epoch of about DP_STEPS optimizer steps, against ModelTrainer's
+    same epoch from the same seed (node 0 keeps its shuffle order): every parameter within 1e-6 of its tensor's largest magnitude
+    (and whether bitwise equal), the all-reduce calls and bytes per step,
+    and the launches of the trainer's forwards and steps. Then the
+    distributed Typilus CLI with ``--world-size 1`` for one epoch on
+    synthetic folds. Returns the launch counts of the path."""
+    import io as stdio
+    import os
+    import random
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
+    from ptgnn_tpu_torch.implementations.typilus import traindistributed
+    from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, default_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel import DistributedModelTrainer, initialize_multi_host, moment_elements
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    name = "data-parallel"
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    # The graphs of DP_STEPS full batches in order, and one more graph that
+    # closes the last of them (the trainers drop the partial batch it opens).
+    probe = create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding())
+    every = list(graphs(SEED))
+    probe.compute_metadata(iter(every), parallelize=False)
+    batched = [raw for _, raw in probe.minibatch_iterator(
+        probe.tensorize_dataset(iter(every), parallelize=False, return_input_data=True),
+        max_minibatch_size=300, parallelize=False)]
+    if len(batched) <= DP_STEPS:
+        raise RuntimeError(f"the benchmark graphs make {len(batched)} batches, fewer than {DP_STEPS + 1}")
+    train_graphs = [g for raw in batched[:DP_STEPS] for g in raw] + batched[DP_STEPS][:1]
+    valid_graphs = list(graphs(SEED + 1))[:6]
+    common = dict(max_num_epochs=1, minibatch_size=300, clip_gradient_norm=1.0, device=dev, seed=SEED,
+                  optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4),
+                  target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
+    run = dict(validate_on_start=False, patience=0, parallelize=False, shuffle_training_data=True)
+    # The full batches of the first epoch's shuffled order, as the trainers make it.
+    dp_steps = sum(1 for _ in probe.minibatch_iterator(
+        probe.tensorize_dataset(iter(train_graphs), parallelize=False), max_minibatch_size=300,
+        yield_partial_minibatches=False, shuffle_input=True, parallelize=False,
+        shuffle_rng=random.Random(shuffle_seed(SEED, 0))))
+
+    single = ModelTrainer(create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
+                          out_dir / "dp-single.pkl.gz", **common)
+    single.load_metadata_and_create_network(train_graphs, parallelize=False)
+    t0 = time.perf_counter()
+    single.train(train_graphs, valid_graphs, initialize_metadata=False, **run)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    initialize_multi_host("nccl", f"file://{rendezvous}/store", world_size=1, rank=0)
+    try:
+        trainer = DistributedModelTrainer(create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
+                                          out_dir / "dp-ranked.pkl.gz", zero1=True, **common)
+        trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
+        module = trainer.neural_module
+        forwards, backwards, traffic = [0], [0], {}
+        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+                 module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
+        trainer.register_train_epoch_end_hook(lambda *_: traffic.update(
+            calls=trainer.data_parallel.allreduce_calls, bytes=trainer.data_parallel.allreduce_bytes))
+        optimizers = []
+        trainer.register_training_start_hook(lambda model, module, optimizer: optimizers.append(optimizer))
+        sk.reset_launch_counts()  # the data-parallel path starts here
+        t0 = time.perf_counter()
+        trainer.train(train_graphs, valid_graphs, initialize_metadata=False, **run)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        trainer_counts = sk.launch_counts()
+        for hook in hooks:
+            hook.remove()
+        moments = moment_elements(optimizers[0])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    steps = (trainer._opt_steps_this_epoch, single._opt_steps_this_epoch)
+    if steps != (dp_steps, dp_steps) or backwards[0] != dp_steps or dp_steps < 2:
+        raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards[0]}: expected {dp_steps}")
+    expected = {k: PER_FORWARD[k] * forwards[0] + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * backwards[0]
+                for k in trainer_counts}
+    if trainer_counts != expected:
+        raise RuntimeError(f"data-parallel trainer launches {trainer_counts} != {expected} expected from "
+                           f"{forwards[0]} forwards and {backwards[0]} steps")
+    worst, bitwise = 0.0, True
+    for (pname, a), b in zip(single.neural_module.named_parameters(), trainer.neural_module.parameters()):
+        a, b = a.detach(), b.detach()
+        err = float((a - b).abs().max())
+        bitwise &= bool(torch.equal(a, b))
+        if err > 1e-6 * float(a.abs().max()):
+            raise RuntimeError(f"{pname}: the data-parallel step is {err} from ModelTrainer's")
+        worst = max(worst, err / max(float(a.abs().max()), 1e-30))
+    params = sum(p.numel() for p in module.parameters())
+    phase(name, f"DistributedModelTrainer (NCCL, world size 1, ZeRO-1 holding {moments} moment elements for "
+          f"{params} parameters) vs ModelTrainer: {dp_steps} optimizer steps each over the same shuffled batches and "
+          f"dropout seeds, then validation; parameters within 1e-6 of each max (worst {worst:.3e}), bitwise equal: "
+          f"{bitwise}; train + validation {t_train:.2f} s (ModelTrainer {t_single:.2f} s); all-reduces over the train steps "
+          f"{traffic.get('calls', 0) / dp_steps:.1f} calls and {traffic.get('bytes', 0) / dp_steps:.0f} bytes per "
+          f"step; launches {trainer_counts} from {forwards[0]} forwards and {backwards[0]} steps")
+
+    root = out_dir / "dp-cli"
+    shutil.rmtree(root, ignore_errors=True)
+    folds = []
+    for i, (fold, count) in enumerate((("train", 12), ("valid", 4), ("test", 4))):
+        (root / fold).mkdir(parents=True)
+        write_jsonl_gz(root / fold / "part0.jsonl.gz",
+                       synthetic_typilus_graphs(count, seed=SEED + 30 + i, mean_nodes=1500, max_nodes=4000))
+        folds.append(str(root / fold))
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI's log file goes under the working directory
+    before = sk.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = stdio.StringIO()
+        with contextlib.redirect_stdout(out):
+            accuracy = traindistributed.run(traindistributed.build_arg_parser().parse_args(
+                [*folds, str(root / "dist.pkl.gz"), "--max-num-epochs", "1", "--max-nodes", "8192",
+                 "--world-size", "1", "--quiet"]))
+    finally:
+        os.chdir(cwd)
+    cli = delta(sk.launch_counts(), before)
+    line = [ln for ln in out.getvalue().splitlines() if ln.startswith("Test accuracy:")]
+    if not line or accuracy is None or not 0.0 <= accuracy <= 1.0 or not (root / "dist.pkl.gz").exists():
+        raise RuntimeError(f"traindistributed printed {line}, returned {accuracy}")
+    if min(cli[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum")) <= 0:
+        raise RuntimeError(f"the distributed CLI run missed a kernel: {cli}")
+    counts = add_counts(trainer_counts, cli)  # the data-parallel path ends here
+    phase(name, f"traindistributed --world-size 1 (NCCL, ZeRO-1): 1 epoch over 12 graphs in "
+          f"{time.perf_counter() - t0:.2f} s; '{line[0]}'; launches {cli}")
+    phase(name, f"launches over the data-parallel path {counts}; the 2-rank path runs on the CPU over gloo "
+          f"(tests/test_torch_parallel_dp.py): this machine has one card; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2575,11 +2959,17 @@ def main() -> None:
 
     # ---- 17. the other message-passing families at full width ---------------
     layers_counts, layers_batches, layers_seen = layers_phase(dev, card)
+
+    # ---- 18-20. edge features, the BPE embedder, data parallelism -----------
+    edge_counts, edge_adj = edge_features_phase(dev, card)
+    bpe_counts = bpe_phase(dev, card)
+    dp_counts = data_parallel_phase(dev, card)
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
              "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"],
-             "graph2seq": g2s_counts, "layers": layers_counts}
+             "graph2seq": g2s_counts, "layers": layers_counts, "edge-features": edge_counts,
+             "bpe": bpe_counts, "data-parallel": dp_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -2727,6 +3117,13 @@ def main() -> None:
         e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"] if name == "segment_sum" else 0.0
         phase("kernels", "PPI layout " + json.dumps(e))
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
+    # The edge-feature path's typed matmul shapes (bf16; forward and dx of
+    # both stacks) on its layout.
+    edge_max_abs_err = {}
+    typed_matmul_checks(edge_adj, dev, gen, edge_max_abs_err, shapes=EDGE_TYPED_SHAPES, dtypes=(torch.bfloat16,),
+                        name="kernels")
+    kernels += ppi_kernel_entries(edge_adj, dev, gen, edge_max_abs_err, main_counts, paths, shapes=EDGE_TYPED_SHAPES,
+                                  dtypes=((torch.bfloat16, BF16_OPS_PER_S),), layout="edge-features")
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
     kernels += graph2seq_kernel_entries(g2s_batches[0]["batch"].adjacency, dev, gen, entry)

@@ -14,6 +14,11 @@ in, k]``; conv3 has no bias), and a global update's entry
 holds ``summary`` (the reduce's params, e.g. ``weights.weight``) and
 ``update`` (its GRU cell); the port's modules use these names.
 Graph2Seq's node embedder is ``node_embedder.embeddings.weight`` ``[V, D]``.
+A GNN with edge features holds its edge embedder under ``gnn.edge_embedder``
+(a feature embedder: ``linear.weight`` ``[F, F_in]``), the port module's
+``gnn.edge_feature_embedder``; the layers that read the features have their
+first message weights widened by F (an MLP-MP layer's ``weights_0`` ``[T,
+d_in + F, d_out]``, a gated layer's ``message_weights`` ``[T, D + F, M]``).
 Its ``decoder`` holds ``embedding.weight`` ``[V_out, E]``, ``gru`` (the GRU
 cell's four arrays, as a gated layer's ``state_update``: ``weight_ih``
 ``[3H, E]``), ``mem_to_std.weight`` and ``mem_to_copy.weight`` ``[H, D]``,
@@ -62,6 +67,8 @@ def jax_params_to_state_dict(module: torch.nn.Module, params: Mapping) -> Dict[s
     """The port's state dict for the JAX params pytree."""
     flat: Dict[str, np.ndarray] = {}
     _flatten("gnn.node_embedder.", params["gnn"]["node_embedder"], flat)
+    if "edge_embedder" in params["gnn"]:
+        _flatten("gnn.edge_feature_embedder.", params["gnn"]["edge_embedder"], flat)
     for head, tree in params.items():
         if head != "gnn":
             _flatten(f"{head}.", tree, flat)

@@ -148,9 +148,17 @@ def optimizer_step(
     optimizer.zero_grad(set_to_none=True)
 
 
-def step_seed(seed: int, epoch: int, step: int) -> int:
-    """The dropout generator's seed of one step."""
-    return ((seed * 1_000_003 + epoch) * 1_000_003 + step) % (1 << 63)
+def shuffle_seed(seed: int, epoch: int, node: int = 0) -> int:
+    """The seed of one epoch's shuffle; a data-parallel node folds its index
+    in (node 0 keeps the single-device order)."""
+    return seed * 1_000_003 + epoch + node * 0x9E3779B97F4A7C15
+
+
+def step_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
+    """The dropout generator's seed of one step; a data-parallel rank folds
+    its index in (rank 0 keeps the single-device seed)."""
+    seed = ((seed * 1_000_003 + epoch) * 1_000_003 + step) % (1 << 63)
+    return (seed + rank * 0x9E3779B97F4A7C15) % (1 << 63)
 
 
 class ModelTrainer:
@@ -272,6 +280,11 @@ class ModelTrainer:
         _, state = self._model.restore_model(self._checkpoint_location)
         self.neural_module.load_state_dict(state)
 
+    def _save_optimizer_state(self, optimizer: torch.optim.Optimizer, next_epoch: int) -> None:
+        ckpt.save_optimizer_state(
+            ckpt.optimizer_state_path(self._checkpoint_location), optimizer.state_dict(), next_epoch
+        )
+
     def _create_optimizer(self) -> Tuple[torch.optim.Optimizer, List[float]]:
         optimizer = self._optimizer_creator(self.neural_module.parameters())
         if self._restored_optimizer_state is not None:
@@ -322,7 +335,7 @@ class ModelTrainer:
             shuffle_input=shuffle_input,
             parallelize=parallelize,
             # data order is part of the training seed: same seed -> same run
-            shuffle_rng=random.Random(self._seed * 1_000_003 + epoch),
+            shuffle_rng=random.Random(shuffle_seed(self._seed, epoch)),
         )
         for step_idx, (mb_data, raw_samples) in enumerate(mb_iter):
             # Schedules count optimizer steps: under gradient accumulation k
@@ -350,8 +363,12 @@ class ModelTrainer:
             metrics_acc.update(metrics)
         if self._accumulated:  # a trailing partial accumulation group
             self._apply_accumulated(optimizer, base_lrs, self._last_lr_factor)
+        self._report_training_epoch(epoch, sum_epoch_loss, num_minibatches, num_samples, metrics_acc,
+                                    time.time() - start_time)
 
-        elapsed = time.time() - start_time
+    def _report_training_epoch(self, epoch, sum_epoch_loss, num_minibatches, num_samples, metrics_acc,
+                               elapsed) -> None:
+        """Log the epoch's loss and throughput and run the train-epoch hooks."""
         if num_minibatches == 0:
             raise RuntimeError(
                 "No training minibatches were created. The minibatch size may be too large "
@@ -388,10 +405,14 @@ class ModelTrainer:
             num_minibatches += 1
             num_samples += len(raw_samples)
             metrics_acc.update(metrics)
-        elapsed = time.time() - start_time
         if num_samples == 0:
             raise RuntimeError("No validation data was found.")
-        validation_loss = sum_epoch_loss / num_minibatches
+        return self._report_validation(epoch, sum_epoch_loss / num_minibatches, num_samples, metrics_acc,
+                                       best_target_metric, time.time() - start_time)
+
+    def _report_validation(self, epoch, validation_loss, num_samples, metrics_acc, best_target_metric, elapsed):
+        """Log the validation epoch, run its hooks; returns (target metric,
+        improved, validation metrics)."""
         self.LOGGER.info("Validation complete in %.1fsec [%.2f samples/sec]", elapsed, num_samples / elapsed)
         self.LOGGER.info("Epoch %i: Valid Loss %.2f", epoch + 1, validation_loss)
 
@@ -462,9 +483,7 @@ class ModelTrainer:
             self._run_training(
                 training_tensors, epoch, optimizer, base_lrs, scheduler, parallelize, shuffle_training_data
             )
-            ckpt.save_optimizer_state(
-                ckpt.optimizer_state_path(self._checkpoint_location), optimizer.state_dict(), epoch + 1
-            )
+            self._save_optimizer_state(optimizer, epoch + 1)
             target_metric, improved, validation_metrics = self._run_validation(
                 validation_tensors, epoch, best_target_metric, parallelize
             )

@@ -235,6 +235,14 @@ class GraphBatcher:
     """Accumulates TensorizedGraphData into one statically shaped GraphBatch.
 
     Backward types get ids T+t and self edges the final id.
+
+    ``edge_feature_slot`` numbers each graph's forward edges with one cursor
+    over the batch (backward edges share the number, self edges get -1). With
+    ``track_edge_features`` the number is the edge's row in the batch's
+    edge-feature array: a graph without features gets -1 slots and does not
+    advance the cursor, so no later graph reads another's rows. Without it
+    every graph is numbered, and the numbers are the fwd/bwd pair ids of the
+    fused op's argmax routing.
     """
 
     def __init__(
@@ -243,6 +251,7 @@ class GraphBatcher:
         padding: BatchPadding,
         introduce_backwards_edges: bool,
         add_self_edges: bool,
+        track_edge_features: bool = False,
     ):
         if padding.max_edge_slots % padding.edge_tile:
             raise ValueError("max_edge_slots must be a multiple of edge_tile")
@@ -250,6 +259,7 @@ class GraphBatcher:
         self.padding = padding
         self.introduce_backwards_edges = introduce_backwards_edges
         self.add_self_edges = add_self_edges
+        self.track_edge_features = track_edge_features
 
     @property
     def _block_align(self) -> int:
@@ -287,11 +297,12 @@ class GraphBatcher:
         }
 
     def _graph_edge_arrays(
-        self, graph: TensorizedGraphData, offset: int, feature_offset: int = 0
+        self, graph: TensorizedGraphData, offset: int, feature_offset: int = 0, number_slots: bool = True
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """All materialized edges of one graph (fwd + bwd + self), offset.
-        The fourth array numbers forward edges (backward edges share the
-        forward edge's number, self edges get -1): fwd/bwd pair ids."""
+        The fourth array numbers forward edges from ``feature_offset``
+        (backward edges share the forward edge's number, self edges get -1);
+        without ``number_slots`` every edge gets -1."""
         senders: List[np.ndarray] = []
         receivers: List[np.ndarray] = []
         types: List[np.ndarray] = []
@@ -303,8 +314,11 @@ class GraphBatcher:
                 continue
             src = src.astype(np.int32) + offset
             dst = dst.astype(np.int32) + offset
-            fidx = np.arange(fcursor, fcursor + len(src), dtype=np.int32)
-            fcursor += len(src)
+            if number_slots:
+                fidx = np.arange(fcursor, fcursor + len(src), dtype=np.int32)
+                fcursor += len(src)
+            else:
+                fidx = np.full(len(src), -1, np.int32)
             senders.append(src)
             receivers.append(dst)
             types.append(np.full(len(src), t, np.int32))
@@ -371,14 +385,22 @@ class GraphBatcher:
         """Add a graph (the caller must have checked can_add)."""
         offset = mb["num_nodes_in_mb"]
         graph_idx = len(mb["num_nodes_per_graph"])
+        has_features = self.track_edge_features and graph.edge_features is not None
+        number_slots = has_features or not self.track_edge_features
+        if has_features and len(graph.edge_features) != graph.num_edges:
+            raise ValueError(
+                f"graph has {graph.num_edges} forward edges but {len(graph.edge_features)} edge features: "
+                "the flattened feature list must hold one entry per forward edge in canonical type order"
+            )
         senders, receivers, types, feat_idx = self._graph_edge_arrays(
-            graph, offset, mb["num_features_in_mb"]
+            graph, offset, mb["num_features_in_mb"], number_slots
         )
         mb["senders"].append(senders)
         mb["receivers"].append(receivers)
         mb["types"].append(types)
         mb["feature_idx"].append(feat_idx)
-        mb["num_features_in_mb"] += graph.num_edges
+        if number_slots:
+            mb["num_features_in_mb"] += graph.num_edges
         for key, c in self._merged_seg_counts(graph, offset).items():
             mb["seg_counts"][key] = mb["seg_counts"].get(key, 0) + c
         mb["num_edges_in_mb"] += len(senders)

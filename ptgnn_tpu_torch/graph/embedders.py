@@ -1,6 +1,6 @@
-"""Node embedders: float feature vectors (PPI) and string labels, whole
-(Graph2Seq's token vocabulary) or split into subtokens (Graph2Class) or chars
-(VarMisuse's char CNN).
+"""Node embedders: float feature vectors (PPI, edge features) and string
+labels, whole (Graph2Seq's token vocabulary) or split into subtokens
+(Graph2Class), byte-pair-encoded pieces or chars (VarMisuse's char CNN).
 
 Minibatches are statically padded: every finalize takes ``pad_to`` (the node
 budget), and the subtoken and char widths are the static
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import Conv1d, Embedding, Linear, dropout
-from ptgnn_tpu_torch.utils.text import CharTensorizer, Vocabulary, split_identifier_into_parts
+from ptgnn_tpu_torch.utils.text import BpeVocabulary, CharTensorizer, Vocabulary, split_identifier_into_parts
 
 _ACTIVATIONS = {"tanh": torch.tanh}  # the activations a ported factory uses
 
@@ -103,8 +103,11 @@ class TokenUnitEmbedder(torch.nn.Module):
 
 
 class SubtokenUnitEmbedder(torch.nn.Module):
-    """Subtoken embedding with masked mean/sum pooling, then a bias-free
-    dense layer."""
+    """Subtoken embedding with masked mean, sum or max pooling over each
+    row's ``lengths`` subtokens, then (``use_dense_output``) a bias-free
+    dense layer, then dropout. A max row of length 0 (a padding node) is 0.
+    The max splits its gradient evenly among tied subtokens (``amax``, as
+    JAX's ``max``), so a repeated subtoken gets half of it each."""
 
     def __init__(
         self,
@@ -112,14 +115,16 @@ class SubtokenUnitEmbedder(torch.nn.Module):
         embedding_size: int,
         dropout_rate: float,
         subtoken_combination_kind: str,
+        use_dense_output: bool = True,
     ):
         super().__init__()
-        if subtoken_combination_kind not in {"mean", "sum"}:
-            raise NotImplementedError(f"subtoken combination {subtoken_combination_kind!r}")
+        if subtoken_combination_kind not in {"mean", "max", "sum"}:
+            raise ValueError(f"unknown subtoken combination {subtoken_combination_kind!r}")
         self.combination = subtoken_combination_kind
         self.embeddings = Embedding(vocabulary_size, embedding_size, weight_init=init.uniform())
-        self.out_layer = Linear(
-            embedding_size, embedding_size, use_bias=False, weight_init=init.xavier_uniform()
+        self.out_layer = (
+            Linear(embedding_size, embedding_size, use_bias=False, weight_init=init.xavier_uniform())
+            if use_dense_output else None
         )
         self.dropout_rate = dropout_rate
 
@@ -127,11 +132,18 @@ class SubtokenUnitEmbedder(torch.nn.Module):
         """token_idxs: [B, max_subtok]; lengths: [B] -> [B, D]."""
         embedded = self.embeddings(token_idxs)  # [B, S, D]
         positions = torch.arange(embedded.shape[1], device=embedded.device)
-        maskf = (positions[None, :] < lengths[:, None])[..., None].to(embedded.dtype)
-        out = (embedded * maskf).sum(dim=-2)
-        if self.combination == "mean":
-            out = out / (lengths[:, None].to(embedded.dtype) + 1e-10)
-        return dropout(self.out_layer(out), self.dropout_rate, train, generator)
+        mask = (positions[None, :] < lengths[:, None])[..., None]  # [B, S, 1]
+        if self.combination == "max":
+            filled = embedded.masked_fill(~mask, float("-inf"))
+            out = torch.where(lengths[:, None] > 0, filled.amax(dim=-2), torch.zeros((), dtype=embedded.dtype,
+                                                                                     device=embedded.device))
+        else:
+            out = (embedded * mask.to(embedded.dtype)).sum(dim=-2)
+            if self.combination == "mean":
+                out = out / (lengths[:, None].to(embedded.dtype) + 1e-10)
+        if self.out_layer is not None:
+            out = self.out_layer(out)
+        return dropout(out, self.dropout_rate, train, generator)
 
 
 class CnnConfig(NamedTuple):
@@ -165,8 +177,9 @@ class CharUnitEmbedder(torch.nn.Module):
 
 
 class StrElementRepresentationModel(AbstractNeuralModel):
-    """String node-label embedder with token, subtoken or char splitting
-    (the ``bpe`` splitting is not ported)."""
+    """String node-label embedder with token, subtoken, bpe or char
+    splitting. ``bpe`` counts whole tokens, trains a :class:`BpeVocabulary`
+    of ``vocabulary_size`` entries and embeds the pieces as subtokens."""
 
     def __init__(
         self,
@@ -182,12 +195,12 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         max_num_chars: int = 15,
     ):
         super().__init__()
-        if token_splitting not in ("token", "subtoken", "char"):
-            raise NotImplementedError(f"token splitting {token_splitting!r} is not ported yet")
+        if token_splitting not in ("token", "subtoken", "bpe", "char"):
+            raise ValueError(f"unknown token splitting {token_splitting!r}")
         self.splitting_kind = token_splitting
         self.embedding_size = embedding_size
         self.dropout_rate = dropout_rate
-        if token_splitting == "subtoken":
+        if token_splitting in ("subtoken", "bpe"):
             self.max_num_subtokens = max_num_subtokens if max_num_subtokens is not None else 5
             self.subtoken_combination = subtoken_combination
         elif token_splitting == "char":
@@ -204,30 +217,33 @@ class StrElementRepresentationModel(AbstractNeuralModel):
         self.__tok_counter: Counter = Counter()
 
     def update_metadata_from(self, datapoint: str) -> None:
-        if self.splitting_kind == "token":
+        if self.splitting_kind in ("token", "bpe"):
             self.__tok_counter[datapoint] += 1
         elif self.splitting_kind == "subtoken":
             self.__tok_counter.update(split_identifier_into_parts(datapoint))
 
     def finalize_metadata(self) -> None:
-        if self.splitting_kind != "char":
+        if self.splitting_kind in ("token", "subtoken"):
             self.__vocabulary = Vocabulary.create_vocabulary(
                 self.__tok_counter,
                 max_size=self.max_vocabulary_size,
                 count_threshold=self.min_freq_threshold,
             )
+        elif self.splitting_kind == "bpe":
+            self.__vocabulary = BpeVocabulary(self.max_vocabulary_size)
+            self.__vocabulary.create_vocabulary(self.__tok_counter)
         else:
             self.__vocabulary = CharTensorizer(self.max_num_chars, lower_case_all=False, include_space=False)
         del self.__tok_counter
 
     @property
-    def vocabulary(self) -> Union[Vocabulary, CharTensorizer]:
+    def vocabulary(self) -> Union[Vocabulary, BpeVocabulary, CharTensorizer]:
         return self.__vocabulary
 
     def build_neural_module(self) -> torch.nn.Module:
         if self.splitting_kind == "token":
             return TokenUnitEmbedder(len(self.vocabulary), self.embedding_size, self.dropout_rate)
-        if self.splitting_kind == "subtoken":
+        if self.splitting_kind in ("subtoken", "bpe"):
             return SubtokenUnitEmbedder(
                 len(self.vocabulary), self.embedding_size, self.dropout_rate,
                 self.subtoken_combination,
@@ -236,15 +252,27 @@ class StrElementRepresentationModel(AbstractNeuralModel):
             self.vocabulary.num_chars_in_vocabulary(), self.embedding_size, self.cnn_config, self.dropout_rate
         )
 
-    def tensorize(self, datapoint: str):
+    def tensorize(self, datapoint: str, return_str_rep: bool = False):
+        """The label's ids; with ``return_str_rep``, also its string form
+        (``bpe``: the pieces; ``char``: the chars kept; else the label)."""
+        str_repr = datapoint
         if self.splitting_kind == "token":
-            return self.vocabulary.get_id_or_unk(datapoint)
-        if self.splitting_kind == "char":
-            return self.vocabulary.tensorize_str(datapoint)
-        subtoks = split_identifier_into_parts(datapoint)
-        if len(subtoks) == 0:
-            subtoks = [Vocabulary.get_unk()]
-        return self.vocabulary.get_id_or_unk_multiple(subtoks)
+            token_idxs = self.vocabulary.get_id_or_unk(datapoint)
+        elif self.splitting_kind == "char":
+            token_idxs = self.vocabulary.tensorize_str(datapoint)
+            str_repr = datapoint[: self.vocabulary.max_char_length]
+        elif self.splitting_kind == "bpe":
+            if len(datapoint) == 0:
+                datapoint = "<empty>"
+            token_idxs = self.vocabulary.get_id_or_unk_for_text(datapoint)
+            if return_str_rep:
+                str_repr = self.vocabulary.tokenize(datapoint)
+        else:
+            subtoks = split_identifier_into_parts(datapoint)
+            if len(subtoks) == 0:
+                subtoks = [Vocabulary.get_unk()]
+            token_idxs = self.vocabulary.get_id_or_unk_multiple(subtoks)
+        return (token_idxs, str_repr) if return_str_rep else token_idxs
 
     def initialize_minibatch(self) -> Dict[str, Any]:
         return {"token_idxs": []}

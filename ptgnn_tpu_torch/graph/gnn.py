@@ -3,7 +3,10 @@
 The module runs over a statically shaped GraphBatch: backward and self
 edges are materialized by the batcher, residual layers compose through an
 explicit stash. Edge dropout is one keep mask over the fused edge array,
-ANDed with the batch's static mask while training.
+ANDed with the batch's static mask while training. Edge features, where the
+model has an edge representation model, are embedded once per forward edge
+and gathered to every slot by ``edge_feature_slot``: a backward edge reads
+its forward edge's row, a self or padding slot gets zeros.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ class GraphNeuralNetwork(torch.nn.Module):
         message_passing_layers: List[AbstractMessagePassingLayer],
         node_embedder: torch.nn.Module,
         edge_dropout_rate: float = 0.0,
+        edge_feature_embedder: Optional[torch.nn.Module] = None,
     ):
         super().__init__()
         if not 0.0 <= edge_dropout_rate < 1.0:
@@ -52,6 +56,7 @@ class GraphNeuralNetwork(torch.nn.Module):
         for layer in message_passing_layers:
             self._layer_param_index.append(seen.setdefault(id(layer), len(seen)))
         self.node_embedder = node_embedder
+        self.edge_feature_embedder = edge_feature_embedder
 
     @property
     def input_node_state_dim(self) -> int:
@@ -94,6 +99,15 @@ class GraphNeuralNetwork(torch.nn.Module):
         """Returns (GnnOutput, metric accumulators). ``generator`` draws every
         dropout mask when training."""
         initial = self.node_embedder(**batch.node_data, train=train, generator=generator)  # [N_pad, D]
+        edge_features = None
+        if self.edge_feature_embedder is not None and batch.edge_feature_data is not None:
+            embedded = self.edge_feature_embedder(
+                **batch.edge_feature_data, train=train, generator=generator
+            )  # [max_edge_slots, F], one row per forward edge
+            slot = batch.adjacency.edge_feature_slot
+            gathered = embedded.index_select(0, slot.clamp_min(0).long())
+            edge_features = torch.where(slot[:, None] >= 0, gathered, torch.zeros((), dtype=gathered.dtype,
+                                                                                  device=gathered.device))
         ctx = GraphContext(
             adjacency=batch.adjacency,
             node_graph=batch.node_graph,
@@ -101,6 +115,7 @@ class GraphNeuralNetwork(torch.nn.Module):
             graph_mask=batch.graph_mask,
             references=batch.references,
             att_order=batch.att_order,
+            edge_features=edge_features,
         )
         output = self.gnn(initial, ctx, train=train, generator=generator, return_all_states=return_all_states)
         metrics = {
@@ -137,10 +152,12 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
         stop_extending_minibatch_after_num_nodes: Optional[int] = None,
         add_self_edges: bool = False,
         edge_dropout_rate: float = 0.0,
+        edge_representation_model: Optional[AbstractNeuralModel] = None,
     ):
         super().__init__()
         self.__message_passing_layers_creator = message_passing_layer_creator
         self.__node_embedding_model = node_representation_model
+        self.__edge_embedding_model = edge_representation_model
         self.padding = padding
         self.max_nodes_per_graph = min(max_nodes_per_graph, padding.max_nodes)
         self.max_graph_edges = max_graph_edges
@@ -157,6 +174,10 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
     def node_embedding_model(self) -> AbstractNeuralModel:
         return self.__node_embedding_model
 
+    @property
+    def edge_embedding_model(self) -> Optional[AbstractNeuralModel]:
+        return self.__edge_embedding_model
+
     def initialize_metadata(self) -> None:
         self.__edge_types_mdata: Set[str] = set()
         self.__reference_names_mdata: Set[str] = set()
@@ -166,6 +187,10 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             self.__node_embedding_model.update_metadata_from(node)
         self.__edge_types_mdata.update(datapoint.edges)
         self.__reference_names_mdata.update(datapoint.reference_nodes)
+        if datapoint.edge_features is not None and self.__edge_embedding_model is not None:
+            for edge_features in datapoint.edge_features.values():
+                for edge_feature in edge_features:
+                    self.__edge_embedding_model.update_metadata_from(edge_feature)
 
     def finalize_metadata(self) -> None:
         LOGGER.info("Found %s edge types in data.", len(self.__edge_types_mdata))
@@ -206,6 +231,9 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             layers,
             node_embedder=self.__node_embedding_model.build_neural_module(),
             edge_dropout_rate=self.edge_dropout_rate,
+            edge_feature_embedder=(
+                None if self.__edge_embedding_model is None else self.__edge_embedding_model.build_neural_module()
+            ),
         )
 
     def _make_batcher(self) -> GraphBatcher:
@@ -214,6 +242,7 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             padding=self.padding,
             introduce_backwards_edges=self.introduce_backwards_edges,
             add_self_edges=self.add_self_edges,
+            track_edge_features=self.__edge_embedding_model is not None,
         )
 
     def __iterate_edge_types(self, data: GraphData):
@@ -229,13 +258,30 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
         if len(datapoint.node_information) > self.max_nodes_per_graph:
             LOGGER.warning("Dropping graph with %s nodes.", len(datapoint.node_information))
             return None
+        edge_features_flat = None
+        if self.__edge_embedding_model is not None and datapoint.edge_features is not None:
+            # One feature per forward edge, in canonical type order: the
+            # batcher's numbering of the graph's edges.
+            edge_features_flat = []
+            for edge_type in self.__edge_idx_to_type:
+                feats = datapoint.edge_features.get(edge_type, [])
+                type_edges = len(datapoint.edges.get(edge_type, []) or [])
+                if len(feats) != type_edges:
+                    raise ValueError(
+                        f"edge type '{edge_type}' has {type_edges} edges but {len(feats)} edge features: a "
+                        "feature-tracking model needs exactly one feature per edge (or edge_features=None "
+                        "for the whole graph)"
+                    )
+                edge_features_flat.extend(
+                    enforce_not_None(self.__edge_embedding_model.tensorize(feat)) for feat in feats
+                )
         tensorized = TensorizedGraphData(
             adjacency_lists=list(self.__iterate_edge_types(datapoint)),
             node_tensorized_data=[
                 enforce_not_None(self.__node_embedding_model.tensorize(ni))
                 for ni in datapoint.node_information
             ],
-            edge_features=None,
+            edge_features=edge_features_flat,
             reference_nodes={
                 n: np.array(refs, dtype=np.int32) for n, refs in datapoint.reference_nodes.items()
             },
@@ -255,11 +301,14 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
 
     def initialize_minibatch(self) -> Dict[str, Any]:
         batcher = self._make_batcher()
-        return {
+        mb = {
             "batcher": batcher,
             "batcher_mb": batcher.initialize(),
             "node_data_mb": self.__node_embedding_model.initialize_minibatch(),
         }
+        if self.__edge_embedding_model is not None:
+            mb["edge_data_mb"] = self.__edge_embedding_model.initialize_minibatch()
+        return mb
 
     def can_add_to_minibatch(self, tensorized: TensorizedGraphData, partial_minibatch) -> bool:
         return partial_minibatch["batcher"].can_add(tensorized, partial_minibatch["batcher_mb"])
@@ -270,6 +319,9 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             continue_extending &= self.__node_embedding_model.extend_minibatch_with(
                 node_info, partial_minibatch["node_data_mb"]
             )
+        if self.__edge_embedding_model is not None and tensorized.edge_features is not None:
+            for feat in tensorized.edge_features:
+                self.__edge_embedding_model.extend_minibatch_with(feat, partial_minibatch["edge_data_mb"])
         mb = partial_minibatch["batcher_mb"]
         partial_minibatch["batcher"].extend(tensorized, mb)
         continue_extending &= mb["num_nodes_in_mb"] < self.stop_extending_minibatch_after_num_nodes
@@ -284,4 +336,9 @@ class GraphNeuralNetworkModel(AbstractNeuralModel):
             node_data=node_data,
             reference_names=self.__reference_names,
         )
+        if self.__edge_embedding_model is not None:
+            edge_data = self.__edge_embedding_model.finalize_minibatch(
+                accumulated_minibatch_data["edge_data_mb"], pad_to=self.padding.max_edge_slots
+            )
+            batch = batch._replace(edge_feature_data=edge_data)
         return {"batch": batch}

@@ -36,6 +36,9 @@ class GraphContext(NamedTuple):
     # [n_blocks, att_block] node permutation for exact block-diagonal
     # self-attention (graph/batching.py), or None.
     att_order: Any = None
+    # [E_pad, F] embedded edge features per slot (backward edges share their
+    # forward edge's row, self and padding slots are 0), or None.
+    edge_features: Any = None
 
     @property
     def max_graphs(self) -> int:
@@ -81,10 +84,11 @@ def fused_linear_message_aggregation_or_none(
     """The scatter-free fused message + aggregate (``ops/fused_mp.py``) of a
     single typed linear message, where the reduction is one of the named
     ones and the batch's layout allows it (an aggregation plan, the
-    transposed tile types, the static mask); None, and the caller computes
+    transposed tile types, the static mask) and the context carries no edge
+    features (the fused op never sees them); None, and the caller computes
     its messages per slot, otherwise."""
     adj = ctx.adjacency
-    if not isinstance(reduction, str) or reduction not in _REDUCTIONS:
+    if not isinstance(reduction, str) or reduction not in _REDUCTIONS or ctx.edge_features is not None:
         return None
     if adj.tile_row_blocks is None or adj.tile_types_transposed is None or not ctx.edge_mask_is_static:
         return None

@@ -1,7 +1,7 @@
 """MLP message passing: per-edge-type MLP messages, a named or pluggable
 aggregation, then the activation -> LayerNorm -> Dense(+activation) ->
 dropout state update. The counterpart of the JAX package's
-``graph/messagepassing/mlp_mp.py``, without edge features."""
+``graph/messagepassing/mlp_mp.py``."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Union
@@ -79,8 +79,11 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
     dropout (each optional as in the JAX package).
 
     A single-linear message with a named reduction takes the fused route;
-    hidden layers, a pluggable aggregation or a non-static edge mask take the
-    per-slot route: gather, typed tile matmuls, aggregation dispatch.
+    hidden layers, a pluggable aggregation, a non-static edge mask or edge
+    features take the per-slot route: gather, typed tile matmuls,
+    aggregation dispatch. ``features_dimension`` F widens the first MLP
+    layer's input by the context's [E_pad, F] edge features, concatenated
+    after the source (and target) states.
     ``argmax_routing`` applies to the fused route: max/min aggregation
     routes each gradient to the first winning edge alone
     (``ops/fused_mp.py``)."""
@@ -103,18 +106,17 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
         argmax_routing: bool = False,
     ):
         super().__init__()
-        if features_dimension:
-            raise ValueError("edge features are not ported yet (ROADMAP Queue A item 2): features_dimension must be 0")
         self.__input_state_dim = input_state_dimension
         self.__output_state_dim = output_state_dimension
         self.use_target_state_as_message_input = use_target_state_as_message_input
         self.num_edge_types = num_edge_types
         self.dropout_rate = dropout_rate
         self.argmax_routing = argmax_routing
+        self.features_dimension = features_dimension
         message_input_size = (
             2 * input_state_dimension if use_target_state_as_message_input else input_state_dimension
         )
-        self.message_mlp = TypedMLP(num_edge_types, message_input_size, message_dimension,
+        self.message_mlp = TypedMLP(num_edge_types, message_input_size + features_dimension, message_dimension,
                                     hidden_layers=mlp_hidden_layers)
         if isinstance(message_aggregation_function, AbstractMessageAggregation):
             aggregated_size = message_aggregation_function.output_state_size(message_dimension)
@@ -137,6 +139,10 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
                 generator: Optional[torch.Generator] = None):
         adj = ctx.adjacency
         n = node_states.shape[0]
+        given = 0 if ctx.edge_features is None else ctx.edge_features.shape[-1]
+        if given != self.features_dimension:
+            raise ValueError(f"the layer takes {self.features_dimension} edge-feature columns, the context "
+                             f"carries {given}")
         aggregated = None
         if len(self.message_mlp.dims) == 2:
             aggregated = fused_linear_message_aggregation_or_none(
@@ -152,6 +158,8 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
                 # gather, their rows are masked out of the aggregation.
                 target = node_states.index_select(0, adj.receivers.clamp(max=n - 1).long())
                 msg_input = torch.cat([msg_input, target], dim=-1)
+            if ctx.edge_features is not None:
+                msg_input = torch.cat([msg_input, ctx.edge_features.to(msg_input.dtype)], dim=-1)
             messages = self.message_mlp(msg_input, adj.tile_types, adj.edge_tile, train=train, generator=generator)
             if self._reduction is None:
                 aggregated = self.aggregation(messages, ctx, n)

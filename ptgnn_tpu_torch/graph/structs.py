@@ -183,6 +183,10 @@ class GraphBatch(NamedTuple):
     # [n_blocks, att_block] int32 node permutation for exact block-diagonal
     # self-attention (padding slots: max_nodes); None when att_block is 0.
     att_order: Any = None
+    # The edge embedder's finalized minibatch (arrays of max_edge_slots rows,
+    # one per forward edge, in the batcher's feature numbering), read through
+    # adjacency.edge_feature_slot; None when the model embeds no edge features.
+    edge_feature_data: Any = None
 
     def to(self, device) -> "GraphBatch":
         return tree_to(self, torch.device(device))

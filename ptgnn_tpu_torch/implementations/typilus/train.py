@@ -159,16 +159,20 @@ def graph2class_model(
     dropout_rate: float = 0.1,
     padding: Optional[BatchPadding] = None,
     min_freq_threshold: int = 5,
+    token_splitting: str = "subtoken",
+    subtoken_combination: str = "mean",
 ) -> Graph2Class:
-    """Graph2Class with the factory's node embedder and batching around the
-    message-passing stack that ``layer_creator(num_edge_types)`` builds."""
+    """Graph2Class with the factory's node embedder (labels split by
+    ``token_splitting``, the factory's ``subtoken`` or ``bpe``, and pooled by
+    ``subtoken_combination``) and batching around the message-passing stack
+    that ``layer_creator(num_edge_types)`` builds."""
     padding = padding if padding is not None else default_padding()
     return Graph2Class(
         gnn_model=GraphNeuralNetworkModel(
             node_representation_model=StrElementRepresentationModel(
                 embedding_size=hidden_state_size,
-                token_splitting="subtoken",
-                subtoken_combination="mean",
+                token_splitting=token_splitting,
+                subtoken_combination=subtoken_combination,
                 vocabulary_size=10000,
                 min_freq_threshold=min_freq_threshold,
                 dropout_rate=dropout_rate,

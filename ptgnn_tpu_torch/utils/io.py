@@ -121,11 +121,14 @@ def _list_folder(path, pattern: str) -> List[Any]:
 def load_from_folder(
     path, shuffle: bool, pattern: str = "*.jsonl.gz",
     rank: Optional[int] = None, world_size: Optional[int] = None,
+    rng: Optional[random.Random] = None,
 ) -> Iterator[Any]:
     """Stream samples from every matching file in a (local or remote) folder.
 
     With rank/world_size, files are interleaved round-robin across ranks
-    (reference: typilus/traindistributed.py:37-47).
+    (reference: typilus/traindistributed.py:37-47). ``shuffle`` orders the
+    files with ``rng`` (the ``random`` module's generator by default): the
+    processes that must read one order share a seed.
     """
     all_files = _list_folder(path, pattern)
     if not all_files:
@@ -135,7 +138,7 @@ def load_from_folder(
     if rank is not None and world_size is not None:
         all_files = [f for i, f in enumerate(all_files) if i % world_size == rank]
     if shuffle:
-        random.shuffle(all_files)
+        (rng or random).shuffle(all_files)
     for file in all_files:
         yield from iter_jsonl_gz(file)
 

@@ -1,6 +1,7 @@
 """Where the time of a serving forward, of a training step or of a decode
-goes on the card, for Graph2Class, PPI, VarMisuse or Graph2Seq, or for
-Graph2Class over the stack of the other message-passing families.
+goes on the card, for Graph2Class, PPI, VarMisuse or Graph2Seq, for
+Graph2Class over the stack of the other message-passing families, or for
+the generic engine with edge features.
 
 Builds the model's configuration with random seeded weights (Graph2Class:
 the benchmark configuration, ``train.default_padding()``, hidden 64, the
@@ -25,6 +26,11 @@ is Graph2Class at the benchmark configuration with
 and MLP-MP layers), and adds the device time of each stack entry, forward
 and backward: a kernel counts for the entry in whose forward it ran, or
 whose forward op's backward launched it (the profiler's sequence numbers).
+``--model edge-features`` is ``ppi.harness.build_edge_feature_gnn`` at
+``ppi_padding()`` (hidden 256, 128 edge-feature columns, the 5-layer MLP-MP
+stack; the loss the sum of squares of the node states; clip 1.0, 1e-3) on
+``synthetic_edge_feature_graphs`` of PPI's sizes, with the same per-entry
+breakdown (the edge embedder's gather counts outside the stack).
 Prints the wall time per batch, the
 device's busy share, the device time by kernel class and the 15 costliest
 kernels, and writes a Chrome trace to ``--trace``. Run on a machine with a
@@ -38,6 +44,7 @@ CUDA device:
     python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --train
     python -m ptgnn_tpu_torch.utils.profile_serving --model graph2seq --decode --beam-size 5
     python -m ptgnn_tpu_torch.utils.profile_serving --model layers --train
+    python -m ptgnn_tpu_torch.utils.profile_serving --model edge-features --train --amp
 """
 from __future__ import annotations
 
@@ -162,8 +169,8 @@ def main() -> None:
     parser.add_argument("--passes", type=int, default=3)
     parser.add_argument("--train", action="store_true", help="trace training steps, not forwards")
     parser.add_argument("--amp", action="store_true", help="bf16 AMP forwards or training steps")
-    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse", "graph2seq", "layers"),
-                        default="graph2class")
+    parser.add_argument("--model", choices=("graph2class", "ppi", "varmisuse", "graph2seq", "layers",
+                                            "edge-features"), default="graph2class")
     parser.add_argument("--decode", action="store_true", help="Graph2Seq: trace the decode of each batch")
     parser.add_argument("--beam-size", type=int, default=1, help="Graph2Seq --decode: 1 is greedy")
     parser.add_argument("--architecture", choices=("mlp", "ggnn"), default="mlp",
@@ -195,6 +202,19 @@ def main() -> None:
             hidden_state_size=256, device=dev,
         )
         lr, clip = 1e-3, 1.0
+    elif args.model == "edge-features":
+        from ptgnn_tpu_torch.implementations.ppi.harness import (
+            PPI_GRAPH_SIZES,
+            build_edge_feature_gnn,
+            synthetic_edge_feature_graphs,
+        )
+        from ptgnn_tpu_torch.implementations.ppi.train import ppi_padding
+
+        _, module, minibatches = build_edge_feature_gnn(
+            padding=ppi_padding(), graphs=synthetic_edge_feature_graphs(6, 0, **PPI_GRAPH_SIZES), device=dev,
+        )
+        lr, clip = 1e-3, 1.0
+        label_layer_ranges(module.gnn.message_passing_layers)
     elif args.model == "varmisuse":
         from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse, full_width_samples
         from ptgnn_tpu_torch.implementations.varmisuse.train import vm_padding
@@ -282,7 +302,7 @@ def main() -> None:
     device_ms = sum(by_class.values()) / 1e3
     summary = {
         "card": card,
-        "model": args.model if args.model in ("ppi", "graph2seq", "layers") else
+        "model": args.model if args.model in ("ppi", "graph2seq", "layers", "edge-features") else
         f"{args.model} {args.architecture}" + (" argmax routing" if args.argmax_routing else ""),
         "mode": (("greedy decode" if args.beam_size == 1 else f"beam-{args.beam_size} decode") if args.decode
                  else "train" if args.train else "serving forward") + (", bf16 AMP" if args.amp else ", float32"),
@@ -294,7 +314,7 @@ def main() -> None:
             k: v / 1e3 / n_batches for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])
         },
     }
-    if args.model == "layers":
+    if args.model in ("layers", "edge-features"):
         by_layer = device_us_by_layer(prof.events())
         summary["device_ms_per_batch_by_layer"] = {
             label: {"forward": fwd / 1e3 / n_batches, "backward": bwd / 1e3 / n_batches}

@@ -1,11 +1,12 @@
-"""Vocabulary, identifier splitting and char tensorization (dpu-utils
-semantics), as the JAX package's ``utils/text.py`` has them for the
-subtoken and char embedders and the Graph2Class target vocabulary."""
+"""Vocabulary, identifier splitting, char tensorization (dpu-utils
+semantics) and a small byte-pair encoding, as the JAX package's
+``utils/text.py`` has them for the node embedders and the Graph2Class target
+vocabulary."""
 from __future__ import annotations
 
 import re
 from collections import Counter
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -128,3 +129,87 @@ class CharTensorizer:
         for i, c in enumerate(data[: self.max_num_chars]):
             out[i] = self.__char_to_id.get(c, 1)
         return out
+
+
+class BpeVocabulary:
+    """A byte-pair-encoding vocabulary, trained by greedy merges over word
+    counts with an end-of-word marker; encoding applies the merges by rank,
+    then maps each symbol to its id (UNK where it has none).
+
+    The merges and ids equal the JAX package's bit for bit: every loop
+    walks insertion-ordered dicts and counters, and ``most_common`` breaks a
+    tie in count by first insertion, so the order of ``token_counter`` and
+    of each round's words decides tied merges. Nothing here sorts."""
+
+    END_OF_WORD = "</w>"
+
+    def __init__(self, max_size: int):
+        self.max_size = max_size
+        self.__merges: Dict[Tuple[str, str], int] = {}
+        self.__vocab = Vocabulary(add_unk=True)
+
+    def create_vocabulary(self, token_counter: Counter) -> None:
+        """The symbols (characters and the marker, most frequent first), then
+        up to ``max_size`` minus their count merges, each of the most
+        frequent adjacent pair while it occurs at least twice."""
+        words: Dict[Tuple[str, ...], int] = {}
+        charset: Counter = Counter()
+        for word, count in token_counter.items():
+            if not word:
+                continue
+            symbols = tuple(word) + (self.END_OF_WORD,)
+            words[symbols] = words.get(symbols, 0) + count
+            for ch in symbols:
+                charset[ch] += count
+        for ch, _ in charset.most_common():
+            self.__vocab.add_or_get_id(ch)
+
+        num_merges = max(0, self.max_size - len(self.__vocab))
+        for merge_idx in range(num_merges):
+            pair_counts: Counter = Counter()
+            for symbols, count in words.items():
+                for a, b in zip(symbols, symbols[1:]):
+                    pair_counts[(a, b)] += count
+            if not pair_counts:
+                break
+            best, count = pair_counts.most_common(1)[0]
+            if count < 2:
+                break
+            self.__merges[best] = merge_idx
+            merged_symbol = best[0] + best[1]
+            self.__vocab.add_or_get_id(merged_symbol)
+            new_words: Dict[Tuple[str, ...], int] = {}
+            for symbols, cnt in words.items():
+                out: List[str] = []
+                i = 0
+                while i < len(symbols):
+                    if i + 1 < len(symbols) and (symbols[i], symbols[i + 1]) == best:
+                        out.append(merged_symbol)
+                        i += 2
+                    else:
+                        out.append(symbols[i])
+                        i += 1
+                key = tuple(out)
+                new_words[key] = new_words.get(key, 0) + cnt
+            words = new_words
+
+    def tokenize(self, text: str) -> List[str]:
+        """The symbols of ``text`` plus the marker, merged lowest rank first
+        (the leftmost of equal ranks) until no learned pair is left."""
+        symbols: List[str] = list(text) + [self.END_OF_WORD]
+        while len(symbols) > 1:
+            best_rank, best_pos = None, None
+            for i, pair in enumerate(zip(symbols, symbols[1:])):
+                rank = self.__merges.get(pair)
+                if rank is not None and (best_rank is None or rank < best_rank):
+                    best_rank, best_pos = rank, i
+            if best_pos is None:
+                break
+            symbols[best_pos : best_pos + 2] = [symbols[best_pos] + symbols[best_pos + 1]]
+        return symbols
+
+    def get_id_or_unk_for_text(self, text: str) -> List[int]:
+        return [self.__vocab.get_id_or_unk(s) for s in self.tokenize(text)]
+
+    def __len__(self) -> int:
+        return len(self.__vocab)

@@ -293,8 +293,16 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
         g2s_train.run(parser.parse_args(["a", "b", str(tmp_path / "m.pkl.gz"), "--autotune"]))
     with pytest.raises(ValueError, match="pkl.gz"):
         g2s_train.run(parser.parse_args(["a", "b", str(tmp_path / "m.pt")]))
-    with pytest.raises(NotImplementedError, match="bpe"):
-        StrElementRepresentationModel(token_splitting="bpe")
+    # The bpe splitting is ported: it builds, and its ids over the samples'
+    # node labels equal the JAX package's.
+    from ptgnn_tpu.graph.embedders import StrElementRepresentationModel as JaxStrModel
+
+    labels = [label for sample in _samples(8) for label in sample["node_labels"]]
+    kw = dict(token_splitting="bpe", vocabulary_size=200, max_num_subtokens=6, subtoken_combination="max")
+    jax_model, port_model = JaxStrModel(**kw), StrElementRepresentationModel(**kw)
+    jax_model.compute_metadata(iter(labels), parallelize=False)
+    port_model.compute_metadata(iter(labels), parallelize=False)
+    assert [port_model.tensorize(label) for label in labels] == [jax_model.tensorize(label) for label in labels]
 
 
 def test_convert_raises_on_unknown_or_missing_graph2seq_keys():

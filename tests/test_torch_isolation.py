@@ -40,6 +40,9 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.graph.messagepassing.graphnorm", "ptgnn_tpu_torch.graph.messagepassing.selfatt",
         "ptgnn_tpu_torch.graph.messagepassing.mlp_mp", "ptgnn_tpu_torch.graph.messagepassing.base",
         "ptgnn_tpu_torch.utils.profile_serving",
+        "ptgnn_tpu_torch.parallel", "ptgnn_tpu_torch.parallel.dp", "ptgnn_tpu_torch.parallel.distributed_trainer",
+        "ptgnn_tpu_torch.implementations.typilus.traindistributed", "ptgnn_tpu_torch.utils.text",
+        "ptgnn_tpu_torch.graph.embedders", "ptgnn_tpu_torch.graph.gnn", "ptgnn_tpu_torch.graph.batching",
     } <= names
 
 
@@ -214,3 +217,22 @@ def test_graph2seq_entry_points_without_device_raise_when_cuda_is_missing(tmp_pa
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         g2s_trainandtest.run(g2s_trainandtest.build_arg_parser().parse_args(
             [str(data), str(data), str(tmp_path / "n.pkl.gz"), str(data)]))
+
+
+def test_traindistributed_without_device_raises_when_cuda_is_missing(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    monkeypatch.chdir(tmp_path)
+    from ptgnn_tpu_torch.implementations.typilus import traindistributed
+
+    for name in traindistributed.TORCHRUN_ENV:
+        monkeypatch.delenv(name, raising=False)
+    parser = traindistributed.build_arg_parser()
+    data = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pkl.gz")]))
+    with pytest.raises(NotImplementedError, match="node-sharding slice"):
+        traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pkl.gz"), "--node-shards", "2",
+                                                "--device", "cpu"]))
+    with pytest.raises(ValueError, match="pkl.gz"):
+        traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pt"), "--device", "cpu"]))

@@ -831,3 +831,112 @@ def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
     for (name, g), c in zip(gpu_module.named_parameters(), cpu_module.parameters()):
         c = c.grad.numpy()
         np.testing.assert_allclose(g.grad.cpu().numpy(), c, rtol=1e-4, atol=1e-4 * np.abs(c).max(), err_msg=name)
+
+
+def _edge_feature_small(device, gated):
+    from ptgnn_tpu_torch.implementations.ppi.harness import build_edge_feature_gnn, synthetic_edge_feature_graphs
+
+    pad = BatchPadding(max_nodes=512, max_edge_slots=512 * 30, max_graphs=4, edge_tile=128)
+    graphs = synthetic_edge_feature_graphs(2, seed=3, mean_nodes=200, edges_per_node=10.0)
+    return build_edge_feature_gnn(padding=pad, graphs=graphs, hidden_state_size=128, edge_embedding_size=128,
+                                  gated=gated, device=device)
+
+
+@pytest.mark.parametrize("amp", [False, True])
+@pytest.mark.parametrize("gated", [False, True])
+def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeypatch):
+    """The edge-feature stack (5 sum MLP-MP layers reading 128 feature
+    columns, or 4 and a gated layer) on the card against its plain route on
+    the CPU, dropout 0: per step 5 sums forward and 5 broadcasts backward,
+    no fused-op call, and in bf16 AMP 10 typed matmul launches (its gate
+    opens at D = 384, M = 128 once forced at this small stack). float32: the
+    loss to rtol 1e-5 and every gradient to rtol 1e-4 and 1e-4 of its largest
+    magnitude. bf16 AMP: the loss within 2e-2; the two devices round at
+    other places (the card's bf16 GEMMs and K5, the CPU's plain route), so
+    each bf16 gradient is held to its own device's float32 gradient of the
+    same step, as chip_smoke.py's PPI gate holds it: the card's no farther
+    from it than 1.5 times the CPU's distance, or 1e-2 of its norm."""
+    import ptgnn_tpu_torch.graph.messagepassing.base as mp_base
+
+    if amp:
+        monkeypatch.setattr(ttl, "use_typed_matmul_kernel", lambda x, *a: x.dtype == torch.bfloat16)
+    fused = []
+    real = mp_base.fused_typed_message_aggregation
+    monkeypatch.setattr(mp_base, "fused_typed_message_aggregation", lambda *a, **k: fused.append(1) or real(*a, **k))
+    _, gpu_module, mbs = _edge_feature_small(cuda_device, gated)
+    _, cpu_module, _ = _edge_feature_small("cpu", gated)
+    for m in (gpu_module, cpu_module):
+        for sub in m.modules():
+            if hasattr(sub, "dropout_rate"):
+                sub.dropout_rate = 0.0
+
+    def step(module, device, with_amp):
+        module.zero_grad(set_to_none=True)
+        loss, _ = module_loss(module, tree_to(mbs[0], device), train=True,
+                              generator=torch.Generator(device=device), amp=with_amp)
+        loss.backward()
+        return float(loss.detach()), [p.grad.detach().cpu().clone() for p in module.parameters()]
+
+    g32_loss, g32 = step(gpu_module, cuda_device, False)
+    c32_loss, c32 = step(cpu_module, torch.device("cpu"), False)
+    tsk.reset_launch_counts()
+    g_loss, g = step(gpu_module, cuda_device, amp)
+    torch.cuda.synchronize()
+    assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 5,
+                                   "segment_sum": 5, "typed_matmul": 10 if amp else 0}
+    assert not fused
+    names = [name for name, _ in gpu_module.named_parameters()]
+    if amp:
+        c_loss, c = step(cpu_module, torch.device("cpu"), True)
+        np.testing.assert_allclose(g_loss, c_loss, rtol=2e-2)
+        for name, gb, cb, gf, cf in zip(names, g, c, g32, c32):
+            card, cpu = float((gb - gf).norm()), float((cb - cf).norm())
+            assert card <= max(1.5 * cpu, 1e-2 * float(gf.norm())), (name, card, cpu)
+        return
+    np.testing.assert_allclose(g32_loss, c32_loss, rtol=1e-5)
+    for name, gf, cf in zip(names, g32, c32):
+        cf = cf.numpy()
+        np.testing.assert_allclose(gf.numpy(), cf, rtol=1e-4, atol=1e-4 * np.abs(cf).max(), err_msg=name)
+
+
+def test_data_parallel_world_one_over_nccl_matches_the_single_device_step(cuda_device, tmp_path):
+    """One rank over NCCL (a ``file://`` rendezvous), ZeRO-1 Adam with the
+    clip: three steps equal the single-device trainer's step function on the
+    same minibatches and dropout seeds within 1e-6 of each parameter's
+    largest magnitude (a rank's share of the weight is exactly 1, so the
+    steps should agree bit for bit); each step all-reduces the weight, the
+    gradients (DDP's buckets), the loss and the metrics."""
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.core.trainer import optimizer_step, step_seed
+    from ptgnn_tpu_torch.parallel import DataParallel, initialize_multi_host, zero1_optimizer
+
+    model, single, mbs = build_graph2class(padding=small_padding(max_nodes=512), hidden_state_size=64,
+                                           num_minibatches=3, minibatch_size=8, device=cuda_device)
+    initialize_multi_host("nccl", f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        ranked = model.build_neural_module(device=cuda_device, seed=0)
+
+        def adam(params):
+            return torch.optim.Adam(params, lr=2.5e-4)
+
+        single_opt, zero_opt = adam(single.parameters()), zero1_optimizer(ranked.parameters(), adam)
+        dp = DataParallel(ranked)
+        generator = torch.Generator(device=cuda_device)
+        for step, mb in enumerate(mbs):
+            batch = tree_to(mb, cuda_device)
+            generator.manual_seed(step_seed(0, 0, step))
+            loss, _ = module_loss(single, batch, train=True, generator=generator)
+            loss.backward()
+            optimizer_step(single, single_opt, [2.5e-4], clip_gradient_norm=1.0)
+            generator.manual_seed(step_seed(0, 0, step, rank=0))
+            _, metrics = dp.train_step(batch, float(mb["batch"].num_graphs), generator, zero_opt, [2.5e-4],
+                                       clip_gradient_norm=1.0)
+        torch.cuda.synchronize()
+        params = sum(p.numel() for p in ranked.parameters())
+        assert dp.allreduce_calls >= 3 * len(mbs)
+        assert dp.allreduce_bytes == len(mbs) * 4 * (1 + params + 1 + len(metrics))
+    finally:
+        dist.destroy_process_group()
+    for (name, a), b in zip(single.named_parameters(), ranked.parameters()):
+        torch.testing.assert_close(b.detach(), a.detach(), rtol=0, atol=1e-6 * float(a.detach().abs().max()), msg=name)

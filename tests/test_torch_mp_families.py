@@ -283,8 +283,33 @@ def test_mlp_mp_layer_matches_jax(aggregation, options, monkeypatch):
 
 
 def test_mlp_mp_layer_rejects_edge_features():
-    with pytest.raises(ValueError, match="Queue A item 2"):
-        MlpMessagePassingLayer(8, 8, 8, 3, "sum", features_dimension=4)
+    """``features_dimension`` builds and reads the context's edge features,
+    concatenated after the source and target states, as the JAX layer does
+    (forward and gradients at the tolerances above, no fused-op call); the
+    layer rejects a context whose edge features are missing or of another
+    width, where the JAX layer would fail in its matmul."""
+    num_types, jbatch, tbatch = build_batches(seed=5)
+    jctx, tctx = contexts(jbatch, tbatch)
+    feats = np.random.RandomState(3).randn(PAD["max_edge_slots"], 4).astype(np.float32)
+    jctx = jctx._replace(edge_features=jnp.asarray(feats))
+    tctx = tctx._replace(edge_features=torch.from_numpy(feats.copy()))
+    d, m, o = 12, 10, 8
+    tlayer = MlpMessagePassingLayer(d, o, m, num_types, "sum", features_dimension=4)
+    assert tlayer.message_mlp.weights_0.shape == (num_types, 2 * d + 4, m)
+    calls = []
+    real = fused_mp.fused_typed_message_aggregation
+    import ptgnn_tpu_torch.graph.messagepassing.base as mp_base
+    mp_base.fused_typed_message_aggregation = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        hold_layer(JaxMlpLayer(d, o, m, num_types, "sum", features_dimension=4), tlayer, jctx, tctx, d_in=d)
+    finally:
+        mp_base.fused_typed_message_aggregation = real
+    assert not calls
+    x = torch.zeros(PAD["max_nodes"], d)
+    with pytest.raises(ValueError, match="edge-feature columns"):
+        tlayer(x, tctx._replace(edge_features=None))
+    with pytest.raises(ValueError, match="edge-feature columns"):
+        tlayer(x, tctx._replace(edge_features=torch.zeros(PAD["max_edge_slots"], 3)))
 
 
 @pytest.mark.parametrize("case", ["att_order", "plain_blocks", "att_width_differs", "reference"])
