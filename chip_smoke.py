@@ -96,12 +96,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    eval forward, with ms per batch and graphs/s; the greedy and beam loops
    under ``torch.cuda.set_sync_debug_mode("error")``; ModelTrainer.train
    for one epoch with validation and train_steps in float32 and bf16 AMP
-   (per step 8 broadcast and 16 sum launches, per forward 8 sum); a float32
+   (per step 8 broadcast and 34 sum launches, per loss forward 20 sum); a float32
    train step (dropout 0) card against CPU; greedy decode card against CPU,
    the device loop against the host loop, beam 1 against greedy; the
    decoder alone at its 20,000-token vocabulary cap (eval loss, a train
    step and a greedy decode batch, timed); the decoder's and the
-   summariser's stock segment sums (``index_add_`` into 64 rows), timed;
+   summariser's segment sums (sort + K1 into 64 rows), timed;
 15. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
    call's time, as one JSON line; before it, the argmax extremum against
@@ -144,11 +144,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    input; and the variant with a gated layer in place of the last) on
    synthetic graphs of PPI's sizes: eval forwards in float32 and bf16 AMP and
    train_steps in both (per forward 5 sum launches and in bf16 5 typed
-   matmul launches; per step 5 sum, 5 broadcast and in bf16 10 typed
+   matmul launches; per step 5 broadcast, 15-21 sum and in bf16 10 typed
    matmul), no fused-op call, and for the MLP-MP stack the output states and
    a float32 train step card against CPU on weights converted through
-   ``convert.py`` (the PPI phase's limits); the typed matmul at the path's
-   bf16 shapes against float64 and timed (entries of the kernels line);
+   ``convert.py`` (the PPI phase's limits) and its float32 step on the
+   sort + K1 sums against the ``index_add_`` route; the typed matmul at the
+   path's bf16 shapes against float64 and timed (entries of the kernels
+   line);
 19. bpe: Graph2Class at the benchmark configuration with the ``bpe``
    splitting (a 64-entry vocabulary) and ``max`` pooling: the eval forward
    (8 extremum and 8 broadcast launches per forward) and the logits card
@@ -159,7 +161,36 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    largest magnitude; bitwise equality printed), with the all-reduce calls
    and bytes per step and the trainer's launches; then the distributed
    Typilus CLI with ``--world-size 1`` for one epoch on synthetic folds. The
-   2-rank path runs on the CPU over gloo in the tests.
+   2-rank path runs on the CPU over gloo in the tests;
+21. edge-parallel: ``shard_adjacency`` cuts a benchmark batch into 4
+   tile-aligned shards; each shard's K2 and K1 over its own row index on the
+   card, combined as the all-reduce would (the max bitwise the unsharded
+   K2's, the sum within 1e-5 of each row's sum of |x|); ``EdgeParallel`` at
+   world 1 over NCCL for 3 SGD steps (dropout 0), each from the single-
+   device step's weights, against that step (every parameter within 1e-5
+   of its largest magnitude);
+22. node-parallel: ``shard_batch_by_nodes`` splits a benchmark batch 2 and 4
+   ways under the BFS reorder; the port's node-sharded forward
+   (``GraphNeuralNetwork._forward_node_sharded``) runs every shard in this
+   one process, a thread a shard, with the boundary rows passed in-process,
+   forward and backward, against the unsharded stack through the
+   permutation (states within 1e-5 of their max, each gradient within 1e-4
+   of its max), with the boundary rows and the bytes a layer exchanges; K1,
+   K2 and K3 held to their plain versions on every shard's interior,
+   boundary and merged layouts; ``NodeParallel`` at world 1 over NCCL
+   against the single-device step as in 21; ``NodeShardedModelTrainer``
+   (node shards 1) for an epoch; ``traindistributed --world-size 1
+   --node-shards 1``; PPI at hidden 256 node-sharded in bf16 AMP (K5 open)
+   and in float32 against the unsharded steps (losses, gradients, stepped
+   parameters), and K5 held on its interior and boundary layouts. The 2-
+   and 4-rank paths run on the CPU over gloo in the tests.
+
+Phases 10, 14 and 17 also hold argmax routing on a feature-tracking batch
+with a featureless graph against a single-winner oracle, and a float32
+Graph2Seq and layers step that repeats bit for bit in PyTorch's default
+mode. Every K1 launch counts in the per-forward and per-step constants,
+those of ``ops/segment.py``'s sums (over sorted ids) and of the backward
+of its gathers (``take_rows``) included.
 
 Then the total seconds. The last line is {"ok": true, "device": {...}};
 the line before it is the card's name and power limit as nvidia-smi
@@ -194,17 +225,21 @@ def counts_of(extremum=0, argmax=0, broadcast=0, segsum=0, typed=0):
             "segment_sum": segsum, "typed_matmul": typed}
 
 
+# Every K1 launch counts, those of ops/segment.py's sums (K1 over the sorted
+# ids: GraphNorm, the reduces, the heads, the decoder) and of the backward of
+# its gathers (``take_rows``: a K1 sum of each row's cotangents) included.
+# Graph2Class's train step: the readout gather's backward sum once.
 PER_FORWARD = counts_of(extremum=8, broadcast=8)
-PER_TRAIN_STEP = counts_of(extremum=8, broadcast=24, segsum=16)
+PER_TRAIN_STEP = counts_of(extremum=8, broadcast=24, segsum=17)
 # Argmax routing, per MLP-MP layer: the target-row broadcast and the argmax
 # extremum forward; the g-row broadcast and one sum backward (no tie count).
 ARGMAX_PER_FORWARD = counts_of(argmax=8, broadcast=8)
-ARGMAX_PER_TRAIN_STEP = counts_of(argmax=8, broadcast=16, segsum=8)
+ARGMAX_PER_TRAIN_STEP = counts_of(argmax=8, broadcast=16, segsum=9)
 # GGNN, per gated layer (no target state): the extremum forward; the
 # extremum-row broadcast, the tie count, the g-row broadcast and the
 # cotangent sum backward.
 GGNN_PER_FORWARD = counts_of(extremum=8)
-GGNN_PER_TRAIN_STEP = counts_of(extremum=8, broadcast=16, segsum=16)
+GGNN_PER_TRAIN_STEP = counts_of(extremum=8, broadcast=16, segsum=17)
 # PPI: per MP layer one broadcast (target rows) and one sum forward, one
 # broadcast (g rows) and one sum (both cotangents) backward; the typed matmul
 # once forward and twice backward, where its gate opens (bf16 only).
@@ -218,24 +253,30 @@ PPI_PER_TRAIN_STEP = {
     "float32": counts_of(broadcast=10, segsum=10),
     "bf16": counts_of(broadcast=10, segsum=10, typed=15),
 }
-# VarMisuse: the 'mlp' stack is Graph2Class's, so are its launches. The
-# 'ggnn' stack's gated layer (8 positions, sum aggregation, no target state):
-# the sum forward; the g-row broadcast and the cotangent sum backward. The
-# global updates and the head run stock ops. K5's gate stays closed (no
-# message weight block reaches 128 KB in bf16).
+# VarMisuse: the 'mlp' stack is Graph2Class's; the head's sums add three K1
+# a forward and eight a step (its gathers' backward included). The 'ggnn'
+# stack's gated layer (8 positions, sum aggregation, no target state): the
+# sum forward; the g-row broadcast and the cotangent sum backward; the global
+# updates and the head add five K1 a forward and twelve a step.
+# K5's gate stays closed (no message weight block reaches 128 KB in bf16).
 VM_BATCHES = 6
 VM_TRAIN_STEPS = 20
-VM_PER_FORWARD = {"mlp": PER_FORWARD, "ggnn": counts_of(segsum=8)}
-VM_PER_TRAIN_STEP = {"mlp": PER_TRAIN_STEP, "ggnn": counts_of(broadcast=8, segsum=16)}
+VM_PER_FORWARD = {"mlp": counts_of(extremum=8, broadcast=8, segsum=3), "ggnn": counts_of(segsum=13)}
+VM_PER_TRAIN_STEP = {"mlp": counts_of(extremum=8, broadcast=24, segsum=24),
+                     "ggnn": counts_of(broadcast=8, segsum=28)}
 # Graph2Seq: 8 gated positions (one layer object at 7 of them, sum
 # aggregation): the sum forward; the g-row broadcast and the cotangent sum
-# backward. The decoder and the summariser run stock ops.
+# backward. The summariser adds four sums, so the encode launches 12; a loss
+# forward 20 (the teacher-forced decoder 8); a decode loop (greedy or beam,
+# max_seq_len steps) 72; a train step 34.
 G2S_BATCHES = 6
 G2S_TEST_BATCHES = 2
 G2S_TRAIN_STEPS = 20
 G2S_BEAM = 5
-G2S_PER_FORWARD = counts_of(segsum=8)
-G2S_PER_TRAIN_STEP = counts_of(broadcast=8, segsum=16)
+G2S_PER_FORWARD = counts_of(segsum=20)
+G2S_PER_ENCODE = counts_of(segsum=12)
+G2S_PER_DECODE_LOOP = counts_of(segsum=72)
+G2S_PER_TRAIN_STEP = counts_of(broadcast=8, segsum=34)
 # The 'layers' stack (harness.LayersStackCreator). Forward: PNA on the
 # per-slot route (degrees from the plan's counts under the static mask) two
 # sums and two extrema; EGC's fused max (no target state) one extremum; the
@@ -244,24 +285,31 @@ G2S_PER_TRAIN_STEP = counts_of(broadcast=8, segsum=16)
 # per-slot extremum two broadcasts and a sum (the tie count), each fused max
 # two broadcasts and two sums. Under edge dropout the fused layers take the
 # per-slot route, and the live in-degrees of PNA and of the mean are the sum
-# at width 1. K5's gate stays closed: no weight block is 128 wide on both sides.
+# at width 1. ops/segment.py's sums (GraphNorm, the readout) add four K1 a
+# forward; with the backward of the gathers (the per-slot layers' senders,
+# receivers and weight stacks, PNA's means, GraphNorm's and the readout's
+# rows) seventeen a step, twenty-two under edge dropout. K5's gate stays closed: no weight block is 128 wide on both sides.
 LAYERS_TRAIN_STEPS = 20
 LAYERS_EDGE_DROPOUT = 0.1
 LAYERS_EDGE_DROPOUT_STEPS = 5
-LAYERS_PER_FORWARD = counts_of(extremum=4, broadcast=1, segsum=3)
-LAYERS_PER_TRAIN_STEP = counts_of(extremum=4, broadcast=12, segsum=9)
-LAYERS_PER_EDGE_DROPOUT_STEP = counts_of(extremum=4, broadcast=11, segsum=9)
+LAYERS_PER_FORWARD = counts_of(extremum=4, broadcast=1, segsum=7)
+LAYERS_PER_TRAIN_STEP = counts_of(extremum=4, broadcast=12, segsum=26)
+LAYERS_PER_EDGE_DROPOUT_STEP = counts_of(extremum=4, broadcast=11, segsum=31)
 LAYERS_FUSED_PER_FORWARD = 2  # EGC and the last MLP-MP layer
 # Edge features (PPI's layout, hidden 256, 128 feature columns): every layer
 # takes the per-slot route (the fused op takes no features), so per layer
 # one sum forward and its broadcast backward; the typed matmul where its
 # gate opens (bf16: D = 2 x 256 + 128 = 640 or, in the gated layer,
 # 256 + 128 = 384, M = 256) once forward and once backward (dx). Five
-# layers in both stacks.
+# layers in both stacks. The backward of the gathers adds K1 sums a step:
+# the feature rows' once, and per layer the senders' (and the MLP-MP
+# layer's receivers') and, where K5's gate is closed, the weight stack's.
 EDGE_TRAIN_STEPS = 10
 EDGE_PER_FORWARD = {"float32": counts_of(segsum=5), "bf16": counts_of(segsum=5, typed=5)}
-EDGE_PER_TRAIN_STEP = {"float32": counts_of(broadcast=5, segsum=5),
-                       "bf16": counts_of(broadcast=5, segsum=5, typed=10)}
+EDGE_PER_TRAIN_STEP = {
+    "mlp": {"float32": counts_of(broadcast=5, segsum=21), "bf16": counts_of(broadcast=5, segsum=16, typed=10)},
+    "gated": {"float32": counts_of(broadcast=5, segsum=20), "bf16": counts_of(broadcast=5, segsum=15, typed=10)},
+}
 EDGE_TYPED_SHAPES = ((640, 256), (256, 640), (384, 256), (256, 384))  # forward and dx, both stacks
 # BPE: a vocabulary of 64 entries splits the synthetic labels into 1-8
 # pieces (5 kept); at the factory's 10,000 every label is one piece.
@@ -543,7 +591,7 @@ def routing_differences(tape_a: list, tape_b: list) -> list[int]:
 def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD, per_step=PER_TRAIN_STEP):
     """ModelTrainer.train for one epoch, then train_steps in float32 and in
     bf16 AMP. Returns the launch counts over the whole phase."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     train_graphs, valid_graphs = list(graphs(SEED)), list(graphs(SEED + 1))
@@ -804,6 +852,124 @@ def repeat_check(model, device_batch, dev, name="train-parity"):
           f"and all {len(runs[0]) - 1} gradient tensors")
 
 
+def segment_sum_routes(model, batches, dev, card, name, steps: int = 10):
+    """The float32 train step (train_steps, ``steps`` steps after a warm-up)
+    with ops/segment.py's sums, and so the backward of its gathers
+    (``take_rows``), on the segment sum kernel over the sorted ids (the
+    port's route, the same bits on every run) and, for comparison in this
+    one run, on the stock ``index_add_`` that they replaced (atomic
+    order)."""
+    from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
+    from ptgnn_tpu_torch.ops import segment
+
+    class IndexAdd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, data, rows, num_segments):
+            ctx.save_for_backward(rows)
+            out = data.new_zeros((num_segments + 1, data.shape[1]), dtype=torch.float32)
+            return out.index_add_(0, rows.long(), data.float())[:num_segments]
+
+        @staticmethod
+        def backward(ctx, g):
+            (rows,) = ctx.saved_tensors
+            return segment.masked_take(g, rows, 0.0), None, None
+
+    kernel_route = segment._SortedSegmentSum.apply
+    ms = {}
+    for label, route in (("sort + K1", kernel_route), ("index_add_", IndexAdd.apply),
+                         ("sort + K1 again", kernel_route)):
+        segment._SortedSegmentSum.apply = route
+        try:
+            stats = train_steps(model.build_neural_module(device=dev, seed=SEED), batches, steps=steps, seed=SEED,
+                                learning_rate=1e-3, clip_gradient_norm=None)
+        finally:
+            segment._SortedSegmentSum.apply = kernel_route
+        ms[label] = stats["ms_per_step"]
+    phase(name, f"float32 train step with ops/segment.py's sums and its gathers' backward on the sort + K1 route "
+          f"vs the stock index_add_ route they replaced (ms/step over {steps} steps, alternated in this run): "
+          f"{ms} on {card}")
+
+
+def repeat_step_bits(model, device_mb, dev, name):
+    """Two float32 train steps (dropout on) from the same weights and seed
+    must give the same bits, in PyTorch's default mode: the port's kernels,
+    ``ops/segment.py``'s sums and the backward of its gathers
+    (``take_rows``) add in a fixed order."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+
+    def run():
+        m = model.build_neural_module(device=dev, seed=SEED)
+        loss, _ = module_loss(m, device_mb, train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
+        loss.backward()
+        return [("loss", loss.detach())] + [(n, p.grad) for n, p in m.named_parameters() if p.grad is not None]
+
+    first, second = run(), run()
+    differ = [n for (n, a), (_, b) in zip(first, second) if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"{name}: a float32 step gave other bits on a second run in {len(differ)} of "
+                           f"{len(first)} tensors: {differ}")
+    phase(name, f"a float32 train step (dropout on) repeats bit for bit in PyTorch's default mode: the loss "
+          f"and all {len(first) - 1} gradient tensors")
+
+
+def argmax_mixed_features_check(dev):
+    """Argmax routing on a feature-tracking batch that holds a featureless
+    graph (graphs of 25 and 30 nodes, max, float32): the fused op's output
+    and gradients on the card against autograd through a single-winner
+    (first slot) per-column max on the CPU, within 1e-5 of each one's max,
+    with and without target state. (The JAX package gives such a graph's
+    slots one pair id, -1, and its node gradients go wrong; the port numbers
+    the pairs apart from the feature slots.)"""
+    from ptgnn_tpu_torch.graph.batching import GraphBatcher
+    from ptgnn_tpu_torch.graph.structs import BatchPadding, TensorizedGraphData
+    from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
+
+    pad = BatchPadding(max_nodes=64, max_edge_slots=16 * 64, max_graphs=4, edge_tile=16, agg_rows=16, agg_sum_tile=0)
+    rng = np.random.RandomState(SEED)
+    batcher = GraphBatcher(2, pad, introduce_backwards_edges=True, add_self_edges=True, track_edge_features=True)
+    mb = batcher.initialize()
+    for n, featured in ((25, False), (30, True)):
+        adj = [(rng.randint(0, n, 40).astype(np.int32), rng.randint(0, n, 40).astype(np.int32)) for _ in range(2)]
+        batcher.extend(TensorizedGraphData(num_nodes=n, node_tensorized_data=[0] * n, adjacency_lists=adj,
+                                           edge_features=[0] * 80 if featured else None, reference_nodes={}), mb)
+    batch = batcher.finalize(mb, node_data={}, reference_names=[])
+    host = batch.to("cpu").adjacency
+    card_adj = batch.to(dev).adjacency
+    worst = []
+    for use_target_state in (True, False):
+        states = torch.from_numpy(rng.randn(pad.max_nodes, 8).astype(np.float32))
+        weights = torch.from_numpy((rng.randn(batcher.num_edge_types, (16 if use_target_state else 8), 6) * 0.5)
+                                   .astype(np.float32))
+        cot = torch.from_numpy(rng.randn(pad.max_nodes, 6).astype(np.float32))
+        # the oracle on the CPU
+        x, w = states.clone().requires_grad_(True), weights.clone().requires_grad_(True)
+        senders, receivers = host.senders.long(), host.receivers.long()
+        inp = x[senders.clamp(max=pad.max_nodes - 1)]
+        if use_target_state:
+            inp = torch.cat([inp, x[receivers.clamp(max=pad.max_nodes - 1)]], dim=-1)
+        msgs = torch.bmm(inp[:, None, :], w[host.edge_types.long()])[:, 0]
+        winners = torch.full((pad.max_nodes, 6), -1, dtype=torch.long)
+        with torch.no_grad():
+            for node in range(pad.max_nodes):
+                slots = torch.nonzero(host.mask & (receivers == node))[:, 0]
+                if len(slots):
+                    winners[node] = slots[(msgs[slots] == msgs[slots].max(0).values).float().argmax(0)]
+        want = msgs.gather(0, winners.clamp_min(0)) * (winners >= 0)
+        (want * cot).sum().backward()
+        # the card
+        xc, wc = states.to(dev).requires_grad_(True), weights.to(dev).requires_grad_(True)
+        out = fused_typed_message_aggregation(xc, wc, card_adj, pad.max_nodes, "max", use_target_state,
+                                              argmax_routing=True)
+        (out * cot.to(dev)).sum().backward()
+        for label, got, ref in (("out", out.detach(), want.detach()), ("dx", xc.grad, x.grad), ("dW", wc.grad, w.grad)):
+            err = float((got.cpu() - ref).abs().max() / ref.abs().max())
+            worst.append(f"{label}{'' if use_target_state else ' (no target state)'} {err:.2e}")
+            if err > 1e-5:
+                raise RuntimeError(f"argmax routing on the mixed feature batch: {label} off by {err:.3e} of its max")
+    phase("argmax-train", f"argmax routing on a feature-tracking batch with a featureless graph (25 + 30 nodes), "
+          f"card vs the single-winner oracle on the CPU, within 1e-5 of each max: {', '.join(worst)}")
+
+
 def ppi_setup(dev, card):
     """The PPI model at its reference width on synthetic graphs of the
     published sizes: (model, module on the card, samples, host minibatches,
@@ -871,7 +1037,7 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
 def ppi_train_phase(model, samples, batches, dev, card):
     """ModelTrainer.train for one epoch under bf16 AMP, then train_steps in
     float32 and in bf16 AMP. Returns the launch counts of the path."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
     from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, synthetic_ppi_samples
     from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -1098,10 +1264,13 @@ def ppi_parity_phase(model, minibatches, batches, dev):
 
 
 def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path, shapes=((512, 256), (256, 256)),
-                       dtypes=((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)), layout="ppi"):
+                       dtypes=((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)), layout="ppi",
+                       per_step=PPI_PER_TRAIN_STEP):
     """kernels-line entries of the typed matmul at ``shapes`` (both PPI
-    shapes by default) and ``dtypes`` on the ``layout``'s tiles. Library
-    call: today's bmm route (index_select + torch.bmm)."""
+    shapes by default) and ``dtypes`` on the ``layout``'s tiles, with its
+    launches per bf16 train step of the layout's path (``per_step``, where
+    there is a constant for them). Library call: today's bmm route
+    (index_select + torch.bmm)."""
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
     tt, tile = adj.tile_types, adj.edge_tile
@@ -1132,14 +1301,14 @@ def ppi_kernel_entries(adj, dev, gen, max_abs_err, counts, launches_by_path, sha
                 "replaces": "ptgnn_tpu/ops/typed_linear.py:62",
                 "launches": counts["typed_matmul"],
                 "launches_by_path": {k: v["typed_matmul"] for k, v in launches_by_path.items()},
-                f"launches_per_{layout.replace('-', '_')}_train_step":
-                    (PPI_PER_TRAIN_STEP if layout == "ppi" else EDGE_PER_TRAIN_STEP)["bf16"]["typed_matmul"]
-                    if dtype == torch.bfloat16 else 0,
                 "max_abs_err": max_abs_err[f"typed_matmul {din}x{m} {dname}"],
                 "ms": times["ms"], "plain_ms": times["plain_ms"],
                 "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": times["library_ms"], "shape": [e, din, m, 3], "dtype": dname, "layout": layout,
             }
+            if per_step is not None:
+                entry[f"launches_per_{layout.replace('-', '_')}_train_step"] = (
+                    per_step["bf16"]["typed_matmul"] if dtype == torch.bfloat16 else 0)
             entries.append(entry)
             phase("kernels", json.dumps(entry))
             del xs
@@ -1277,6 +1446,7 @@ def argmax_phase(dev, card):
           f"kernel equals its plain version (values bitwise, {winners} winning slots exactly); from the same "
           f"inputs the CPU picks another winner in {rerouted} (node, column)s per layer")
     repeat_check(model, batches[0], dev, "argmax-train")
+    argmax_mixed_features_check(dev)
     return counts
 
 
@@ -1432,7 +1602,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     float32 and bf16 AMP, with the launches of every part; then a float32
     step (dropout 0) card against CPU. Returns (the launch counts of the
     path, the host and device minibatches)."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.implementations.varmisuse.harness import build_varmisuse
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -1724,12 +1894,13 @@ def graph2seq_vocabulary_cap(dev, card, host_batch, reps: int = 3):
 
 
 def graph2seq_stock_sums(dev, card, host_batch):
-    """The two stock segment sums of Graph2Seq with the most data, each into
-    the batch's 64 graph rows through ``index_add_`` (atomics on a few
-    rows): the decoder's attention readout ``[M_pad, T, H]`` by memory origin,
-    and the summariser's ``[N_pad, heads x 2D]`` by node graph. Timed as one
-    call of ``ops.segment.segment_sum`` each, beside their bounds (each real
-    element read once, the ids read, the rows written)."""
+    """The two segment sums of ``ops/segment.py`` in Graph2Seq with the most
+    data, each into the batch's 64 graph rows (a stable sort of the ids, then
+    K1 over them): the decoder's attention readout ``[M_pad, T, H]`` by
+    memory origin, and the summariser's ``[N_pad, heads x 2D]`` by node
+    graph. Timed as one call of ``ops.segment.segment_sum`` each, beside
+    their bounds (each real element read once, the ids read, the rows
+    written)."""
     from ptgnn_tpu_torch.ops.segment import segment_sum
 
     batch = host_batch["batch"]
@@ -1751,7 +1922,7 @@ def graph2seq_stock_sums(dev, card, host_batch):
         lines.append(f"{label} {list(shape)} -> [{b_pad}, ...] {ms:.4f} ms (bound {max(bytes_ms, ops_ms):.4f} ms, "
                      f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
         del datas
-    phase("graph2seq", f"stock segment sums (index_add_ into {b_pad} rows) on {card}: " + "; ".join(lines))
+    phase("graph2seq", f"ops/segment.py's sums (sort + K1 into {b_pad} rows) on {card}: " + "; ".join(lines))
 
 
 def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
@@ -1764,7 +1935,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     a float32 step (dropout 0) and the greedy decode card against CPU; the
     decoder at the 20,000-token vocabulary cap. Returns (the launch counts
     of the path, the device minibatches)."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.implementations.graph2seq import test as g2s_test
     from ptgnn_tpu_torch.implementations.graph2seq.harness import batch_sizes, build_graph2seq
@@ -1857,13 +2028,18 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
           f"batch the greedy loop takes {loop_ms[0]:.3f} ms and the beam loop {loop_ms[1]:.3f} ms (the encode, "
           f"the host pipeline and the transfers excluded) on {card}")
 
+    decodes = forwards[0] - 1  # a decode batch encodes once; the loops above follow one encode
     eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
     serving = sk.launch_counts()
-    if serving != {k: v * forwards[0] for k, v in G2S_PER_FORWARD.items()}:
-        raise RuntimeError(f"expected {G2S_PER_FORWARD} launches per {name} forward, got {serving} over "
-                           f"{forwards[0]}")
-    phase(name, f"launches over the serving path's {forwards[0]} forwards {serving}")
+    loss_forwards, loops = forwards[0] - decodes - 1, decodes + 2 * (1 + reps)
+    want = {k: G2S_PER_ENCODE[k] * (decodes + 1) + G2S_PER_DECODE_LOOP[k] * loops + G2S_PER_FORWARD[k] * loss_forwards
+            for k in serving}
+    if serving != want:
+        raise RuntimeError(f"{name} serving launches {serving} != {want} expected from {decodes + 1} encodes, "
+                           f"{loops} decode loops and {loss_forwards} loss forwards")
+    phase(name, f"launches over the serving path's {decodes + 1} encodes, {loops} decode loops and "
+          f"{loss_forwards} loss forwards {serving}")
 
     checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
     trainer = ModelTrainer(model, checkpoint, max_num_epochs=1, minibatch_size=padding.max_graphs, device=dev,
@@ -1906,6 +2082,8 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     decode_parity(model, module, test, dev, padding.max_graphs)
     graph2seq_vocabulary_cap(dev, card, minibatches[0])
     graph2seq_stock_sums(dev, card, minibatches[0])
+    segment_sum_routes(model, batches, dev, card, name)
+    repeat_step_bits(model, batches[0], dev, name)
     phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
     return counts, batches
 
@@ -2383,6 +2561,7 @@ def layers_phase(dev, card, reps: int = 3):
     seen["bases"] = layers[2].bases.detach()
 
     layers_against_cpu(model, minibatches[0], batches[0][0], mbs[0], dev)
+    repeat_step_bits(model, mbs[0], dev, "layers")
     phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
     return counts, batches, seen
 
@@ -2634,8 +2813,9 @@ def edge_features_phase(dev, card, reps: int = 3):
                 before = sk.launch_counts()
                 stats = train_steps(steps_module, mbs, steps=EDGE_TRAIN_STEPS, enable_amp=amp, seed=SEED)
                 per_step = {k: v / (EDGE_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
-                if per_step != EDGE_PER_TRAIN_STEP[dtype]:
-                    raise RuntimeError(f"{stack} {dtype} step launched {per_step}, expected {EDGE_PER_TRAIN_STEP[dtype]}")
+                if per_step != EDGE_PER_TRAIN_STEP[stack][dtype]:
+                    raise RuntimeError(f"{stack} {dtype} step launched {per_step}, expected "
+                                       f"{EDGE_PER_TRAIN_STEP[stack][dtype]}")
                 if not math.isfinite(stats["loss"]):
                     raise RuntimeError(f"{stack} {dtype} train_steps gave a non-finite loss {stats['loss']}")
                 phase(name, f"{stack} stack train_steps {'bf16 AMP' if amp else 'float32'}: {EDGE_TRAIN_STEPS} steps "
@@ -2651,6 +2831,7 @@ def edge_features_phase(dev, card, reps: int = 3):
     if fused:
         raise RuntimeError(f"{len(fused)} fused-op calls on the edge-feature path")
     edge_features_against_cpu(*first, dev)
+    segment_sum_routes(first[0], [first[2]], dev, card, f"{name} mlp")
     phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
     return counts, first[2]["batch"].adjacency
 
@@ -2849,6 +3030,566 @@ def data_parallel_phase(dev, card):
     return counts
 
 
+EP_SHARDS = 4
+EP_STEPS = 3
+NP_SHARDS = (2, 4)
+NP_STEPS = 3
+
+
+def world_one(fn):
+    """``fn()`` inside a one-rank NCCL process group (a ``file://``
+    rendezvous in a temporary directory), destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.parallel import initialize_multi_host
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    initialize_multi_host("nccl", f"file://{rendezvous}/store", world_size=1, rank=0)
+    try:
+        return fn()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def held_steps(single, sharded, single_mbs, sharded_mbs, sharded_step, steps: int, lr: float = 0.05):
+    """``steps`` SGD steps of the single-device module (``plain_step``) and
+    of the sharded one (``sharded_step(minibatch, optimizer, generator)``),
+    each step from equal weights (the single module's, copied into the
+    sharded one first), so that routes which round apart cannot drift apart
+    over the steps. Returns (single losses, sharded losses, the worst
+    distance between the stepped parameters over each one's largest
+    magnitude, its name, whether every step was bitwise equal, the ms of a
+    sharded and of a single-device step, the sharded steps' launches)."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    opt_single = torch.optim.SGD(single.parameters(), lr=lr)
+    opt_sharded = torch.optim.SGD(sharded.parameters(), lr=lr)
+    device = next(single.parameters()).device
+    losses, sharded_losses, worst, where, bitwise, elapsed, elapsed_single = [], [], 0.0, "", True, 0.0, 0.0
+    launches = {k: 0 for k in sk.launch_counts()}
+    for i in range(steps):
+        sharded.load_state_dict(single.state_dict())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(plain_step(single)(single_mbs[i], opt_single,
+                                               torch.Generator(device=device).manual_seed(SEED + i))))
+        torch.cuda.synchronize()
+        elapsed_single += time.perf_counter() - t0
+        before = sk.launch_counts()
+        t0 = time.perf_counter()
+        sharded_losses.append(float(sharded_step(sharded_mbs[i], opt_sharded,
+                                                 torch.Generator(device=device).manual_seed(SEED + i))))
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        launches = add_counts(launches, delta(sk.launch_counts(), before))
+        err, name, same = params_apart(single, sharded)
+        bitwise &= same
+        if err > worst:
+            worst, where = err, name
+    return losses, sharded_losses, worst, where, bitwise, (1e3 * elapsed / steps, 1e3 * elapsed_single / steps), launches
+
+
+def plain_step(module):
+    """One single-device SGD step of ``module`` (ModelTrainer's: the module's
+    loss, its backward, ``optimizer_step``)."""
+    from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+
+    def step(mb, optimizer, generator):
+        loss, _ = module_loss(module, mb, train=True, generator=generator)
+        loss.backward()
+        optimizer_step(module, optimizer, [g["lr"] for g in optimizer.param_groups])
+        return loss.detach()
+
+    return step
+
+
+def params_apart(a, b) -> tuple:
+    """(the worst distance between two modules' parameters over each one's
+    largest magnitude, its name, whether all are bitwise equal)."""
+    worst, where, bitwise = 0.0, "", True
+    for (pname, x), y in zip(a.named_parameters(), b.parameters()):
+        x, y = x.detach(), y.detach()
+        bitwise &= bool(torch.equal(x, y))
+        err = float((x - y).abs().max() / x.abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, where = err, pname
+    return worst, where, bitwise
+
+
+def edge_parallel_phase(dev, card):
+    """Edge sharding on the card. (1) ``shard_adjacency`` cuts a benchmark
+    batch into EP_SHARDS tile-aligned shards; each shard's K2 (max) and K1
+    (sum) over its own row index run on the card, and the partials combine
+    on the host as the all-reduce would: the max bitwise the unsharded K2's,
+    the sum within 1e-5 of each row's sum of |x| of the unsharded K1's.
+    (2) ``EdgeParallel`` at world 1 over NCCL: EP_STEPS SGD steps (dropout 0)
+    against the single-device steps of ModelTrainer's step function, every
+    parameter within 1e-5 of its largest magnitude (the shard takes the
+    per-slot route, not the fused op). Returns the launch counts of (2)."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel import EdgeParallel, shard_adjacency
+
+    name = "edge-parallel"
+    t_phase = time.perf_counter()
+    model, module, minibatches, batches = build_bench(dev)
+    host_adj = minibatches[0]["batch"].adjacency
+    t0 = time.perf_counter()
+    shards = shard_adjacency(host_adj, EP_SHARDS)
+    t_shard = time.perf_counter() - t0
+    adj = batches[0][0].adjacency
+    n = adj.agg_counts.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = torch.randn(adj.mask.shape[0], 64, device=dev, generator=gen)
+    masked_max = torch.where(adj.mask[:, None], data, torch.full((), -3.0e38, device=dev)).contiguous()
+    masked_sum = torch.where(adj.mask[:, None], data, torch.zeros((), device=dev)).contiguous()
+    per = masked_max.shape[0] // EP_SHARDS
+    total_max = torch.full((n, 64), -3.0e38, device=dev)
+    total_sum = torch.zeros(n, 64, device=dev)
+    covered = torch.zeros(n, dtype=torch.int64, device=dev)
+    for s, host_shard in enumerate(shards):
+        local = tree_to(host_shard, dev)
+        part = slice(s * per, (s + 1) * per)
+        mx = sk.planned_segment_extremum(masked_max[part].contiguous(), sk.plan_from_adjacency(local), n, True)
+        counts = local.agg_counts.reshape(-1)[:n]
+        total_max = torch.maximum(total_max, torch.where(counts[:, None] > 0, mx, torch.full((), -3.0e38, device=dev)))
+        total_sum += sk.planned_segment_sum(masked_sum[part].contiguous(), sk.sum_plan_from_adjacency(local), n)
+        covered += counts.long()
+    total_max = torch.where(covered[:, None] > 0, total_max, torch.zeros((), device=dev)) + 0.0
+    want_max = sk.planned_segment_extremum(masked_max, sk.plan_from_adjacency(adj), n, True)
+    want_sum = sk.planned_segment_sum(masked_sum, sk.sum_plan_from_adjacency(adj), n)
+    scale = sk.planned_segment_sum(masked_sum.abs(), sk.sum_plan_from_adjacency(adj), n)
+    sum_err = float(((total_sum - want_sum).abs() / scale.clamp_min(1e-30)).max())
+    if not bitwise_equal(total_max, want_max) or bool(((total_sum - want_sum).abs() > 1e-5 * scale).any()):
+        raise RuntimeError(f"{name}: the shards' combined aggregates differ from the unsharded kernels' "
+                           f"(max bitwise: {bitwise_equal(total_max, want_max)}, sum {sum_err:.3e} of sum|x|)")
+    if not torch.equal(covered, adj.agg_counts.reshape(-1)[:n].long()):
+        raise RuntimeError(f"{name}: the shards' in-degrees do not add up to the batch's")
+    torch.cuda.synchronize()
+    phase(name, f"shard_adjacency into {EP_SHARDS} shards of {per} slots ({[int(sh.mask.sum()) for sh in shards]} "
+          f"real) in {1e3 * t_shard:.1f} ms on the host; each shard's K2 and K1 at width 64 on the card, combined: "
+          f"the max bitwise the unsharded K2's, the sum within {sum_err:.3e} of each row's sum of |x| of the "
+          f"unsharded K1's (limit 1e-5)")
+
+    single = model.build_neural_module(device=dev, seed=SEED)
+    set_dropout(single, 0.0)
+    device_mbs = [g2c_minibatch(b) for b in batches[:EP_STEPS]]
+
+    def run():
+        sharded = model.build_neural_module(device=dev, seed=SEED)
+        set_dropout(sharded, 0.0)
+        ep = EdgeParallel(sharded)
+        local = [tree_to(ep.shard_batch(mb), dev) for mb in minibatches[:EP_STEPS]]
+        # the edge-parallel path: the sharded steps' launches
+        out = held_steps(single, sharded, device_mbs, local,
+                         lambda mb, opt, g: ep.train_step(mb, opt, generator=g)[0], EP_STEPS)
+        sharded.gnn.edge_group = None
+        return out
+
+    single_losses, losses, worst, where, bitwise, ms, counts = world_one(run)
+    np.testing.assert_allclose(losses, single_losses, rtol=1e-5)
+    if worst > 1e-5:
+        raise RuntimeError(f"{name}: a step's {where} is {worst:.3e} of its max from the single-device step's")
+    if min(counts[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum")) <= 0:
+        raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
+    phase(name, f"EdgeParallel (NCCL, world 1, one shard: the per-slot route over the shard's row index) vs "
+          f"the single-device step (the fused op): {EP_STEPS} SGD steps (dropout 0), each from equal weights, "
+          f"losses {losses} vs {single_losses} (rtol 1e-5), parameters within {worst:.3e} of each max (limit "
+          f"1e-5; bitwise {bitwise}); {ms[0]:.2f} ms/step (the single-device step {ms[1]:.2f}; each step waits for "
+          f"the card and reads the loss) on {card}; launches {counts}; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+class InProcessExchange:
+    """The boundary exchange of ``shards`` shards that run side by side in
+    this process, one thread each (``node_sharded_stack``). A shard's call
+    leaves its rows and send lists, waits until every shard has reached the
+    same exchange, and gathers its receive buffer from the owners' rows as
+    the all_to_all delivers it: rows ``o * b:(o + 1) * b`` from shard ``o``.
+    The threads hold ``cond``'s lock while they compute, so one runs at a
+    time."""
+
+    def __init__(self, shards: int):
+        import threading
+
+        self.cond = threading.Condition()
+        self.shards = shards
+        self.rounds: list = []
+        self.failed = False
+
+    def shard(self, s: int):
+        owner = self
+
+        class Shard:
+            group, shard_index, num_shards, calls = None, s, owner.shards, 0
+
+            def __call__(self, h, send_idx):
+                while len(owner.rounds) <= self.calls:
+                    owner.rounds.append({})
+                box = owner.rounds[self.calls]
+                self.calls += 1
+                box[s] = (h, send_idx)
+                owner.cond.notify_all()
+                if not owner.cond.wait_for(lambda: owner.failed or len(box) == owner.shards, timeout=600):
+                    raise RuntimeError(f"shard {s}: the other shards never reached exchange {self.calls}")
+                if owner.failed:
+                    raise RuntimeError(f"shard {s}: another shard failed")
+                return torch.cat([box[o][0].index_select(0, box[o][1][s].long()) for o in range(owner.shards)])
+
+        return Shard()
+
+
+def node_sharded_stack(gnn, local: list):
+    """The node-sharded forward of ``gnn`` (the port's own,
+    ``GraphNeuralNetwork._forward_node_sharded``) for each shard's batch in
+    ``local``, in this one process: one thread a shard, the boundary rows
+    passed between them by an ``InProcessExchange``. One autograd graph: the
+    backward crosses the shards through those gathers. Returns the [N_pad,
+    D] final states in the sharded (renumbered) order."""
+    import threading
+
+    shards = len(local)
+    exchange = InProcessExchange(shards)
+    outs, errors = [None] * shards, []
+
+    def run(s):
+        try:
+            with exchange.cond:
+                out, _ = gnn._forward_node_sharded(local[s], train=True, generator=None, return_all_states=False,
+                                                   exchange=exchange.shard(s))
+                outs[s] = out.output_node_representations
+        except BaseException as failure:  # noqa: BLE001 - handed to the caller
+            errors.append(failure)
+            with exchange.cond:
+                exchange.failed = True
+                exchange.cond.notify_all()
+
+    threads = [threading.Thread(target=run, args=(s,), daemon=True) for s in range(shards)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"the in-process node-sharded forward failed: {errors or 'a shard hung'}")
+    return torch.cat(outs)
+
+
+def np_layout_checks(layouts: dict, dev, gen, max_abs_err: dict) -> None:
+    """K1, K2 and K3 on node-sharded sub-layouts (``layouts``: label ->
+    AdjacencyStruct on the card) at the widths the 'mlp' stack gives them:
+    K2 and K3 bitwise equal to their plain versions, K1 within 1e-5 of each
+    row's sum of |x| of its plain version on the card and bitwise equal to
+    the plain version on the CPU. Keeps each kernel's largest error."""
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    cpu = torch.device("cpu")
+    for label, adj in layouts.items():
+        num_nodes = adj.agg_counts.numel()
+        cpu_plan = tree_to(sk.sum_plan_from_adjacency(adj), cpu)
+        for kind, widths in (("segment_extremum", (64, 128)), ("broadcast_to_edges", (64, 128)),
+                             ("segment_sum", (64, 128, 256))):
+            for width in widths:
+                k = layout_kernel(kind, adj, width, dev, gen)
+                x = k.make()
+                got, plain = k.kernel(x), k.plain(x)
+                err = float((got - plain).abs().max())
+                max_abs_err[kind] = max(max_abs_err.get(kind, 0.0), err)
+                if kind != "segment_sum":
+                    if not bitwise_equal(got, plain):
+                        raise RuntimeError(f"{kind} kernel != plain version on {label} at {width} ({err:.3e})")
+                elif (bool(((got - plain).abs() > 1e-5 * k.plain(x.abs())).any())
+                      or not bitwise_equal(got.cpu(), sk.segment_sum_plain(x.cpu(), cpu_plan, num_nodes))):
+                    raise RuntimeError(f"sum kernel off its plain version on {label} at {width} ({err:.3e})")
+    torch.cuda.synchronize()
+
+
+def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
+    """Node sharding on the card. (1) ``shard_batch_by_nodes`` splits a
+    benchmark batch 2 and 4 ways (BFS reorder on); the port's node-sharded
+    forward runs every shard in this process (``node_sharded_stack``), and
+    the final node states and every gradient of <states, cotangent> are held
+    against the unsharded stack's (the fused op) on the same batch, mapped
+    back through the permutation: states within 1e-5 of their max, each
+    gradient within 1e-4 of its max. K1, K2 and K3 are held to their plain
+    versions on every shard's interior, boundary and merged layouts
+    (``np_layout_checks``). (2) ``NodeShardedModelTrainer`` at world 1 over
+    NCCL: NP_STEPS SGD steps (dropout 0) against the single-device steps,
+    every parameter within 1e-5 of its max; then the trainer for an epoch
+    (ZeRO-1, Adam) and ``traindistributed --world-size 1 --node-shards 1``.
+    (3) PPI at its reference width node-sharded at world 1, in bf16 AMP (K5's
+    gate open) and in float32, against the unsharded steps (``ppi_np_steps``),
+    and K5 held on its interior and boundary layouts. Returns the launch
+    counts of (2) and (3), the layouts of the kernels line and K5's errors
+    on them."""
+    import io as stdio
+    import os
+
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.typilus import traindistributed
+    from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, default_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel import NodeParallel, NodeShardedModelTrainer, shard_batch_by_nodes, suggest_budgets
+    from ptgnn_tpu_torch.parallel.node_sharding import local_shard, merged_adjacency
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    name = "node-parallel"
+    t_phase = time.perf_counter()
+    model, module, minibatches, batches = build_bench(dev)
+    set_dropout(module, 0.0)
+    host_mb = minibatches[0]
+    batch = batches[0][0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out, _ = module.gnn(batch, train=True)
+    cot = torch.randn(out.output_node_representations.shape, device=dev, generator=gen)
+    module.zero_grad(set_to_none=True)
+    (out.output_node_representations * cot).sum().backward()
+    want = out.output_node_representations.detach()
+    want_grads = {k: p.grad.clone() for k, p in module.gnn.named_parameters() if p.grad is not None}
+    layouts, layout_err = {}, {}
+    for shards in NP_SHARDS:
+        t0 = time.perf_counter()
+        budgets = suggest_budgets([host_mb], shards, reorder="bfs")
+        sharded, stats = shard_batch_by_nodes(host_mb, shards, reorder="bfs", **budgets)
+        t_host = time.perf_counter() - t0
+        perm = torch.from_numpy(stats["permutation"]).to(dev)
+        local = [tree_to(local_shard(sharded, s), dev)["batch"] for s in range(shards)]
+        module.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = node_sharded_stack(module.gnn, local)
+        (got * cot[perm]).sum().backward()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        err = float((got.detach() - want[perm]).abs().max() / want.abs().max())
+        grad_err = max((float((p.grad - want_grads[k]).abs().max() / want_grads[k].abs().max()), k)
+                       for k, p in module.gnn.named_parameters() if p.grad is not None)
+        if err > 1e-5 or grad_err[0] > 1e-4:
+            raise RuntimeError(f"{name}: {shards} shards: states {err:.3e} of their max from the unsharded "
+                               f"stack's, gradient {grad_err[1]} {grad_err[0]:.3e}")
+        shard_layouts = {}
+        for s, b in enumerate(local):
+            adj_bnd = b.node_sharding.adjacency_bnd
+            shard_layouts[f"{shards}-way shard {s} interior"] = b.adjacency
+            shard_layouts[f"{shards}-way shard {s} boundary"] = adj_bnd
+            shard_layouts[f"{shards}-way shard {s} merged"] = merged_adjacency(
+                b.adjacency, adj_bnd, stats["rows_per_shard"], b.node_mask.shape[0])
+        np_layout_checks(shard_layouts, dev, gen, layout_err)
+        if shards == NP_SHARDS[0]:
+            layouts.update({f"np {shards}-way {side}": shard_layouts[f"{shards}-way shard 0 {side}"]
+                            for side in ("interior", "boundary")})
+        d = want.shape[1]
+        phase(name, f"{shards} shards, BFS reorder: resharded on the host in {1e3 * t_host:.1f} ms ({stats['rows_per_shard']} rows a shard, "
+              f"budgets {budgets}); boundary rows {stats['boundary_nodes_total']} of {int(host_mb['batch'].num_nodes)} "
+              f"nodes, exchanged per layer {stats['exchanged_rows_real']} rows = "
+              f"{4 * d * stats['exchanged_rows_real']} float32 bytes ({4 * d * stats['exchanged_rows_padded']} as "
+              f"the padded all_to_all ships them); the port's node-sharded forward of every shard in one process "
+              f"(a thread a shard, the boundary rows passed in-process), forward and backward "
+              f"{1e3 * t_step:.1f} ms; final states within {err:.3e} of their max of the unsharded stack's "
+              f"(limit 1e-5), every gradient within {grad_err[0]:.3e} of its max (limit 1e-4; worst {grad_err[1]}); "
+              f"K1, K2, K3 on the {3 * shards} interior, boundary and merged layouts of the shards at widths "
+              f"64-256: K2, K3 bitwise equal to their plain versions, K1 within 1e-5 x sum|x| (max abs err "
+              f"{ {k: f'{v:.3e}' for k, v in layout_err.items()} })")
+
+    single = model.build_neural_module(device=dev, seed=SEED)
+    set_dropout(single, 0.0)
+    device_mbs = [g2c_minibatch(b) for b in batches[:NP_STEPS]]
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    budgets = suggest_budgets(minibatches[:NP_STEPS], 1)
+
+    def run():
+        sharded = model.build_neural_module(device=dev, seed=SEED)
+        set_dropout(sharded, 0.0)
+        npar = NodeParallel(sharded, **budgets)
+        local = [tree_to(npar.shard_batch(mb), dev) for mb in minibatches[:NP_STEPS]]
+        # the node-parallel path: the sharded steps' launches, then the trainer's and the CLI's
+        held = held_steps(single, sharded, device_mbs, local,
+                          lambda mb, opt, g: npar.train_step(mb, opt, generator=g)[0], NP_STEPS)
+        sharded.gnn.node_group = None
+
+        trainer = NodeShardedModelTrainer(
+            create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
+            out_dir / "np-trainer.pkl.gz", node_shards=1, max_num_epochs=1, minibatch_size=300, device=dev,
+            seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4), clip_gradient_norm=1.0,
+            target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
+        train_graphs = list(graphs(SEED))[:24]
+        trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
+        before = sk.launch_counts()
+        t0 = time.perf_counter()
+        trainer.train(train_graphs, list(graphs(SEED + 1))[:6], initialize_metadata=False, patience=0,
+                      parallelize=False)
+        torch.cuda.synchronize()
+        t_trainer = time.perf_counter() - t0
+        trainer_counts = delta(sk.launch_counts(), before)
+        return held, trainer, t_trainer, trainer_counts
+
+    held, trainer, t_trainer, trainer_counts = world_one(run)
+    single_losses, losses, worst, where, bitwise, ms, step_counts = held
+    np.testing.assert_allclose(losses, single_losses, rtol=1e-5)
+    if worst > 1e-5:
+        raise RuntimeError(f"{name}: a step's {where} is {worst:.3e} of its max from the single-device step's")
+    phase(name, f"NodeParallel (NCCL, world 1: one shard, its interior layout re-assembled, the interior/"
+          f"boundary route) vs the single-device step (the fused op): {NP_STEPS} SGD steps (dropout 0), each "
+          f"from equal weights, losses {losses} vs {single_losses} (rtol 1e-5), parameters within {worst:.3e} "
+          f"of each max (limit 1e-5; bitwise {bitwise}); {ms[0]:.2f} ms/step (the single-device step "
+          f"{ms[1]:.2f}) on {card}; launches {step_counts}")
+    if not (out_dir / "np-trainer.pkl.gz").exists() or trainer._budgets is None:
+        raise RuntimeError(f"{name}: NodeShardedModelTrainer saved no checkpoint or probed no budgets")
+    phase(name, f"NodeShardedModelTrainer (NCCL, world 1, node shards 1): 1 epoch with validation in "
+          f"{t_trainer:.2f} s, probed budgets {trainer._budgets}; launches {trainer_counts}")
+
+    root = out_dir / "np-cli"
+    shutil.rmtree(root, ignore_errors=True)
+    folds = []
+    for i, (fold, count) in enumerate((("train", 12), ("valid", 4), ("test", 4))):
+        (root / fold).mkdir(parents=True)
+        write_jsonl_gz(root / fold / "part0.jsonl.gz",
+                       synthetic_typilus_graphs(count, seed=SEED + 40 + i, mean_nodes=1500, max_nodes=4000))
+        folds.append(str(root / fold))
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI's log file goes under the working directory
+    before = sk.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        printed = stdio.StringIO()
+        with contextlib.redirect_stdout(printed):
+            accuracy = traindistributed.run(traindistributed.build_arg_parser().parse_args(
+                [*folds, str(root / "np.pkl.gz"), "--max-num-epochs", "1", "--max-nodes", "8192",
+                 "--world-size", "1", "--node-shards", "1", "--quiet"]))
+    finally:
+        os.chdir(cwd)
+    cli = delta(sk.launch_counts(), before)
+    line = [ln for ln in printed.getvalue().splitlines() if ln.startswith("Test accuracy:")]
+    if not line or accuracy is None or not 0.0 <= accuracy <= 1.0 or not (root / "np.pkl.gz").exists():
+        raise RuntimeError(f"traindistributed --node-shards 1 printed {line}, returned {accuracy}")
+    phase(name, f"traindistributed --world-size 1 --node-shards 1 (NCCL, ZeRO-1): 1 epoch over 12 graphs in "
+          f"{time.perf_counter() - t0:.2f} s; '{line[0]}'; launches {cli}")
+
+    ppi_counts, ppi_layouts, ppi_err = ppi_np_steps(ppi_model, ppi_minibatches, dev, card)
+    layouts.update(ppi_layouts)
+    counts = add_counts(add_counts(add_counts(step_counts, trainer_counts), cli), ppi_counts)
+    if min(counts[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum", "typed_matmul")) <= 0:
+        raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
+    phase(name, f"launches over the node-parallel path {counts}; the 2- and 4-rank paths run on the CPU over "
+          f"gloo (tests/test_torch_node_sharding.py): this machine has one card; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, layouts, {**layout_err, **ppi_err}
+
+
+def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
+    """PPI at its reference width, node-sharded at world 1 over NCCL
+    (``NodeParallel``, dropout 0), in bf16 AMP (K5's gate open on the
+    sub-layouts) and in float32, against the unsharded steps of
+    ModelTrainer's step function on the same minibatch: NP_STEPS SGD steps,
+    each from the unsharded module's weights. Held: both losses within rtol
+    1e-5; each float32 gradient within 1e-4 of its max, and the float32
+    step's parameters within 1e-5 of each max; each bf16 gradient no
+    farther from its own route's float32 gradient than 1.5 times the
+    unsharded route's distance (or 1e-2 of its norm), as ppi-parity holds
+    the card's bf16 step. K5 is then held on the interior and boundary
+    layouts (``typed_matmul_checks``, bf16). Returns the launches of the
+    sharded steps, the two layouts and K5's errors on them."""
+    from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel import NodeParallel, suggest_budgets
+
+    name, lr = "node-parallel", 0.05
+    single = ppi_model.build_neural_module(device=dev, seed=SEED)
+    set_dropout(single, 0.0)
+    single_mb = tree_to(ppi_minibatches[0], dev)
+    budgets = suggest_budgets(ppi_minibatches[:1], 1)
+    opt_single = torch.optim.SGD(single.parameters(), lr=lr)
+
+    def grads(m):
+        return [(n, torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+                for n, p in m.named_parameters()]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def run():
+        routes = {}
+        for amp in (True, False):
+            m = ppi_model.build_neural_module(device=dev, seed=SEED)
+            set_dropout(m, 0.0)
+            npar = NodeParallel(m, enable_amp=amp, node_aligned=ppi_model.node_aligned_minibatch_keys, **budgets)
+            routes[amp] = (m, npar, tree_to(npar.shard_batch(ppi_minibatches[0]), dev),
+                           torch.optim.SGD(m.parameters(), lr=lr))
+        launches = {k: 0 for k in sk.launch_counts()}
+        rows, losses, param_err, elapsed = [], [], 0.0, 0.0
+        for _ in range(NP_STEPS):
+            state = {k: v.clone() for k, v in single.state_dict().items()}
+            plain = {}
+            for amp in (False, True):  # the bf16 step last: it moves the unsharded module
+                single.zero_grad(set_to_none=True)
+                loss, _ = module_loss(single, single_mb, train=True, amp=amp)
+                loss.backward()
+                plain[amp] = (float(loss), grads(single))
+            optimizer_step(single, opt_single, [lr])
+            sharded = {}
+            for amp in (True, False):
+                m, npar, local, opt = routes[amp]
+                m.load_state_dict(state)
+                before = sk.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, _ = npar.data_parallel.grad_step(local, 1.0, None)
+                sharded[amp] = (float(loss), grads(m))
+                npar.data_parallel.apply_gradients(opt, [lr])
+                torch.cuda.synchronize()
+                if amp:
+                    elapsed += time.perf_counter() - t0
+                launches = add_counts(launches, delta(sk.launch_counts(), before))
+            losses.append((sharded[True][0], plain[True][0], sharded[False][0], plain[False][0]))
+            for (n, g16), (_, g32), (_, p16), (_, p32) in zip(sharded[True][1], sharded[False][1], plain[True][1],
+                                                             plain[False][1]):
+                rows.append((rel(g16, g32), rel(p16, p32), rel(g16, p16),
+                             float((g32 - p32).abs().max() / p32.abs().max().clamp_min(1e-30)), n))
+            for (pname, p), (_, w) in zip(routes[False][0].named_parameters(), plain[False][1]):
+                want = state[pname] - lr * w
+                param_err = max(param_err, float((p.detach() - want).abs().max() / want.abs().max().clamp_min(1e-30)))
+        for m, _, _, _ in routes.values():
+            m.gnn.node_group = None
+        local_batch = routes[True][2]["batch"]
+        return (rows, losses, param_err, 1e3 * elapsed / NP_STEPS, launches,
+                {"ppi np interior": local_batch.adjacency, "ppi np boundary": local_batch.node_sharding.adjacency_bnd})
+
+    rows, losses, param_err, ms, counts, layouts = world_one(run)
+    for np16, p16, np32, p32 in losses:
+        np.testing.assert_allclose([np16, np32], [p16, p32], rtol=1e-5)
+    for np_own, plain_own, _, f32_err, n in rows:
+        if f32_err > 1e-4:
+            raise RuntimeError(f"{name}: PPI float32 gradient {n} is {f32_err:.3e} of its max from the unsharded one")
+        if np_own > max(1.5 * plain_own, 1e-2):
+            raise RuntimeError(f"{name}: PPI bf16 gradient {n}: {np_own:.3e} of its norm from its own float32 "
+                               f"gradient, against the unsharded route's {plain_own:.3e}")
+    if param_err > 1e-5:
+        raise RuntimeError(f"{name}: PPI float32 step's parameters {param_err:.3e} of their max from the unsharded step's")
+    if counts["typed_matmul"] <= 0:
+        raise RuntimeError(f"{name}: PPI bf16 node-sharded steps never launched the typed matmul: {counts}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    k5_err = {}
+    for label, adj in layouts.items():
+        errs = {}
+        typed_matmul_checks(adj, dev, gen, errs, dtypes=(torch.bfloat16,), name=f"{name} {label}")
+        k5_err.update({f"{key} {label}": v for key, v in errs.items()})
+    phase(name, f"PPI (hidden 256) node-sharded at world 1 (NCCL) vs the unsharded steps, {NP_STEPS} SGD steps "
+          f"(dropout 0), each from the unsharded weights: losses (sharded bf16, unsharded bf16, sharded float32, "
+          f"unsharded float32) {losses} (rtol 1e-5); float32 gradients within {max(r[3] for r in rows):.3e} of "
+          f"each max (limit 1e-4), the stepped parameters within {param_err:.3e} (limit 1e-5); each bf16 "
+          f"gradient from its own route's float32 gradient: sharded largest {max(r[0] for r in rows):.3e}, "
+          f"unsharded {max(r[1] for r in rows):.3e} (limit 1.5x the unsharded, or 1e-2); sharded bf16 vs "
+          f"unsharded bf16 largest {max(r[2] for r in rows):.3e} of the norm; {ms:.2f} ms a bf16 step on "
+          f"{card}; launches of both routes {counts} (K5 open in bf16)")
+    return counts, layouts, k5_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2964,12 +3705,17 @@ def main() -> None:
     edge_counts, edge_adj = edge_features_phase(dev, card)
     bpe_counts = bpe_phase(dev, card)
     dp_counts = data_parallel_phase(dev, card)
+
+    # ---- 21-22. edge and node sharding -----------------------------------------
+    ep_counts = edge_parallel_phase(dev, card)
+    np_counts, np_layouts, np_err = node_parallel_phase(dev, card, ppi_model, ppi_minibatches)
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
              "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"],
              "graph2seq": g2s_counts, "layers": layers_counts, "edge-features": edge_counts,
-             "bpe": bpe_counts, "data-parallel": dp_counts}
+             "bpe": bpe_counts, "data-parallel": dp_counts, "edge-parallel": ep_counts,
+             "node-parallel": np_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
@@ -3123,7 +3869,20 @@ def main() -> None:
     typed_matmul_checks(edge_adj, dev, gen, edge_max_abs_err, shapes=EDGE_TYPED_SHAPES, dtypes=(torch.bfloat16,),
                         name="kernels")
     kernels += ppi_kernel_entries(edge_adj, dev, gen, edge_max_abs_err, main_counts, paths, shapes=EDGE_TYPED_SHAPES,
-                                  dtypes=((torch.bfloat16, BF16_OPS_PER_S),), layout="edge-features")
+                                  dtypes=((torch.bfloat16, BF16_OPS_PER_S),), layout="edge-features",
+                                  per_step=EDGE_PER_TRAIN_STEP["mlp"])
+    # The node-parallel layouts: K1, K2, K3 on a 2-way shard's interior and
+    # boundary layouts, K5 (bf16) on PPI's node-sharded ones.
+    for label in ("np 2-way interior", "np 2-way boundary"):
+        for name in ("segment_sum", "broadcast_to_edges", "segment_extremum"):
+            k = layout_kernel(name, np_layouts[label], 64, dev, gen)
+            e = {**entry(name, 64, layout_times(k), k), "layout": label, "max_abs_err": np_err[name]}
+            kernels.append(e)
+            phase("kernels", json.dumps(e))
+    for label in ("ppi np interior", "ppi np boundary"):
+        errs = {k[:-len(label) - 1]: v for k, v in np_err.items() if k.endswith(" " + label)}
+        kernels += ppi_kernel_entries(np_layouts[label], dev, gen, errs, main_counts, paths,
+                                      dtypes=((torch.bfloat16, BF16_OPS_PER_S),), layout=label, per_step=None)
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
     kernels += graph2seq_kernel_entries(g2s_batches[0]["batch"].adjacency, dev, gen, entry)

@@ -102,9 +102,12 @@ def build_adjacency_struct(
     align: int,
     num_fwd_types: int,
     introduce_backwards_edges: bool,
+    edge_pair_id: Optional[np.ndarray] = None,
 ) -> AdjacencyStruct:
     """Wrap assembled layout arrays into an AdjacencyStruct with the derived
-    transpose tile-type map, supertile view and row index."""
+    transpose tile-type map, supertile view and row index. The slots' pair
+    ids default to the layout's feature slots (the two are one numbering
+    unless the batch tracks edge features)."""
     (senders, receivers, edge_types, local_rows, edge_mask, tile_types,
      tile_row_blocks, counts, feature_slot) = layout_arrays
     n_tiles = senders.shape[0] // tile
@@ -139,17 +142,25 @@ def build_adjacency_struct(
         edge_feature_slot=feature_slot,
         row_offsets=row_offsets,
         row_slots=row_slots,
+        edge_pair_id=feature_slot if edge_pair_id is None else edge_pair_id,
     )
 
 
 def _assemble_layout_python(
     senders_r, receivers_r, types_r, feats_r, *,
-    max_nodes, e_pad, tile, agg_rows, num_types, align,
+    max_nodes, e_pad, tile, agg_rows, num_types, align, sender_domain: Optional[int] = None,
 ) -> Optional[Tuple[np.ndarray, ...]]:
     """Assemble raw edge arrays into the unified layout. Returns (senders,
     receivers, edge_types, local_rows, edge_mask, tile_types,
     tile_row_blocks, counts [num_blocks, agg_rows], feature_slot), or None
-    if the edges exceed the ``e_pad`` budget."""
+    if the edges exceed the ``e_pad`` budget.
+
+    ``sender_domain`` bounds the sender ids, which are copied through and
+    not used for the layout (default ``max_nodes``): the boundary layouts of
+    node sharding (``parallel/node_sharding.py``) index a receive buffer."""
+    domain = max_nodes if sender_domain is None else sender_domain
+    if len(senders_r) and (int(senders_r.min()) < 0 or int(senders_r.max()) >= domain):
+        raise ValueError(f"sender ids must lie in [0, {domain})")
     r = agg_rows
     n_tiles = e_pad // tile
     num_blocks = -(-max_nodes // agg_rows)
@@ -236,13 +247,14 @@ class GraphBatcher:
 
     Backward types get ids T+t and self edges the final id.
 
-    ``edge_feature_slot`` numbers each graph's forward edges with one cursor
-    over the batch (backward edges share the number, self edges get -1). With
-    ``track_edge_features`` the number is the edge's row in the batch's
-    edge-feature array: a graph without features gets -1 slots and does not
-    advance the cursor, so no later graph reads another's rows. Without it
-    every graph is numbered, and the numbers are the fwd/bwd pair ids of the
-    fused op's argmax routing.
+    ``edge_pair_id`` numbers every graph's forward edges with one cursor
+    over the batch (backward edges share the number, self edges get -1): the
+    fwd/bwd pair ids of the fused op's argmax routing. ``edge_feature_slot``
+    is the same numbering, except with ``track_edge_features``: there it is
+    the edge's row in the batch's edge-feature array, a graph without
+    features gets -1 slots and does not advance the feature cursor, so no
+    later graph reads another's rows (the JAX package's numbering, which
+    has no separate pair ids).
     """
 
     def __init__(
@@ -294,31 +306,29 @@ class GraphBatcher:
             "num_edges_in_mb": 0,
             "feature_idx": [],
             "num_features_in_mb": 0,
+            "feature_rows": [],
+            "num_pairs_in_mb": 0,
         }
 
     def _graph_edge_arrays(
-        self, graph: TensorizedGraphData, offset: int, feature_offset: int = 0, number_slots: bool = True
+        self, graph: TensorizedGraphData, offset: int, pair_offset: int = 0
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """All materialized edges of one graph (fwd + bwd + self), offset.
-        The fourth array numbers forward edges from ``feature_offset``
-        (backward edges share the forward edge's number, self edges get -1);
-        without ``number_slots`` every edge gets -1."""
+        The fourth array numbers forward edges from ``pair_offset``
+        (backward edges share the forward edge's number, self edges get -1)."""
         senders: List[np.ndarray] = []
         receivers: List[np.ndarray] = []
         types: List[np.ndarray] = []
         feats: List[np.ndarray] = []
         base = self.num_fwd_edge_types
-        fcursor = feature_offset
+        fcursor = pair_offset
         for t, (src, dst) in enumerate(graph.adjacency_lists):
             if len(src) == 0:
                 continue
             src = src.astype(np.int32) + offset
             dst = dst.astype(np.int32) + offset
-            if number_slots:
-                fidx = np.arange(fcursor, fcursor + len(src), dtype=np.int32)
-                fcursor += len(src)
-            else:
-                fidx = np.full(len(src), -1, np.int32)
+            fidx = np.arange(fcursor, fcursor + len(src), dtype=np.int32)
+            fcursor += len(src)
             senders.append(src)
             receivers.append(dst)
             types.append(np.full(len(src), t, np.int32))
@@ -392,15 +402,20 @@ class GraphBatcher:
                 f"graph has {graph.num_edges} forward edges but {len(graph.edge_features)} edge features: "
                 "the flattened feature list must hold one entry per forward edge in canonical type order"
             )
-        senders, receivers, types, feat_idx = self._graph_edge_arrays(
-            graph, offset, mb["num_features_in_mb"], number_slots
-        )
+        # Every graph's edges get pair ids; the feature rows of the pairs
+        # (-1 for a graph without features) map them to feature slots.
+        senders, receivers, types, pair_idx = self._graph_edge_arrays(graph, offset, mb["num_pairs_in_mb"])
         mb["senders"].append(senders)
         mb["receivers"].append(receivers)
         mb["types"].append(types)
-        mb["feature_idx"].append(feat_idx)
+        mb["feature_idx"].append(pair_idx)
+        mb["num_pairs_in_mb"] += graph.num_edges
         if number_slots:
+            first = mb["num_features_in_mb"]
+            mb["feature_rows"].append(np.arange(first, first + graph.num_edges, dtype=np.int32))
             mb["num_features_in_mb"] += graph.num_edges
+        else:
+            mb["feature_rows"].append(np.full(graph.num_edges, -1, np.int32))
         for key, c in self._merged_seg_counts(graph, offset).items():
             mb["seg_counts"][key] = mb["seg_counts"].get(key, 0) + c
         mb["num_edges_in_mb"] += len(senders)
@@ -435,12 +450,19 @@ class GraphBatcher:
         )
         if layout is None:
             raise RuntimeError("batcher admitted more edges than the budget")
+        pair_slot = layout[8]
+        if self.track_edge_features:
+            feature_rows = np.concatenate(mb["feature_rows"]) if mb["feature_rows"] else np.zeros(0, np.int32)
+            feature_slot = np.where(pair_slot >= 0, feature_rows[np.maximum(pair_slot, 0)] if len(feature_rows)
+                                    else -1, -1).astype(np.int32)
+            layout = layout[:8] + (feature_slot,)
         adjacency = build_adjacency_struct(
             layout,
             tile=p.edge_tile,
             align=self._block_align,
             num_fwd_types=self.num_fwd_edge_types,
             introduce_backwards_edges=self.introduce_backwards_edges,
+            edge_pair_id=pair_slot,
         )
 
         n_pad, g_pad = p.max_nodes, p.max_graphs

@@ -7,6 +7,14 @@ ANDed with the batch's static mask while training. Edge features, where the
 model has an edge representation model, are embedded once per forward edge
 and gathered to every slot by ``edge_feature_slot``: a backward edge reads
 its forward edge's row, a self or padding slot gets zeros.
+
+Sharding. ``edge_group``, set by ``parallel.EdgeParallel``, is the process
+group the batch's edges are cut over: each aggregation all-reduces over it.
+``node_group``, set by ``parallel.NodeParallel``, is the group a node-
+sharded batch (``GraphBatch.node_sharding``) is split over: the embedder
+and the layers see this rank's rows, each layer reads the boundary rows of
+the other ranks through one exchange, and the readout hands the heads this
+rank's rows with the group (``GnnOutput.shard_group``).
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ptgnn_tpu_torch.core.data import enforce_not_None
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
@@ -31,6 +40,7 @@ from ptgnn_tpu_torch.graph.structs import (
     GraphData,
     TensorizedGraphData,
 )
+from ptgnn_tpu_torch.ops.segment import take_rows
 
 LOGGER = logging.getLogger(__name__)
 
@@ -57,6 +67,8 @@ class GraphNeuralNetwork(torch.nn.Module):
             self._layer_param_index.append(seen.setdefault(id(layer), len(seen)))
         self.node_embedder = node_embedder
         self.edge_feature_embedder = edge_feature_embedder
+        self.edge_group = None  # process groups of the sharded paths (see above)
+        self.node_group = None
 
     @property
     def input_node_state_dim(self) -> int:
@@ -71,26 +83,51 @@ class GraphNeuralNetwork(torch.nn.Module):
         """Run the message-passing layer stack; with ``return_all_states``,
         the input and every entry's output concatenated on the last dim."""
         if self.edge_dropout_rate > 0 and train:
-            if generator is None:
-                raise ValueError("edge dropout during training needs a torch.Generator")
-            mask = ctx.adjacency.mask
-            keep = torch.rand(mask.shape, generator=generator, device=mask.device) < 1.0 - self.edge_dropout_rate
-            ctx = ctx._replace(adjacency=ctx.adjacency._replace(mask=mask & keep), edge_mask_is_static=False)
-        all_states = [node_representations] if return_all_states else None
+            part = None if ctx.edge_group is None else (dist.get_rank(ctx.edge_group),
+                                                        dist.get_world_size(ctx.edge_group))
+            mask = self._edge_keep(ctx.adjacency.mask, generator, part)
+            ctx = ctx._replace(adjacency=ctx.adjacency._replace(mask=mask), edge_mask_is_static=False)
+        return self._run_layers(node_representations, ctx, train=train, generator=generator,
+                                return_all_states=return_all_states)
+
+    def _run_layers(self, h: torch.Tensor, ctx: GraphContext, *, train: bool, generator: Optional[torch.Generator],
+                    return_all_states: bool, layer_input: Optional[Callable] = None) -> torch.Tensor:
+        """The stack loop: residual layers through an explicit stash, every
+        other layer over ``h`` and ``ctx``. ``layer_input(layer, h)``, where
+        given, returns the table and the context a message-passing layer runs
+        over instead (the node-sharded forward: this rank's rows and the
+        boundary rows of the others); the layer's first ``len(h)`` output
+        rows go on."""
+        all_states = [h] if return_all_states else None
         stash: Dict[int, torch.Tensor] = {}
         for layer in self.message_passing_layers:
             if isinstance(layer, _ResidualOriginLayer):
-                stash[id(layer.target_layer)] = node_representations
+                stash[id(layer.target_layer)] = h
             elif isinstance(layer, AbstractResidualLayer):
-                original = stash.pop(id(layer))
-                node_representations = layer.combine(original, node_representations, train=train)
+                h = layer.combine(stash.pop(id(layer)), h, train=train)
+            elif layer_input is None:
+                h = layer(h, ctx, train=train, generator=generator)
             else:
-                node_representations = layer(node_representations, ctx, train=train, generator=generator)
+                table, layer_ctx = layer_input(layer, h)
+                h = layer(table, layer_ctx, train=train, generator=generator)[:h.shape[0]]
             if return_all_states:
-                all_states.append(node_representations)
-        if return_all_states:
-            return torch.cat(all_states, dim=-1)
-        return node_representations
+                all_states.append(h)
+        return torch.cat(all_states, dim=-1) if return_all_states else h
+
+    def _edge_keep(self, mask: torch.Tensor, generator: Optional[torch.Generator],
+                   part: Optional[Tuple[int, int]]) -> torch.Tensor:
+        """``mask`` with edge dropout's dropped slots cleared. Under sharding
+        (``part``: this shard's index and the shard count) the shards share
+        one generator state (their replicated work must draw alike), so each
+        takes its own slice of one draw for all of them: the shards' masks
+        are independent."""
+        if generator is None:
+            raise ValueError("edge dropout during training needs a torch.Generator")
+        if part is None:
+            draw = torch.rand(mask.shape, generator=generator, device=mask.device)
+        else:
+            draw = torch.rand((part[1],) + mask.shape, generator=generator, device=mask.device)[part[0]]
+        return (draw < 1.0 - self.edge_dropout_rate) & mask
 
     def forward(
         self, batch: GraphBatch, *, train: bool = False, generator: Optional[torch.Generator] = None,
@@ -98,16 +135,16 @@ class GraphNeuralNetwork(torch.nn.Module):
     ) -> Tuple[GnnOutput, Dict[str, Any]]:
         """Returns (GnnOutput, metric accumulators). ``generator`` draws every
         dropout mask when training."""
+        if batch.node_sharding is not None:
+            return self._forward_node_sharded(batch, train=train, generator=generator,
+                                              return_all_states=return_all_states)
         initial = self.node_embedder(**batch.node_data, train=train, generator=generator)  # [N_pad, D]
         edge_features = None
         if self.edge_feature_embedder is not None and batch.edge_feature_data is not None:
             embedded = self.edge_feature_embedder(
                 **batch.edge_feature_data, train=train, generator=generator
             )  # [max_edge_slots, F], one row per forward edge
-            slot = batch.adjacency.edge_feature_slot
-            gathered = embedded.index_select(0, slot.clamp_min(0).long())
-            edge_features = torch.where(slot[:, None] >= 0, gathered, torch.zeros((), dtype=gathered.dtype,
-                                                                                  device=gathered.device))
+            edge_features = _slot_features(embedded, batch.adjacency.edge_feature_slot)
         ctx = GraphContext(
             adjacency=batch.adjacency,
             node_graph=batch.node_graph,
@@ -116,6 +153,7 @@ class GraphNeuralNetwork(torch.nn.Module):
             references=batch.references,
             att_order=batch.att_order,
             edge_features=edge_features,
+            edge_group=self.edge_group,
         )
         output = self.gnn(initial, ctx, train=train, generator=generator, return_all_states=return_all_states)
         metrics = {
@@ -135,6 +173,88 @@ class GraphNeuralNetwork(torch.nn.Module):
             graph_mask=batch.graph_mask,
         )
         return gnn_out, metrics
+
+    def _forward_node_sharded(self, batch: GraphBatch, *, train: bool, generator: Optional[torch.Generator],
+                              return_all_states: bool, exchange: Optional[Callable] = None
+                              ) -> Tuple[GnnOutput, Dict[str, Any]]:
+        """forward() of this rank's view of a node-sharded batch: the
+        embedder and the layers see this rank's rows; per layer the boundary
+        rows it reads come in through one exchange, and the layer runs over
+        the [local rows ++ receive buffer] table. Aggregation is complete on
+        each rank, since every edge into a local row lives there. The
+        embedded edge-feature table is small and indexed by global slots, so
+        every rank embeds it whole.
+
+        ``exchange`` (``parallel.node_sharding.GroupExchange`` over
+        ``node_group`` by default) is called as ``exchange(h, send_idx)`` and
+        carries ``group``, ``shard_index`` and ``num_shards``: another one
+        runs the shards of a batch side by side in one process."""
+        from ptgnn_tpu_torch.parallel.node_sharding import GroupExchange, NodeShardCtx, merged_adjacency
+
+        if exchange is None:
+            if self.node_group is None:
+                raise RuntimeError("a node-sharded batch reached a GNN without node_group (use "
+                                   "parallel.NodeParallel)")
+            exchange = GroupExchange(self.node_group)
+        ns = batch.node_sharding
+        initial = self.node_embedder(**batch.node_data, train=train, generator=generator)  # [rows_per, D]
+        rows_per, rows_ext = initial.shape[0], batch.node_mask.shape[0]
+        adj_int, adj_bnd = batch.adjacency, ns.adjacency_bnd
+        static = True
+        if self.edge_dropout_rate > 0 and train:
+            part = (exchange.shard_index, exchange.num_shards)
+            adj_int = adj_int._replace(mask=self._edge_keep(adj_int.mask, generator, part))
+            adj_bnd = adj_bnd._replace(mask=self._edge_keep(adj_bnd.mask, generator, part))
+            static = False
+        merged = merged_adjacency(adj_int, adj_bnd, rows_per, rows_ext)
+        edge_features = None
+        if self.edge_feature_embedder is not None and batch.edge_feature_data is not None:
+            table = self.edge_feature_embedder(**batch.edge_feature_data, train=train, generator=generator)
+            edge_features = _slot_features(table, merged.edge_feature_slot)
+        ctx = GraphContext(
+            adjacency=merged,
+            node_graph=batch.node_graph,  # [rows_ext], this rank's
+            node_mask=batch.node_mask,
+            graph_mask=batch.graph_mask,
+            references=batch.references,
+            edge_mask_is_static=static,
+            edge_features=edge_features,
+        )
+
+        def layer_input(layer, h):
+            if layer.needs_boundary_exchange:
+                recv = exchange(h, ns.send_idx)
+            else:  # the layer reads no sender rows: no exchange
+                recv = h.new_zeros((ns.send_idx.numel(), h.shape[-1]))
+            return torch.cat([h, recv], dim=0), ctx._replace(node_sharding=NodeShardCtx(
+                group=exchange.group, shard_index=exchange.shard_index, rows_per=rows_per, adj_int=adj_int,
+                adj_bnd=adj_bnd, h_local=h, recv=recv, node_graph_global=ns.node_graph_global,
+                node_mask_global=ns.node_mask_global, att_order_global=ns.att_order_global,
+            ))
+
+        h = self._run_layers(initial, ctx, train=train, generator=generator, return_all_states=return_all_states,
+                             layer_input=layer_input)
+        metrics = {"num_graphs": batch.num_graphs, "num_nodes": batch.num_nodes, "num_edges": batch.num_edges}
+        gnn_out = GnnOutput(
+            input_node_representations=initial,
+            output_node_representations=h,
+            node_to_graph_idx=ns.node_graph_global,
+            node_mask=ns.node_mask_global,
+            node_idx_references={n: r.node_ids for n, r in batch.references.items()},
+            node_graph_idx_reference={n: r.graph_ids for n, r in batch.references.items()},
+            reference_masks={n: r.mask for n, r in batch.references.items()},
+            num_graphs=batch.num_graphs,
+            graph_mask=batch.graph_mask,
+            shard_group=exchange.group,
+        )
+        return gnn_out, metrics
+
+
+def _slot_features(embedded: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """[E_pad, F] feature row of every slot from the embedded [F_budget, F]
+    table; slots without a feature row (-1) get zeros."""
+    gathered = take_rows(embedded, slot.clamp_min(0))
+    return torch.where(slot[:, None] >= 0, gathered, torch.zeros((), dtype=gathered.dtype, device=gathered.device))
 
 
 class GraphNeuralNetworkModel(AbstractNeuralModel):

@@ -7,6 +7,14 @@ the batch allow it (:func:`fused_linear_message_aggregation_or_none`);
 otherwise a layer computes its messages per slot and aggregates them through
 :func:`masked_segment_aggregate`. The tensor's device picks kernel or plain
 version.
+
+Under edge sharding (``ctx.edge_group``, ``parallel/edge_sharding.py``) each
+aggregation reduces the rank's slots and all-reduces over the group, and
+the fused route is closed. Under node sharding (``ctx.node_sharding``,
+``parallel/node_sharding.py``) the node states are the extended [local rows
+++ receive buffer] table, ``ctx.adjacency`` the merged layout over it, and
+a single linear message takes the interior/boundary split in place of the
+fused route.
 """
 from __future__ import annotations
 
@@ -39,6 +47,10 @@ class GraphContext(NamedTuple):
     # [E_pad, F] embedded edge features per slot (backward edges share their
     # forward edge's row, self and padding slots are 0), or None.
     edge_features: Any = None
+    # The process group the edge array is cut over (edge sharding), or None.
+    edge_group: Any = None
+    # A NodeShardCtx under node sharding (parallel/node_sharding.py), or None.
+    node_sharding: Any = None
 
     @property
     def max_graphs(self) -> int:
@@ -52,21 +64,39 @@ def masked_segment_aggregate(
     nodes: the aggregation dispatch of the layers and of pluggable
     aggregations (PNA). Sum and mean run the sum kernel, max and min the
     extremum kernel; a mean under a non-static mask counts the live slots
-    with the sum kernel at width 1."""
+    with the sum kernel at width 1. Under edge sharding the rank's partial
+    aggregate is all-reduced over the group."""
     adj = ctx.adjacency
+    if ctx.edge_group is not None:
+        from ptgnn_tpu_torch.parallel.edge_sharding import sharded_aggregate
+
+        return sharded_aggregate(messages, adj, num_nodes, reduction, ctx.edge_group, mask=adj.mask,
+                                 counts_exact=ctx.edge_mask_is_static)
     return adjacency_segment_reduce(
         messages, adj, num_nodes, reduction, mask=adj.mask, counts_exact=ctx.edge_mask_is_static
     )
 
 
-def masked_segment_degree(ctx: GraphContext, num_nodes: int) -> torch.Tensor:
-    """[num_nodes] float32 count of each node's live in-slots: the plan's
-    counts under the static mask, else the sum kernel at width 1."""
-    adj = ctx.adjacency
-    if ctx.edge_mask_is_static:
+def live_in_degree(adj: AdjacencyStruct, num_nodes: int, mask: Optional[torch.Tensor],
+                   counts_exact: bool) -> torch.Tensor:
+    """[num_nodes] float32 count of each row's live slots in ``adj``: the
+    plan's counts under the static mask (``counts_exact``), else the sum
+    kernel over ``mask`` at width 1."""
+    if counts_exact or mask is None:
         return adj.agg_counts.reshape(-1)[:num_nodes].float()
-    live = adj.mask[:, None].float()
-    return planned_segment_sum(live, sum_plan_from_adjacency(adj), num_nodes)[:, 0]
+    return planned_segment_sum(mask[:, None].float(), sum_plan_from_adjacency(adj), num_nodes)[:, 0]
+
+
+def masked_segment_degree(ctx: GraphContext, num_nodes: int) -> torch.Tensor:
+    """[num_nodes] float32 count of each node's live in-slots; summed over
+    the ranks under edge sharding."""
+    adj = ctx.adjacency
+    degree = live_in_degree(adj, num_nodes, adj.mask, ctx.edge_mask_is_static)
+    if ctx.edge_group is not None:
+        from ptgnn_tpu_torch.parallel.collectives import all_reduce_sum_
+
+        degree = all_reduce_sum_(degree.clone(), ctx.edge_group)
+    return degree
 
 
 def fused_linear_message_aggregation_or_none(
@@ -86,9 +116,20 @@ def fused_linear_message_aggregation_or_none(
     ones and the batch's layout allows it (an aggregation plan, the
     transposed tile types, the static mask) and the context carries no edge
     features (the fused op never sees them); None, and the caller computes
-    its messages per slot, otherwise."""
+    its messages per slot, otherwise. Under node sharding the message takes
+    the interior/boundary split (no argmax routing there, as in the JAX
+    package); under edge sharding the per-slot route."""
     adj = ctx.adjacency
     if not isinstance(reduction, str) or reduction not in _REDUCTIONS or ctx.edge_features is not None:
+        return None
+    if ctx.node_sharding is not None:
+        from ptgnn_tpu_torch.parallel.node_sharding import node_sharded_linear_message_aggregation
+
+        return node_sharded_linear_message_aggregation(
+            weight_stack, ctx, reduction=reduction, use_target_state=use_target_state,
+            dropout_rate=dropout_rate, train=train, generator=generator,
+        )
+    if ctx.edge_group is not None:
         return None
     if adj.tile_row_blocks is None or adj.tile_types_transposed is None or not ctx.edge_mask_is_static:
         return None
@@ -106,7 +147,15 @@ def fused_linear_message_aggregation_or_none(
 
 class AbstractMessagePassingLayer(torch.nn.Module):
     """forward(node_states [N, D], ctx, train=False, generator=None) -> [N, D']
-    node states; ``generator`` draws the layer's dropout when training."""
+    node states; ``generator`` draws the layer's dropout when training.
+
+    ``needs_boundary_exchange``: under node sharding, whether the layer
+    reads sender rows of other ranks. A layer that sets it False (GraphNorm,
+    the global exchange, self-attention) gets a zero receive buffer instead
+    of an exchange, so it must read neither ``ctx.adjacency`` nor
+    ``ctx.node_sharding.recv``."""
+
+    needs_boundary_exchange: bool = True
 
     def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
                 generator: Optional[torch.Generator] = None):

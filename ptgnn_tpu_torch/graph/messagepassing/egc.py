@@ -15,6 +15,7 @@ from ptgnn_tpu_torch.graph.messagepassing.base import (
 )
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import Linear, dropout
+from ptgnn_tpu_torch.ops.segment import take_rows
 from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
 
@@ -73,7 +74,7 @@ class EGCMessagePassingLayer(AbstractMessagePassingLayer):
         if aggregated is not None:
             aggregated = aggregated.reshape(n, h, b, o // h)
         else:
-            source_states = node_states.index_select(0, adj.senders.clamp(max=n - 1).long())
+            source_states = take_rows(node_states, adj.senders.clamp(max=n - 1))
             source_states = dropout(source_states, self.dropout_rate, train, generator)
             base_messages = typed_tile_matmul(source_states, self.bases, adj.tile_types, adj.edge_tile)
             messages = base_messages.reshape(-1, h, b, o // h)

@@ -16,6 +16,7 @@ from ptgnn_tpu_torch.graph.messagepassing.base import (
 )
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import GRUCell, dropout
+from ptgnn_tpu_torch.ops.segment import take_rows
 from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
 
@@ -86,7 +87,7 @@ class GatedMessagePassingLayer(AbstractMessagePassingLayer):
         if aggregated is None:
             adj = ctx.adjacency
             n = node_states.shape[0]
-            msg_input = node_states.index_select(0, adj.senders.clamp(max=n - 1).long())
+            msg_input = take_rows(node_states, adj.senders.clamp(max=n - 1))
             if self.edge_feature_dimension:
                 msg_input = torch.cat([msg_input, ctx.edge_features.to(msg_input.dtype)], dim=-1)
             msg_input = dropout(msg_input, self.dropout_rate, train, generator)

@@ -1,8 +1,10 @@
 """Global graph-state exchange: summarize each graph with a var-sized reduce
 over its (masked) nodes, then update every node with its graph's summary.
-The counterpart of the JAX package's ``global_exchange.py`` on one device
-(its node-sharded branch belongs to the parallel trainers). Summaries use
-the padded graph budget, so shapes stay static.
+The counterpart of the JAX package's ``global_exchange.py``. Summaries use
+the padded graph budget, so shapes stay static. Under node sharding a
+reduce that takes sharded inputs (``supports_sharded_inputs``: every reduce
+of ``reduceops/``) summarizes this rank's rows with one collective per
+reduction; another reduce gets the all-gathered node table.
 
 Parameters sit under the JAX package's param keys: the reduce under
 ``summary``, the node update under ``update``.
@@ -23,6 +25,8 @@ from ptgnn_tpu_torch.reduceops.varsizedsummary import (
 
 
 class AbstractGlobalGraphExchange(AbstractMessagePassingLayer):
+    needs_boundary_exchange = False  # per-graph summaries only
+
     def __init__(self, global_graph_representation_module: AbstractVarSizedElementReduce,
                  dropout_rate: float = 0.0):
         super().__init__()
@@ -34,12 +38,21 @@ class AbstractGlobalGraphExchange(AbstractMessagePassingLayer):
 
     def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        inputs = ElementsToSummaryRepresentationInput(
-            element_embeddings=node_states,
-            element_to_sample_map=ctx.node_graph,
-            num_samples=ctx.graph_mask.shape[0],
-            mask=ctx.node_mask,
-        )
+        num_graphs = ctx.graph_mask.shape[0]
+        ns = ctx.node_sharding
+        if ns is None:
+            inputs = ElementsToSummaryRepresentationInput(node_states, ctx.node_graph, num_graphs, ctx.node_mask)
+        elif self.summary.supports_sharded_inputs:
+            inputs = ElementsToSummaryRepresentationInput(
+                ns.h_local, ctx.node_graph[:ns.rows_per], num_graphs, ctx.node_mask[:ns.rows_per],
+                shard_group=ns.group,
+            )
+        else:
+            from ptgnn_tpu_torch.parallel.collectives import all_gather_rows
+
+            inputs = ElementsToSummaryRepresentationInput(
+                all_gather_rows(ns.h_local, ns.group), ns.node_graph_global, num_graphs, ns.node_mask_global,
+            )
         graph_representations = dropout(self.summary(inputs), self.dropout_rate, train, generator)  # [G_pad, D']
         # Padding nodes carry graph id G_pad: they read 0.
         per_node = masked_take(graph_representations, ctx.node_graph, 0.0)

@@ -1,9 +1,11 @@
 """GraphNorm: per-graph feature normalization (Cai et al. 2020), with
 masked per-graph moments in float32: padding nodes stay out of the mean and
 the variance. The counterpart of the JAX package's
-``graph/messagepassing/graphnorm.py``. The per-graph sums are stock
-``index_add_`` into ``max_graphs`` rows, which on the card add in atomic
-order: their last bits may differ from run to run."""
+``graph/messagepassing/graphnorm.py``. The per-graph sums go through
+``ops/segment.py::segment_sum``, which on the card is the segment sum kernel
+over the sorted graph ids: the same bits on every run. Under node sharding
+(``ctx.node_sharding``) each rank holds its own rows, and the per-graph
+sums and counts are all-reduced over the node group."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,6 +17,8 @@ from ptgnn_tpu_torch.ops.segment import masked_take, segment_count, segment_sum
 
 
 class GraphNorm(AbstractMessagePassingLayer):
+    needs_boundary_exchange = False  # per-graph moments only
+
     def __init__(self, input_state_dimension: int, eps: float = 1e-10):
         super().__init__()
         self.__input_state_dim = input_state_dimension
@@ -32,6 +36,11 @@ class GraphNorm(AbstractMessagePassingLayer):
     def _masked_mean(x: torch.Tensor, ctx: GraphContext, num_graphs: int) -> torch.Tensor:
         total = segment_sum(x, ctx.node_graph, num_graphs, ctx.node_mask)
         count = segment_count(ctx.node_graph, num_graphs, ctx.node_mask).to(x.dtype)
+        if ctx.node_sharding is not None:  # each rank holds its rows of a graph
+            from ptgnn_tpu_torch.parallel.collectives import all_reduce_sum, all_reduce_sum_
+
+            total = all_reduce_sum(total, ctx.node_sharding.group)
+            count = all_reduce_sum_(count, ctx.node_sharding.group)
         return total / count.clamp_min(1.0)[:, None]
 
     def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,

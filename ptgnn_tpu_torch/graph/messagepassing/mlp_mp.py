@@ -16,6 +16,7 @@ from ptgnn_tpu_torch.graph.messagepassing.base import (
 )
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import LayerNorm, Linear, dropout, get_activation
+from ptgnn_tpu_torch.ops.segment import take_rows
 from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 
 
@@ -152,11 +153,11 @@ class MlpMessagePassingLayer(AbstractMessagePassingLayer):
                 argmax_routing=self.argmax_routing,
             )
         if aggregated is None:
-            msg_input = node_states.index_select(0, adj.senders.clamp(max=n - 1).long())
+            msg_input = take_rows(node_states, adj.senders.clamp(max=n - 1))
             if self.use_target_state_as_message_input:
                 # Padding receivers point past the nodes: clipped for the
                 # gather, their rows are masked out of the aggregation.
-                target = node_states.index_select(0, adj.receivers.clamp(max=n - 1).long())
+                target = take_rows(node_states, adj.receivers.clamp(max=n - 1))
                 msg_input = torch.cat([msg_input, target], dim=-1)
             if ctx.edge_features is not None:
                 msg_input = torch.cat([msg_input, ctx.edge_features.to(msg_input.dtype)], dim=-1)

@@ -22,6 +22,7 @@ import torch
 from ptgnn_tpu_torch.graph.messagepassing.base import AbstractMessagePassingLayer, GraphContext
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import LayerNorm, Linear, dropout
+from ptgnn_tpu_torch.ops.segment import take_rows
 
 LOGGER = logging.getLogger(__name__)
 
@@ -108,8 +109,24 @@ class MultiHeadSelfAttentionMessagePassing(AbstractMessagePassingLayer):
             self._att_width_warned = True
         return width
 
+    # Under node sharding the layer all-gathers the node states, attends over
+    # the global packing (the single-device computation) and keeps this
+    # rank's rows: one O(N x D) gather for this layer alone. Reference sets
+    # carry global ids, so the reference-subset mode resolves them in the
+    # gathered table too. It reads no receive buffer (no exchange).
+    needs_boundary_exchange = False
+
     def forward(self, node_states: torch.Tensor, ctx: GraphContext, *, train: bool = False,
                 generator: Optional[torch.Generator] = None):
+        ns = ctx.node_sharding
+        if ns is not None:
+            from ptgnn_tpu_torch.parallel.collectives import all_gather_rows
+
+            global_ctx = ctx._replace(node_graph=ns.node_graph_global, node_mask=ns.node_mask_global,
+                                      att_order=ns.att_order_global, node_sharding=None)
+            out = self.forward(all_gather_rows(ns.h_local, ns.group), global_ctx, train=train, generator=generator)
+            local = out[ns.shard_index * ns.rows_per:(ns.shard_index + 1) * ns.rows_per]
+            return torch.cat([local, local.new_zeros((node_states.shape[0] - ns.rows_per, local.shape[1]))])
         n = node_states.shape[0]
         order = None
         att_width = self.block_size
@@ -121,7 +138,7 @@ class MultiHeadSelfAttentionMessagePassing(AbstractMessagePassingLayer):
                 order = ctx.att_order.reshape(-1).long()
                 in_range = order < n
                 safe = order.clamp(max=n - 1)
-                relevant = node_states.index_select(0, safe)
+                relevant = take_rows(node_states, safe)
                 graph_ids = torch.where(in_range, ctx.node_graph.index_select(0, safe),
                                         torch.full((), -1, dtype=ctx.node_graph.dtype, device=order.device))
                 valid = in_range & ctx.node_mask.index_select(0, safe)
@@ -129,7 +146,7 @@ class MultiHeadSelfAttentionMessagePassing(AbstractMessagePassingLayer):
                 relevant, graph_ids, valid = node_states, ctx.node_graph, ctx.node_mask
         else:
             ref = ctx.references[self.target_reference]
-            relevant = node_states.index_select(0, ref.node_ids.long())
+            relevant = take_rows(node_states, ref.node_ids)
             graph_ids = torch.where(ref.mask, ref.graph_ids, torch.full((), -1, dtype=ref.graph_ids.dtype,
                                                                           device=ref.mask.device))
             valid = ref.mask

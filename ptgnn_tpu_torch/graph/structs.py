@@ -158,6 +158,10 @@ class AdjacencyStruct(NamedTuple):
     edge_feature_slot: Any = None  # [E_pad] int32 (fwd/bwd pair ids) or None
     row_offsets: Any = None  # [num_row_blocks * R + 1] int32, cumsum of agg_counts
     row_slots: Any = None  # [E_pad] int32 real slots row after row (tail: -1)
+    # [E_pad] int32 fwd/bwd pair id of each slot (self and padding: -1), the
+    # port's own: it equals edge_feature_slot unless the batch tracks edge
+    # features, where a featureless graph's slots still get distinct ids.
+    edge_pair_id: Any = None
 
     @property
     def edge_tile(self) -> int:
@@ -187,23 +191,35 @@ class GraphBatch(NamedTuple):
     # one per forward edge, in the batcher's feature numbering), read through
     # adjacency.edge_feature_slot; None when the model embeds no edge features.
     edge_feature_data: Any = None
+    # The node-sharding payload (parallel/node_sharding.py): when set, node_data,
+    # adjacency, node_graph and node_mask are one rank's, and the GNN runs its
+    # boundary-exchange stack. None for an ordinary batch.
+    node_sharding: Any = None
 
     def to(self, device) -> "GraphBatch":
         return tree_to(self, torch.device(device))
 
 
 class GnnOutput(NamedTuple):
-    """Output of the GNN engine."""
+    """Output of the GNN engine.
 
-    input_node_representations: Any  # [max_nodes, D]
-    output_node_representations: Any  # [max_nodes, H]
-    node_to_graph_idx: Any  # [max_nodes] int32
-    node_mask: Any  # [max_nodes] bool
-    node_idx_references: Dict[str, Any]
+    Under node sharding (``shard_group`` set) the two representation fields
+    hold this rank's ``[rows_per, D]`` rows, not the whole node table; heads
+    read through the accessors: :meth:`node_rows` and :meth:`reference_rows`
+    assemble the rows asked for (each rank contributes the rows it owns, one
+    all-reduce), :meth:`node_table` all-gathers the table for heads that
+    read every node. Unsharded, the accessors are plain gathers."""
+
+    input_node_representations: Any  # [max_nodes, D] (this rank's rows when sharded)
+    output_node_representations: Any  # [max_nodes, H] (this rank's rows when sharded)
+    node_to_graph_idx: Any  # [max_nodes] int32 (always global)
+    node_mask: Any  # [max_nodes] bool (always global)
+    node_idx_references: Dict[str, Any]  # global node ids
     node_graph_idx_reference: Dict[str, Any]
     reference_masks: Dict[str, Any]
     num_graphs: Any
     graph_mask: Any
+    shard_group: Any = None  # the node group under node sharding
 
     @property
     def reference_nodes_graph_idx(self) -> Dict[str, Any]:
@@ -211,19 +227,39 @@ class GnnOutput(NamedTuple):
 
     def node_table(self, which: str = "output") -> torch.Tensor:
         """The full ``[max_nodes, D]`` node table, ``"output"`` or ``"input"``
-        (the embedder's) representations."""
+        (the embedder's) representations; one all-gather under node
+        sharding."""
         if which == "output":
-            return self.output_node_representations
-        if which == "input":
-            return self.input_node_representations
-        raise ValueError(f"no node table {which!r}")
+            table = self.output_node_representations
+        elif which == "input":
+            table = self.input_node_representations
+        else:
+            raise ValueError(f"no node table {which!r}")
+        if self.shard_group is None:
+            return table
+        from ptgnn_tpu_torch.parallel.collectives import all_gather_rows
+
+        return all_gather_rows(table, self.shard_group)
 
     def node_rows(self, node_ids: torch.Tensor) -> torch.Tensor:
         """Output representations by node id, NaN at an out-of-range id (the
         JAX package's ``jnp.take`` default). Padding references carry node
         id 0, so the task heads read only real rows and mask the padding
         ones."""
-        return masked_take(self.output_node_representations, node_ids, float("nan"))
+        if self.shard_group is None:
+            return masked_take(self.output_node_representations, node_ids, float("nan"))
+        import torch.distributed as dist
+
+        from ptgnn_tpu_torch.parallel.collectives import all_reduce_sum
+
+        local = self.output_node_representations
+        rows_per = local.shape[0]
+        total = rows_per * dist.get_world_size(self.shard_group)
+        valid = (node_ids >= 0) & (node_ids < total)
+        mine = valid & (node_ids // rows_per == dist.get_rank(self.shard_group))
+        picked = masked_take(local, torch.where(mine, node_ids % rows_per, -1), 0.0)
+        rows = all_reduce_sum(picked, self.shard_group)
+        return torch.where(valid[:, None], rows, torch.full((), float("nan"), dtype=rows.dtype, device=rows.device))
 
     def reference_rows(self, name: str) -> torch.Tensor:
         """``[R_pad, D]`` output representations of the named reference set."""

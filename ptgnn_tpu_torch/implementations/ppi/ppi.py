@@ -100,6 +100,10 @@ class PPIClassification(Module):
 class PPIMulticlassClassification(
     AbstractNeuralModel[PPIGraphSample, TensorizedPPIData, PPIClassification]
 ):
+    # The minibatch entries of one row per node, which node sharding permutes
+    # with the nodes under a reorder (parallel/node_sharding.py).
+    node_aligned_minibatch_keys = ("targets",)
+
     def __init__(self, gnn_model: GraphNeuralNetworkModel):
         super().__init__()
         self.__gnn_model = gnn_model

@@ -19,6 +19,12 @@ host i are i x world-size .. (i + 1) x world-size - 1. Each host reads its
 own interleave of the training and validation files; metadata comes from
 rank 0 over the whole training folder. ``--device cpu`` runs gloo over CPU
 processes; the default is NCCL over the local cards.
+
+``--node-shards S`` splits each minibatch's nodes over node groups of S
+consecutive ranks (``parallel/node_sharded_trainer.py``): graphs larger
+than one card train, and the node groups are data-parallel among
+themselves. A node group must not span hosts. ``--node-budget-headroom``
+scales the node-sharding budgets probed from the first batches.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from ptgnn_tpu_torch.device import resolve_device
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class
 from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, default_padding
 from ptgnn_tpu_torch.parallel.distributed_trainer import DistributedModelTrainer, initialize_multi_host
+from ptgnn_tpu_torch.parallel.node_sharded_trainer import NodeShardedModelTrainer
 from ptgnn_tpu_torch.utils.amlutils import configure_logging, get_run_context, log_run
 from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path, load_from_folder
 
@@ -62,7 +69,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="processes on this host (default: one per local GPU; 1 with --device cpu)")
     parser.add_argument("--no-zero1", action="store_true", help="keep the full optimizer state on every rank")
     parser.add_argument("--node-shards", type=int, default=None,
-                        help="not supported yet (node sharding is not ported)")
+                        help="split each batch's nodes over this many ranks (graphs larger than one card train); "
+                             "the node groups are data-parallel among themselves")
+    parser.add_argument("--node-budget-headroom", type=float, default=1.5,
+                        help="safety factor on the node-sharding budgets probed from the first batches")
     parser.add_argument("--coordinator", type=str, default=None, help="HOST:PORT of host 0's rendezvous")
     parser.add_argument("--num-processes", type=int, default=None, help="number of hosts (with --coordinator)")
     parser.add_argument("--process-id", type=int, default=None, help="this host's index (with --coordinator)")
@@ -115,9 +125,7 @@ def _run_rank(args: argparse.Namespace, device: torch.device) -> Optional[float]
         model, _ = Graph2Class.restore_model(args.restore_path)
     else:
         model = create_graph2class_gnn_model(padding=default_padding(max_nodes=args.max_nodes))
-    trainer = DistributedModelTrainer(
-        model,
-        args.model_filename,
+    trainer_kwargs = dict(
         zero1=not args.no_zero1,
         local_world_size=local_world,
         max_num_epochs=args.max_num_epochs,
@@ -129,12 +137,17 @@ def _run_rank(args: argparse.Namespace, device: torch.device) -> Optional[float]
         enable_amp=args.amp,
         device=device,
     )
+    if args.node_shards is not None:
+        trainer = NodeShardedModelTrainer(model, args.model_filename, node_shards=args.node_shards,
+                                          budget_headroom=args.node_budget_headroom, **trainer_kwargs)
+    else:
+        trainer = DistributedModelTrainer(model, args.model_filename, **trainer_kwargs)
     if args.restore_path is not None:
         trainer.restore_parameters(args.restore_path)
     else:
         trainer.load_metadata_and_create_network(metadata_data)
-    logging.info("Data-parallel training on %s ranks (%s nodes of %s), rank %s on %s.",
-                 world, nodes, local_world, rank, device)
+    logging.info("Data-parallel training on %s ranks (%s nodes of %s, node groups of %s), rank %s on %s.",
+                 world, nodes, local_world, args.node_shards or 1, rank, device)
     trainer.register_train_epoch_end_hook(
         lambda model, nn, epoch, metrics: log_run(aml_ctx, "train", model, epoch, metrics)
     )
@@ -159,9 +172,6 @@ def _run_rank(args: argparse.Namespace, device: torch.device) -> Optional[float]
 def run(args: argparse.Namespace) -> Optional[float]:
     """Train on every rank; returns the test accuracy where rank 0 ran in
     this process, else None (it is printed either way)."""
-    if args.node_shards is not None:
-        raise NotImplementedError("--node-shards: node sharding is not ported yet; it comes with the "
-                                  "node-sharding slice (parallel/node_sharding.py)")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
     if args.device == "cuda":

@@ -128,9 +128,10 @@ def _fused_fwd_impl(node_states, weight_stack, adj, seed, num_nodes, reduction, 
     msgs = typed_tile_matmul(inp, weight_stack, adj.tile_types, adj.edge_tile)
     if argmax_routing and reduction in ("max", "min"):
         # The backward resolves each winner's transpose slot by its fwd/bwd
-        # pair id; the port's batcher always numbers them.
-        if adj.edge_feature_slot is None:
-            raise ValueError("argmax routing needs the batch's edge_feature_slot (fwd/bwd pair ids)")
+        # pair id; the port's batcher numbers them in every batch, those
+        # with featureless graphs among featured ones included.
+        if adj.edge_pair_id is None:
+            raise ValueError("argmax routing needs the batch's edge_pair_id (fwd/bwd pair ids)")
         is_max = reduction == "max"
         neutral = torch.full((), -_BIG if is_max else _BIG, dtype=msgs.dtype, device=msgs.device)
         work = torch.where(adj.mask[:, None], msgs, neutral)
@@ -179,7 +180,7 @@ def _transpose_winners(args, adj, dtype) -> torch.Tensor:
     equals this slot's (pair id, transposed type). A self edge is its own
     pair, with pair id -1: its winner matches only a self edge of the same
     type."""
-    pair = adj.edge_feature_slot
+    pair = adj.edge_pair_id
     m = args.shape[1]
     flat = args.reshape(-1)
     of_arg = torch.cat([

@@ -13,8 +13,15 @@ Semantics (torch-scatter's, as the JAX package has them):
 
 The extrema split their gradient evenly among tied elements (JAX's
 ``segment_max``): ``scatter_reduce`` with ``include_self=False`` into a
-neutral-filled output does that. On CUDA the float sums (``index_add_``) add
-in atomic order, so their last bits may differ from run to run.
+neutral-filled output does that.
+
+:func:`segment_sum` (and the sums, means, counts and softmax denominators
+built on it) gives the same bits on every run: on the CPU it is
+``index_add``; on a CUDA tensor it sorts the ids stably and runs the
+row-indexed segment sum kernel over them (``ops/segment_kernels.py``), in
+place of ``index_add_``'s float atomics. :func:`take_rows` (and
+:func:`masked_take`) gathers rows with a backward that is such a sum, where
+``index_select``'s backward would be ``index_add_``.
 """
 from __future__ import annotations
 
@@ -25,12 +32,39 @@ import torch
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``values.index_select(0, idx)`` whose backward adds each row's
+    cotangents with :func:`segment_sum`, in one fixed order."""
+
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = values.shape[0]
+        return values.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.num_rows), None
+
+
+def take_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values.index_select(0, idx)`` for ids in range. On the card, where
+    the gradient flows, its backward is :func:`segment_sum` (the same bits
+    on every run) in place of ``index_add_``, which adds in atomic order
+    where an id repeats; on the CPU it is ``index_select`` itself."""
+    if (values.device.type == "cuda" and values.requires_grad and torch.is_grad_enabled()
+            and values.dtype in (torch.float32, torch.bfloat16)):
+        return _TakeRows.apply(values, idx.long())
+    return values.index_select(0, idx.long())
+
+
 def masked_take(values: torch.Tensor, idx: torch.Tensor, fill: float) -> torch.Tensor:
     """``values[idx]`` along dim 0, ``fill`` where ``idx`` is out of range:
     JAX's ``take(..., mode="fill", fill_value=fill)``. ``index_select`` would
     raise on such an id on the CPU and assert on the card."""
     valid = (idx >= 0) & (idx < values.shape[0])
-    got = values.index_select(0, torch.where(valid, idx, torch.zeros_like(idx)).long())
+    got = take_rows(values, torch.where(valid, idx, torch.zeros_like(idx)))
     valid = valid.reshape(valid.shape + (1,) * (got.ndim - 1))
     return torch.where(valid, got, torch.full((), fill, dtype=values.dtype, device=values.device))
 
@@ -50,6 +84,37 @@ def _in_range(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return (segment_ids >= 0) & (segment_ids < num_segments)
 
 
+class _SortedSegmentSum(torch.autograd.Function):
+    """[E, D] float32/bf16 data -> [num_segments, D] float32 sums on the
+    card: K1 over the row index of a one-tile plan whose rows are the ids
+    (a stable sort of them), so the sums add in one fixed order. Backward:
+    the cotangent's row of each element (0 at out-of-range ids)."""
+
+    @staticmethod
+    def forward(ctx, data, rows, num_segments):
+        from ptgnn_tpu_torch.ops.segment_kernels import AggregationPlan, planned_segment_sum
+
+        ctx.save_for_backward(rows)
+        ctx.data_dtype = data.dtype
+        # The row index from the sort alone (the dropped elements' sentinel
+        # num_segments sorts last), with nothing that waits for the card.
+        sorted_rows, order = torch.sort(rows, stable=True)
+        starts = torch.arange(num_segments + 1, dtype=rows.dtype, device=rows.device)
+        plan = AggregationPlan(
+            local_rows=rows,
+            tile_row_blocks=torch.zeros(1, dtype=torch.int32, device=data.device),
+            counts=torch.zeros((1, num_segments), dtype=torch.int32, device=data.device),
+            row_offsets=torch.searchsorted(sorted_rows, starts).int(),
+            row_slots=torch.where(sorted_rows < num_segments, order, -1).int(),
+        )
+        return planned_segment_sum(data, plan, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        return masked_take(g, rows, 0.0).to(ctx.data_dtype), None, None
+
+
 def segment_sum(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -57,12 +122,23 @@ def segment_sum(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[num_segments, ...] sums; masked elements and out-of-range ids add
-    nothing (they go to a spare row that is cut off)."""
+    nothing (they go to a spare row that is cut off). The same bits on
+    every run, on the card too (see the module docstring)."""
     data, orig = _promote(data)
     if mask is not None:
         data = torch.where(_expand_mask(mask, data), data, torch.zeros((), dtype=data.dtype, device=data.device))
-    rows = torch.where(_in_range(segment_ids, num_segments), segment_ids, num_segments).long()
-    out = data.new_zeros((num_segments + 1,) + data.shape[1:]).index_add(0, rows, data)[:num_segments]
+    rows = torch.where(_in_range(segment_ids, num_segments), segment_ids, num_segments)
+    if data.device.type == "cuda":
+        if data.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"segment_sum on the card takes float32 or bfloat16 data, not {data.dtype}")
+        if data.shape[0] == 0 or num_segments == 0 or data[0].numel() == 0:
+            out = data.new_zeros((num_segments,) + data.shape[1:])
+        else:
+            flat = data.reshape(data.shape[0], -1).contiguous()
+            out = _SortedSegmentSum.apply(flat, rows.int().contiguous(), num_segments)
+            out = out.to(data.dtype).reshape((num_segments,) + data.shape[1:])
+    else:
+        out = data.new_zeros((num_segments + 1,) + data.shape[1:]).index_add(0, rows.long(), data)[:num_segments]
     return out.to(orig) if orig is not None else out
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.ops.segment import take_rows
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -162,5 +163,6 @@ def typed_tile_matmul(
         return _TypedMatmul.apply(x, weight_stack, tile_types, edge_tile)
     m = weight_stack.shape[-1]
     xt = x.reshape(e // edge_tile, edge_tile, d)
-    wt = weight_stack.index_select(0, tile_types.long()).to(x.dtype)  # [nt, D, M]
+    wt = take_rows(weight_stack.reshape(weight_stack.shape[0], -1), tile_types)
+    wt = wt.reshape(-1, d, m).to(x.dtype)  # [nt, D, M]
     return torch.bmm(xt, wt).reshape(e, m)

@@ -25,8 +25,8 @@ weighted one.
 * Checkpoints and the optimizer state are written by rank 0 alone; with
   ZeRO-1 the state is consolidated on rank 0 first.
 * Dropout: each rank's generator is seeded from (seed, epoch, step) with
-  the rank folded in, so ranks draw different masks (rank 0 draws the
-  single-device trainer's).
+  ``dropout_rank`` folded in, so ranks draw different masks (rank 0 draws
+  the single-device trainer's); the ranks of a node group share theirs.
 
 A device OOM is not caught: a rank that skipped its minibatch would leave
 the others waiting in the collective.
@@ -176,13 +176,40 @@ class DistributedModelTrainer(ModelTrainer):
         dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         return bool(flag.item())
 
+    @property
+    def dropout_rank(self) -> int:
+        """The index folded into the dropout seeds: the rank (the node-
+        sharded trainer's ranks of one node group share theirs, so that the
+        work they replicate draws the same masks)."""
+        return self.rank
+
+    @property
+    def finalize_slot(self) -> Tuple[int, int]:
+        """(this rank's slot, slots per node) of each group of minibatches."""
+        return self.local_rank, self.local_world_size
+
+    def _start_groups(self, minibatch_iterator):
+        """A hook at the start of every pass over the groups: returns the
+        iterator to group (the node-sharded trainer probes its budgets)."""
+        return minibatch_iterator
+
+    def _prepare_minibatch(self, mb_data: Dict[str, Any], weight: float) -> Tuple[Dict[str, Any], float]:
+        """A hook on this rank's host minibatch of each group (the node-
+        sharded trainer takes this rank's shard of it)."""
+        return mb_data, weight
+
     def group_minibatches(self, minibatch_iterator) -> Iterator[Tuple[Dict[str, Any], List[Any], float]]:
         """(this rank's host minibatch, the raw samples of its node's group,
-        this rank's weight) for every group of ``local_world_size``
+        this rank's weight) for every group of ``finalize_slot[1]``
         minibatches; padding slots carry the empty minibatch at weight 0.
         The iterator needs to finalize only this rank's slot
-        (``finalize_slot=(local_rank, local_world_size)``)."""
-        per_node = self.local_world_size
+        (``finalize_slot``)."""
+        for mb_data, raw, weight in self._group_minibatches(self._start_groups(minibatch_iterator)):
+            mb_data, weight = self._prepare_minibatch(mb_data, weight)
+            yield mb_data, raw, weight
+
+    def _group_minibatches(self, minibatch_iterator) -> Iterator[Tuple[Dict[str, Any], List[Any], float]]:
+        slot, per_node = self.finalize_slot
 
         def local_groups():
             group: List[Dict[str, Any]] = []
@@ -203,7 +230,7 @@ class DistributedModelTrainer(ModelTrainer):
 
         if self.num_nodes == 1:
             for group, raw, counts in local_groups():
-                yield group[self.local_rank], raw, counts[self.local_rank]
+                yield group[slot], raw, counts[slot]
             return
         groups = local_groups()
         while True:
@@ -214,7 +241,7 @@ class DistributedModelTrainer(ModelTrainer):
                 yield self.empty_minibatch(), [], 0.0
             else:
                 group, raw, counts = item
-                yield group[self.local_rank], raw, counts[self.local_rank]
+                yield group[slot], raw, counts[slot]
 
     # ------------------------------------------------------------------
     # Epoch loops
@@ -235,13 +262,13 @@ class DistributedModelTrainer(ModelTrainer):
             parallelize=parallelize,
             # the same on every rank of a node, decorrelated across nodes
             shuffle_rng=random.Random(shuffle_seed(self._seed, epoch, self.node_rank)),
-            finalize_slot=(self.local_rank, self.local_world_size),
+            finalize_slot=self.finalize_slot,
         )
         for step_idx, (mb_data, raw_samples, weight) in enumerate(self.group_minibatches(mb_iter)):
             lr_factor = 1.0 if scheduler is None else scheduler.step(
                 epoch, self._opt_steps_this_epoch if self._grad_accum_steps > 1 else step_idx
             )
-            generator.manual_seed(step_seed(self._seed, epoch, step_idx, self.rank))
+            generator.manual_seed(step_seed(self._seed, epoch, step_idx, self.dropout_rank))
             loss, metrics, _ = dp.grad_step(tree_to(mb_data, self._device), weight, generator)
             self._accumulated += 1
             self._last_lr_factor = lr_factor
@@ -278,7 +305,7 @@ class DistributedModelTrainer(ModelTrainer):
             yield_partial_minibatches=True,
             shuffle_input=False,
             parallelize=parallelize,
-            finalize_slot=(self.local_rank, self.local_world_size),
+            finalize_slot=self.finalize_slot,
         )):
             loss, metrics, group_weight = dp.eval_step(tree_to(mb_data, self._device), weight)
             group_weight = float(group_weight)

@@ -23,6 +23,17 @@ backward. At world size 1 that factor is exactly 1, so the step is the
 single-device trainer's bit for bit. The loss and the metrics follow in one
 small all-reduce (metric counts are exact below 2**24).
 
+Under edge or node sharding (``parallel/edge_sharding.py``,
+``parallel/node_sharding.py``) the ranks of one model group share one
+minibatch, and ``data_group`` names the ranks that hold different ones:
+one rank of each model group (``LOCAL`` when there is no data axis). The
+weights, the loss and the metrics are reduced over it, and each rank's
+loss is scaled by w x data_world / sum w. DDP still sums over the whole
+world and divides by its size: that sums each model group's partial
+gradients, whose collectives carry the group size as a factor
+(``parallel/collectives.py``), and leaves the weighted mean over the data
+groups.
+
 ZeRO-1 (:func:`zero1_optimizer`) is ``ZeroRedundancyOptimizer`` over the
 trainer's optimizer class: each rank keeps the moments of about 1/world of
 the parameters, updates them, and broadcasts them to the others. The
@@ -39,22 +50,28 @@ from torch.nn.parallel import DistributedDataParallel
 
 from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
 
-__all__ = ["DataParallel", "zero1_optimizer", "moment_elements"]
+__all__ = ["DataParallel", "LOCAL", "zero1_optimizer", "moment_elements"]
+
+# ``DataParallel(data_group=LOCAL)``: this rank's minibatch is the only one
+# (no data axis), so nothing is reduced over data groups.
+LOCAL = "local"
 
 
 def zero1_optimizer(
     params: Iterable[torch.nn.Parameter],
     optimizer_creator: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer],
+    group: Any = None,
 ) -> torch.optim.Optimizer:
     """``ZeroRedundancyOptimizer`` with the class and hyperparameters of the
     optimizer that ``optimizer_creator`` makes (``torch.optim.Adam`` with
-    the trainer's learning rate, say). The probe optimizer holds no state:
-    Adam allocates its moments at the first step."""
+    the trainer's learning rate, say), its moments sharded over ``group``
+    (the world when None). The probe optimizer holds no state: Adam
+    allocates its moments at the first step."""
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     params = list(params)
     probe = optimizer_creator(params)
-    return ZeroRedundancyOptimizer(params, optimizer_class=type(probe), **probe.defaults)
+    return ZeroRedundancyOptimizer(params, optimizer_class=type(probe), process_group=group, **probe.defaults)
 
 
 def moment_elements(optimizer: torch.optim.Optimizer) -> int:
@@ -96,9 +113,12 @@ class DataParallel:
     JAX's does, so an accumulation window may end anywhere.
     ``allreduce_calls`` and ``allreduce_bytes`` count the collectives."""
 
-    def __init__(self, module: torch.nn.Module, *, enable_amp: bool = False):
+    def __init__(self, module: torch.nn.Module, *, enable_amp: bool = False, data_group: Any = None):
         self.module = module
         self.enable_amp = enable_amp
+        # the ranks whose minibatches differ: the world, a subgroup, or LOCAL
+        self.data_group = data_group
+        self.data_world = 1 if data_group == LOCAL else dist.get_world_size(data_group)
         self._ddp = DistributedDataParallel(module)
         self._ddp.register_comm_hook(self, _counting_allreduce_hook)
         self._weight_acc: Optional[torch.Tensor] = None  # the weight total of the steps held in .grad
@@ -110,8 +130,10 @@ class DataParallel:
         self.allreduce_bytes += flat.numel() * flat.element_size()
 
     def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(flat)
-        self._count(flat)
+        """Sum over the data group (a no-op for LOCAL)."""
+        if self.data_group != LOCAL:
+            dist.all_reduce(flat, group=self.data_group)
+            self._count(flat)
         return flat
 
     def _reduce(self, loss: torch.Tensor, share: torch.Tensor, metrics: Dict[str, Any]):
@@ -143,7 +165,7 @@ class DataParallel:
                     p.grad.mul_(held / acc.clamp_min(1e-9))
         self._weight_acc = acc
         loss, metrics = module_loss(self._ddp, minibatch, train=True, generator=generator, amp=self.enable_amp)
-        (loss * _ratio(float(weight) * dist.get_world_size(), acc)).backward()
+        (loss * _ratio(float(weight) * self.data_world, acc)).backward()
         mean_loss, summed = self._reduce(loss, _ratio(weight, total), metrics)
         return mean_loss, summed, total
 

@@ -35,7 +35,7 @@ import torch
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import GRU, Embedding, Linear, dropout
-from ptgnn_tpu_torch.ops.segment import segment_log_softmax, segment_logsumexp, segment_sum
+from ptgnn_tpu_torch.ops.segment import segment_log_softmax, segment_logsumexp, segment_sum, take_rows
 from ptgnn_tpu_torch.utils.text import Vocabulary
 
 LOGGER = logging.getLogger(__name__)
@@ -117,7 +117,7 @@ class GruCopyingDecoder(torch.nn.Module):
         copy_reps = dropout(self.mem_to_copy(input_memories), rate, train, generator).float()
 
         safe_origin = origin.clamp(max=num_targets - 1).long()
-        out_per_input = output_states.index_select(0, safe_origin)  # [M, T, H]
+        out_per_input = take_rows(output_states, safe_origin)  # [M, T, H]
         std_scores = torch.einsum("mth,mh->mt", out_per_input, std_reps)
         copy_scores = torch.einsum("mth,mh->mt", out_per_input, copy_reps)
 
@@ -143,7 +143,7 @@ class GruCopyingDecoder(torch.nn.Module):
         normalizing_const = torch.log(torch.exp(all_scores - shift[..., None]).sum(dim=-1)) + shift  # [B, T]
 
         target_logprobs = target_scores - normalizing_const[..., None]
-        copy_logprobs = copy_scores - normalizing_const.index_select(0, safe_origin)  # [M, T]
+        copy_logprobs = copy_scores - take_rows(normalizing_const, safe_origin)  # [M, T]
         return copy_logprobs, target_logprobs, final_state
 
     def forward(

@@ -226,8 +226,8 @@ def test_argmax_routing_on_ties_matches_jax_and_differs_from_tie_split(use_targe
 def test_argmax_routing_needs_pair_ids():
     num_types, _, tbatch = build_batches(seed=2)
     states, weights, _ = _grad_inputs(num_types, True, seed=3)
-    adj = tbatch.adjacency._replace(edge_feature_slot=None)
-    with pytest.raises(ValueError, match="edge_feature_slot"):
+    adj = tbatch.adjacency._replace(edge_pair_id=None)
+    with pytest.raises(ValueError, match="edge_pair_id"):
         fused_typed_message_aggregation(torch.from_numpy(states), torch.from_numpy(weights), adj,
                                         PAD["max_nodes"], "max", True, argmax_routing=True)
     # Sum and mean have no winners to route: the flag changes nothing there.

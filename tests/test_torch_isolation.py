@@ -43,6 +43,8 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.parallel", "ptgnn_tpu_torch.parallel.dp", "ptgnn_tpu_torch.parallel.distributed_trainer",
         "ptgnn_tpu_torch.implementations.typilus.traindistributed", "ptgnn_tpu_torch.utils.text",
         "ptgnn_tpu_torch.graph.embedders", "ptgnn_tpu_torch.graph.gnn", "ptgnn_tpu_torch.graph.batching",
+        "ptgnn_tpu_torch.parallel.collectives", "ptgnn_tpu_torch.parallel.edge_sharding",
+        "ptgnn_tpu_torch.parallel.node_sharding", "ptgnn_tpu_torch.parallel.node_sharded_trainer",
     } <= names
 
 
@@ -231,8 +233,24 @@ def test_traindistributed_without_device_raises_when_cuda_is_missing(tmp_path, m
     data = str(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pkl.gz")]))
-    with pytest.raises(NotImplementedError, match="node-sharding slice"):
-        traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pkl.gz"), "--node-shards", "2",
-                                                "--device", "cpu"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pkl.gz"), "--node-shards", "2"]))
     with pytest.raises(ValueError, match="pkl.gz"):
         traindistributed.run(parser.parse_args([data, data, data, str(tmp_path / "m.pt"), "--device", "cpu"]))
+
+
+PORT_CLIS = (
+    "ppi.train", "varmisuse.train", "graph2seq.train", "graph2seq.test", "graph2seq.trainandtest",
+    "typilus.train", "typilus.traindistributed", "typilus.predict",
+)
+
+
+@pytest.mark.parametrize("cli", PORT_CLIS)
+def test_port_cli_modules_have_a_main(cli):
+    """Each of the JAX package's eight console entry points
+    (``pyproject.toml`` ``[project.scripts]``) has its counterpart in the
+    port, a module with a callable ``main``."""
+    import importlib
+
+    module = importlib.import_module(f"ptgnn_tpu_torch.implementations.{cli}")
+    assert callable(module.main)

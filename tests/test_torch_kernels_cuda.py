@@ -399,7 +399,8 @@ def test_pna_layer_on_card_matches_cpu_with_emptied_nodes(cuda_device):
     """An MLP-MP layer with a hidden layer and PNA aggregation at width 64
     under a mask that empties two real nodes: the forward runs K1 twice and
     K2 twice (K1 at width 1 once more for the live in-degrees), the backward
-    K3 and K1; outputs and gradients finite and within rtol 1e-4 and 1e-4 of
+    K3 and K1 (K1 also for the backward of the gathers: the senders, the
+    receivers, the two weight stacks, PNA's means); outputs and gradients finite and within rtol 1e-4 and 1e-4 of
     each tensor's largest magnitude of the CPU's."""
     from ptgnn_tpu_torch.graph.messagepassing import GraphContext, MlpMessagePassingLayer, PnaMessageAggregation
     from ptgnn_tpu_torch.nn.module import init_parameters
@@ -422,7 +423,7 @@ def test_pna_layer_on_card_matches_cpu_with_emptied_nodes(cuda_device):
         if device.type == "cuda":
             torch.cuda.synchronize()
             assert forward["segment_sum"] == 3 and forward["segment_extremum"] == 2
-            assert tsk.launch_counts()["broadcast_to_edges"] == 6 and tsk.launch_counts()["segment_sum"] == 5
+            assert tsk.launch_counts()["broadcast_to_edges"] == 6 and tsk.launch_counts()["segment_sum"] == 10
         outs.append(out.detach().cpu())
         grads.append([x.grad.cpu()] + [p.grad.cpu() for p in layer.parameters()])
     assert torch.isfinite(outs[1]).all()
@@ -463,7 +464,7 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 24,
-                                   "segment_sum": 16, "typed_matmul": 0}
+                                   "segment_sum": 17, "typed_matmul": 0}
     assert all(p.grad.dtype == torch.float32 for p in gpu_module.parameters())
     if amp:
         assert np.isfinite(float(loss.detach()))
@@ -479,11 +480,11 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
 
 @pytest.mark.parametrize("architecture,argmax_routing,per_step", [
     ("mlp", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 16,
-                   "segment_sum": 8, "typed_matmul": 0}),
+                   "segment_sum": 9, "typed_matmul": 0}),
     ("ggnn", False, {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 16,
-                     "segment_sum": 16, "typed_matmul": 0}),
+                     "segment_sum": 17, "typed_matmul": 0}),
     ("ggnn", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 8,
-                    "segment_sum": 8, "typed_matmul": 0}),
+                    "segment_sum": 9, "typed_matmul": 0}),
 ])
 def test_graph2class_paths_train_on_card_as_on_cpu(cuda_device, architecture, argmax_routing, per_step):
     """A train step of the argmax-routed and the GGNN paths: the launches the
@@ -809,8 +810,10 @@ def test_kernels_on_a_graph2seq_layout_match_plain(cuda_device, kernel):
 
 def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
     """A Graph2Seq train step (dropout 0) at width 128: 16 sum and 8
-    broadcast launches (8 gated positions), the loss to rtol 1e-5, every
-    gradient to rtol 1e-4 and 1e-4 of its tensor's largest magnitude."""
+    broadcast launches of the 8 gated positions and 18 sum launches of
+    ops/segment.py's sums (the summariser's and the decoder's, over sorted
+    ids, and the backward of its gathers), the loss to rtol 1e-5, every gradient to rtol 1e-4 and 1e-4 of its
+    tensor's largest magnitude."""
     _, gpu_module, mbs = _graph2seq_small(cuda_device)
     _, cpu_module, _ = _graph2seq_small("cpu")
     for m in (gpu_module, cpu_module):
@@ -823,7 +826,7 @@ def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
-                                   "segment_sum": 16, "typed_matmul": 0}
+                                   "segment_sum": 16 + 18, "typed_matmul": 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator())
     cpu_loss.backward()
@@ -848,8 +851,11 @@ def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeyp
     """The edge-feature stack (5 sum MLP-MP layers reading 128 feature
     columns, or 4 and a gated layer) on the card against its plain route on
     the CPU, dropout 0: per step 5 sums forward and 5 broadcasts backward,
-    no fused-op call, and in bf16 AMP 10 typed matmul launches (its gate
-    opens at D = 384, M = 128 once forced at this small stack). float32: the
+    the sums of the gathers' backward (the feature rows, each layer's
+    senders, the MLP-MP layers' receivers and, while K5's gate is closed,
+    the weight stacks), no fused-op call, and in bf16 AMP 10 typed matmul
+    launches (its gate opens at D = 384, M = 128 once forced at this small
+    stack). float32: the
     loss to rtol 1e-5 and every gradient to rtol 1e-4 and 1e-4 of its largest
     magnitude. bf16 AMP: the loss within 2e-2; the two devices round at
     other places (the card's bf16 GEMMs and K5, the CPU's plain route), so
@@ -882,8 +888,9 @@ def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeyp
     tsk.reset_launch_counts()
     g_loss, g = step(gpu_module, cuda_device, amp)
     torch.cuda.synchronize()
+    sums = {(False, False): 21, (False, True): 16, (True, False): 20, (True, True): 15}[gated, amp]
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 5,
-                                   "segment_sum": 5, "typed_matmul": 10 if amp else 0}
+                                   "segment_sum": sums, "typed_matmul": 10 if amp else 0}
     assert not fused
     names = [name for name, _ in gpu_module.named_parameters()]
     if amp:
@@ -940,3 +947,66 @@ def test_data_parallel_world_one_over_nccl_matches_the_single_device_step(cuda_d
         dist.destroy_process_group()
     for (name, a), b in zip(single.named_parameters(), ranked.parameters()):
         torch.testing.assert_close(b.detach(), a.detach(), rtol=0, atol=1e-6 * float(a.detach().abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_on_card_repeats_bit_for_bit(cuda_device, dtype):
+    """``ops/segment.py::segment_sum`` on a CUDA tensor (K1 over the stably
+    sorted ids): 10^5 unsorted ids, some out of range, into 10^3 segments.
+    Two calls give the same bits, the result is within 1e-5 of each row's
+    sum of |x| of the plain version, and its gradient is the cotangent's
+    row of each element."""
+    from ptgnn_tpu_torch.ops.segment import segment_sum
+
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 1010, (100_000,), generator=gen)  # 1000..1009 are dropped
+    x = torch.randn(100_000, 24, generator=gen).to(dtype)
+    mask = torch.rand(100_000, generator=gen) < 0.9
+    want = segment_sum(x, ids, 1000, mask).float()
+    scale = segment_sum(x.float().abs(), ids, 1000, mask)
+    xc = x.to(cuda_device).requires_grad_(True)
+    tsk.reset_launch_counts()
+    got = segment_sum(xc, ids.to(cuda_device), 1000, mask.to(cuda_device))
+    again = segment_sum(xc, ids.to(cuda_device), 1000, mask.to(cuda_device))
+    assert tsk.launch_counts()["segment_sum"] == 2
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.detach().float().cpu().numpy(), again.detach().float().cpu().numpy())
+    err = (got.detach().float().cpu() - want).abs()
+    # bf16 outputs round once more: half a bf16 ulp of the sum on top.
+    tol = 1e-5 * scale + (want.abs() * 2.0**-8 if dtype == torch.bfloat16 else 0.0)
+    assert bool((err <= tol + 1e-30).all()), float((err - tol).max())
+    cot = torch.randn(1000, 24, generator=gen).to(dtype)
+    (g,) = torch.autograd.grad(got, xc, cot.to(cuda_device))
+    want_g = torch.where((mask & (ids < 1000))[:, None], cot[ids.clamp(max=999)], torch.zeros((), dtype=dtype))
+    np.testing.assert_array_equal(g.float().cpu().numpy(), want_g.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_take_rows_backward_on_card_repeats_bit_for_bit(cuda_device, dtype):
+    """``ops/segment.py::take_rows`` on a CUDA tensor: 10^5 unsorted ids
+    gather from 10^3 rows; the backward sums each row's cotangents with one
+    K1 launch. Two backward passes give the same bits, within 1e-5 of each
+    row's sum of |cotangent| of the float32 sums of ``index_add_`` on the
+    CPU (half a bf16 ulp more in bf16)."""
+    from ptgnn_tpu_torch.ops.segment import take_rows
+
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 1000, (100_000,), generator=gen)
+    values = torch.randn(1000, 24, generator=gen).to(dtype)
+    cot = torch.randn(100_000, 24, generator=gen).to(dtype)
+    want = torch.zeros(1000, 24).index_add_(0, ids, cot.float())
+    scale = torch.zeros(1000, 24).index_add_(0, ids, cot.float().abs())
+    grads = []
+    for _ in range(2):
+        xc = values.to(cuda_device).requires_grad_(True)
+        out = take_rows(xc, ids.to(cuda_device))
+        np.testing.assert_array_equal(out.detach().float().cpu().numpy(), values[ids].float().numpy())
+        tsk.reset_launch_counts()
+        (g,) = torch.autograd.grad(out, xc, cot.to(cuda_device))
+        assert tsk.launch_counts()["segment_sum"] == 1
+        assert g.dtype == dtype
+        grads.append(g.float().cpu())
+    np.testing.assert_array_equal(grads[0].numpy(), grads[1].numpy())
+    tol = 1e-5 * scale + (want.abs() * 2.0**-8 if dtype == torch.bfloat16 else 0.0)
+    err = (grads[0] - want).abs()
+    assert bool((err <= tol + 1e-30).all()), float((err - tol).max())

@@ -138,3 +138,24 @@ def test_masked_take_fills_out_of_range_rows():
     np.testing.assert_array_equal(got.numpy(), [[4, 5], [-5, -5], [-5, -5], [0, 1]])
     expected = jnp.take(jnp.asarray(values.numpy()), jnp.array([2, 3, 0]), axis=0, mode="fill", fill_value=-5.0)
     np.testing.assert_array_equal(got[[0, 1, 3]].numpy(), np.asarray(expected))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_take_rows_and_its_summing_backward_match_jax(dtype):
+    """``take_rows`` with repeated ids (on the CPU, ``index_select``) and the
+    route it takes on the card (``_TakeRows``: the backward sums each row's
+    cotangents with ``segment_sum``), both run here: the rows and the
+    gradient of sum(rows * cotangent) against JAX's ``take`` and its grad."""
+    rng = np.random.RandomState(2)
+    idx = rng.randint(0, S, E).astype(np.int32)
+    jvalues, tvalues = to_dtype_pair(rng.randn(S, D), dtype)
+    cot = rng.randn(E, D).astype(np.float32)
+    expected = jnp.take(jvalues, jnp.asarray(idx), axis=0)
+    jgrad = jax.grad(lambda v: jnp.sum(jnp.take(v, jnp.asarray(idx), axis=0).astype(jnp.float32) * cot))(jvalues)
+    for route in (tseg.take_rows, tseg._TakeRows.apply):
+        x = tvalues.clone().requires_grad_()
+        out = route(x, torch.from_numpy(idx).long())
+        out.float().mul(torch.from_numpy(cot)).sum().backward()
+        assert out.dtype == x.grad.dtype == tvalues.dtype
+        _assert_close(out, expected, dtype, f"{route} value")
+        _assert_close(x.grad, jgrad, dtype, f"{route} gradient")
