@@ -184,6 +184,33 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and in float32 against the unsharded steps (losses, gradients, stepped
    parameters), and K5 held on its interior and boundary layouts. The 2-
    and 4-rank paths run on the CPU over gloo in the tests.
+23. native-assembler (after node-parallel; the library is built in phase 2):
+   the C++ layout assembler (``ptgnn_tpu_torch/native/``) against the numpy
+   oracle on the benchmark batch, a PPI batch and a 2-way node-parallel
+   boundary layout (bitwise; host ms per layout, medians of 7, in turns);
+   four ModelTrainer epochs of about 18 benchmark batches (54 synthetic
+   graphs, worker threads on) with each assembler in turns, bitwise equal,
+   and the device's busy share of a profiled epoch with each;
+24. prefetch: two epochs at ``prefetch_to_device`` 1 beside phase 23's at
+   2: losses and parameters bitwise equal, and the seconds of each;
+25. oom: the allocator capped (``set_per_process_memory_fraction``) between
+   a benchmark step's peak and that of one batch at a 16,384-node padding;
+   an epoch with that batch in it skips it under ``catch_device_ooms`` (one
+   real ``torch.OutOfMemoryError`` caught) and raises without; the cap is
+   lifted in a ``finally``;
+26. autotune: ``typilus train --autotune`` through the CLI's ``main`` on
+   synthetic folds of the benchmark's graphs over the full default grid
+   (9 candidates): each candidate's median ms/step and edges/s, the pick,
+   the epoch trained at it; then K1-K3 against their plain versions on the
+   picked padding's layout;
+27. checkpoint: ``DistributedCheckpointer`` at world 1 over NCCL with
+   ZeRO-1: an async save after step 3 while steps 4-5 run; a restore into a
+   fresh module and optimizer (parameters and both Adam moments bitwise);
+   the resumed step 4 bitwise the uninterrupted one; retention at 2 steps
+   with the sidecars; the save, commit and restore seconds;
+28. profiling: ``profile_trace`` around 3 Graph2Class train steps writes a
+   Chrome trace under build/ that holds K1-K3 under their symbols; one
+   MLP-MP layer's traced device ms beside ``mp_layer_roofline``'s bound.
 
 Phases 10, 14 and 17 also hold argmax routing on a feature-tracking batch
 with a featureless graph against a single-winner oracle, and a float32
@@ -200,6 +227,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import math
 import shutil
@@ -3590,6 +3618,505 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
     return counts, layouts, k5_err
 
 
+# ---------------------------------------------------------------------------
+# 23-28. the C++ layout assembler, prefetch, device-OOM skips, the padding
+# autotuner, async sharded checkpoints, profiling
+# ---------------------------------------------------------------------------
+EPOCH_GRAPHS = 54  # about 18 benchmark batches of about 3 graphs
+ASSEMBLER_REPS = 7
+
+
+def recorded_layouts(fn, owner) -> list:
+    """The (args, kwargs) of every ``assemble_layout_arrays`` call that
+    ``fn()`` makes through module ``owner``'s name for it."""
+    calls = []
+    real = owner.assemble_layout_arrays
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    owner.assemble_layout_arrays = recording
+    try:
+        fn()
+    finally:
+        owner.assemble_layout_arrays = real
+    return calls
+
+
+@contextlib.contextmanager
+def numpy_assembler():
+    """Every ``GraphBatcher.finalize`` assembles with the numpy oracle."""
+    from ptgnn_tpu_torch.graph import batching
+
+    real = batching.assemble_layout_arrays
+    batching.assemble_layout_arrays = functools.partial(real, native_assembler=False)
+    try:
+        yield
+    finally:
+        batching.assemble_layout_arrays = real
+
+
+def first_minibatch(model, samples):
+    return next(iter(model.minibatch_iterator(model.tensorize_dataset(iter(samples), parallelize=False),
+                                              max_minibatch_size=300, parallelize=False)))[0]
+
+
+def device_ms(prof) -> float:
+    """The kernels' device ms in a profile (named ranges left out)."""
+    total = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, "is_user_annotation", False) and not evt.key.startswith(("Optimizer.", "layer ")):
+            total += us
+    return total / 1e3
+
+
+def g2c_epoch(model, train, valid, dev, *, prefetch=2, numpy_layout=False, profiled=False, catch_device_ooms=False,
+              inject=None, name="epoch"):
+    """One ModelTrainer epoch of the benchmark Graph2Class model (dropout
+    0.1, seeded) over ``train`` with the worker threads on, then validation
+    on ``valid``. ``inject``: (position, host minibatch, raw samples) put
+    into the training pass. Returns the epoch's seconds (training start to
+    the train epoch's end), the step losses, the parameters, the steps, and
+    with ``profiled`` the busy share of the whole train() call."""
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+
+    class Trainer(ModelTrainer):
+        def _device_minibatches(self, items):
+            if inject is not None:
+                items = itertools.chain(itertools.islice(items, inject[0]), [inject[1:]], items)
+            return super()._device_minibatches(items)
+
+        def _train_step(self, *args):
+            loss_f, metrics = super()._train_step(*args)
+            self.losses.append(loss_f)
+            return loss_f, metrics
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "epochs"
+    trainer = Trainer(model, out_dir / f"{name}.pkl.gz", max_num_epochs=1, minibatch_size=300,
+                      clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4),
+                      prefetch_to_device=prefetch, catch_device_ooms=catch_device_ooms, device=dev, seed=SEED)
+    trainer.losses = []
+    trainer.load_metadata_and_create_network(train, parallelize=False)
+    marks = {}
+    trainer.register_training_start_hook(lambda *_: marks.__setitem__("start", time.perf_counter()))
+    trainer.register_train_epoch_end_hook(lambda *_: marks.__setitem__("end", time.perf_counter()))
+    context = numpy_assembler() if numpy_layout else contextlib.nullcontext()
+    busy = None
+    with context:
+        torch.cuda.synchronize()
+        if profiled:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = device_ms(prof) / (1e3 * wall)
+        else:
+            trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0)
+    return {"seconds": marks["end"] - marks["start"], "losses": list(trainer.losses), "busy": busy,
+            "params": {k: v.detach().clone() for k, v in trainer.neural_module.named_parameters()},
+            "steps": len(trainer.losses)}
+
+
+def same_epoch(a: dict, b: dict) -> bool:
+    return a["losses"] == b["losses"] and all(bitwise_equal(a["params"][k], b["params"][k]) for k in a["params"])
+
+
+def epoch_data():
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    train = list(synthetic_typilus_graphs(EPOCH_GRAPHS, seed=SEED + 50, mean_nodes=2500, max_nodes=8000))
+    valid = list(synthetic_typilus_graphs(6, seed=SEED + 51, mean_nodes=2500, max_nodes=8000))
+    return train, valid
+
+
+def native_assembler_phase(dev, card, model, ppi_model, ppi_samples, epochs):
+    """The C++ assembler against the numpy oracle: bitwise on the
+    benchmark batch, a PPI batch and a 2-way node-parallel boundary layout,
+    host ms of each (median of 7); a Graph2Class epoch with each. Returns
+    the launch counts of the two epochs."""
+    from ptgnn_tpu_torch import native
+    from ptgnn_tpu_torch.graph import batching
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel import node_sharding, shard_batch_by_nodes, suggest_budgets
+
+    name = "native-assembler"
+    phase(name, f"library {native.library_path()} (g++ flags {' '.join(native.CXX_FLAGS)})")
+    host = {}
+    layouts = recorded_layouts(lambda: host.setdefault("g2c", first_minibatch(model, graphs())), batching)
+    cases = [("benchmark batch", layouts[0])]
+    layouts = recorded_layouts(lambda: first_minibatch(ppi_model, ppi_samples), batching)
+    cases.append(("PPI batch", layouts[0]))
+    mb = host["g2c"]
+    layouts = recorded_layouts(lambda: shard_batch_by_nodes(mb, 2, reorder="bfs", **suggest_budgets(
+        [mb], 2, reorder="bfs")), node_sharding)
+    boundary = [c for c in layouts if c[1]["sender_domain"] != c[1]["max_nodes"]]
+    cases.append(("2-way node-parallel boundary (sender_domain)", boundary[0]))
+    for label, (args, kwargs) in cases:
+        times = {}
+        outs = {}
+        for native_layout in (True, False, True, False):
+            samples = []
+            for _ in range(ASSEMBLER_REPS):
+                t0 = time.perf_counter()
+                outs[native_layout] = batching.assemble_layout_arrays(*args, **kwargs, native_assembler=native_layout)
+                samples.append(1e3 * (time.perf_counter() - t0))
+            times.setdefault(native_layout, []).append(float(np.median(samples)))
+        equal = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(outs[True], outs[False]))
+        phase(name, f"{label}: {len(args[0])} raw edges into {kwargs['e_pad']} slots (tile {kwargs['tile']}, "
+              f"align {kwargs['align']}, sender domain {kwargs.get('sender_domain')}): C++ == numpy bitwise {equal}; "
+              f"host ms per layout, median of {ASSEMBLER_REPS}, in turns: C++ {times[True]}, numpy {times[False]}")
+        if not equal:
+            raise RuntimeError(f"the C++ layout differs from the numpy one on the {label}")
+
+    train, valid = epochs
+    sk.reset_launch_counts()  # the native-assembler path starts here
+    runs = {"C++": [], "numpy": []}
+    for label in ("numpy", "C++", "C++", "numpy"):  # in turns
+        runs[label].append(g2c_epoch(model, train, valid, dev, numpy_layout=label == "numpy",
+                                     name=f"assembler-{label}"))
+    busy = {label: g2c_epoch(model, train, valid, dev, numpy_layout=label == "numpy", profiled=True,
+                             name=f"assembler-{label}-profiled")["busy"] for label in ("C++", "numpy")}
+    counts = sk.launch_counts()  # the native-assembler path ends here
+    for label in ("C++", "numpy"):
+        phase(name, f"ModelTrainer epoch with the {label} assembler (worker threads on, prefetch 2): "
+              f"{runs[label][0]['steps']} steps over {len(train)} graphs in "
+              f"{[round(r['seconds'], 3) for r in runs[label]]} s (run in turns numpy, C++, C++, numpy); device "
+              f"busy {100 * busy[label]:.1f} % of a profiled epoch + validation on {card}")
+    if not all(same_epoch(runs["C++"][0], r) for r in runs["C++"][1:] + runs["numpy"]):
+        raise RuntimeError("the epochs with the C++ and the numpy assembler differ")
+    phase(name, f"the four epochs bitwise equal (losses and parameters); launches {counts}")
+    return counts, runs["C++"]
+
+
+def prefetch_phase(dev, card, model, epochs, prefetch_two):
+    """Two Graph2Class epochs at prefetch_to_device 1 beside the native
+    phase's two at 2: losses and parameters bitwise equal."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "prefetch"
+    sk.reset_launch_counts()  # the prefetch path starts here
+    ones = [g2c_epoch(model, *epochs, dev, prefetch=1, name=f"prefetch-1-{i}") for i in range(2)]
+    counts = sk.launch_counts()  # the prefetch path ends here
+    phase(name, f"ModelTrainer epoch, {ones[0]['steps']} steps: prefetch_to_device 1 "
+          f"{[round(r['seconds'], 3) for r in ones]} s, 2 {[round(r['seconds'], 3) for r in prefetch_two]} s "
+          f"(the native-assembler phase's C++ epochs) on {card}; launches {counts}")
+    if not all(same_epoch(one, prefetch_two[0]) for one in ones):
+        raise RuntimeError("prefetch_to_device 1 and 2 gave different epochs")
+    phase(name, f"losses and parameters bitwise equal at prefetch 1 and 2 ({len(ones[0]['losses'])} losses)")
+    return counts
+
+
+def oom_phase(dev, card, model, epochs):
+    """A real device OOM: the allocator is capped between a benchmark
+    step's peak and the peak of one oversized batch (a 16,384-node
+    padding); an epoch with that batch in it skips it under
+    catch_device_ooms and raises without."""
+    import logging
+
+    from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.utils.autotune import clone_with_padding
+    from ptgnn_tpu_torch.utils.oom import is_oom_error
+
+    name = "oom"
+    train, valid = epochs
+    train = train[:18]
+    normal = first_minibatch(model, train)
+    for big_nodes in (16384, 32768):
+        big_model = clone_with_padding(model, default_padding(big_nodes))
+        big_mb, big_raw = next(iter(big_model.minibatch_iterator(
+            big_model.tensorize_dataset(iter(train), parallelize=False, return_input_data=True),
+            max_minibatch_size=300, parallelize=False)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        module = model.build_neural_module(device=dev, seed=SEED)
+        optimizer = torch.optim.Adam(module.parameters(), lr=2.5e-4)
+
+        def peak(mb):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = module_loss(module, tree_to(mb, dev), train=True, generator=torch.Generator(device=dev))
+            loss.backward()
+            optimizer_step(module, optimizer, [2.5e-4], clip_gradient_norm=1.0)
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_reserved() - base
+
+        normal_peak, big_peak = peak(normal), peak(big_mb)
+        del module, optimizer
+        torch.cuda.empty_cache()
+        if big_peak >= 1.6 * normal_peak:
+            break
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = base + (normal_peak + big_peak) / 2
+    phase(name, f"step peaks over the {base / 2**20:.0f} MiB already reserved: benchmark batch "
+          f"{normal_peak / 2**20:.0f} MiB, {big_nodes}-node batch ({int(big_mb['batch'].num_nodes)} nodes) "
+          f"{big_peak / 2**20:.0f} MiB; allocator capped at {cap / 2**20:.0f} MiB of {total / 2**20:.0f}")
+    caught = []
+
+    class Caught(logging.Handler):
+        def emit(self, record):
+            if "device OOM" in record.getMessage():
+                caught.append(record.getMessage())
+
+    handler = Caught()
+    logger = logging.getLogger("ptgnn_tpu_torch.core.trainer")
+    logger.addHandler(handler)
+    sk.reset_launch_counts()  # the oom path starts here
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        t0 = time.perf_counter()
+        run = g2c_epoch(model, train, valid, dev, catch_device_ooms=True, inject=(2, big_mb, big_raw), name="oom")
+        t_caught = time.perf_counter() - t0
+        raised = None
+        try:
+            g2c_epoch(model, train, valid, dev, inject=(2, big_mb, big_raw), name="oom-uncaught")
+        except RuntimeError as error:  # kept as text: the traceback holds the failed step's tensors
+            raised = (type(error).__name__, str(error).splitlines()[0][:160],
+                      is_oom_error(error) and isinstance(error, torch.cuda.OutOfMemoryError))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        logger.removeHandler(handler)
+        torch.cuda.empty_cache()
+    counts = sk.launch_counts()  # the oom path ends here
+    phase(name, f"catch_device_ooms on: the epoch ended in {t_caught:.2f} s after {len(run['losses'])} steps, "
+          f"{len(caught)} minibatch skipped ({caught[:1]}); off: {raised}; launches {counts}")
+    if len(caught) != 1 or raised is None or not raised[2]:
+        raise RuntimeError(f"expected one skipped OOM and a raised torch.OutOfMemoryError, got {caught}, {raised}")
+    if not all(math.isfinite(loss) for loss in run["losses"]):
+        raise RuntimeError("non-finite losses after the skipped OOM")
+    return counts
+
+
+def autotune_phase(dev, card):
+    """``typilus train --autotune`` through the CLI's main over the full
+    default grid on synthetic folds of the benchmark's graphs: every
+    candidate's median ms/step and edges/s and the pick; then K1-K3 against
+    their plain versions on the picked padding's layout."""
+    import io as stdio
+    import os
+
+    from ptgnn_tpu_torch.implementations.typilus import train as typilus_train
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    name = "autotune"
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "autotune"
+    shutil.rmtree(root, ignore_errors=True)
+    folds, written = [], []
+    for i, (fold, count) in enumerate((("train", 24), ("valid", 6), ("test", 6))):
+        (root / fold).mkdir(parents=True)
+        written.append(list(synthetic_typilus_graphs(count, seed=SEED + 60 + i, mean_nodes=2500, max_nodes=8000)))
+        write_jsonl_gz(root / fold / "part0.jsonl.gz", written[-1])
+        folds.append(str(root / fold))
+    sweeps = []
+    real = typilus_train.autotune_task_model
+
+    def recording(*args, **kwargs):
+        t0 = time.perf_counter()
+        tuned, results = real(*args, **kwargs)
+        sweeps.append((tuned, results, time.perf_counter() - t0))
+        return tuned, results
+
+    argv, cwd = sys.argv, os.getcwd()
+    typilus_train.autotune_task_model = recording
+    sys.argv = ["typilus-train", *folds, str(root / "tuned.pkl.gz"), "--max-num-epochs", "1", "--autotune",
+                "--quiet"]
+    os.chdir(root)  # the train CLI's log file goes under the working directory
+    sk.reset_launch_counts()  # the autotune path starts here
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdio.StringIO()) as out:
+            typilus_train.main()
+    finally:
+        typilus_train.autotune_task_model = real
+        sys.argv = argv
+        os.chdir(cwd)
+    counts = sk.launch_counts()  # the autotune path ends here
+    t_cli = time.perf_counter() - t0
+    (tuned, results, t_sweep), = sweeps
+    for r in sorted(results, key=lambda r: (r.padding.max_nodes, r.padding.max_edge_slots)):
+        phase(name, f"max_nodes {r.padding.max_nodes} slots {r.padding.max_edge_slots}: "
+              + (f"infeasible ({r.error[:120]})" if r.error else
+                 f"{r.ms_per_step:.3f} ms/step (median of 3 x 20), {r.edges_per_sec:.0f} edges/s, "
+                 f"{r.real_edges} edges of {r.real_graphs} graphs"))
+    pick = results[0].padding
+    phase(name, f"pick: max_nodes {pick.max_nodes}, {pick.max_edge_slots} slots; sweep {t_sweep:.1f} s, CLI "
+          f"(sweep + 1 epoch + test) {t_cli:.1f} s on {card}; '{out.getvalue().strip().splitlines()[-1]}'; "
+          f"launches {counts}")
+    if tuned.gnn_model.padding != pick or any(r.error for r in results[:1]):
+        raise RuntimeError("the CLI did not train at the sweep's pick")
+    host = first_minibatch(tuned, written[0])
+    adj = host["batch"].to(dev).adjacency
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    held = []
+    for kind in ("segment_sum", "segment_extremum", "broadcast_to_edges"):
+        k = layout_kernel(kind, adj, 64, dev, gen)
+        x = k.make()
+        got, plain = k.kernel(x), k.plain(x)
+        err = float((got - plain).abs().max())
+        if kind == "segment_sum":
+            ok = not bool((((got - plain).abs()) > 1e-5 * k.plain(x.abs())).any())
+        else:
+            ok = bitwise_equal(got, plain)
+        held.append(f"{kind} max abs err {err:.3e}")
+        if not ok:
+            raise RuntimeError(f"{kind} != its plain version on the picked layout")
+    phase(name, f"on the picked layout ({adj.mask.shape[0]} slots, {int(adj.mask.sum())} real): K2 and K3 bitwise "
+          f"their plain versions, K1 within 1e-5 x sum|x|: {held}")
+    return counts
+
+
+def checkpoint_phase(dev, card, model, batches):
+    """DistributedCheckpointer at world 1 over NCCL with ZeRO-1: an async
+    save after step 3 while steps 4-5 run; a restore into a fresh module
+    and optimizer (parameters and both Adam moments bitwise); the resumed
+    step 4 bitwise the uninterrupted one; retention."""
+    from ptgnn_tpu_torch.core.dcp_checkpoint import DistributedCheckpointer
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
+
+    name = "checkpoint"
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dcp"
+    shutil.rmtree(root, ignore_errors=True)
+    lr = 2.5e-4
+
+    def fresh(seed):
+        module = model.build_neural_module(device=dev, seed=seed)
+        optimizer = zero1_optimizer(module.parameters(), lambda p: torch.optim.Adam(p, lr=lr))
+        return module, optimizer, DataParallel(module)
+
+    def step(trio, i):
+        module, optimizer, dp = trio
+        dp.train_step(g2c_minibatch(batches[i % len(batches)]), 1.0, torch.Generator(device=dev).manual_seed(SEED + i),
+                      optimizer, [lr], clip_gradient_norm=1.0)
+
+    def state(trio):
+        module, optimizer, _ = trio
+        names = {id(p): n for n, p in module.named_parameters()}
+        return ({n: p.detach().clone() for n, p in module.named_parameters()},
+                {names[id(p)]: {k: v.clone() for k, v in st.items()} for p, st in optimizer.optim.state.items()})
+
+    def run():
+        trio = fresh(SEED)
+        for i in range(3):
+            step(trio, i)
+        params3, moments3 = state(trio)
+        ckpt = DistributedCheckpointer(root, max_to_keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(3, trio[0], trio[1], model=model)
+        t_stage = time.perf_counter() - t0
+        step(trio, 3)
+        params4, _ = state(trio)
+        step(trio, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.wait()
+        t_commit = time.perf_counter() - t0
+        other = fresh(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored_step = ckpt.restore(module=other[0], optimizer=other[1])
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        got_params, got_moments = state(other)
+        same_params = all(bitwise_equal(got_params[k], params3[k]) for k in params3)
+        same_moments = got_moments.keys() == moments3.keys() and all(
+            bitwise_equal(got_moments[n][k].to(moments3[n][k].device), moments3[n][k])
+            for n in moments3 for k in moments3[n])
+        step(other, 3)
+        resumed, _ = state(other)
+        same_step = all(bitwise_equal(resumed[k], params4[k]) for k in params4)
+        ckpt.save(4, trio[0], trio[1], model=model)
+        ckpt.save(5, trio[0], trio[1], model=model, wait=True)
+        kept = ckpt.all_steps()
+        sidecars = sorted(p.name for p in root.glob("*.model.pkl.gz"))
+        loaded = type(ckpt.restore_model()).__name__
+        ckpt.close()
+        size = sum(p.stat().st_size for p in (root / "5").iterdir())
+        phase(name, f"ZeRO-1 at world 1 over NCCL: save after step 3 returned in {t_stage:.3f} s (the state staged "
+              f"on the host), steps 4-5 ran, commit waited {t_commit:.3f} s more; restore {t_restore:.3f} s "
+              f"(step {restored_step}); a step is {size} bytes in {len(list((root / '5').iterdir()))} files on {card}")
+        phase(name, f"restored parameters bitwise {same_params}, Adam moments and steps bitwise {same_moments} "
+              f"({sum(len(v) for v in moments3.values())} tensors); resumed step 4 bitwise the uninterrupted "
+              f"step 4: {same_step}; after saving steps 4 and 5 with max_to_keep 2 the steps are {kept}, the "
+              f"sidecars {sidecars}, restore_model gives a {loaded}")
+        if not (same_params and same_moments and same_step and restored_step == 3 and kept == [4, 5]
+                and sidecars == ["4.model.pkl.gz", "5.model.pkl.gz"]):
+            raise RuntimeError("the checkpoint round trip or retention failed")
+
+    sk.reset_launch_counts()  # the checkpoint path starts here
+    world_one(run)
+    counts = sk.launch_counts()  # the checkpoint path ends here
+    phase(name, f"launches {counts}")
+    return counts
+
+
+def profiling_phase(dev, card, model, batches):
+    """profile_trace around 3 Graph2Class train steps: a Chrome trace with
+    the hand kernels under their symbols, and mp_layer_roofline's bound of
+    one MLP-MP layer beside that layer's traced device time."""
+    from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.utils.profile_serving import device_us_by_layer, label_layer_ranges, layer_label
+    from ptgnn_tpu_torch.utils.profiling import H100_SXM_FLOAT32_FLOPS, mp_layer_roofline, profile_trace
+
+    name = "profiling"
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "profile"
+    module = model.build_neural_module(device=dev, seed=SEED)
+    optimizer = torch.optim.Adam(module.parameters(), lr=2.5e-4)
+    layers = module.gnn.message_passing_layers
+    handles = label_layer_ranges(layers)
+    generator = torch.Generator(device=dev)
+    steps = 3
+
+    def step(i):
+        generator.manual_seed(SEED + i)
+        loss, _ = module_loss(module, g2c_minibatch(batches[i % len(batches)]), train=True, generator=generator)
+        loss.backward()
+        optimizer_step(module, optimizer, [2.5e-4], clip_gradient_norm=1.0)
+
+    step(0)
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()  # the profiling path starts here
+    with profile_trace(out_dir) as prof:
+        for i in range(steps):
+            step(1 + i)
+    counts = sk.launch_counts()  # the profiling path ends here
+    for h in handles:
+        h.remove()
+    trace = (out_dir / "trace.json").read_text()
+    symbols = {k: k in trace for k in ("segment_sum_kernel", "segment_extremum_kernel", "broadcast_rows_kernel")}
+    by_layer = device_us_by_layer(prof.events())
+    position = next(i for i, layer in enumerate(layers) if type(layer).__name__ == "MlpMessagePassingLayer")
+    label = layer_label(position, layers[position])
+    traced_ms = sum(by_layer.get(label, ())) / 1e3 / steps
+    adj = batches[0][0].adjacency
+    roof = mp_layer_roofline(adj.mask.shape[0], 64, 64, adj.agg_counts.numel(), bytes_per_el=4)
+    bounds = roof.time_bounds_ms(peak_flops=H100_SXM_FLOAT32_FLOPS)
+    phase(name, f"trace {out_dir / 'trace.json'} ({len(trace)} bytes) over {steps} train steps; kernel symbols "
+          f"in it {symbols}; launches {counts}")
+    phase(name, f"'{label}' (float32, {adj.mask.shape[0]} slots, width 64): traced {traced_ms:.4f} device ms a step "
+          f"(forward + backward) against mp_layer_roofline's bound {max(bounds.values()):.4f} ms "
+          f"({roof.flops} flops, {roof.hbm_bytes} bytes; compute {bounds['compute_ms']:.4f}, memory "
+          f"{bounds['memory_ms']:.4f} at the H100 SXM datasheet's 67 TFLOP/s and 3.35 TB/s) on {card}")
+    if not all(symbols.values()) or traced_ms <= 0:
+        raise RuntimeError(f"the trace lacks a hand kernel ({symbols}) or the layer's time ({traced_ms} ms)")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3600,6 +4127,7 @@ def main() -> None:
     if sys.argv[1:2] == ["--layers-gate"]:
         layers_gate_repeats(int(sys.argv[2]))
         return
+    from ptgnn_tpu_torch import native
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import cuda_build
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -3617,6 +4145,8 @@ def main() -> None:
     # ---- 2. build -------------------------------------------------------
     build_s = cuda_build.build_all()
     phase("build", f"{build_s:.2f} s for {sorted(cuda_build.BUILD_LOG) or 'nothing (cached)'}")
+    native_s = native.build()
+    phase("build", f"native layout assembler: {native.library_path()} in {native_s:.2f} s (g++)")
     for name, log in sorted(cuda_build.BUILD_LOG.items()):
         for line in log.splitlines():
             if "Used" in line:
@@ -3709,13 +4239,25 @@ def main() -> None:
     # ---- 21-22. edge and node sharding -----------------------------------------
     ep_counts = edge_parallel_phase(dev, card)
     np_counts, np_layouts, np_err = node_parallel_phase(dev, card, ppi_model, ppi_minibatches)
+
+    # ---- 23-28. the assembler, prefetch, OOM skips, autotune, checkpoints, profiling
+    t_new = time.perf_counter()
+    epochs = epoch_data()
+    na_counts, prefetch_two = native_assembler_phase(dev, card, model, ppi_model, ppi_samples, epochs)
+    pf_counts = prefetch_phase(dev, card, model, epochs, prefetch_two)
+    oom_counts = oom_phase(dev, card, model, epochs)
+    at_counts = autotune_phase(dev, card)
+    ck_counts = checkpoint_phase(dev, card, model, batches)
+    pr_counts = profiling_phase(dev, card, model, batches)
+    phase("total", f"phases 23-28 in {time.perf_counter() - t_new:.1f} s")
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
              "varmisuse-mlp": vm_counts["mlp"], "varmisuse-ggnn": vm_counts["ggnn"],
              "graph2seq": g2s_counts, "layers": layers_counts, "edge-features": edge_counts,
              "bpe": bpe_counts, "data-parallel": dp_counts, "edge-parallel": ep_counts,
-             "node-parallel": np_counts}
+             "node-parallel": np_counts, "native-assembler": na_counts, "prefetch": pf_counts, "oom": oom_counts,
+             "autotune": at_counts, "checkpoint": ck_counts, "profiling": pr_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")

@@ -15,6 +15,9 @@ stopping and best-checkpoint save/restore, plus the five hook families.
   scaling: bf16 keeps float32's exponent range.
 * Dropout draws from one ``torch.Generator`` on the device, re-seeded from
   (seed, epoch, step) before every step, as the JAX trainer folds its key.
+* ``prefetch_to_device`` minibatches are copied to the card ahead of their
+  step (:func:`prefetch_to_device`), and with ``catch_device_ooms`` a device
+  OOM raised by a copy or a step skips that minibatch (``utils/oom.py``).
 
 The neural-module protocol: ``module(**minibatch, train=..., generator=...)``
 returns ``(loss, metric accumulators)``; ``module.finalize_metrics(sums)``
@@ -28,8 +31,9 @@ import logging
 import math
 import random
 import time
+from collections import deque
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Protocol, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -38,12 +42,15 @@ from ptgnn_tpu_torch.core.data import MemorizedDataIterable
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
-from ptgnn_tpu_torch.graph.structs import tree_to
+from ptgnn_tpu_torch.graph.structs import tree_tensors, tree_to
+from ptgnn_tpu_torch.utils.oom import is_oom_error, release_cached_memory
 
 __all__ = [
     "ModelTrainer", "AbstractScheduler", "EndOfEpochHook", "clip_by_global_norm_",
-    "module_loss", "optimizer_step",
+    "module_loss", "optimizer_step", "prefetch_to_device",
 ]
+
+LOGGER = logging.getLogger(__name__)
 
 EndOfEpochHook = Callable[[AbstractNeuralModel, torch.nn.Module, int, Dict], None]
 OptimizerCreator = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
@@ -161,6 +168,64 @@ def step_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
     return (seed + rank * 0x9E3779B97F4A7C15) % (1 << 63)
 
 
+def prefetch_to_device(
+    items: Iterable[Tuple[Any, ...]], device: torch.device, size: int, *, catch_oom: bool = False,
+) -> Iterator[Tuple[Any, ...]]:
+    """Yield the ``(minibatch, *rest)`` tuples of ``items`` in order with the
+    minibatch moved to ``device``, keeping ``size`` of them in flight: the
+    counterpart of the JAX trainer's ``_prefetch_device_batches``.
+
+    At ``size`` 1 each minibatch is copied when it is asked for, on the
+    current stream. From 2 on a CUDA device the copies run on a side stream
+    from page-locked host memory, so the next minibatches' copies overlap
+    the running step; the consumer's stream waits on a copy's event before
+    it is handed over, and its tensors are recorded on that stream for the
+    allocator. On the CPU the minibatches pass through in order. A ``None``
+    minibatch stays ``None``. ``catch_oom``: a device OOM raised by a copy
+    skips that minibatch (the copies run outside the step's own guard)."""
+    if size < 1:
+        raise ValueError("prefetch_to_device must be >= 1")
+    side = torch.cuda.Stream(device) if size > 1 and device.type == "cuda" else None
+
+    def copy(minibatch):
+        if side is None:
+            return tree_to(minibatch, device), None
+        with torch.cuda.stream(side):
+            moved = tree_to(minibatch, device, pin_memory=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        return moved, copied
+
+    def hand_over(moved, copied):
+        if copied is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(copied)
+            for tensor in tree_tensors(moved):
+                tensor.record_stream(stream)
+        return moved
+
+    in_flight: deque = deque()
+    for item in items:
+        skipped = False
+        try:
+            moved, copied = copy(item[0])
+        except RuntimeError as error:
+            if not (catch_oom and is_oom_error(error)):
+                raise
+            LOGGER.exception("A device OOM error was caught while copying a minibatch to the device; skipping it.")
+            skipped = True
+        if skipped:  # outside the handler, whose traceback holds the copies
+            release_cached_memory()
+            continue
+        in_flight.append((moved, copied, item[1:]))
+        if len(in_flight) >= size:
+            moved, copied, rest = in_flight.popleft()
+            yield (hand_over(moved, copied), *rest)
+    while in_flight:
+        moved, copied, rest = in_flight.popleft()
+        yield (hand_over(moved, copied), *rest)
+
+
 class ModelTrainer:
     LOGGER = logging.getLogger(__name__)
 
@@ -179,11 +244,14 @@ class ModelTrainer:
         enable_amp: bool = False,
         catch_device_ooms: bool = False,
         gradient_accumulation_steps: int = 1,
+        prefetch_to_device: int = 2,
         seed: int = 0,
         device: DeviceLike = None,
     ):
         if gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
+        if prefetch_to_device < 1:
+            raise ValueError("prefetch_to_device must be >= 1")
         if target_validation_metric is None and target_validation_metric_higher_is_better:
             raise ValueError("without an explicit metric the validation loss is used: lower is better")
         self._model = model
@@ -199,6 +267,7 @@ class ModelTrainer:
         self._enable_amp = enable_amp
         self._catch_device_ooms = catch_device_ooms
         self._grad_accum_steps = gradient_accumulation_steps
+        self._prefetch_to_device = prefetch_to_device
         self._seed = seed
         self._device = resolve_device(device)
 
@@ -303,12 +372,18 @@ class ModelTrainer:
         self._accumulated = 0
         self._opt_steps_this_epoch += 1
 
+    def _device_minibatches(self, items: Iterable[Tuple[Any, ...]]) -> Iterator[Tuple[Any, ...]]:
+        """The training pass's ``(minibatch, *rest)`` items with each
+        minibatch on the device, ``prefetch_to_device`` ahead."""
+        return prefetch_to_device(items, self._device, self._prefetch_to_device,
+                                  catch_oom=self._catch_device_ooms)
+
     def _train_step(self, minibatch, generator, optimizer, base_lrs, lr_factor: float):
-        """Forward and backward of one microbatch; every k-th applies the
-        mean gradient of the last k. Returns (host loss, metrics)."""
+        """Forward and backward of one device-resident microbatch; every
+        k-th applies the mean gradient of the last k. Returns (host loss,
+        metrics)."""
         loss, metrics = module_loss(
-            self.neural_module, tree_to(minibatch, self._device), train=True,
-            generator=generator, amp=self._enable_amp,
+            self.neural_module, minibatch, train=True, generator=generator, amp=self._enable_amp,
         )
         loss.backward()
         loss_f = float(loss.detach())  # waits for the step, so a device OOM raises here
@@ -337,7 +412,7 @@ class ModelTrainer:
             # data order is part of the training seed: same seed -> same run
             shuffle_rng=random.Random(shuffle_seed(self._seed, epoch)),
         )
-        for step_idx, (mb_data, raw_samples) in enumerate(mb_iter):
+        for step_idx, (mb_data, raw_samples) in enumerate(self._device_minibatches(mb_iter)):
             # Schedules count optimizer steps: under gradient accumulation k
             # microbatches share one index.
             lr_factor = 1.0 if scheduler is None else scheduler.step(
@@ -346,14 +421,18 @@ class ModelTrainer:
             generator.manual_seed(step_seed(self._seed, epoch, step_idx))
             try:
                 loss_f, metrics = self._train_step(mb_data, generator, optimizer, base_lrs, lr_factor)
-            except torch.cuda.OutOfMemoryError:
-                if not self._catch_device_ooms:
+            except RuntimeError as error:
+                if not (self._catch_device_ooms and is_oom_error(error)):
                     raise
                 # Skip the minibatch, and the partial accumulation group
                 # whose gradients it may have touched.
                 self.LOGGER.exception("A device OOM error was caught; skipping minibatch.")
                 optimizer.zero_grad(set_to_none=True)
                 self._accumulated = 0
+                loss_f = None
+            if loss_f is None:  # outside the handler, whose traceback holds the step's tensors
+                del mb_data
+                release_cached_memory()
                 continue
             if not math.isfinite(loss_f):
                 raise RuntimeError("Loss has a NaN value.")

@@ -17,8 +17,9 @@ serves both hot paths without device-side permutation:
   row by row.
 
 Backward edges (type id T+t) and self edges (last type id) are materialized
-here. All work is numpy; every array the JAX package also has is bitwise
-its own.
+here. The layout is assembled by the C++ assembler (``native/``), whose
+output is bitwise the numpy assembler's (``_assemble_layout_python``, the
+oracle); every array the JAX package also has is bitwise its own.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ptgnn_tpu_torch import native
 from ptgnn_tpu_torch.graph.structs import (
     AdjacencyStruct,
     BatchPadding,
@@ -146,21 +148,50 @@ def build_adjacency_struct(
     )
 
 
+def assemble_layout_arrays(
+    senders_r: np.ndarray,
+    receivers_r: np.ndarray,
+    types_r: np.ndarray,
+    pair_ids_r: Optional[np.ndarray],
+    *,
+    max_nodes: int,
+    e_pad: int,
+    tile: int,
+    agg_rows: int,
+    num_types: int,
+    align: int,
+    sender_domain: Optional[int] = None,
+    native_assembler: bool = True,
+) -> Optional[Tuple[np.ndarray, ...]]:
+    """Assemble raw edge arrays into the unified (row block, type, receiver)
+    layout. Returns (senders, receivers, edge_types, local_rows, edge_mask,
+    tile_types, tile_row_blocks, counts [num_blocks, agg_rows], pair ids:
+    ``pair_ids_r`` carried through the sort, -1 on padding and where it is
+    None), or None if the edges exceed the ``e_pad`` budget. Ids out of
+    range raise ``ValueError``.
+
+    ``sender_domain`` bounds the sender ids, which are copied through and
+    not used for the layout (default ``max_nodes``): the boundary layouts of
+    node sharding (``parallel/node_sharding.py``) index a receive buffer.
+    The C++ assembler does the work; ``native_assembler=False`` runs the
+    numpy oracle instead (the tests compare the two)."""
+    if pair_ids_r is None:
+        pair_ids_r = np.full(len(senders_r), -1, np.int32)
+    kwargs = dict(max_nodes=max_nodes, e_pad=e_pad, tile=tile, agg_rows=agg_rows, num_types=num_types,
+                  align=align, sender_domain=sender_domain)
+    if native_assembler:
+        return native.assemble_edge_layout(senders_r, receivers_r, types_r, pair_ids_r, **kwargs)
+    return _assemble_layout_python(senders_r, receivers_r, types_r, pair_ids_r, **kwargs)
+
+
 def _assemble_layout_python(
     senders_r, receivers_r, types_r, feats_r, *,
     max_nodes, e_pad, tile, agg_rows, num_types, align, sender_domain: Optional[int] = None,
 ) -> Optional[Tuple[np.ndarray, ...]]:
-    """Assemble raw edge arrays into the unified layout. Returns (senders,
-    receivers, edge_types, local_rows, edge_mask, tile_types,
-    tile_row_blocks, counts [num_blocks, agg_rows], feature_slot), or None
-    if the edges exceed the ``e_pad`` budget.
-
-    ``sender_domain`` bounds the sender ids, which are copied through and
-    not used for the layout (default ``max_nodes``): the boundary layouts of
-    node sharding (``parallel/node_sharding.py``) index a receive buffer."""
-    domain = max_nodes if sender_domain is None else sender_domain
-    if len(senders_r) and (int(senders_r.min()) < 0 or int(senders_r.max()) >= domain):
-        raise ValueError(f"sender ids must lie in [0, {domain})")
+    """The numpy assembler: :func:`assemble_layout_arrays`' oracle, with its
+    arguments and results (``feats_r`` the pair ids)."""
+    native.check_edge_ids(senders_r, receivers_r, types_r, feats_r, max_nodes=max_nodes, num_types=num_types,
+                          sender_domain=sender_domain)
     r = agg_rows
     n_tiles = e_pad // tile
     num_blocks = -(-max_nodes // agg_rows)
@@ -443,7 +474,7 @@ class GraphBatcher:
         else:
             senders_r = receivers_r = types_r = feats_r = np.zeros(0, np.int32)
 
-        layout = _assemble_layout_python(
+        layout = assemble_layout_arrays(
             senders_r, receivers_r, types_r, feats_r,
             max_nodes=p.max_nodes, e_pad=p.max_edge_slots, tile=p.edge_tile,
             agg_rows=p.agg_rows, num_types=self.num_edge_types, align=self._block_align,

@@ -104,25 +104,43 @@ class BatchPadding:
         return self.default_reference_budget
 
 
-def tree_to(obj: Any, device: torch.device) -> Any:
+def tree_to(obj: Any, device: torch.device, pin_memory: bool = False) -> Any:
     """numpy arrays and tensors -> tensors on ``device``, through
-    NamedTuples, dicts, lists and tuples; anything else is kept."""
+    NamedTuples, dicts, lists and tuples; anything else is kept.
+
+    With ``pin_memory`` (for a CUDA ``device``) each host array is first
+    copied into page-locked memory, so that the copy to the card runs
+    asynchronously on the current stream; from pageable memory it is
+    synchronous."""
     if obj is None:
         return None
     if isinstance(obj, (np.ndarray, np.generic)):
         arr = np.asarray(obj)  # keeps 0-d scalars 0-d
         if not arr.flags.c_contiguous:
             arr = arr.copy()
-        return torch.from_numpy(arr).to(device, non_blocking=True)
+        obj = torch.from_numpy(arr)
     if isinstance(obj, torch.Tensor):
+        if pin_memory and obj.device.type == "cpu":
+            obj = obj.pin_memory()
         return obj.to(device, non_blocking=True)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(tree_to(x, device) for x in obj))
+        return type(obj)(*(tree_to(x, device, pin_memory) for x in obj))
     if isinstance(obj, dict):
-        return {k: tree_to(v, device) for k, v in obj.items()}
+        return {k: tree_to(v, device, pin_memory) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(tree_to(x, device) for x in obj)
+        return type(obj)(tree_to(x, device, pin_memory) for x in obj)
     return obj
+
+
+def tree_tensors(obj: Any) -> List[torch.Tensor]:
+    """Every tensor of a tree of NamedTuples, dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in tree_tensors(x)]
+    return []
 
 
 class ReferenceSet(NamedTuple):

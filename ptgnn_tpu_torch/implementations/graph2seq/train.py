@@ -17,7 +17,7 @@ from __future__ import annotations
 import argparse
 import logging
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 from ptgnn_tpu_torch.core.data import LazyDataIterable
 from ptgnn_tpu_torch.core.trainer import ModelTrainer
@@ -28,6 +28,7 @@ from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.graph2seq.graph2seq import Graph2Seq
 from ptgnn_tpu_torch.sequence.grucopydecoder import GruCopyingDecoderModel
 from ptgnn_tpu_torch.utils.amlutils import configure_logging
+from ptgnn_tpu_torch.utils.autotune import autotune_task_model, default_candidates
 from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path, iter_jsonl
 
 
@@ -97,6 +98,12 @@ def load_jsonl(path):
     yield from iter_jsonl(path)
 
 
+def autotune_candidates() -> List[BatchPadding]:
+    """The paddings ``--autotune`` measures: 8k and 16k nodes at 6 and 8
+    slots a node, with every node a memory slot."""
+    return default_candidates(max_nodes_options=(8192, 16384), slots_per_node_options=(6.0, 8.0),
+                              reference_budgets_fn=lambda mn: (("backbone_nodes", mn),))
+
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("train_data_path", type=data_path)
@@ -109,7 +116,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="apply the mean gradient of every k minibatches in one optimizer step")
     parser.add_argument("--restore-path", type=Path, default=None)
     parser.add_argument("--autotune", action="store_true",
-                        help="not supported yet (the padding autotuner is not ported)")
+                        help="measure candidate batch paddings on this dataset before training and pick the fastest")
     parser.add_argument("--sequential-run", action="store_true")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--max-nodes", type=int, default=16384)
@@ -121,8 +128,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> ModelTrainer:
     """Train; returns the trainer, holding the best parameters."""
-    if args.autotune:
-        raise NotImplementedError("--autotune: the padding autotuner is not ported yet")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
     configure_logging()
@@ -137,6 +142,11 @@ def run(args: argparse.Namespace) -> ModelTrainer:
         model, _ = Graph2Seq.restore_model(args.restore_path)
     else:
         model = create_graph2seq_model(padding=g2s_padding(args.max_nodes))
+        if args.autotune:
+            model, _ = autotune_task_model(
+                model, training_data, minibatch_size=args.minibatch_size, candidates=autotune_candidates(),
+                amp=args.amp, parallelize=not args.sequential_run, device=args.device,
+            )
     trainer = ModelTrainer(
         model,
         args.model_filename,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 import logging
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 from ptgnn_tpu_torch.core.trainer import ModelTrainer
 from ptgnn_tpu_torch.graph.embedders import FeatureRepresentationModel
@@ -21,6 +21,7 @@ from ptgnn_tpu_torch.graph.messagepassing import MeanResidualLayer, MlpMessagePa
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.ppi.dataloader import PPIDatasetLoader
 from ptgnn_tpu_torch.implementations.ppi.ppi import PPIMulticlassClassification
+from ptgnn_tpu_torch.utils.autotune import autotune_task_model, default_candidates
 from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path
 
 
@@ -90,6 +91,12 @@ def create_ppi_gnn_model(
     )
 
 
+def autotune_candidates() -> List[BatchPadding]:
+    """The paddings ``--autotune`` measures. PPI is dense (about 28
+    materialized edges a node), so its grid has fatter slot budgets than the
+    code-graph tasks'."""
+    return default_candidates(max_nodes_options=(2048, 4096, 8192), slots_per_node_options=(24.0, 30.0, 36.0))
+
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("data_path", type=data_path)
@@ -98,7 +105,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--minibatch-size", type=int, default=50)
     parser.add_argument("--restore-path", type=Path, default=None)
     parser.add_argument("--autotune", action="store_true",
-                        help="not supported yet (the padding autotuner is not ported)")
+                        help="measure candidate batch paddings on this dataset before training and pick the fastest")
     parser.add_argument("--amp", action="store_true", help="bf16 mixed precision")
     parser.add_argument("--sequential-run", action="store_true")
     parser.add_argument("--quiet", action="store_true")
@@ -113,8 +120,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> dict:
     """Train, then report the test fold's metrics (returned and printed)."""
-    if args.autotune:
-        raise NotImplementedError("--autotune: the padding autotuner is not ported yet")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
     if args.azure_info is not None:
@@ -126,6 +131,11 @@ def run(args: argparse.Namespace) -> dict:
         model, _ = PPIMulticlassClassification.restore_model(args.restore_path)
     else:
         model = create_ppi_gnn_model(padding=ppi_padding(args.max_nodes))
+        if args.autotune:
+            model, _ = autotune_task_model(
+                model, training_data, minibatch_size=args.minibatch_size, candidates=autotune_candidates(),
+                amp=args.amp, parallelize=not args.sequential_run, device=args.device,
+            )
     trainer = ModelTrainer(
         model,
         args.model_filename,

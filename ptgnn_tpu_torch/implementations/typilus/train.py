@@ -20,7 +20,7 @@ import argparse
 import logging
 import os
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -36,6 +36,7 @@ from ptgnn_tpu_torch.graph.messagepassing import (
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class
 from ptgnn_tpu_torch.utils.amlutils import configure_logging, get_run_context, log_run
+from ptgnn_tpu_torch.utils.autotune import autotune_task_model, default_candidates
 from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path, load_from_folder
 
 ARGMAX_ROUTING_ENV = "PTGNN_TPU_ARGMAX_ROUTING"
@@ -189,6 +190,11 @@ def graph2class_model(
     )
 
 
+def autotune_candidates() -> List[BatchPadding]:
+    """The paddings ``--autotune`` measures: the default grid with the
+    Typilus reference budgets."""
+    return default_candidates(reference_budgets_fn=typilus_reference_budgets)
+
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("train_data_path", type=data_path)
@@ -209,7 +215,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="static per-batch node budget (graphs larger than this are dropped)")
     parser.add_argument("--architecture", choices=sorted(_STACKS), default="mlp")
     parser.add_argument("--autotune", action="store_true",
-                        help="not supported yet (the padding autotuner is not ported)")
+                        help="measure candidate batch paddings on this dataset before training and pick the fastest")
     parser.add_argument("--azure-info", type=Path, default=None,
                         help="JSON file of fsspec storage options for remote (e.g. az://) dataset paths")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -218,8 +224,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> float:
     """Train, then report the test fold's accuracy (returned and printed)."""
-    if args.autotune:
-        raise NotImplementedError("--autotune: the padding autotuner is not ported yet")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
     aml_ctx = get_run_context() if args.aml else None
@@ -242,6 +246,11 @@ def run(args: argparse.Namespace) -> float:
             architecture=args.architecture,
             argmax_routing=argmax_routing,
         )
+        if args.autotune:  # the re-budgeted clone carries its metadata: the trainer skips a second scan
+            model, _ = autotune_task_model(
+                model, training_data, minibatch_size=args.minibatch_size, candidates=autotune_candidates(),
+                amp=args.amp, parallelize=not args.sequential_run, device=args.device,
+            )
     trainer = ModelTrainer(
         model,
         args.model_filename,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import logging
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -32,6 +32,7 @@ from ptgnn_tpu_torch.implementations.varmisuse.candidateannotatedembeddings impo
 from ptgnn_tpu_torch.implementations.varmisuse.varmisuse import VarMisuseModel
 from ptgnn_tpu_torch.reduceops import WeightedSumVarSizedElementReduce
 from ptgnn_tpu_torch.utils.amlutils import configure_logging
+from ptgnn_tpu_torch.utils.autotune import autotune_task_model, default_candidates
 from ptgnn_tpu_torch.utils.io import configure_remote_io, data_path, load_from_folder
 
 
@@ -116,6 +117,11 @@ def create_var_misuse_gnn_model(
     )
 
 
+def autotune_candidates() -> List[BatchPadding]:
+    """The paddings ``--autotune`` measures: the default grid with the
+    VarMisuse reference budgets."""
+    return default_candidates(reference_budgets_fn=vm_reference_budgets)
+
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("train_data_path", type=data_path)
@@ -133,7 +139,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-nodes", type=int, default=8192)
     parser.add_argument("--architecture", choices=["mlp", "ggnn"], default="mlp")
     parser.add_argument("--autotune", action="store_true",
-                        help="not supported yet (the padding autotuner is not ported)")
+                        help="measure candidate batch paddings on this dataset before training and pick the fastest")
     parser.add_argument("--azure-info", type=Path, default=None,
                         help="JSON file of fsspec storage options for remote (e.g. az://) dataset paths")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -142,8 +148,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> float:
     """Train, then report the test fold's accuracy (returned and printed)."""
-    if args.autotune:
-        raise NotImplementedError("--autotune: the padding autotuner is not ported yet")
     if not args.model_filename.name.endswith(".pkl.gz"):
         raise ValueError("MODEL_FILENAME must have a `.pkl.gz` suffix.")
     configure_logging()
@@ -158,6 +162,11 @@ def run(args: argparse.Namespace) -> float:
         model, _ = VarMisuseModel.restore_model(args.restore_path)
     else:
         model = create_var_misuse_gnn_model(padding=vm_padding(args.max_nodes), architecture=args.architecture)
+        if args.autotune:
+            model, _ = autotune_task_model(
+                model, training_data, minibatch_size=args.minibatch_size, candidates=autotune_candidates(),
+                amp=args.amp, parallelize=not args.sequential_run, device=args.device,
+            )
     trainer = ModelTrainer(
         model,
         args.model_filename,

@@ -139,7 +139,9 @@ def kernel_function(name: str):
 
 
 def check(name: str, err: int) -> None:
-    """Raise if a kernel's C function reported a CUDA error."""
+    """Raise if a kernel's C function reported a CUDA error, in the form of
+    PyTorch's own (``CUDA error: out of memory`` for a failed allocation,
+    which ``utils/oom.is_oom_error`` recognises)."""
     if err != 0:
         message = _LIBS[name].ptgnn_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: error {err} ({message})")
+        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: CUDA error: {message} (error {err})")

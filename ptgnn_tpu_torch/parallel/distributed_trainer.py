@@ -27,6 +27,8 @@ weighted one.
 * Dropout: each rank's generator is seeded from (seed, epoch, step) with
   ``dropout_rank`` folded in, so ranks draw different masks (rank 0 draws
   the single-device trainer's); the ranks of a node group share theirs.
+* ``prefetch_to_device`` works as in :class:`ModelTrainer`, on this rank's
+  minibatch of each group (after the node-sharded trainer takes its shard).
 
 A device OOM is not caught: a rank that skipped its minibatch would leave
 the others waiting in the collective.
@@ -264,12 +266,13 @@ class DistributedModelTrainer(ModelTrainer):
             shuffle_rng=random.Random(shuffle_seed(self._seed, epoch, self.node_rank)),
             finalize_slot=self.finalize_slot,
         )
-        for step_idx, (mb_data, raw_samples, weight) in enumerate(self.group_minibatches(mb_iter)):
+        for step_idx, (mb_data, raw_samples, weight) in enumerate(
+                self._device_minibatches(self.group_minibatches(mb_iter))):
             lr_factor = 1.0 if scheduler is None else scheduler.step(
                 epoch, self._opt_steps_this_epoch if self._grad_accum_steps > 1 else step_idx
             )
             generator.manual_seed(step_seed(self._seed, epoch, step_idx, self.dropout_rank))
-            loss, metrics, _ = dp.grad_step(tree_to(mb_data, self._device), weight, generator)
+            loss, metrics, _ = dp.grad_step(mb_data, weight, generator)
             self._accumulated += 1
             self._last_lr_factor = lr_factor
             if self._accumulated >= self._grad_accum_steps:

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ptgnn_tpu_torch.graph.batching import (
-    _assemble_layout_python,
+    assemble_layout_arrays,
     _seg_counts_of,
     build_adjacency_struct,
     required_edge_slots,
@@ -306,7 +306,7 @@ def shard_batch_by_nodes(
 
     def assemble(arrays, e_pad, sender_domain):
         si, ri, ti, fi = arrays
-        out = _assemble_layout_python(si, ri, ti, fi, max_nodes=rows_per, e_pad=e_pad, tile=tile, agg_rows=r,
+        out = assemble_layout_arrays(si, ri, ti, fi, max_nodes=rows_per, e_pad=e_pad, tile=tile, agg_rows=r,
                                       num_types=num_types, align=align, sender_domain=sender_domain)
         return build_adjacency_struct(out, tile=tile, align=align, num_fwd_types=num_fwd_edge_types or num_types,
                                       introduce_backwards_edges=introduce_backwards_edges)

@@ -289,8 +289,6 @@ def test_clis_train_an_epoch_restore_and_test(tmp_path, monkeypatch, capsys):
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
     parser = g2s_train.build_arg_parser()
-    with pytest.raises(NotImplementedError, match="autotune"):
-        g2s_train.run(parser.parse_args(["a", "b", str(tmp_path / "m.pkl.gz"), "--autotune"]))
     with pytest.raises(ValueError, match="pkl.gz"):
         g2s_train.run(parser.parse_args(["a", "b", str(tmp_path / "m.pt")]))
     # The bpe splitting is ported: it builds, and its ids over the samples'

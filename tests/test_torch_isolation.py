@@ -45,6 +45,8 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.graph.embedders", "ptgnn_tpu_torch.graph.gnn", "ptgnn_tpu_torch.graph.batching",
         "ptgnn_tpu_torch.parallel.collectives", "ptgnn_tpu_torch.parallel.edge_sharding",
         "ptgnn_tpu_torch.parallel.node_sharding", "ptgnn_tpu_torch.parallel.node_sharded_trainer",
+        "ptgnn_tpu_torch.native", "ptgnn_tpu_torch.utils.autotune", "ptgnn_tpu_torch.utils.oom",
+        "ptgnn_tpu_torch.utils.profiling", "ptgnn_tpu_torch.core.dcp_checkpoint",
     } <= names
 
 

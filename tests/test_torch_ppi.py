@@ -281,8 +281,6 @@ def test_cli_trains_on_a_graphsage_directory(tmp_path):
                               "--minibatch-size", "2", "--max-nodes", "256", "--sequential-run", "--device", "cpu"])
     metrics = ppi_train.run(args)
     assert set(metrics) == {"f1_score", "pr_score", "re_score"}
-    with pytest.raises(NotImplementedError):
-        ppi_train.run(parser.parse_args([str(tmp_path), str(tmp_path / "m.pkl.gz"), "--autotune"]))
     # --azure-info: a JSON object of fsspec storage options for remote paths.
     (tmp_path / "auth.json").write_text(json.dumps({"anon": True}))
     try:

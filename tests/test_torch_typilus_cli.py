@@ -78,8 +78,6 @@ def test_train_both_architectures_restore_and_predict(tmp_path, monkeypatch, cap
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
     parser = typilus_train.build_arg_parser()
-    with pytest.raises(NotImplementedError, match="autotune"):
-        typilus_train.run(parser.parse_args(["a", "b", "c", str(tmp_path / "m.pkl.gz"), "--autotune"]))
     with pytest.raises(ValueError, match="pkl.gz"):
         typilus_train.run(parser.parse_args(["a", "b", "c", str(tmp_path / "m.pt")]))
     with pytest.raises(SystemExit):

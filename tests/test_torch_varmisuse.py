@@ -333,8 +333,6 @@ def test_cli_trains_an_epoch_and_restores(architecture, tmp_path, monkeypatch, c
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
     parser = vm_train.build_arg_parser()
-    with pytest.raises(NotImplementedError, match="autotune"):
-        vm_train.run(parser.parse_args(["a", "b", "c", str(tmp_path / "m.pkl.gz"), "--autotune"]))
     with pytest.raises(ValueError, match="pkl.gz"):
         vm_train.run(parser.parse_args(["a", "b", "c", str(tmp_path / "m.pt")]))
     with pytest.raises(ValueError, match="architecture"):

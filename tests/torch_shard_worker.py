@@ -463,6 +463,90 @@ def trainer_budgets(payload, rank, world, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# async sharded checkpoints (core/dcp_checkpoint.py)
+# ---------------------------------------------------------------------------
+def dcp_zero1(payload, rank, world, tmp):
+    """Adam steps under ZeRO-1 over the world with an async save after step
+    3 while step 4 runs; then a fresh module and optimizer restored from it
+    take step 4 again. Returns the files that hold each saved key, this
+    rank's partition, the consolidated optimizer state at the save (rank
+    0), and the parameters and state of both runs."""
+    import torch.distributed.checkpoint as dcp
+
+    from ptgnn_tpu_torch.core.dcp_checkpoint import DistributedCheckpointer
+    from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-2)
+
+    def step(module, optimizer, dp, i):
+        dp.train_step(_to(payload["minibatches"][(2 * i + rank) % len(payload["minibatches"])]), 1.0,
+                      torch.Generator().manual_seed(i), optimizer, [1e-2], clip_gradient_norm=1.0)
+
+    def consolidated(module, optimizer):
+        optimizer.consolidate_state_dict(to=0)
+        if rank != 0:
+            return None
+        names = [n for n, _ in module.named_parameters()]
+        sd = optimizer.state_dict()
+        return {names[i]: {k: v.clone() for k, v in st.items()} for i, st in sd["state"].items()}
+
+    module = _module(payload)
+    optimizer, dp = zero1_optimizer(module.parameters(), adam), DataParallel(module)
+    for i in range(3):
+        step(module, optimizer, dp, i)
+    ckpt = DistributedCheckpointer(Path(tmp) / "dcp", max_to_keep=2)
+    at_save = {"params": _params(module), "optimizer": consolidated(module, optimizer)}
+    ckpt.save(3, module, optimizer, model=payload["model"])
+    step(module, optimizer, dp, 3)  # runs while the save is in flight
+    uninterrupted = _params(module)
+    ckpt.wait()
+    names = {id(p): n for n, p in module.named_parameters()}
+    partition = sorted(names[id(p)] for g in optimizer.optim.param_groups for p in g["params"])
+    metadata = dcp.FileSystemReader(str(Path(tmp) / "dcp" / "3")).read_metadata()
+    files = {index.fqn: info.relative_path for index, info in metadata.storage_data.items()}
+
+    fresh = _module({**payload, "state": {k: torch.zeros_like(v) for k, v in payload["state"].items()}})
+    fresh_optimizer = zero1_optimizer(fresh.parameters(), lambda params: torch.optim.Adam(params, lr=0.5))
+    restored_step = ckpt.restore(module=fresh, optimizer=fresh_optimizer)
+    restored = {"step": restored_step, "params": _params(fresh), "optimizer": consolidated(fresh, fresh_optimizer),
+                "lr": fresh_optimizer.param_groups[0]["lr"]}
+    step(fresh, fresh_optimizer, DataParallel(fresh), 3)
+    resumed = _params(fresh)
+    ckpt.close()
+    return {"files": files, "partition": partition, "at_save": at_save, "uninterrupted": uninterrupted,
+            "restored": restored, "resumed": resumed}
+
+
+def trainer_prefetch(payload, rank, world, tmp):
+    """One epoch of the data-parallel trainer (each rank finalizes its own
+    slot of every group, the others pass as None) and of the node-sharded
+    trainer at prefetch_to_device 1 and 2: the parameters of each pair."""
+    from ptgnn_tpu_torch.parallel.distributed_trainer import DistributedModelTrainer
+
+    out = {}
+    for kind in ("data-parallel", "node-sharded"):
+        for prefetch in (1, 2):
+            sub = Path(tmp) / f"prefetch-{kind}-{prefetch}"
+            sub.mkdir(exist_ok=True)
+            over = dict(max_num_epochs=1, prefetch_to_device=prefetch)
+            if kind == "data-parallel":
+                from ptgnn_tpu_torch.implementations.typilus.harness import small_padding
+                from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model
+
+                model = create_graph2class_gnn_model(hidden_state_size=32,
+                                                     padding=small_padding(max_nodes=256, max_graphs=8))
+                trainer = DistributedModelTrainer(model, sub / "g2c.pkl.gz", minibatch_size=8,
+                                                  optimizer_creator=lambda params: torch.optim.Adam(params, lr=1e-3),
+                                                  device="cpu", **over)
+            else:
+                _, trainer = _trainer(payload, sub, rank, **over)
+            _train(trainer, _data(24, 1), _data(8, 2), validate_on_start=False)
+            out[(kind, prefetch)] = _params(trainer.neural_module)
+    return out
+
+
 CASES: Dict[str, Callable] = {
     "edge_aggregate": edge_aggregate,
     "edge_pna": edge_pna,
@@ -477,4 +561,6 @@ CASES: Dict[str, Callable] = {
     "zero1_moments": zero1_moments,
     "trainer_lifecycle": trainer_lifecycle,
     "trainer_budgets": trainer_budgets,
+    "dcp_zero1": dcp_zero1,
+    "trainer_prefetch": trainer_prefetch,
 }
