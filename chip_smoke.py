@@ -212,6 +212,24 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    Chrome trace under build/ that holds K1-K3 under their symbols; one
    MLP-MP layer's traced device ms beside ``mp_layer_roofline``'s bound.
 
+29. compiled: the compiled steps (``core/compiled_step.py``: every
+   single-device step a CUDA graph per batch signature) against the same
+   step functions called eagerly: 10 train steps from the same weights and
+   seeds, bit for bit in the losses, every parameter and both Adam
+   moments (Graph2Class at the benchmark configuration in float32 and bf16
+   AMP with dropout on, PPI bf16 with K5 in the graph, VarMisuse 'mlp',
+   Graph2Seq), then ms/step (the median of 5 runs of 20), the device's busy
+   share of a profiled run, the capture seconds and pool bytes of each;
+   ``predict_probs`` bitwise and its ms/batch; ModelTrainer epochs of 17
+   benchmark steps with the host pipeline, compiled against eager, at
+   gradient accumulation 1 and 2, bitwise.
+
+Every path above that trains or serves through an entry point runs compiled
+steps on the card. Their launch counters count executions: a capture's
+launches are put back and each replay adds them, as do the hook counters
+(``Tally``), so the per-forward and per-step constants hold; a compiled
+step's warm-up (one call per signature) is an execution like any other.
+
 Phases 10, 14 and 17 also hold argmax routing on a feature-tracking batch
 with a featureless graph against a single-winner oracle, and a float32
 Graph2Seq and layers step that repeats bit for bit in PyTorch's default
@@ -227,10 +245,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -344,6 +364,35 @@ EDGE_TYPED_SHAPES = ((640, 256), (256, 640), (384, 256), (256, 384))  # forward 
 BPE_VOCABULARY = 64
 BPE_BATCHES = 3
 DP_STEPS = 3
+
+
+class Tally(list):
+    """A hook's counter (``[0]``) that compiled steps replay: a capture runs
+    the hook once and launches nothing, so the count is put back after it
+    and each replay adds what the capture added, as the kernels' launch
+    counters (``core/compiled_step.py``). It counts executions on the card."""
+
+    def __init__(self):
+        from ptgnn_tpu_torch.core import compiled_step
+
+        super().__init__([0])
+        compiled_step.REPLAYED_COUNTERS.append((self, "n"))
+
+    @property
+    def n(self) -> int:
+        return self[0]
+
+    @n.setter
+    def n(self, value: int) -> None:
+        self[0] = value
+
+
+def executions(stats: dict, steps: int) -> int:
+    """The steps a ``train_steps`` call ran on the card: its warm-up step,
+    ``steps`` timed steps and a warm-up call per compiled signature."""
+    from ptgnn_tpu_torch.core.compiled_step import WARMUP_CALLS
+
+    return steps + 1 + WARMUP_CALLS * len(stats["captures"])
 
 
 def phase(name: str, msg: str) -> None:
@@ -632,7 +681,7 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
     )
     trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
     module = trainer.neural_module
-    forwards, backwards = [0], [0]
+    forwards, backwards = Tally(), Tally()
     hooks = [
         module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
         module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1)),
@@ -650,13 +699,13 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
           f"validation metrics {valid_metrics}")
     if backwards[0] == 0 or not checkpoint.exists():
         raise RuntimeError("ModelTrainer.train took no step or wrote no checkpoint")
-    train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, name, per_step)
+    steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, name, per_step)
     counts = sk.launch_counts()  # the train path ends here
     for hook in hooks:
         hook.remove()
     expected = {
         k: per_forward[k] * forwards[0] + (per_step[k] - per_forward[k]) * backwards[0]
-        + per_step[k] * 2 * (TRAIN_STEPS + 1)
+        + steps_counts[k]
         for k in counts
     }
     phase(name, f"launches over the {name} path: {counts}")
@@ -703,11 +752,14 @@ def train_steps_phase(model, minibatches, dev, card, name, per_step, steps=TRAIN
     from ptgnn_tpu_torch.implementations.typilus.harness import train_steps
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
+    total = 0
     for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
         before = sk.launch_counts()
         stats = train_steps(steps_module, minibatches, steps=steps, enable_amp=amp, seed=SEED, **train_kw)
-        got = {k: v / (steps + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        runs = executions(stats, steps)
+        total += runs
+        got = {k: v / runs for k, v in delta(sk.launch_counts(), before).items()}
         if got != per_step:
             raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
         if not math.isfinite(stats["loss"]):
@@ -716,7 +768,7 @@ def train_steps_phase(model, minibatches, dev, card, name, per_step, steps=TRAIN
               f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.1f} graphs/s, "
               f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
               f"launches per step {got}")
-    return {k: v * 2 * (steps + 1) for k, v in per_step.items()}
+    return {k: v * total for k, v in per_step.items()}
 
 
 def train_parity_phase(model, device_batch, host_minibatch, dev):
@@ -1030,7 +1082,7 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     module.eval()
-    forwards = [0]
+    forwards = Tally()
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the ppi-serving path starts here
     t0 = time.perf_counter()
@@ -1079,7 +1131,7 @@ def ppi_train_phase(model, samples, batches, dev, card):
     )  # Adam(1e-3), the default optimizer
     trainer.load_metadata_and_create_network(samples, parallelize=False)
     module = trainer.neural_module
-    forwards, backwards = [0], [0]
+    forwards, backwards = Tally(), Tally()
     hooks = [
         module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
         module.to_logits.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1)),
@@ -1108,7 +1160,8 @@ def ppi_train_phase(model, samples, batches, dev, card):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
         before = sk.launch_counts()
         stats = train_steps(steps_module, batches, steps=PPI_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-3, seed=SEED)
-        per_step = {k: v / (PPI_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+        runs = executions(stats, PPI_TRAIN_STEPS)
+        per_step = {k: v / runs for k, v in delta(sk.launch_counts(), before).items()}
         if per_step != PPI_PER_TRAIN_STEP[name]:
             raise RuntimeError(f"expected {PPI_PER_TRAIN_STEP[name]} launches per {name} PPI step, got {per_step}")
         if not math.isfinite(stats["loss"]):
@@ -1117,7 +1170,7 @@ def ppi_train_phase(model, samples, batches, dev, card):
               f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.2f} graphs/s, "
               f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
               f"launches per step {per_step}")
-        expected = add_counts(expected, {k: v * (PPI_TRAIN_STEPS + 1) for k, v in PPI_PER_TRAIN_STEP[name].items()})
+        expected = add_counts(expected, {k: v * runs for k, v in PPI_PER_TRAIN_STEP[name].items()})
     counts = sk.launch_counts()  # the ppi-train path ends here
     phase("ppi-train", f"launches over the ppi-train path: {counts}")
     if counts != expected:
@@ -1492,7 +1545,7 @@ def ggnn_phase(dev, card, reps: int = 3):
     phase("ggnn", f"setup {time.perf_counter() - t0:.2f} s; {len(layers)} stack entries, one gated layer object "
           f"at {shared} positions; {sum(p.numel() for p in module.parameters())} parameters")
     module.eval()
-    forwards = [0]
+    forwards = Tally()
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the ggnn path starts here
     sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in minibatches]
@@ -1519,9 +1572,10 @@ def ggnn_phase(dev, card, reps: int = 3):
           f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
           f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
           f"launches over {forwards[0]} forwards {serving}")
-    train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, "ggnn", GGNN_PER_TRAIN_STEP)
+    steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, "ggnn",
+                                     GGNN_PER_TRAIN_STEP)
     counts = sk.launch_counts()  # the ggnn path ends here
-    expected = add_counts(serving, {k: v * 2 * (TRAIN_STEPS + 1) for k, v in GGNN_PER_TRAIN_STEP.items()})
+    expected = add_counts(serving, steps_counts)
     phase("ggnn", f"launches over the ggnn path: {counts}")
     if counts != expected:
         raise RuntimeError(f"ggnn launches {counts} != {expected} expected")
@@ -1657,7 +1711,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
         raise RuntimeError(f"the batches fill {fill:.4f} of the node budget with {drops} samples dropped")
 
     module.eval()
-    forwards, backwards = [0], [0]
+    forwards, backwards = Tally(), Tally()
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the varmisuse path starts here
     t0 = time.perf_counter()
@@ -1728,7 +1782,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
     phase(name, f"candidate scores (the logits) of that step card vs CPU: max abs err "
           f"{float(np.abs(got - want).max()):.3e} (rtol 1e-4, atol {atol:.3e} = 1e-4 x max|score|)")
-    return counts, minibatches, batches
+    return counts, minibatches, batches, model
 
 
 def varmisuse_kernel_checks(adj, dev, gen):
@@ -1992,9 +2046,18 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
         raise RuntimeError(f"the batches fill {fill:.4f} of the node budget with {drops} samples dropped")
 
     module.eval()
-    forwards, backwards = [0], [0]
+    forwards, backwards = Tally(), Tally()
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the graph2seq path starts here
+    # The decode loops, counted as they run (the encoder is compiled: its
+    # warm-ups are encodes with no loop after them).
+    loop_calls = Tally()
+    for loop_name in ("_greedy_loop", "_beam_loop"):
+        def counted(*args, _loop=getattr(model.decoder_model, loop_name), **kwargs):
+            loop_calls.n += 1
+            return _loop(*args, **kwargs)
+
+        setattr(model.decoder_model, loop_name, counted)
     for warm_up in (model.greedy_decode, functools.partial(model.beam_decode, beam_size=G2S_BEAM)):
         warm_up(test[:padding.max_graphs], module, max_minibatch_size=padding.max_graphs, device=dev)
     timings = {}
@@ -2005,11 +2068,11 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
                                                                max_minibatch_size=padding.max_graphs, device=dev)),
         ("test.evaluate", lambda: g2s_test.evaluate(model, module, test, verbose=False, device=dev)),
     ):
-        before = forwards[0]
+        before = loop_calls.n
         t0 = time.perf_counter()
         out = fn()
         elapsed = time.perf_counter() - t0
-        timings[label] = (out, elapsed, forwards[0] - before)
+        timings[label] = (out, elapsed, loop_calls.n - before)
     greedy, beams, metrics = (timings[k][0] for k in timings)
     if any(r is None for r in greedy) or not all(math.isfinite(lp) and lp <= 1e-6 for _, lp in greedy):
         raise RuntimeError("greedy decode dropped a sample or gave a non-finite log-probability")
@@ -2056,17 +2119,19 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
           f"batch the greedy loop takes {loop_ms[0]:.3f} ms and the beam loop {loop_ms[1]:.3f} ms (the encode, "
           f"the host pipeline and the transfers excluded) on {card}")
 
-    decodes = forwards[0] - 1  # a decode batch encodes once; the loops above follow one encode
+    encodes = forwards[0]  # the decode batches', the compiled encoder's warm-ups and the one above
     eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
+    for loop_name in ("_greedy_loop", "_beam_loop"):
+        delattr(model.decoder_model, loop_name)  # the model is pickled into checkpoints below
     serving = sk.launch_counts()
-    loss_forwards, loops = forwards[0] - decodes - 1, decodes + 2 * (1 + reps)
-    want = {k: G2S_PER_ENCODE[k] * (decodes + 1) + G2S_PER_DECODE_LOOP[k] * loops + G2S_PER_FORWARD[k] * loss_forwards
+    loss_forwards, loops = forwards[0] - encodes, loop_calls.n
+    want = {k: G2S_PER_ENCODE[k] * encodes + G2S_PER_DECODE_LOOP[k] * loops + G2S_PER_FORWARD[k] * loss_forwards
             for k in serving}
     if serving != want:
-        raise RuntimeError(f"{name} serving launches {serving} != {want} expected from {decodes + 1} encodes, "
+        raise RuntimeError(f"{name} serving launches {serving} != {want} expected from {encodes} encodes, "
                            f"{loops} decode loops and {loss_forwards} loss forwards")
-    phase(name, f"launches over the serving path's {decodes + 1} encodes, {loops} decode loops and "
+    phase(name, f"launches over the serving path's {encodes} encodes, {loops} decode loops and "
           f"{loss_forwards} loss forwards {serving}")
 
     checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
@@ -2113,7 +2178,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     segment_sum_routes(model, batches, dev, card, name)
     repeat_step_bits(model, batches[0], dev, name)
     phase(name, f"phase total {time.perf_counter() - t_phase:.1f} s")
-    return counts, batches
+    return counts, batches, model
 
 
 def graph2seq_kernel_entries(adj, dev, gen, entry):
@@ -2519,7 +2584,7 @@ def layers_phase(dev, card, reps: int = 3):
     fused = []
     with counting_fused_calls(fused):
         module.eval()
-        forwards = [0]
+        forwards = Tally()
         counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
         sk.reset_launch_counts()  # the layers path starts here
         for amp in (False, True):
@@ -2542,7 +2607,7 @@ def layers_phase(dev, card, reps: int = 3):
         stats = train_steps(drop, mbs, steps=LAYERS_EDGE_DROPOUT_STEPS, seed=SEED)
         loss, _ = module_loss(drop, mbs[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
         loss.backward()
-        steps = LAYERS_EDGE_DROPOUT_STEPS + 2
+        steps = executions(stats, LAYERS_EDGE_DROPOUT_STEPS) + 1
         per_step = {k: v / steps for k, v in delta(sk.launch_counts(), before).items()}
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in drop.parameters() if p.grad is not None)
         if per_step != LAYERS_PER_EDGE_DROPOUT_STEP or fused:
@@ -2823,7 +2888,7 @@ def edge_features_phase(dev, card, reps: int = 3):
                   f"{[type(l).__name__ for l in module.gnn.message_passing_layers]}; typed weights "
                   f"{[tuple(p.shape) for n, p in module.named_parameters() if 'weights' in n]}")
             module.eval()
-            forwards = [0]
+            forwards = Tally()
             counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
             for amp in (False, True):
                 dtype = "bf16" if amp else "float32"
@@ -2840,7 +2905,8 @@ def edge_features_phase(dev, card, reps: int = 3):
                 steps_module = model.build_neural_module(device=dev, seed=SEED)
                 before = sk.launch_counts()
                 stats = train_steps(steps_module, mbs, steps=EDGE_TRAIN_STEPS, enable_amp=amp, seed=SEED)
-                per_step = {k: v / (EDGE_TRAIN_STEPS + 1) for k, v in delta(sk.launch_counts(), before).items()}
+                per_step = {k: v / executions(stats, EDGE_TRAIN_STEPS)
+                            for k, v in delta(sk.launch_counts(), before).items()}
                 if per_step != EDGE_PER_TRAIN_STEP[stack][dtype]:
                     raise RuntimeError(f"{stack} {dtype} step launched {per_step}, expected "
                                        f"{EDGE_PER_TRAIN_STEP[stack][dtype]}")
@@ -2892,7 +2958,7 @@ def bpe_phase(dev, card, reps: int = 3):
     lengths = np.concatenate([mb["batch"].node_data["lengths"][:int(mb["batch"].num_nodes)] for mb in minibatches])
     phase(name, f"setup {time.perf_counter() - t0:.2f} s; BPE vocabulary {len(embedder.vocabulary)} entries; "
           f"pieces per node label (count of labels with 0..5 pieces kept) {np.bincount(lengths, minlength=6).tolist()}")
-    forwards = [0]
+    forwards = Tally()
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the bpe path starts here
     eval_forward_phase(module, mbs, card, name, reps)
@@ -2980,7 +3046,7 @@ def data_parallel_phase(dev, card):
                                           out_dir / "dp-ranked.pkl.gz", zero1=True, **common)
         trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
         module = trainer.neural_module
-        forwards, backwards, traffic = [0], [0], {}
+        forwards, backwards, traffic = Tally(), Tally(), {}
         hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
                  module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
         trainer.register_train_epoch_end_hook(lambda *_: traffic.update(
@@ -3676,16 +3742,27 @@ def device_ms(prof) -> float:
 
 
 def g2c_epoch(model, train, valid, dev, *, prefetch=2, numpy_layout=False, profiled=False, catch_device_ooms=False,
-              inject=None, name="epoch"):
+              inject=None, name="epoch", eager_steps=False, **trainer_kw):
     """One ModelTrainer epoch of the benchmark Graph2Class model (dropout
     0.1, seeded) over ``train`` with the worker threads on, then validation
     on ``valid``. ``inject``: (position, host minibatch, raw samples) put
     into the training pass. Returns the epoch's seconds (training start to
     the train epoch's end), the step losses, the parameters, the steps, and
-    with ``profiled`` the busy share of the whole train() call."""
-    from ptgnn_tpu_torch.core.trainer import ModelTrainer
+    with ``profiled`` the busy share of the whole train() call.
+    ``eager_steps``: the trainer's steps called directly, not compiled;
+    ``trainer_kw``: more ModelTrainer arguments."""
+    from ptgnn_tpu_torch.core.trainer import ModelTrainer, module_loss
 
     class Trainer(ModelTrainer):
+        def _train_step_for(self, optimizer):
+            step = super()._train_step_for(optimizer)
+            return eager(step) if eager_steps else step
+
+        def _eval_step(self, minibatch):
+            if eager_steps:
+                return module_loss(self.neural_module, minibatch, train=False, amp=self._enable_amp)
+            return super()._eval_step(minibatch)
+
         def _device_minibatches(self, items):
             if inject is not None:
                 items = itertools.chain(itertools.islice(items, inject[0]), [inject[1:]], items)
@@ -3699,7 +3776,8 @@ def g2c_epoch(model, train, valid, dev, *, prefetch=2, numpy_layout=False, profi
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "epochs"
     trainer = Trainer(model, out_dir / f"{name}.pkl.gz", max_num_epochs=1, minibatch_size=300,
                       clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4),
-                      prefetch_to_device=prefetch, catch_device_ooms=catch_device_ooms, device=dev, seed=SEED)
+                      prefetch_to_device=prefetch, catch_device_ooms=catch_device_ooms, device=dev, seed=SEED,
+                      **trainer_kw)
     trainer.losses = []
     trainer.load_metadata_and_create_network(train, parallelize=False)
     marks = {}
@@ -3814,10 +3892,12 @@ def prefetch_phase(dev, card, model, epochs, prefetch_two):
 
 
 def oom_phase(dev, card, model, epochs):
-    """A real device OOM: the allocator is capped between a benchmark
-    step's peak and the peak of one oversized batch (a 16,384-node
-    padding); an epoch with that batch in it skips it under
-    catch_device_ooms and raises without."""
+    """A real device OOM: the allocator is capped between what a compiled
+    epoch of benchmark batches holds at its peak (the warm-ups and the
+    graphs' pools of its train and eval steps) and that plus half the peak
+    of one oversized batch's eager step (a 16,384-node padding, whose
+    warm-up runs beside the benchmark step's pool); an epoch with that batch
+    in it skips it under catch_device_ooms and raises without."""
     import logging
 
     from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
@@ -3837,6 +3917,7 @@ def oom_phase(dev, card, model, epochs):
             big_model.tensorize_dataset(iter(train), parallelize=False, return_input_data=True),
             max_minibatch_size=300, parallelize=False)))
         torch.cuda.synchronize()
+        gc.collect()  # earlier phases' compiled steps (a step and its graphs hold each other)
         torch.cuda.empty_cache()
         base = torch.cuda.memory_reserved()
         module = model.build_neural_module(device=dev, seed=SEED)
@@ -3856,11 +3937,19 @@ def oom_phase(dev, card, model, epochs):
         torch.cuda.empty_cache()
         if big_peak >= 1.6 * normal_peak:
             break
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g2c_epoch(model, train, valid, dev, name="oom-probe")
+    torch.cuda.synchronize()
+    epoch_peak = torch.cuda.max_memory_reserved() - base
+    gc.collect()
+    torch.cuda.empty_cache()
     total = torch.cuda.get_device_properties(0).total_memory
-    cap = base + (normal_peak + big_peak) / 2
-    phase(name, f"step peaks over the {base / 2**20:.0f} MiB already reserved: benchmark batch "
-          f"{normal_peak / 2**20:.0f} MiB, {big_nodes}-node batch ({int(big_mb['batch'].num_nodes)} nodes) "
-          f"{big_peak / 2**20:.0f} MiB; allocator capped at {cap / 2**20:.0f} MiB of {total / 2**20:.0f}")
+    cap = base + epoch_peak + big_peak / 2
+    phase(name, f"peaks over the {base / 2**20:.0f} MiB already reserved: eager steps of the benchmark batch "
+          f"{normal_peak / 2**20:.0f} MiB and of a {big_nodes}-node batch ({int(big_mb['batch'].num_nodes)} nodes) "
+          f"{big_peak / 2**20:.0f} MiB; a compiled epoch of benchmark batches {epoch_peak / 2**20:.0f} MiB; "
+          f"allocator capped at {cap / 2**20:.0f} MiB of {total / 2**20:.0f}")
     caught = []
 
     class Caught(logging.Handler):
@@ -3872,6 +3961,7 @@ def oom_phase(dev, card, model, epochs):
     logger = logging.getLogger("ptgnn_tpu_torch.core.trainer")
     logger.addHandler(handler)
     sk.reset_launch_counts()  # the oom path starts here
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.set_per_process_memory_fraction(cap / total)
     try:
@@ -4117,6 +4207,192 @@ def profiling_phase(dev, card, model, batches):
     return counts
 
 
+COMPILED_STEPS = 10  # eager against compiled, bit for bit
+TIMED_RUNS, TIMED_STEPS = 5, 20  # ms/step: the median of 5 runs of 20 steps
+PROFILED_STEPS = 10  # the busy share: one profiled run
+
+
+def eager(step):
+    """``step`` (a TrainStep) with its compiled steps replaced by the
+    functions they compile: the same step, called directly."""
+    from ptgnn_tpu_torch.core.compiled_step import CompiledStep
+
+    for name in ("train_step", "grad_step", "apply_step"):
+        compiled = getattr(step, name)
+        if isinstance(compiled, CompiledStep):
+            setattr(step, name, compiled.fn)
+    return step
+
+
+def step_runs(model, mbs, dev, *, amp, compiled, lr=2.5e-4, timed=True):
+    """A TrainStep (clip 1.0, Adam) from the model's seeded weights, run
+    compiled or eagerly: COMPILED_STEPS steps whose losses and state are
+    kept, then (``timed``) TIMED_RUNS runs of TIMED_STEPS timed steps and
+    a run of PROFILED_STEPS, profiled. Returns the results and the steps it
+    ran on the card."""
+    from ptgnn_tpu_torch.core.compiled_step import WARMUP_CALLS
+    from ptgnn_tpu_torch.core.trainer import TrainStep
+
+    module = model.build_neural_module(device=dev, seed=SEED)
+    step = TrainStep(module, torch.optim.Adam(module.parameters(), lr=lr), clip_gradient_norm=1.0, amp=amp)
+    if not compiled:
+        eager(step)
+    calls = [0]
+
+    def run(i):
+        calls[0] += 1
+        step.generator.manual_seed(SEED * 1_000_003 + i)
+        return step.step(mbs[i % len(mbs)])[0]
+
+    losses = torch.stack([run(i).clone() for i in range(COMPILED_STEPS)])
+    state = {f"param {k}": v.detach().clone() for k, v in module.named_parameters()}
+    for k, p in module.named_parameters():
+        state.update({f"adam {k} {s}": v.clone() for s, v in step.optimizer.state[p].items()})
+    times, busy = [], None
+    for r in range(TIMED_RUNS + 1 if timed else 0):
+        profiled = r == TIMED_RUNS
+        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                 torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PROFILED_STEPS if profiled else TIMED_STEPS):
+                run(COMPILED_STEPS + i)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        if profiled:
+            busy = device_ms(prof) / (1e3 * elapsed)
+        else:
+            times.append(1e3 * elapsed / TIMED_STEPS)
+    captures = step.train_step.stats() if compiled else []
+    if compiled:
+        step.clear()
+    return {"losses": losses, "state": state, "ms": statistics.median(times) if times else None, "times": times,
+            "busy": busy,
+            "captures": captures, "executions": calls[0] + WARMUP_CALLS * len(captures)}
+
+
+def held_to_eager(name, got, want):
+    """Compiled against eager: bitwise, or else within rtol 1e-6 with the
+    tensors that differ named; raises beyond."""
+    keys = ["losses"] + list(want["state"])
+    pairs = [(got["losses"], want["losses"])] + [(got["state"][k], want["state"][k]) for k in want["state"]]
+    apart = [k for k, (a, b) in zip(keys, pairs) if not bitwise_equal(a, b)]
+    if not apart:
+        return f"bitwise equal ({len(keys)} tensors: the losses, every parameter, both Adam moments and the step)"
+    rel = max(float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max())
+              for k, (a, b) in zip(keys, pairs) if k in apart)
+    message = f"NOT bitwise: {len(apart)} of {len(keys)} tensors apart ({apart[:6]}), max rel err {rel:.3e}"
+    if rel > 1e-6:
+        raise RuntimeError(f"{name}: compiled steps against eager {message}, beyond rtol 1e-6")
+    return message + " (within rtol 1e-6)"
+
+
+def compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, vm_model, vm_batches, g2s_model, g2s_batches,
+                   epochs):
+    """The compiled steps (``core/compiled_step.py``) against the same steps
+    called eagerly: COMPILED_STEPS train steps from the same weights and
+    seeds bit for bit (Graph2Class at the benchmark configuration in
+    float32 and bf16 AMP, dropout on; PPI bf16 with K5 in the graph;
+    VarMisuse 'mlp'; Graph2Seq), ms/step and the device's busy share of
+    each, the capture seconds and pool bytes; Graph2Class's predict_probs
+    bitwise; ModelTrainer epochs of 17 benchmark steps with the host
+    pipeline, compiled against eager, and with gradient accumulation k = 2,
+    bit for bit. Returns the launch counts of the path."""
+    from ptgnn_tpu_torch.core.compiled_step import WARMUP_CALLS, CompiledStep
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "compiled"
+    t_phase = time.perf_counter()
+    sk.reset_launch_counts()  # the compiled path starts here
+    expected = {k: 0 for k in sk.launch_counts()}
+    g2c_mbs = [g2c_minibatch(b) for b in batches]
+    cases = [("Graph2Class float32", model, g2c_mbs, False, PER_TRAIN_STEP, 2.5e-4),
+             ("Graph2Class bf16 AMP", model, g2c_mbs, True, PER_TRAIN_STEP, 2.5e-4),
+             ("PPI bf16 AMP", ppi_model, ppi_batches, True, PPI_PER_TRAIN_STEP["bf16"], 1e-3),
+             ("VarMisuse mlp float32", vm_model, vm_batches, False, VM_PER_TRAIN_STEP["mlp"], 1e-4),
+             ("Graph2Seq float32", g2s_model, g2s_batches, False, G2S_PER_TRAIN_STEP, 1e-3)]
+    for label, case_model, mbs, amp, per_step, lr in cases:
+        note = ""
+        if label.startswith("VarMisuse"):
+            # The char CNN's convolutions go through cuDNN, whose default
+            # backward algorithms need not repeat their bits: eager against
+            # eager first, then both under cuDNN's deterministic algorithms.
+            again = [step_runs(case_model, mbs, dev, amp=amp, compiled=False, lr=lr, timed=False) for _ in range(2)]
+            for run in again:
+                expected = add_counts(expected, {k: v * run["executions"] for k, v in per_step.items()})
+            same = all(bitwise_equal(again[0]["state"][k], again[1]["state"][k]) for k in again[0]["state"])
+            note = (f" (eager against eager in cuDNN's default mode: {'bitwise' if same else 'NOT bitwise'}; the "
+                    f"runs below use torch.backends.cudnn.deterministic)")
+            torch.backends.cudnn.deterministic = True
+        try:
+            runs = {mode: step_runs(case_model, mbs, dev, amp=amp, compiled=mode == "compiled", lr=lr)
+                    for mode in ("eager", "compiled")}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        verdict = held_to_eager(label, runs["compiled"], runs["eager"]) + note
+        for run in runs.values():
+            expected = add_counts(expected, {k: v * run["executions"] for k, v in per_step.items()})
+        e, c = runs["eager"], runs["compiled"]
+        captures = "; ".join(f"{cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB" for cap in c["captures"])
+        phase(name, f"{label}: {COMPILED_STEPS} steps compiled against eager {verdict}; ms/step (median of "
+              f"{TIMED_RUNS} runs of {TIMED_STEPS}) compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, "
+              f"eager {e['ms']:.3f} {[round(t, 3) for t in e['times']]} ({e['ms'] / c['ms']:.2f}x); device busy "
+              f"{100 * c['busy']:.1f} % compiled, {100 * e['busy']:.1f} % eager (profiled run); "
+              f"{len(c['captures'])} signature(s): capture (warm-up included) {captures} on {card}")
+        got = sk.launch_counts()
+        if got != expected:
+            raise RuntimeError(f"{label}: launches {got} != {expected} expected from the steps run")
+
+    # Serving: predict_probs compiled against eager, bitwise.
+    module = model.build_neural_module(device=dev, seed=SEED).eval()
+    predict = CompiledStep(module.predict_probs, dev)
+    ms = {}
+    with torch.inference_mode():
+        for batch, _ in batches:
+            want = [t.clone() for t in module.predict_probs(batch)]
+            got = predict(batch)
+            if not all(bitwise_equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError("compiled predict_probs != eager predict_probs")
+        executions = 2 * len(batches) + WARMUP_CALLS * len(predict)
+        for mode, fn in (("compiled", predict), ("eager", module.predict_probs), ("compiled again", predict)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                for batch, _ in batches:
+                    fn(batch)
+            torch.cuda.synchronize()
+            ms[mode] = 1e3 * (time.perf_counter() - t0) / (TIMED_STEPS * len(batches))
+            executions += TIMED_STEPS * len(batches)
+    expected = add_counts(expected, {k: v * executions for k, v in PER_FORWARD.items()})
+    if sk.launch_counts() != expected:
+        raise RuntimeError(f"predict_probs: launches {sk.launch_counts()} != {expected}")
+    cap = predict.stats()[0]
+    phase(name, f"Graph2Class predict_probs over {len(batches)} batches: compiled bitwise equal to eager; ms/batch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; capture {cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB on {card}")
+
+    # ModelTrainer epochs with the host pipeline, compiled against eager.
+    t_steps = time.perf_counter() - t_phase
+    train, valid = epochs
+    runs = {}
+    for k, modes in ((1, ("compiled", "eager", "compiled again")), (2, ("compiled", "eager"))):
+        for mode in modes:
+            runs[(k, mode)] = g2c_epoch(model, train, valid, dev, eager_steps=mode == "eager",
+                                        gradient_accumulation_steps=k, name=f"compiled-{k}-{mode.replace(' ', '-')}")
+        if not same_epoch(runs[(k, "compiled")], runs[(k, "eager")]):
+            raise RuntimeError(f"the compiled ModelTrainer epoch (accumulation {k}) != the eager one")
+    phase(name, "ModelTrainer epochs with the host pipeline, in turns (" + "; ".join(
+        f"accumulation {k}: {runs[(k, 'eager')]['steps']} microbatches, compiled "
+        + " / ".join(f"{runs[(k, m)]['seconds']:.3f}" for m in ("compiled", "compiled again") if (k, m) in runs)
+        + f" s, eager {runs[(k, 'eager')]['seconds']:.3f} s" for k in (1, 2)) + "): compiled bitwise equal to "
+        f"eager (losses and parameters) at both, on {card}; the steps and predict_probs took {t_steps:.1f} s "
+        f"of the phase")
+    counts = sk.launch_counts()  # the compiled path ends here
+    phase(name, f"launches over the compiled path {counts}; phase total {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4162,7 +4438,7 @@ def main() -> None:
     phase("serving", f"setup {time.perf_counter() - t0:.2f} s; {len(batches)} batches of "
           f"(graphs, nodes, edges) {sizes}; {len(model.target_vocab)} classes")
 
-    forwards = [0]  # GNN forwards of the main path, one per batch
+    forwards = Tally()  # GNN forwards of the main path, one per batch
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
@@ -4220,13 +4496,14 @@ def main() -> None:
 
     # ---- 13. VarMisuse at full width, both factories -----------------------
     vm_pad, _, vm_samples, vm_valid = varmisuse_samples()
-    vm_counts = {}
+    vm_counts, vm_models = {}, {}
     for architecture in ("mlp", "ggnn"):
-        vm_counts[architecture], _, vm_batches = varmisuse_phase(dev, card, architecture, vm_pad, vm_samples,
-                                                                  vm_valid)
+        vm_counts[architecture], _, vm_batches, vm_models[architecture] = varmisuse_phase(
+            dev, card, architecture, vm_pad, vm_samples, vm_valid)
+        vm_models[architecture] = (vm_models[architecture], vm_batches)
 
     # ---- 14. Graph2Seq at full width -----------------------------------------
-    g2s_counts, g2s_batches = graph2seq_phase(dev, card, *graph2seq_samples())
+    g2s_counts, g2s_batches, g2s_model = graph2seq_phase(dev, card, *graph2seq_samples())
 
     # ---- 17. the other message-passing families at full width ---------------
     layers_counts, layers_batches, layers_seen = layers_phase(dev, card)
@@ -4249,6 +4526,8 @@ def main() -> None:
     at_counts = autotune_phase(dev, card)
     ck_counts = checkpoint_phase(dev, card, model, batches)
     pr_counts = profiling_phase(dev, card, model, batches)
+    cs_counts = compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, *vm_models["mlp"], g2s_model,
+                               g2s_batches, epochs)
     phase("total", f"phases 23-28 in {time.perf_counter() - t_new:.1f} s")
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
@@ -4257,7 +4536,8 @@ def main() -> None:
              "graph2seq": g2s_counts, "layers": layers_counts, "edge-features": edge_counts,
              "bpe": bpe_counts, "data-parallel": dp_counts, "edge-parallel": ep_counts,
              "node-parallel": np_counts, "native-assembler": na_counts, "prefetch": pf_counts, "oom": oom_counts,
-             "autotune": at_counts, "checkpoint": ck_counts, "profiling": pr_counts}
+             "autotune": at_counts, "checkpoint": ck_counts, "profiling": pr_counts,
+             "compiled": cs_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")

@@ -1,0 +1,252 @@
+"""Compiled steps: the counterpart of ``jax.jit`` for the port's step
+functions.
+
+The JAX package compiles every step it runs (the trainer's train, eval and
+accumulation steps, the serving functions, the Graph2Seq encoder) once per
+static batch shape, and the padded layout (``BatchPadding``) exists so that
+each compiles once. :class:`CompiledStep` does the same on the card: it
+captures one call of a step function into a ``torch.cuda.CUDAGraph`` per
+call signature and replays it, so a step costs one graph launch instead of
+one Python dispatch per kernel.
+
+* **Signature.** The tree structure of the arguments (dicts, lists, tuples,
+  NamedTuples), every tensor leaf's shape, dtype and device, the values of
+  the other leaves (Python flags such as train or eval, which are static
+  here as under ``jit``), and whether autograd records: jit's per-shape
+  cache key.
+* **First call of a signature** on CUDA: static input buffers are allocated
+  and filled; :data:`WARMUP_CALLS` eager calls run on a side stream (with
+  ``torch.cuda.set_sync_debug_mode("error")``, so a step that waits for the
+  device raises) and grow what a step allocates lazily (the row reductions'
+  scratch, cuBLAS's workspace); the tensors the step writes in place
+  (``state``: parameters, gradients, optimizer state) and its generators are
+  then put back as they were, and one call is captured. That call's graph is
+  then replayed for the first call's result, so the first call returns what
+  an eager call would have, and leaves the state as an eager call would.
+* **Later calls** copy the arguments into the static buffers, replay the
+  graph and return the static outputs. A replay overwrites the outputs of
+  the previous one: the caller takes what it keeps before the next call.
+* **CPU**: the step function runs as a plain call; no graph exists there.
+* **No fallback.** A capture that fails raises, after ending the capture and
+  dropping the partial graph; the state is as before the call. A device OOM
+  propagates as ``torch.OutOfMemoryError``, so the trainer's skip handles it.
+* **Counters.** A capture runs the step's Python once, but launches nothing.
+  The counters in :data:`REPLAYED_COUNTERS` (the kernel wrappers'
+  ``launches``, and any a caller registers) are put back after a capture to
+  their values before it, and every replay adds what the capture added, so
+  they count what ran on the card: the warm-up calls and every replay.
+* **Generators** (``generators``) are registered with each graph, so a
+  replay draws from the generator's current seed and offset: reseeded with
+  ``s``, it draws exactly what an eager call seeded with ``s`` draws.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+__all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS"]
+
+# Eager calls before a capture. One is enough for the port's steps: it runs
+# every lazy allocation of the step on the stream the capture uses.
+WARMUP_CALLS = 1
+
+# (owner, attribute) of every integer counter that a replay adds to as its
+# capture did: the kernel wrappers' launch counters, and any a caller adds.
+REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()]
+
+
+# ---------------------------------------------------------------------------
+# Trees of arguments
+# ---------------------------------------------------------------------------
+def _flatten(tree: Any, leaves: List[Any]) -> Hashable:
+    """Append ``tree``'s leaves to ``leaves``; returns its structure, in which
+    a tensor is a placeholder and any other leaf stands for itself."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return torch.Tensor
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return (type(tree), tuple(_flatten(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_flatten(x, leaves) for x in tree))
+    return ("leaf", tree)
+
+
+def _unflatten(structure: Hashable, tensors: Iterable[torch.Tensor]) -> Any:
+    """The tree of ``structure`` with its tensors taken from ``tensors``."""
+    if structure is torch.Tensor:
+        return next(tensors)
+    kind, body = structure
+    if kind == "leaf":
+        return body
+    if kind is dict:
+        return {k: _unflatten(v, tensors) for k, v in body}
+    items = [_unflatten(x, tensors) for x in body]
+    return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+
+def signature(args: tuple, kwargs: dict) -> Tuple[Hashable, List[torch.Tensor]]:
+    """(the cache key of a call, its tensor leaves in order)."""
+    leaves: List[Any] = []
+    structure = _flatten((args, kwargs), leaves)
+    shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+    return (structure, shapes, torch.is_grad_enabled(), torch.is_inference_mode_enabled()), leaves
+
+
+# ---------------------------------------------------------------------------
+# The compiled step
+# ---------------------------------------------------------------------------
+class CaptureStats(NamedTuple):
+    """What one signature's capture cost: the warm-up and capture seconds
+    (the first call's, its replay excluded) and the bytes its graph's
+    private memory pool took from the device."""
+
+    seconds: float
+    pool_bytes: int
+
+
+class _Entry(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: List[torch.Tensor]  # the static input buffers, in leaf order
+    outputs: Any  # the static outputs
+    counted: List[Tuple[Any, str, int]]  # (owner, attribute, what one replay adds)
+    stats: CaptureStats
+
+
+def _read_counters() -> List[int]:
+    return [getattr(owner, name) for owner, name in REPLAYED_COUNTERS]
+
+
+def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:
+    """End a capture whose step raised, and drop what it recorded. A capture
+    that the error invalidated ends all the same: its stream leaves capture
+    mode, and ``capture_end`` reports the invalidation, which the step's own
+    error supersedes."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
+    graph.reset()
+
+
+class CompiledStep:
+    """``fn`` compiled per call signature on ``device`` (a plain call on the
+    CPU). ``state``: returns the tensors a call writes in place (restored
+    after the warm-up); ``generators``: those the step draws from.
+    ``fn`` is the uncompiled function: calling it runs the step eagerly."""
+
+    def __init__(
+        self,
+        fn: Callable[..., Any],
+        device: torch.device,
+        *,
+        state: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
+        generators: Sequence[torch.Generator] = (),
+    ):
+        self.fn = fn
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._state = state
+        self._generators = list(generators)
+        self._entries: Dict[Hashable, _Entry] = {}
+
+    def __call__(self, *args, **kwargs):
+        if self.device.type != "cuda":
+            return self.fn(*args, **kwargs)
+        key, leaves = signature(args, kwargs)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._compile(key, leaves)
+            self._entries[key] = entry
+        else:
+            for buf, leaf in zip(entry.inputs, leaves):
+                buf.copy_(leaf)
+        entry.graph.replay()
+        for owner, name, added in entry.counted:
+            setattr(owner, name, getattr(owner, name) + added)
+        return entry.outputs
+
+    # ------------------------------------------------------------------
+    def stats(self) -> List[CaptureStats]:
+        """The capture cost of every signature compiled so far."""
+        return [entry.stats for entry in self._entries.values()]
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        """Free every signature's graph and its memory pool."""
+        entries, self._entries = list(self._entries.values()), {}
+        for entry in entries:
+            entry.graph.reset()
+        del entries
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    def _compile(self, key: Hashable, leaves: List[torch.Tensor]) -> _Entry:
+        for leaf in leaves:
+            if leaf.device != self.device:
+                raise ValueError(f"a compiled step on {self.device} was given a tensor on {leaf.device}")
+        t0 = time.perf_counter()
+        inputs = [torch.empty_like(leaf).copy_(leaf) for leaf in leaves]
+        args, kwargs = _unflatten(key[0], iter(inputs))
+        stream = torch.cuda.Stream(self.device)
+        self._warm_up(stream, args, kwargs)
+
+        graph = torch.cuda.CUDAGraph()
+        for generator in self._generators:
+            graph.register_generator_state(generator)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # the warm-up's blocks, for the graph's pool
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = _read_counters()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    outputs = self.fn(*args, **kwargs)
+                except BaseException:
+                    _end_failed_capture(graph)
+                    raise
+                graph.capture_end()
+        finally:
+            after = _read_counters()
+            for (owner, name), value in zip(REPLAYED_COUNTERS, before):
+                setattr(owner, name, value)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        counted = [(owner, name, a - b) for (owner, name), a, b in zip(REPLAYED_COUNTERS, after, before) if a != b]
+        stats = CaptureStats(time.perf_counter() - t0, torch.cuda.memory_reserved(self.device) - reserved)
+        return _Entry(graph, inputs, outputs, counted, stats)
+
+    def _warm_up(self, stream: torch.cuda.Stream, args: tuple, kwargs: dict) -> None:
+        """:data:`WARMUP_CALLS` eager calls on ``stream`` that may not wait
+        for the device; then the state and the generators as before them."""
+        current = torch.cuda.current_stream(self.device)
+        state = list(self._state()) if self._state is not None else []
+        saved = [t.clone() for t in state]
+        generators = [g.get_state() for g in self._generators]
+        debug_mode = torch.cuda.get_sync_debug_mode()
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(WARMUP_CALLS):
+                        self.fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(debug_mode)
+        finally:
+            current.wait_stream(stream)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+            for g, s in zip(self._generators, generators):
+                g.set_state(s)

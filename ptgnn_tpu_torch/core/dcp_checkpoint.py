@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
-from ptgnn_tpu_torch.core.checkpoint import read_pickle, write_pickle
+from ptgnn_tpu_torch.core.checkpoint import cpu_state, read_pickle, write_pickle
 
 __all__ = ["DistributedCheckpointer"]
 
@@ -111,7 +111,8 @@ class DistributedCheckpointer:
         state: Dict[str, torch.Tensor] = {_MODEL + k: v for k, v in module.state_dict().items()}
         state[_STEP] = torch.tensor(step, dtype=torch.int64)
         if optimizer is not None:
-            state[_OPT_GROUPS] = _bytes_tensor([{k: v for k, v in g.items() if k != "params"}
+            # a compiled step's learning rates are device scalars: pickled on the host
+            state[_OPT_GROUPS] = _bytes_tensor([cpu_state({k: v for k, v in g.items() if k != "params"})
                                                 for g in optimizer.param_groups])
             for param, values in _local_optimizer(optimizer).state.items():
                 for key, value in values.items():

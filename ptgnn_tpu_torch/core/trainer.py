@@ -15,6 +15,10 @@ stopping and best-checkpoint save/restore, plus the five hook families.
   scaling: bf16 keeps float32's exponent range.
 * Dropout draws from one ``torch.Generator`` on the device, re-seeded from
   (seed, epoch, step) before every step, as the JAX trainer folds its key.
+* The train step (:class:`TrainStep`: forward, backward, clip, optimizer;
+  under accumulation its grad and apply pair) and the validation step are
+  compiled (``core/compiled_step.py``): on the card each is captured as a
+  CUDA graph per batch signature and replayed, as the JAX trainer jits them.
 * ``prefetch_to_device`` minibatches are copied to the card ahead of their
   step (:func:`prefetch_to_device`), and with ``catch_device_ooms`` a device
   OOM raised by a copy or a step skips that minibatch (``utils/oom.py``).
@@ -26,6 +30,7 @@ reports them.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import math
@@ -38,6 +43,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Prot
 import torch
 
 from ptgnn_tpu_torch.core import checkpoint as ckpt
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.data import MemorizedDataIterable
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
@@ -47,7 +53,7 @@ from ptgnn_tpu_torch.utils.oom import is_oom_error, release_cached_memory
 
 __all__ = [
     "ModelTrainer", "AbstractScheduler", "EndOfEpochHook", "clip_by_global_norm_",
-    "module_loss", "optimizer_step", "prefetch_to_device",
+    "module_loss", "optimizer_step", "prefetch_to_device", "make_capturable", "TrainStep",
 ]
 
 LOGGER = logging.getLogger(__name__)
@@ -150,9 +156,171 @@ def optimizer_step(
     if clip_gradient_norm is not None:
         clip_by_global_norm_(grads, clip_gradient_norm)
     for group, base in zip(optimizer.param_groups, base_lrs):
-        group["lr"] = base * lr_factor
+        set_learning_rate(group, base * lr_factor)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+
+
+def set_learning_rate(group: Dict[str, Any], lr: float) -> None:
+    """A parameter group's learning rate: filled in place where it is a
+    device scalar (:func:`make_capturable`), else set."""
+    if isinstance(group["lr"], torch.Tensor):
+        group["lr"].fill_(lr)
+    else:
+        group["lr"] = lr
+
+
+def make_capturable(optimizer: torch.optim.Optimizer, device: torch.device) -> List[float]:
+    """Prepare ``optimizer`` for a step that a CUDA graph captures; returns
+    the base learning rate of each parameter group. Every trainer's
+    optimizer goes through it, compiled or not, so that all of them update
+    with the same arithmetic. Under ZeRO-1 (``ZeroRedundancyOptimizer``)
+    its local optimizer is the one prepared, and the global groups, which
+    ZeRO copies into the local ones at every step, carry the same rates.
+
+    On CUDA every group becomes ``capturable`` (the step count stays on the
+    device) and its learning rate a device scalar, which the caller fills
+    before each step; on the CPU, where torch refuses ``capturable`` and no
+    graph exists, the rate stays a Python float, and a restored checkpoint's
+    CUDA flags are taken back. Empty state is allocated now, as the
+    optimizer's first step would (zeros), so a graph captures the update of
+    state that exists. The base rate of a group is its ``initial_lr`` where
+    a restored checkpoint holds one. Only Adam and AdamW are taken: another
+    optimizer raises, naming it."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    local = optimizer.optim if isinstance(optimizer, ZeroRedundancyOptimizer) else optimizer
+    if type(local) not in (torch.optim.Adam, torch.optim.AdamW):
+        raise TypeError(
+            f"{type(local).__name__} cannot run in a compiled (CUDA graph) step: use torch.optim.Adam or AdamW"
+        )
+    cuda = device.type == "cuda"
+    base_lrs = []
+    for group in optimizer.param_groups:
+        # The base rate is kept as torch's schedulers keep it, so that a
+        # checkpoint taken after a scaled step restores the base, not the
+        # scaled rate.
+        base = float(group.setdefault("initial_lr", float(group["lr"])))
+        base_lrs.append(base)
+        group["capturable"] = cuda
+        group["lr"] = torch.tensor(base, dtype=torch.float32, device=device) if cuda else base
+    for group, local_group in zip(optimizer.param_groups, local.param_groups):
+        if local_group is not group:
+            local_group.update({k: v for k, v in group.items() if k != "params"})
+        for p in local_group["params"]:
+            state = local.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if local_group["amsgrad"]:
+                    state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            else:
+                state["step"] = state["step"].to(device=p.device if cuda else "cpu", dtype=torch.float32)
+    return base_lrs
+
+
+class TrainStep:
+    """The train step of ``module``: forward, backward, the clip and the
+    optimizer, written once and compiled (``core/compiled_step.py``) as the
+    JAX trainer jits its ``train_step``; with gradient accumulation, JAX's
+    pair: :meth:`accumulate` (forward and backward, adding into the
+    gradients) and :meth:`apply` (the mean of the accumulated gradients,
+    clipped, applied).
+
+    The gradients are static buffers (``p.grad``, allocated here), zero
+    between steps: a step zeroes them in place after its update, never sets
+    them to None. The optimizer goes through :func:`make_capturable`; the
+    learning rates are filled with ``base x lr_factor`` before each step.
+    Dropout draws from :attr:`generator`, which the caller seeds before each
+    step; the compiled steps register it, so a replay draws what an eager
+    step from the same seed draws. Each of :attr:`train_step`,
+    :attr:`grad_step` and :attr:`apply_step` is a :class:`CompiledStep`; its
+    ``fn`` runs the same step eagerly."""
+
+    def __init__(self, module: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
+                 clip_gradient_norm: Optional[float] = None, amp: bool = False):
+        self.module = module
+        self.optimizer = optimizer
+        self.device = next(module.parameters()).device
+        self._clip = clip_gradient_norm
+        self._amp = amp
+        self._base_lrs = make_capturable(optimizer, self.device)
+        params = [p for p in module.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._grads = [p.grad for p in params]
+        self._divisor = torch.ones((), device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        compile_kw = dict(state=self._state, generators=[self.generator])
+        self.train_step = CompiledStep(self._train, self.device, **compile_kw)
+        self.grad_step = CompiledStep(self._forward_backward, self.device, **compile_kw)
+        self.apply_step = CompiledStep(self._apply, self.device, **compile_kw)
+
+    def _state(self) -> List[torch.Tensor]:
+        """Every tensor a step writes in place."""
+        tensors = [*self.module.parameters(), *self.module.buffers(), *self._grads, self._divisor]
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                tensors.append(group["lr"])
+        for state in self.optimizer.state.values():
+            tensors.extend(v for v in state.values() if isinstance(v, torch.Tensor))
+        return tensors
+
+    def _forward_backward(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        loss, metrics = module_loss(self.module, minibatch, train=True, generator=self.generator, amp=self._amp)
+        loss.backward()
+        return loss.detach(), metrics
+
+    def _update(self) -> None:
+        if self._clip is not None:
+            clip_by_global_norm_(self._grads, self._clip)
+        self.optimizer.step()
+        torch._foreach_zero_(self._grads)
+
+    def _train(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        loss, metrics = self._forward_backward(minibatch)
+        self._update()
+        return loss, metrics
+
+    @torch.no_grad()
+    def _apply(self) -> None:
+        torch._foreach_div_(self._grads, self._divisor)
+        self._update()
+
+    def set_lr(self, lr_factor: float) -> None:
+        """Every group's learning rate to its base times ``lr_factor``."""
+        for group, base in zip(self.optimizer.param_groups, self._base_lrs):
+            set_learning_rate(group, base * lr_factor)
+
+    def step(self, minibatch: Dict[str, Any], lr_factor: float = 1.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One step on a device-resident minibatch; returns (loss, metrics),
+        device tensors that the next step overwrites. Nothing waits for the
+        device."""
+        self.set_lr(lr_factor)
+        return self.train_step(minibatch)
+
+    def accumulate(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Forward and backward of one microbatch, its gradients added to the
+        accumulated ones; returns (loss, metrics) as :meth:`step` does."""
+        return self.grad_step(minibatch)
+
+    def apply(self, count: int, lr_factor: float = 1.0) -> None:
+        """Apply the mean of the ``count`` microbatches' gradients."""
+        self.set_lr(lr_factor)
+        self._divisor.fill_(count)
+        self.apply_step()
+
+    @torch.no_grad()
+    def zero_grad(self) -> None:
+        """Drop the accumulated gradients (after a skipped microbatch)."""
+        torch._foreach_zero_(self._grads)
+
+    def clear(self) -> None:
+        """Free the compiled steps' graphs and pools."""
+        for compiled in (self.train_step, self.grad_step, self.apply_step):
+            compiled.clear()
 
 
 def shuffle_seed(seed: int, epoch: int, node: int = 0) -> int:
@@ -274,6 +442,8 @@ class ModelTrainer:
         self._accumulated = 0  # microbatches whose gradients sit in .grad
         self._opt_steps_this_epoch = 0  # the schedule's step index
         self._last_lr_factor = 1.0
+        self._step: Optional[TrainStep] = None  # the compiled train step of the current optimizer
+        self._compiled_eval: Optional[Tuple[torch.nn.Module, CompiledStep]] = None
         self._restored_optimizer_state: Optional[Dict[str, Any]] = None
         self._start_epoch_override: Optional[int] = None
 
@@ -359,16 +529,29 @@ class ModelTrainer:
         if self._restored_optimizer_state is not None:
             optimizer.load_state_dict(self._restored_optimizer_state)
             self._restored_optimizer_state = None
-        return optimizer, [group["lr"] for group in optimizer.param_groups]
+        return optimizer, make_capturable(optimizer, self._device)
 
     # ------------------------------------------------------------------
     # Steps
     # ------------------------------------------------------------------
-    def _apply_accumulated(self, optimizer, base_lrs, lr_factor: float) -> None:
-        optimizer_step(
-            self.neural_module, optimizer, base_lrs, clip_gradient_norm=self._clip_gradient_norm,
-            lr_factor=lr_factor, grad_divisor=self._accumulated,
-        )
+    def _train_step_for(self, optimizer: torch.optim.Optimizer) -> TrainStep:
+        """The compiled train step of the current module and ``optimizer``."""
+        step = self._step
+        if step is None or step.optimizer is not optimizer or step.module is not self.neural_module:
+            step = self._step = TrainStep(self.neural_module, optimizer, clip_gradient_norm=self._clip_gradient_norm,
+                                          amp=self._enable_amp)
+        return step
+
+    def _eval_step(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The compiled validation step: (loss, metrics) without dropout."""
+        module = self.neural_module
+        if self._compiled_eval is None or self._compiled_eval[0] is not module:
+            fn = functools.partial(module_loss, module, train=False, amp=self._enable_amp)
+            self._compiled_eval = (module, CompiledStep(fn, self._device))
+        return self._compiled_eval[1](minibatch)
+
+    def _apply_accumulated(self, lr_factor: float) -> None:
+        self._step.apply(self._accumulated, lr_factor)
         self._accumulated = 0
         self._opt_steps_this_epoch += 1
 
@@ -378,19 +561,22 @@ class ModelTrainer:
         return prefetch_to_device(items, self._device, self._prefetch_to_device,
                                   catch_oom=self._catch_device_ooms)
 
-    def _train_step(self, minibatch, generator, optimizer, base_lrs, lr_factor: float):
-        """Forward and backward of one device-resident microbatch; every
-        k-th applies the mean gradient of the last k. Returns (host loss,
-        metrics)."""
-        loss, metrics = module_loss(
-            self.neural_module, minibatch, train=True, generator=generator, amp=self._enable_amp,
-        )
-        loss.backward()
-        loss_f = float(loss.detach())  # waits for the step, so a device OOM raises here
+    def _train_step(self, minibatch, generator, lr_factor: float):
+        """One compiled step on a device-resident microbatch, its dropout
+        drawn from ``generator`` (the step's, seeded by the caller); under
+        accumulation every k-th applies the mean gradient of the last k.
+        Returns (host loss, metrics)."""
+        if self._grad_accum_steps == 1:
+            loss, metrics = self._step.step(minibatch, lr_factor)
+            loss_f = float(loss)  # waits for the step, so a device OOM raises here
+            self._opt_steps_this_epoch += 1
+            return loss_f, metrics
+        loss, metrics = self._step.accumulate(minibatch)
+        loss_f = float(loss)
         self._accumulated += 1
         self._last_lr_factor = lr_factor
         if self._accumulated >= self._grad_accum_steps:
-            self._apply_accumulated(optimizer, base_lrs, lr_factor)
+            self._apply_accumulated(lr_factor)
         return loss_f, metrics
 
     # ------------------------------------------------------------------
@@ -402,7 +588,8 @@ class ModelTrainer:
         metrics_acc = MetricsAccumulator()
         start_time = time.time()
         self._opt_steps_this_epoch = 0
-        generator = torch.Generator(device=self._device)
+        step = self._train_step_for(optimizer)
+        generator = step.generator
         mb_iter = self._model.minibatch_iterator(
             training_tensors(),
             max_minibatch_size=self._minibatch_size,
@@ -420,14 +607,14 @@ class ModelTrainer:
             )
             generator.manual_seed(step_seed(self._seed, epoch, step_idx))
             try:
-                loss_f, metrics = self._train_step(mb_data, generator, optimizer, base_lrs, lr_factor)
+                loss_f, metrics = self._train_step(mb_data, generator, lr_factor)
             except RuntimeError as error:
                 if not (self._catch_device_ooms and is_oom_error(error)):
                     raise
                 # Skip the minibatch, and the partial accumulation group
                 # whose gradients it may have touched.
                 self.LOGGER.exception("A device OOM error was caught; skipping minibatch.")
-                optimizer.zero_grad(set_to_none=True)
+                step.zero_grad()
                 self._accumulated = 0
                 loss_f = None
             if loss_f is None:  # outside the handler, whose traceback holds the step's tensors
@@ -441,7 +628,7 @@ class ModelTrainer:
             num_samples += len(raw_samples)
             metrics_acc.update(metrics)
         if self._accumulated:  # a trailing partial accumulation group
-            self._apply_accumulated(optimizer, base_lrs, self._last_lr_factor)
+            self._apply_accumulated(self._last_lr_factor)
         self._report_training_epoch(epoch, sum_epoch_loss, num_minibatches, num_samples, metrics_acc,
                                     time.time() - start_time)
 
@@ -477,9 +664,7 @@ class ModelTrainer:
             shuffle_input=False,
             parallelize=parallelize,
         ):
-            loss, metrics = module_loss(
-                self.neural_module, tree_to(mb_data, self._device), train=False, amp=self._enable_amp
-            )
+            loss, metrics = self._eval_step(tree_to(mb_data, self._device))
             sum_epoch_loss += float(loss)
             num_minibatches += 1
             num_samples += len(raw_samples)

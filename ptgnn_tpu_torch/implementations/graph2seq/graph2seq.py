@@ -17,6 +17,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, TypedDict
 import torch
 
 from ptgnn_tpu_torch.core.iterators import ThreadedIterator
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
 from ptgnn_tpu_torch.graph.gnn import GraphNeuralNetwork, GraphNeuralNetworkModel
@@ -218,6 +219,7 @@ class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2Se
         other's results."""
         device = resolve_device(device)
         trained_network.to(device).eval()
+        encode = CompiledStep(trained_network.encode, device)
         indexed_stream = ThreadedIterator(((self.tensorize(d), i) for i, d in enumerate(data)), enabled=True)
         decoded: List = []
         survivor_idx: List[int] = []
@@ -230,8 +232,7 @@ class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2Se
                     sample = data[i]
                     input_concrete_values.extend(
                         sample["node_labels"][k].lower() for k in sample["backbone_sequence"])
-                memories, origin, memory_mask, initial_states, _ = trained_network.encode(
-                    tree_to(mb_data["batch"], device))
+                memories, origin, memory_mask, initial_states, _ = encode(tree_to(mb_data["batch"], device))
                 survivor_idx.extend(mb_indices)
                 decoded.extend(decode_fn(
                     input_concrete_values=input_concrete_values,

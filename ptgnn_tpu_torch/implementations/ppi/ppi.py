@@ -13,6 +13,7 @@ from typing import Any, Dict, Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.data import enforce_not_None
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
@@ -183,13 +184,12 @@ class PPIMulticlassClassification(
         """Micro F1, precision and recall over ``dataset``."""
         device = resolve_device(device)
         trained_network.to(device).eval()
+        forward = CompiledStep(trained_network, device)
         acc = MetricsAccumulator()
         with torch.inference_mode():
             for mb_data, _ in self.minibatch_iterator(
                 self.tensorize_dataset(iter(dataset)), max_minibatch_size=max_minibatch_size
             ):
-                _, metrics = trained_network(
-                    mb_data["batch"].to(device), torch.from_numpy(mb_data["targets"]).to(device)
-                )
+                _, metrics = forward(mb_data["batch"].to(device), torch.from_numpy(mb_data["targets"]).to(device))
                 acc.update(metrics)
         return trained_network.finalize_metrics(acc.totals())

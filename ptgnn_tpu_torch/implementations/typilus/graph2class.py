@@ -15,6 +15,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple, Typed
 import numpy as np
 import torch
 
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
 from ptgnn_tpu_torch.graph.gnn import GraphNeuralNetwork, GraphNeuralNetworkModel
@@ -251,13 +252,14 @@ class Graph2Class(
         """Test accuracy counting UNK predictions as wrong."""
         device = resolve_device(device)
         trained_network.to(device).eval()
+        predict_probs = CompiledStep(trained_network.predict_probs, device)
         unk_class_id = self.__target_vocab.get_id_or_unk(Vocabulary.get_unk())
         num_correct, num_elements = 0, 0
         with torch.inference_mode():
             for mb_data, _ in self.minibatch_iterator(
                 self.tensorize_dataset(iter(dataset)), max_minibatch_size=max_minibatch_size
             ):
-                _, predictions, _, mask = trained_network.predict_probs(mb_data["batch"].to(device))
+                _, predictions, _, mask = predict_probs(mb_data["batch"].to(device))
                 predictions = predictions.cpu().numpy()
                 mask = mask.cpu().numpy()
                 targets = mb_data["target_classes"]
@@ -278,6 +280,7 @@ class Graph2Class(
         """Streaming per-graph type suggestions."""
         device = resolve_device(device)
         trained_network.to(device).eval()
+        predict_probs = CompiledStep(trained_network.predict_probs, device)
         try:
             self.__tensorize_samples_with_no_annotation = True
             self.__tensorize_keep_original_supernode_idx = True
@@ -289,7 +292,7 @@ class Graph2Class(
                 with torch.inference_mode():
                     probs, predictions, graph_idxs, mask = (
                         x.cpu().numpy()
-                        for x in trained_network.predict_probs(mb_data["batch"].to(device))
+                        for x in predict_probs(mb_data["batch"].to(device))
                     )
                 supernode_idxs = mb_data["original_supernode_idxs"]
                 valid = np.where(mask)[0]

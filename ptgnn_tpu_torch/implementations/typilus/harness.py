@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
-from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+from ptgnn_tpu_torch.core.trainer import TrainStep
 from ptgnn_tpu_torch.device import DeviceLike
 from ptgnn_tpu_torch.graph.messagepassing import (
     EGCMessagePassingLayer,
@@ -151,18 +151,19 @@ def train_steps(
     learning_rate: float = 2.5e-4,
     clip_gradient_norm: float = 1.0,
     seed: int = 0,
-) -> Dict[str, float]:
+) -> Dict[str, Any]:
     """``bench.py``'s train-step loop over device-resident minibatches, each
     the keyword arguments of ``module`` (Graph2Class: ``{"batch",
-    "target_classes"}``; PPI: ``{"batch", "targets"}``): clip(1.0) +
-    Adam(``learning_rate``), one warm-up step on the first minibatch, then
-    ``steps`` timed steps cycling over them, the last of which waits for the
-    device. Updates ``module`` in place. Returns the last loss, ms per step,
-    and graphs, nodes and edges per second."""
-    optimizer = torch.optim.Adam(module.parameters(), lr=learning_rate)
-    base_lrs = [group["lr"] for group in optimizer.param_groups]
-    device = next(module.parameters()).device
-    generator = torch.Generator(device=device)
+    "target_classes"}``; PPI: ``{"batch", "targets"}``): the trainer's
+    compiled step (:class:`TrainStep`: clip(1.0) + Adam(``learning_rate``)),
+    one warm-up step on the first minibatch, then ``steps`` timed steps
+    cycling over them, the last of which waits for the device. Updates
+    ``module`` in place. Returns the last loss, ms per step, graphs, nodes
+    and edges per second, and the compiled step's capture costs
+    (``captures``: a ``CaptureStats`` per batch signature)."""
+    step = TrainStep(module, torch.optim.Adam(module.parameters(), lr=learning_rate),
+                     clip_gradient_norm=clip_gradient_norm, amp=enable_amp)
+    device = step.device
     # Host-side sizes: reading them from the device inside the loop would
     # synchronise every step.
     sizes = [
@@ -170,26 +171,20 @@ def train_steps(
         for mb in minibatches
     ]
 
-    def step(i: int) -> torch.Tensor:
-        generator.manual_seed(seed * 1_000_003 + i)
-        loss, _ = module_loss(
-            module, dict(minibatches[i % len(minibatches)]), train=True,
-            generator=generator, amp=enable_amp,
-        )
-        loss.backward()
-        optimizer_step(module, optimizer, base_lrs, clip_gradient_norm=clip_gradient_norm)
-        return loss
+    def run(i: int) -> torch.Tensor:
+        step.generator.manual_seed(seed * 1_000_003 + i)
+        return step.step(dict(minibatches[i % len(minibatches)]))[0]
 
-    step(0)
+    run(0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     totals = [0, 0, 0]
     t0 = time.perf_counter()
     for i in range(steps):
-        loss = step(i)
+        loss = run(i)
         for k, v in enumerate(sizes[i % len(sizes)]):
             totals[k] += v
-    final_loss = float(loss.detach())  # waits for the last step
+    final_loss = float(loss)  # waits for the last step
     elapsed = time.perf_counter() - t0
     return {
         "loss": final_loss,
@@ -197,4 +192,5 @@ def train_steps(
         "graphs_per_s": totals[0] / elapsed,
         "nodes_per_s": totals[1] / elapsed,
         "edges_per_s": totals[2] / elapsed,
+        "captures": step.train_step.stats(),
     }

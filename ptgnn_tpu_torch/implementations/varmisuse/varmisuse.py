@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
 from ptgnn_tpu_torch.graph.gnn import GraphNeuralNetwork, GraphNeuralNetworkModel
@@ -221,11 +222,12 @@ class VarMisuseModel(AbstractNeuralModel[VarMisuseSample, TensorizedVarMisuseSam
         """The share of samples whose correct candidate scores highest."""
         device = resolve_device(device)
         trained_network.to(device).eval()
+        forward = CompiledStep(trained_network, device)
         acc = MetricsAccumulator()
         with torch.inference_mode():
             for mb_data, _ in self.minibatch_iterator(
                 self.tensorize_dataset(iter(dataset)), max_minibatch_size=max_minibatch_size
             ):
-                _, metrics = trained_network(**tree_to(mb_data, device), train=False)
+                _, metrics = forward(**tree_to(mb_data, device), train=False)
                 acc.update(metrics)
         return trained_network.finalize_metrics(acc.totals())["Accuracy"]

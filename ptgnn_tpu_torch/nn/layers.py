@@ -110,8 +110,9 @@ class _EmbeddingLookup(torch.autograd.Function):
     The rows are sorted stably by id and summed in two levels of sequential
     segment sums: chunks of at most ``_CHUNK`` rows of one id, then each id's
     chunks. One level would sum the padding id's tens of thousands of rows in
-    one sequential chain. Every shape is fixed by the input sizes, so nothing
-    waits for the device."""
+    one sequential chain. Every shape is fixed by the input sizes and no
+    value is read on the host, so nothing waits for the device and a CUDA
+    graph captures the backward."""
 
     _CHUNK = 128
 
@@ -129,14 +130,22 @@ class _EmbeddingLookup(torch.autograd.Function):
         order = torch.argsort(flat, stable=True)
         sorted_ids = flat[order]
         rows = g.reshape(-1, g.shape[-1])[order].float()  # bf16 rows summed in float32
-        counts = torch.bincount(flat, minlength=num_ids)
+        counts = _count(flat, num_ids)
         chunks = (counts + chunk - 1) // chunk  # chunks of each id
         rank = torch.arange(flat.numel(), device=flat.device) - (torch.cumsum(counts, 0) - counts)[sorted_ids]
         slot = (torch.cumsum(chunks, 0) - chunks)[sorted_ids] + rank // chunk  # non-decreasing
         num_slots = num_ids + flat.numel() // chunk + 1  # > the chunks of all ids
-        partial = torch.segment_reduce(rows, "sum", lengths=torch.bincount(slot, minlength=num_slots))
+        # ``unsafe``: the lengths sum to the rows by construction; the checks
+        # would read them on the host.
+        partial = torch.segment_reduce(rows, "sum", lengths=_count(slot, num_slots), unsafe=True)
         lengths = torch.cat([chunks, (num_slots - chunks.sum()).reshape(1)])
-        return None, torch.segment_reduce(partial, "sum", lengths=lengths)[:num_ids].to(g.dtype)
+        return None, torch.segment_reduce(partial, "sum", lengths=lengths, unsafe=True)[:num_ids].to(g.dtype)
+
+
+def _count(values: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(values, minlength=n)`` for values in [0, n), with no
+    host read of the largest value (bincount sizes its output on the host)."""
+    return torch.zeros(n, dtype=torch.long, device=values.device).scatter_add_(0, values, torch.ones_like(values))
 
 
 class Embedding(torch.nn.Module):

@@ -101,7 +101,10 @@ def _apply_keyed_dropout(x: torch.Tensor, drop: Dropout, col_offset: int = 0) ->
         return x
     seed, key, keep = drop
     mask = _keyed_dropout_mask(seed, key, x.shape[1], 1.0 - keep, col_offset)
-    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+    # The rate as a device scalar made by a fill: dividing by a Python float
+    # multiplies by its reciprocal, and a tensor copied from the host waits
+    # for the copy.
+    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 

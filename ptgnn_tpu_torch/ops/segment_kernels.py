@@ -565,6 +565,11 @@ _WRAPPERS = {
 }
 
 
+def kernel_wrappers() -> List:
+    """The port's kernel wrappers, each with its ``launches`` counter."""
+    return list(_WRAPPERS.values())
+
+
 def launch_counts() -> Dict[str, int]:
     """The launch counters of the port's kernel wrappers: this module's and
     the typed matmul's (``ops/typed_linear.py``)."""

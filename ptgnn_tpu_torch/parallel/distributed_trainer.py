@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
-from ptgnn_tpu_torch.core.trainer import ModelTrainer, shuffle_seed, step_seed
+from ptgnn_tpu_torch.core.trainer import ModelTrainer, make_capturable, shuffle_seed, step_seed
 from ptgnn_tpu_torch.graph.structs import tree_to
 from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
 
@@ -155,7 +155,7 @@ class DistributedModelTrainer(ModelTrainer):
         if self._restored_optimizer_state is not None:
             optimizer.load_state_dict(self._restored_optimizer_state)  # the consolidated state
             self._restored_optimizer_state = None
-        return optimizer, [group["lr"] for group in optimizer.param_groups]
+        return optimizer, make_capturable(optimizer, self._device)
 
     def _save_optimizer_state(self, optimizer, next_epoch: int) -> None:
         if self._zero1:

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ptgnn_tpu_torch.core.trainer import make_capturable
 from ptgnn_tpu_torch.parallel.distributed_trainer import DistributedModelTrainer
 from ptgnn_tpu_torch.parallel.dp import LOCAL, DataParallel, zero1_optimizer
 from ptgnn_tpu_torch.parallel.node_sharding import BoundaryBudgetError, NodeParallel, suggest_budgets
@@ -149,7 +150,7 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
         if self._restored_optimizer_state is not None:
             optimizer.load_state_dict(self._restored_optimizer_state)
             self._restored_optimizer_state = None
-        return optimizer, [group["lr"] for group in optimizer.param_groups]
+        return optimizer, make_capturable(optimizer, self._device)
 
     def _save_optimizer_state(self, optimizer, next_epoch: int) -> None:
         sharded = self._zero1 and self.data_group != LOCAL

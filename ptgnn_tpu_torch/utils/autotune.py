@@ -16,8 +16,9 @@ Usage::
     )
     best = results[0]  # sorted by measured edges/s, best first
 
-Timing: each repeat runs ``steps`` train steps between two CUDA events
-(host dispatch included, as the JAX package's chained steps include it);
+Timing: each repeat runs ``steps`` compiled train steps (one CUDA graph
+replay each, as the JAX package times its jitted steps) between two CUDA
+events, host dispatch included;
 a candidate's time is the median of ``REPEATS`` (3) repeats, since wall times
 of one configuration spread up to twofold between runs. On the CPU the
 host clock stands in for the events.
@@ -35,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
+from ptgnn_tpu_torch.core.trainer import TrainStep
 from ptgnn_tpu_torch.device import DeviceLike
 from ptgnn_tpu_torch.graph.structs import BatchPadding, tree_to
 from ptgnn_tpu_torch.utils.oom import is_oom_error, release_cached_memory
@@ -95,37 +96,37 @@ def _infeasible(padding: BatchPadding, error: str) -> TuneResult:
 def _time_steps(module: torch.nn.Module, minibatch: Dict[str, Any], *, steps: int, amp: bool, optimizer_creator,
                 seed: int) -> Tuple[float, float]:
     """(the warm-up step's loss, the median ms of ``steps`` train steps over
-    ``REPEATS`` repeats): the trainer's step (module_loss, backward, clip 1.0
-    and the optimizer) on one device-resident minibatch."""
+    ``REPEATS`` repeats): the trainer's compiled step (:class:`TrainStep`:
+    module_loss, backward, clip 1.0 and the optimizer) on one
+    device-resident minibatch. The step's graphs are freed before it
+    returns, so candidates do not pile up memory pools."""
     device = next(module.parameters()).device
-    optimizer = optimizer_creator(module.parameters())
-    base_lrs = [group["lr"] for group in optimizer.param_groups]
-    generator = torch.Generator(device=device)
+    step = TrainStep(module, optimizer_creator(module.parameters()), clip_gradient_norm=1.0, amp=amp)
 
-    def step(i: int) -> torch.Tensor:
-        generator.manual_seed(seed + i)
-        loss, _ = module_loss(module, minibatch, train=True, generator=generator, amp=amp)
-        loss.backward()
-        optimizer_step(module, optimizer, base_lrs, clip_gradient_norm=1.0)
-        return loss
+    def run(i: int) -> torch.Tensor:
+        step.generator.manual_seed(seed + i)
+        return step.step(minibatch)[0]
 
-    first = float(step(0).detach())  # waits for the warm-up step
-    times = []
-    for r in range(REPEATS):
-        if device.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for i in range(steps):
-                step(1 + r * steps + i)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                loss = step(1 + r * steps + i)
-            float(loss.detach())
-            times.append(1e3 * (time.perf_counter() - t0))
+    try:
+        first = float(run(0))  # compiles and waits for the warm-up step
+        times = []
+        for r in range(REPEATS):
+            if device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for i in range(steps):
+                    run(1 + r * steps + i)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    loss = run(1 + r * steps + i)
+                float(loss)
+                times.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        step.clear()
     return first, statistics.median(times) / steps
 
 

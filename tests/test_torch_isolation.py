@@ -47,6 +47,7 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.parallel.node_sharding", "ptgnn_tpu_torch.parallel.node_sharded_trainer",
         "ptgnn_tpu_torch.native", "ptgnn_tpu_torch.utils.autotune", "ptgnn_tpu_torch.utils.oom",
         "ptgnn_tpu_torch.utils.profiling", "ptgnn_tpu_torch.core.dcp_checkpoint",
+        "ptgnn_tpu_torch.core.compiled_step",
     } <= names
 
 
