@@ -1899,6 +1899,101 @@ def decode_parity(model, module, test, dev, batch_graphs):
           f"{beam_err:.3e}); {copies} of the sequences hold a token of their graph, e.g. {card[0]}")
 
 
+def compiled_decode(model, module, test, dev, card, batch_graphs, groups, initial_states, reps: int = 5):
+    """The decode loops compiled (``GruCopyingDecoderModel.decode_loop``: a
+    CUDA graph per signature, its warm-up under sync debug mode "error")
+    against the same loops called directly. On one test batch's copy
+    groups: the greedy, the sampled (temperature 0.8, the generator
+    reseeded before each run) and the beam-G2S_BEAM loops bit for bit (the
+    emitted ids, the parents, the scores), each one's ms per loop (the mean
+    of ``reps``) and the device's busy share of a profiled run of ``reps``.
+    Then ``greedy_decode`` and ``beam_decode`` over the test samples with
+    the compiled loops and with the loops called directly: the same tokens
+    and log-probabilities exactly, ms per batch (the host pipeline and the
+    compiled encoder included) and busy share. Last, the capture s and pool
+    MiB of every signature the decode loops and the encoder hold."""
+    decoder_model = model.decoder_model
+    generator = torch.Generator(device=dev)
+    loops = {
+        "greedy": (decoder_model.decode_loop("greedy", module.decoder, dev), (groups[0], initial_states, None)),
+        "sampled (T 0.8)": (decoder_model.decode_loop("greedy", module.decoder, dev, generator),
+                            (groups[0], initial_states, torch.tensor(0.8, device=dev))),
+        f"beam-{G2S_BEAM}": (decoder_model.decode_loop("beam", module.decoder, dev),
+                             (groups[1], initial_states, G2S_BEAM)),
+    }
+
+    def timed(call, count):
+        """(ms per call over ``count`` calls, the busy share of a profiled
+        run of two, the last call's result)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(count):
+            out = call()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / count
+        with device_profile() as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return ms, busy_share(prof, wall), out
+
+    t_start = time.perf_counter()
+
+    lines = []
+    with torch.inference_mode():
+        for label, (loop, args) in loops.items():
+            out = {}
+            for mode, fn in (("eager", loop.fn), ("compiled", loop), ("compiled again", loop)):
+                generator.manual_seed(SEED + 21)
+                out[mode] = [t.clone() for t in fn(*args)]
+            for mode in ("compiled", "compiled again"):
+                if not all(bitwise_equal(a, b) for a, b in zip(out[mode], out["eager"])):
+                    raise RuntimeError(f"graph2seq: the {mode} {label} loop != the eager loop")
+            (c_ms, c_busy, _), (e_ms, e_busy, _) = (timed(lambda: fn(*args), reps) for fn in (loop, loop.fn))
+            lines.append(f"{label} {c_ms:.3f} ms compiled, {e_ms:.3f} eager ({e_ms / c_ms:.2f}x), busy "
+                         f"{100 * c_busy:.1f} / {100 * e_busy:.1f} %")
+    phase("graph2seq", f"decode loops on the test batch ({decoder_model.max_seq_len} steps), "
+          f"compiled against eager: outputs bitwise equal (emitted ids, parents, scores; the sampled loop from "
+          f"one reseeded generator); {'; '.join(lines)} on {card}")
+
+    def decode(beam: bool):
+        if beam:
+            return model.beam_decode(test, module, beam_size=G2S_BEAM, max_minibatch_size=batch_graphs, device=dev)
+        return model.greedy_decode(test, module, max_minibatch_size=batch_graphs, device=dev)
+
+    compiled_loop = decoder_model.decode_loop
+    batches = -(-len(test) // batch_graphs)
+    lines = []
+    for beam in (False, True):
+        results, ms, busy = {}, {}, {}
+        for mode in ("compiled", "eager", "compiled again"):
+            if mode == "eager":
+                decoder_model.decode_loop = lambda *args, **kwargs: compiled_loop(*args, **kwargs).fn
+            try:
+                call_ms, busy[mode], results[mode] = timed(lambda: decode(beam), 1)
+                ms[mode] = call_ms / batches
+            finally:
+                decoder_model.__dict__.pop("decode_loop", None)
+        if not results["compiled"] == results["eager"] == results["compiled again"]:
+            raise RuntimeError(f"graph2seq: {'beam' if beam else 'greedy'} decode with the compiled loops != with "
+                               f"the eager loops")
+        lines.append(f"{f'beam_decode(beam_size={G2S_BEAM})' if beam else 'greedy_decode'} "
+                     + ", ".join(f"{m} {ms[m]:.3f} ms/batch (busy {100 * busy[m]:.1f} %)" for m in ms))
+    captures = []
+    for cache_name in ("_decode_loops_compiled_cache", "_encoder_compiled_cache"):
+        owner = decoder_model if cache_name.startswith("_decode") else model
+        for key, entry in owner.__dict__.get(cache_name, {}).items():
+            for cap in entry[-1].stats():
+                captures.append(f"{key[0] if cache_name.startswith('_decode') else 'encoder'} "
+                                f"{cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB")
+    phase("graph2seq", f"over the {len(test)} test samples ({batches} batches), the same tokens and "
+          f"log-probabilities with the compiled loops as with the eager ones; " + "; ".join(lines)
+          + f" on {card}; capture (warm-up included) per signature: {'; '.join(captures)}; these decode "
+          f"checks took {time.perf_counter() - t_start:.1f} s")
+
+
 def graph2seq_vocabulary_cap(dev, card, host_batch, reps: int = 3):
     """The decoder alone with an output vocabulary at its 20,000-token cap,
     on one Graph2Seq batch's memory layout with random memories, initial
@@ -2011,8 +2106,8 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     """Graph2Seq at full width (``create_graph2seq_model()`` defaults,
     ``g2s_padding()``): the host pipeline; serving (greedy and beam-5 decode
     over the test samples, ``test.evaluate``, the eval-loss forward over
-    device-resident batches, and the decode loops under sync debug mode
-    "error"); training (ModelTrainer.train for an epoch with validation,
+    device-resident batches, the decode loops under sync debug mode
+    "error", and compiled against eager: :func:`compiled_decode`); training (ModelTrainer.train for an epoch with validation,
     train_steps in float32 and bf16 AMP), with the launches of every part;
     a float32 step (dropout 0) and the greedy decode card against CPU; the
     decoder at the 20,000-token vocabulary cap. Returns (the launch counts
@@ -2099,7 +2194,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
         memories, origin, memory_mask, initial_states, _ = module.encode(tree_to(test_mb["batch"], dev))
         vocab_size, unk_id = module.decoder.vocabulary_size, module.decoder.unk_id
         groups = [decoder_model._copy_groups(k, values, memories, origin, memory_mask, len(raw),
-                                             padding.max_graphs, vocab_size, unk_id) for k in (1, G2S_BEAM)]
+                                             padding.max_graphs, vocab_size, unk_id)[0] for k in (1, G2S_BEAM)]
         torch.cuda.synchronize()
         with sync_debug_error():
             emitted, _ = decoder_model._greedy_loop(module.decoder, groups[0], initial_states)
@@ -2118,6 +2213,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
           f"no step waits for the card; {groups[0].g_pad} copy groups budgeted; on the device-resident test "
           f"batch the greedy loop takes {loop_ms[0]:.3f} ms and the beam loop {loop_ms[1]:.3f} ms (the encode, "
           f"the host pipeline and the transfers excluded) on {card}")
+    compiled_decode(model, module, test, dev, card, padding.max_graphs, groups, initial_states)
 
     encodes = forwards[0]  # the decode batches', the compiled encoder's warm-ups and the one above
     eval_forward_phase(module, batches, card, name, reps)
@@ -2132,7 +2228,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
         raise RuntimeError(f"{name} serving launches {serving} != {want} expected from {encodes} encodes, "
                            f"{loops} decode loops and {loss_forwards} loss forwards")
     phase(name, f"launches over the serving path's {encodes} encodes, {loops} decode loops and "
-          f"{loss_forwards} loss forwards {serving}")
+          f"{loss_forwards} loss forwards {serving}; the phase so far {time.perf_counter() - t_phase:.1f} s")
 
     checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
     trainer = ModelTrainer(model, checkpoint, max_num_epochs=1, minibatch_size=padding.max_graphs, device=dev,
@@ -2983,15 +3079,17 @@ def bpe_phase(dev, card, reps: int = 3):
     return counts
 
 
-def data_parallel_phase(dev, card):
+def data_parallel_phase(dev, card, model, batches, epochs):
     """DistributedModelTrainer at world size 1 over NCCL (a ``file://``
     rendezvous), ZeRO-1 on, at the benchmark configuration, for one
     shuffled epoch of about DP_STEPS optimizer steps, against ModelTrainer's
     same epoch from the same seed (node 0 keeps its shuffle order): every parameter within 1e-6 of its tensor's largest magnitude
-    (and whether bitwise equal), the all-reduce calls and bytes per step,
-    and the launches of the trainer's forwards and steps. Then the
-    distributed Typilus CLI with ``--world-size 1`` for one epoch on
-    synthetic folds. Returns the launch counts of the path."""
+    (and whether bitwise equal), the all-reduce calls and bytes per
+    execution of the compiled step, and the launches of the trainer's
+    forwards and steps (each execution: the DDP warm-ups and the replays).
+    Then the distributed Typilus CLI with ``--world-size 1`` for one epoch
+    on synthetic folds, and the compiled steps against eager
+    (:func:`dp_compiled_checks`). Returns the launch counts of the path."""
     import io as stdio
     import os
     import random
@@ -3004,6 +3102,7 @@ def data_parallel_phase(dev, card):
     from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, default_padding
     from ptgnn_tpu_torch.ops import segment_kernels as sk
     from ptgnn_tpu_torch.parallel import DistributedModelTrainer, initialize_multi_host, moment_elements
+    from ptgnn_tpu_torch.parallel.dp import DDP_WARMUP_CALLS
     from ptgnn_tpu_torch.utils.io import write_jsonl_gz
     from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
 
@@ -3066,8 +3165,11 @@ def data_parallel_phase(dev, card):
         dist.destroy_process_group()
         shutil.rmtree(rendezvous, ignore_errors=True)
     steps = (trainer._opt_steps_this_epoch, single._opt_steps_this_epoch)
-    if steps != (dp_steps, dp_steps) or backwards[0] != dp_steps or dp_steps < 2:
-        raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards[0]}: expected {dp_steps}")
+    # the compiled train step ran its DDP warm-ups once, then a replay a step
+    executions = dp_steps + DDP_WARMUP_CALLS * len(trainer.data_parallel.train_step_compiled)
+    if steps != (dp_steps, dp_steps) or backwards[0] != executions or dp_steps < 2:
+        raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards[0]}: expected "
+                           f"{dp_steps} steps and {executions} executions")
     expected = {k: PER_FORWARD[k] * forwards[0] + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * backwards[0]
                 for k in trainer_counts}
     if trainer_counts != expected:
@@ -3085,9 +3187,10 @@ def data_parallel_phase(dev, card):
     phase(name, f"DistributedModelTrainer (NCCL, world size 1, ZeRO-1 holding {moments} moment elements for "
           f"{params} parameters) vs ModelTrainer: {dp_steps} optimizer steps each over the same shuffled batches and "
           f"dropout seeds, then validation; parameters within 1e-6 of each max (worst {worst:.3e}), bitwise equal: "
-          f"{bitwise}; train + validation {t_train:.2f} s (ModelTrainer {t_single:.2f} s); all-reduces over the train steps "
-          f"{traffic.get('calls', 0) / dp_steps:.1f} calls and {traffic.get('bytes', 0) / dp_steps:.0f} bytes per "
-          f"step; launches {trainer_counts} from {forwards[0]} forwards and {backwards[0]} steps")
+          f"{bitwise}; train + validation {t_train:.2f} s (ModelTrainer {t_single:.2f} s); all-reduces over the "
+          f"{executions} executions of the train step ({DDP_WARMUP_CALLS} DDP warm-ups, {dp_steps} replays) "
+          f"{traffic.get('calls', 0) / executions:.2f} calls and {traffic.get('bytes', 0) / executions:.0f} bytes "
+          f"per execution; launches {trainer_counts} from {forwards[0]} forwards and {backwards[0]} steps")
 
     root = out_dir / "dp-cli"
     shutil.rmtree(root, ignore_errors=True)
@@ -3115,13 +3218,110 @@ def data_parallel_phase(dev, card):
         raise RuntimeError(f"traindistributed printed {line}, returned {accuracy}")
     if min(cli[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum")) <= 0:
         raise RuntimeError(f"the distributed CLI run missed a kernel: {cli}")
-    counts = add_counts(trainer_counts, cli)  # the data-parallel path ends here
     phase(name, f"traindistributed --world-size 1 (NCCL, ZeRO-1): 1 epoch over 12 graphs in "
           f"{time.perf_counter() - t0:.2f} s; '{line[0]}'; launches {cli}")
+    before = sk.launch_counts()
+    world_one(lambda: dp_compiled_checks(dev, card, model, batches, epochs))
+    compiled_counts = delta(sk.launch_counts(), before)
+    counts = add_counts(add_counts(trainer_counts, cli), compiled_counts)  # the data-parallel path ends here
     phase(name, f"launches over the data-parallel path {counts}; the 2-rank path runs on the CPU over gloo "
           f"(tests/test_torch_parallel_dp.py): this machine has one card; phase total "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+DP_EPOCH_GRAPHS = 30  # about 10 benchmark batches
+
+
+def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str):
+    """One DistributedModelTrainer epoch at world 1 (``model``: the
+    benchmark Graph2Class model with its metadata; dropout 0.1, Adam with
+    the clip) over ``train``,
+    then validation, its steps compiled or (``eager_steps``) called
+    directly. Returns the step losses, the parameters, Adam's state, the
+    validation metrics, the seconds of the epoch and the data-parallel
+    steps."""
+    from ptgnn_tpu_torch.parallel import DistributedModelTrainer
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp-epochs"
+    trainer = DistributedModelTrainer(
+        model, out_dir / f"{name}.pkl.gz",
+        zero1=zero1, gradient_accumulation_steps=accumulate, max_num_epochs=1, minibatch_size=300,
+        clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4), device=dev, seed=SEED,
+        target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
+    trainer.load_metadata_and_create_network(train, parallelize=False)
+    dp = trainer.data_parallel
+    if eager_steps:
+        eager_dp(dp)
+    losses, optimizers, marks, metrics = [], [], {}, []
+    for method in ("train_step", "grad_step"):
+        def recorded(*args, _call=getattr(dp, method), **kwargs):
+            out = _call(*args, **kwargs)
+            losses.append(float(out[0]))
+            return out
+
+        setattr(dp, method, recorded)
+    trainer.register_training_start_hook(lambda model, module, optimizer: (
+        optimizers.append(optimizer), marks.__setitem__("start", time.perf_counter())))
+    trainer.register_train_epoch_end_hook(lambda *_: marks.__setitem__("end", time.perf_counter()))
+    trainer.register_validation_epoch_end_hook(lambda m, mod, ep, valid_metrics: metrics.append(valid_metrics))
+    trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0, parallelize=False)
+    torch.cuda.synchronize()
+    return {"losses": losses, "state": {**{f"param {k}": v.detach().clone()
+                                           for k, v in trainer.neural_module.named_parameters()},
+                                        **adam_state(optimizers[0])},
+            "metrics": metrics, "seconds": marks["end"] - marks["start"], "dp": dp}
+
+
+def dp_compiled_checks(dev, card, model, batches, epochs):
+    """The data-parallel steps compiled against eager at world 1 (NCCL):
+    DataParallel's train step (ZeRO-1, Adam) COMPILED_STEPS steps from the
+    same weights and seeds with a weight and a learning-rate factor that
+    change every step, bit for bit (losses, every parameter, both Adam
+    moments), its ms/step (median of TIMED_RUNS runs of TIMED_STEPS) and
+    the device's busy share, capture s and pool MiB; then
+    DistributedModelTrainer epochs of about 10 steps, with and without
+    ZeRO-1, at gradient accumulation 1 and 2, compiled against eager: the
+    step losses, every parameter, both Adam moments and the validation
+    metrics bit for bit."""
+    from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, default_padding
+    from ptgnn_tpu_torch.parallel.dp import DDP_WARMUP_CALLS
+
+    name = "data-parallel"
+    t_start = time.perf_counter()
+    g2c_mbs = [g2c_minibatch(b) for b in batches]
+    runs = {mode: dp_step_runs(model, g2c_mbs, dev, compiled=mode == "compiled") for mode in ("eager", "compiled")}
+    verdict = held_to_eager("DataParallel train step", runs["compiled"], runs["eager"])
+    e, c = runs["eager"], runs["compiled"]
+    captures = "; ".join(f"{cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB" for cap in c["captures"])
+    phase(name, f"DataParallel train step (world 1, NCCL, ZeRO-1 Adam, clip 1.0, dropout on): {COMPILED_STEPS} "
+          f"steps compiled against eager, the weight and lr_factor changing every step, {verdict}; ms/step "
+          f"(median of {TIMED_RUNS} runs of {TIMED_STEPS}) compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, "
+          f"eager {e['ms']:.3f} {[round(t, 3) for t in e['times']]} ({e['ms'] / c['ms']:.2f}x); device busy "
+          f"{100 * c['busy']:.1f} % compiled, {100 * e['busy']:.1f} % eager (profiled run); capture (its "
+          f"{DDP_WARMUP_CALLS} DDP warm-ups included) {captures} on {card}")
+    train, valid = epochs
+    train = train[:DP_EPOCH_GRAPHS]
+    epoch_model = create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding())
+    epoch_model.compute_metadata(iter(train), parallelize=False)  # once, for the eight trainers
+    lines = []
+    for zero1 in (True, False):
+        for k in (1, 2):
+            got = {mode: dp_epoch(epoch_model, train, valid, dev, zero1=zero1, accumulate=k,
+                                  eager_steps=mode == "eager", name=f"dp-{zero1}-{k}-{mode}")
+                   for mode in ("compiled", "eager")}
+            a, b = got["compiled"], got["eager"]
+            apart = [key for key in b["state"] if not bitwise_equal(a["state"][key], b["state"][key])]
+            if a["losses"] != b["losses"] or apart or a["metrics"] != b["metrics"] or len(a["losses"]) < 8:
+                raise RuntimeError(f"{name}: DistributedModelTrainer (ZeRO-1 {zero1}, accumulation {k}) compiled "
+                                   f"!= eager: losses {a['losses']} / {b['losses']}, tensors apart {apart[:6]}")
+            for run in got.values():
+                run["dp"].clear()
+            lines.append(f"ZeRO-1 {zero1}, accumulation {k}: {len(a['losses'])} microbatches, {len(b['state'])} "
+                         f"tensors and the validation metrics bitwise equal, epoch {a['seconds']:.3f} s compiled, "
+                         f"{b['seconds']:.3f} s eager")
+    phase(name, "DistributedModelTrainer epochs (world 1, NCCL) compiled against eager: " + "; ".join(lines)
+          + f" on {card}; these checks took {time.perf_counter() - t_start:.1f} s")
 
 
 EP_SHARDS = 4
@@ -3200,6 +3400,82 @@ def plain_step(module):
     return step
 
 
+SHARDED_TIMED = (3, 10)  # the sharded steps' timed runs: their count and length
+
+
+def sharded_compiled_against_eager(model, local, dev, make_sharder) -> str:
+    """A sharded train step (``make_sharder(module)``: EdgeParallel or
+    NodeParallel at world 1) through DataParallel's compiled train step
+    against the same step called eagerly: COMPILED_STEPS Adam steps from
+    the model's seeded weights on the device-resident shards ``local``, the
+    rate changing every step, bit for bit (raises otherwise); and each
+    one's ms/step and busy share. Returns the line to print."""
+    t_start = time.perf_counter()
+
+    def make(module):
+        sharder = make_sharder(module)
+        return (lambda mb, optimizer: sharder.train_step(mb, optimizer)), sharder.data_parallel
+
+    runs = {mode: dp_step_runs(model, local, dev, compiled=mode == "compiled", zero1=False, make=make,
+                               timed=SHARDED_TIMED) for mode in ("eager", "compiled")}
+    e, c = runs["eager"], runs["compiled"]
+    verdict = held_to_eager("sharded train step", c, e)
+    captures = "; ".join(f"{cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB" for cap in c["captures"])
+    if len(c["captures"]) != 1:
+        raise RuntimeError(f"the sharded train step took {len(c['captures'])} signatures, not one")
+    return (f"{COMPILED_STEPS} steps compiled against eager {verdict}; ms/step (median of {SHARDED_TIMED[0]} runs "
+            f"of {SHARDED_TIMED[1]}) compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, eager {e['ms']:.3f} "
+            f"{[round(t, 3) for t in e['times']]} ({e['ms'] / c['ms']:.2f}x); device busy {100 * c['busy']:.1f} % "
+            f"compiled, {100 * e['busy']:.1f} % eager; capture {captures}; {time.perf_counter() - t_start:.1f} s")
+
+
+def one_rank_exchange(model, local, dev, budgets) -> str:
+    """What a one-rank node group's boundary exchange does: the
+    ``all_to_all_single`` calls one eager NodeParallel step issues, and the
+    NCCL kernels a replay of its compiled step runs (by name, from the
+    profiler). Returns the line to print."""
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.parallel import NodeParallel
+
+    module = model.build_neural_module(device=dev, seed=SEED)
+    npar = NodeParallel(module, **budgets)
+    optimizer = torch.optim.Adam(module.parameters(), lr=2.5e-4)
+    calls = [0]
+    original = dist.all_to_all_single
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    dist.all_to_all_single = counted
+    try:
+        npar.data_parallel.grad_step_compiled.fn(local[0], True)  # one eager forward and backward
+    finally:
+        dist.all_to_all_single = original
+    npar.data_parallel.zero_grad()
+    issued = calls[0]
+    npar.train_step(local[0], optimizer)
+    npar.train_step(local[0], optimizer)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        npar.train_step(local[0], optimizer)
+        torch.cuda.synchronize()
+    nccl, copies = {}, {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if "nccl" in evt.key.lower():
+            nccl[evt.key[:60]] = evt.count
+        elif "memcpy" in evt.key.lower():
+            copies[evt.key[:40]] = evt.count
+    module.gnn.node_group = None
+    npar.data_parallel.clear()
+    return (f"one-rank node group: an eager step issues {issued} all_to_all_single calls (the boundary exchange "
+            f"of each layer that reads sender rows, forward and backward); a replay of the compiled step runs "
+            f"the NCCL kernels {nccl} and the copies {copies}")
+
+
 def params_apart(a, b) -> tuple:
     """(the worst distance between two modules' parameters over each one's
     largest magnitude, its name, whether all are bitwise equal)."""
@@ -3222,7 +3498,9 @@ def edge_parallel_phase(dev, card):
     (2) ``EdgeParallel`` at world 1 over NCCL: EP_STEPS SGD steps (dropout 0)
     against the single-device steps of ModelTrainer's step function, every
     parameter within 1e-5 of its largest magnitude (the shard takes the
-    per-slot route, not the fused op). Returns the launch counts of (2)."""
+    per-slot route, not the fused op); then its compiled train step against
+    eager (:func:`sharded_compiled_against_eager`). Returns the launch
+    counts of (2)."""
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import segment_kernels as sk
     from ptgnn_tpu_torch.parallel import EdgeParallel, shard_adjacency
@@ -3281,14 +3559,18 @@ def edge_parallel_phase(dev, card):
         out = held_steps(single, sharded, device_mbs, local,
                          lambda mb, opt, g: ep.train_step(mb, opt, generator=g)[0], EP_STEPS)
         sharded.gnn.edge_group = None
-        return out
+        before = sk.launch_counts()
+        compiled = sharded_compiled_against_eager(model, local, dev, EdgeParallel)
+        return out, compiled, delta(sk.launch_counts(), before)
 
-    single_losses, losses, worst, where, bitwise, ms, counts = world_one(run)
+    (single_losses, losses, worst, where, bitwise, ms, counts), compiled, compiled_counts = world_one(run)
     np.testing.assert_allclose(losses, single_losses, rtol=1e-5)
     if worst > 1e-5:
         raise RuntimeError(f"{name}: a step's {where} is {worst:.3e} of its max from the single-device step's")
     if min(counts[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum")) <= 0:
         raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
+    phase(name, f"EdgeParallel's train step (NCCL, world 1, Adam, dropout on) {compiled} on {card}")
+    counts = add_counts(counts, compiled_counts)
     phase(name, f"EdgeParallel (NCCL, world 1, one shard: the per-slot route over the shard's row index) vs "
           f"the single-device step (the fused op): {EP_STEPS} SGD steps (dropout 0), each from equal weights, "
           f"losses {losses} vs {single_losses} (rtol 1e-5), parameters within {worst:.3e} of each max (limit "
@@ -3413,8 +3695,11 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
     versions on every shard's interior, boundary and merged layouts
     (``np_layout_checks``). (2) ``NodeShardedModelTrainer`` at world 1 over
     NCCL: NP_STEPS SGD steps (dropout 0) against the single-device steps,
-    every parameter within 1e-5 of its max; then the trainer for an epoch
-    (ZeRO-1, Adam) and ``traindistributed --world-size 1 --node-shards 1``.
+    every parameter within 1e-5 of its max; its compiled train step against
+    eager (:func:`sharded_compiled_against_eager`) and what a one-rank node
+    group's exchange runs (:func:`one_rank_exchange`); then the trainer for
+    an epoch (ZeRO-1, Adam) compiled and eager, bitwise, and
+    ``traindistributed --world-size 1 --node-shards 1``.
     (3) PPI at its reference width node-sharded at world 1, in bf16 AMP (K5's
     gate open) and in float32, against the unsharded steps (``ppi_np_steps``),
     and K5 held on its interior and boundary layouts. Returns the launch
@@ -3505,6 +3790,11 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
         held = held_steps(single, sharded, device_mbs, local,
                           lambda mb, opt, g: npar.train_step(mb, opt, generator=g)[0], NP_STEPS)
         sharded.gnn.node_group = None
+        before = sk.launch_counts()
+        exchange = one_rank_exchange(model, local, dev, budgets)
+        compiled = sharded_compiled_against_eager(model, local, dev,
+                                                  lambda m: NodeParallel(m, **budgets))
+        compiled_counts = delta(sk.launch_counts(), before)
 
         trainer = NodeShardedModelTrainer(
             create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
@@ -3520,9 +3810,27 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
         torch.cuda.synchronize()
         t_trainer = time.perf_counter() - t0
         trainer_counts = delta(sk.launch_counts(), before)
-        return held, trainer, t_trainer, trainer_counts
+        eager_trainer = NodeShardedModelTrainer(
+            create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
+            out_dir / "np-trainer-eager.pkl.gz", node_shards=1, max_num_epochs=1, minibatch_size=300, device=dev,
+            seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4), clip_gradient_norm=1.0,
+            target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
+        eager_trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
+        eager_dp(eager_trainer.data_parallel)
+        before = sk.launch_counts()
+        t0 = time.perf_counter()
+        eager_trainer.train(train_graphs, list(graphs(SEED + 1))[:6], initialize_metadata=False, patience=0,
+                            parallelize=False)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        trainer_counts = add_counts(trainer_counts, delta(sk.launch_counts(), before))
+        apart = params_apart(trainer.neural_module, eager_trainer.neural_module)
+        if not apart[2]:
+            raise RuntimeError(f"{name}: the compiled NodeShardedModelTrainer epoch != the eager one ({apart[1]} "
+                               f"{apart[0]:.3e} of its max)")
+        return held, trainer, (t_trainer, t_eager), add_counts(trainer_counts, compiled_counts), compiled, exchange
 
-    held, trainer, t_trainer, trainer_counts = world_one(run)
+    held, trainer, t_trainer, trainer_counts, compiled, exchange = world_one(run)
     single_losses, losses, worst, where, bitwise, ms, step_counts = held
     np.testing.assert_allclose(losses, single_losses, rtol=1e-5)
     if worst > 1e-5:
@@ -3534,8 +3842,10 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
           f"{ms[1]:.2f}) on {card}; launches {step_counts}")
     if not (out_dir / "np-trainer.pkl.gz").exists() or trainer._budgets is None:
         raise RuntimeError(f"{name}: NodeShardedModelTrainer saved no checkpoint or probed no budgets")
+    phase(name, f"NodeParallel's train step (NCCL, world 1, Adam, dropout on) {compiled} on {card}; {exchange}")
     phase(name, f"NodeShardedModelTrainer (NCCL, world 1, node shards 1): 1 epoch with validation in "
-          f"{t_trainer:.2f} s, probed budgets {trainer._budgets}; launches {trainer_counts}")
+          f"{t_trainer[0]:.2f} s compiled, {t_trainer[1]:.2f} s eager, the parameters after them bitwise equal; "
+          f"probed budgets {trainer._budgets}; launches of both and of the steps above {trainer_counts}")
 
     root = out_dir / "np-cli"
     shutil.rmtree(root, ignore_errors=True)
@@ -3726,6 +4036,21 @@ def numpy_assembler():
 def first_minibatch(model, samples):
     return next(iter(model.minibatch_iterator(model.tensorize_dataset(iter(samples), parallelize=False),
                                               max_minibatch_size=300, parallelize=False)))[0]
+
+
+def device_profile():
+    """A profiler of the card's activity alone (kernels, copies): the host's
+    ops are not recorded, which keeps a profiled run's own cost low."""
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def busy_share(prof, wall_s: float) -> float:
+    """The device's busy share of a profiled run of ``wall_s`` seconds;
+    raises where the profile holds no device time."""
+    ms = device_ms(prof)
+    if ms <= 0:
+        raise RuntimeError("the profile holds no device time")
+    return ms / (1e3 * wall_s)
 
 
 def device_ms(prof) -> float:
@@ -4208,7 +4533,7 @@ def profiling_phase(dev, card, model, batches):
 
 
 COMPILED_STEPS = 10  # eager against compiled, bit for bit
-TIMED_RUNS, TIMED_STEPS = 5, 20  # ms/step: the median of 5 runs of 20 steps
+TIMED_RUNS, TIMED_STEPS = 3, 20  # ms/step: the median of 3 runs of 20 steps
 PROFILED_STEPS = 10  # the busy share: one profiled run
 
 
@@ -4248,28 +4573,103 @@ def step_runs(model, mbs, dev, *, amp, compiled, lr=2.5e-4, timed=True):
     state = {f"param {k}": v.detach().clone() for k, v in module.named_parameters()}
     for k, p in module.named_parameters():
         state.update({f"adam {k} {s}": v.clone() for s, v in step.optimizer.state[p].items()})
-    times, busy = [], None
-    for r in range(TIMED_RUNS + 1 if timed else 0):
-        profiled = r == TIMED_RUNS
-        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                 torch.profiler.ProfilerActivity.CUDA])
-              if profiled else contextlib.nullcontext()) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(PROFILED_STEPS if profiled else TIMED_STEPS):
-                run(COMPILED_STEPS + i)
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
-        if profiled:
-            busy = device_ms(prof) / (1e3 * elapsed)
-        else:
-            times.append(1e3 * elapsed / TIMED_STEPS)
+    times, busy = timed_runs(lambda i: run(COMPILED_STEPS + i)) if timed else ([], None)
     captures = step.train_step.stats() if compiled else []
     if compiled:
         step.clear()
     return {"losses": losses, "state": state, "ms": statistics.median(times) if times else None, "times": times,
             "busy": busy,
             "captures": captures, "executions": calls[0] + WARMUP_CALLS * len(captures)}
+
+
+def timed_runs(run, runs: int = TIMED_RUNS, steps: int = TIMED_STEPS):
+    """``runs`` timed runs of ``steps`` calls ``run(0..steps-1)``, each
+    between synchronisations, then one run of PROFILED_STEPS calls under
+    the profiler. Returns (ms per call of each timed run, the device's busy
+    share of the profiled run)."""
+    times, busy = [], None
+    for r in range(runs + 1):
+        profiled = r == runs
+        with device_profile() if profiled else contextlib.nullcontext() as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PROFILED_STEPS if profiled else steps):
+                run(i)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        if profiled:
+            busy = busy_share(prof, elapsed)
+        else:
+            times.append(1e3 * elapsed / steps)
+    return times, busy
+
+
+def eager_dp(dp):
+    """``dp`` (a DataParallel) with its compiled steps replaced by the
+    functions they compile: the same steps, called directly."""
+    from ptgnn_tpu_torch.core.compiled_step import CompiledStep
+
+    for name in ("train_step_compiled", "grad_step_compiled", "apply_step_compiled", "eval_step_compiled"):
+        compiled = getattr(dp, name)
+        if isinstance(compiled, CompiledStep):
+            setattr(dp, name, compiled.fn)
+    return dp
+
+
+def adam_state(optimizer) -> dict:
+    """Both Adam moments and the step of every parameter this rank updates
+    (ZeRO-1's local optimizer's)."""
+    inner = getattr(optimizer, "optim", optimizer)
+    return {f"adam {i} {k}": v.clone() for i, st in enumerate(inner.state.values()) for k, v in st.items()}
+
+
+def dp_step_runs(model, mbs, dev, *, compiled, zero1=True, lr=2.5e-4, timed=(TIMED_RUNS, TIMED_STEPS), make=None):
+    """DataParallel's train step (ZeRO-1 or full Adam, clip 1.0) at world 1
+    from the model's seeded weights, compiled or eagerly, as
+    :func:`step_runs` runs a TrainStep: COMPILED_STEPS steps whose losses
+    and state are kept, each with its batch's graph count as the weight and
+    a learning-rate factor that changes every step, then (``timed``) the
+    timed and profiled runs (``timed``: their count and length, or None).
+    ``make(module) -> (train_step, data_parallel)``
+    builds another step on DataParallel (EdgeParallel's, NodeParallel's)."""
+    from ptgnn_tpu_torch.parallel import DataParallel, zero1_optimizer
+
+    module = model.build_neural_module(device=dev, seed=SEED)
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=lr)
+
+    optimizer = zero1_optimizer(module.parameters(), adam) if zero1 else adam(module.parameters())
+    if make is None:
+        dp = DataParallel(module)
+
+        def step(mb, weight, factor):
+            return dp.train_step(mb, weight, None, optimizer, [lr], clip_gradient_norm=1.0, lr_factor=factor)
+    else:
+        train_step, dp = make(module)
+
+        def step(mb, weight, factor):
+            optimizer.param_groups[0]["initial_lr"] = lr * factor
+            return train_step(mb, optimizer)
+    if not compiled:
+        eager_dp(dp)
+    weights = [float(mb["batch"].num_graphs) for mb in mbs]  # host reads, before the timed steps
+
+    def run(i):
+        dp.generator.manual_seed(SEED * 1_000_003 + i)
+        return step(mbs[i % len(mbs)], weights[i % len(mbs)], 1.0 - 0.02 * (i % 10))[0]
+
+    losses = torch.stack([run(i).clone() for i in range(COMPILED_STEPS)])
+    state = {f"param {k}": v.detach().clone() for k, v in module.named_parameters()}
+    state.update(adam_state(optimizer))
+    times, busy = timed_runs(lambda i: run(COMPILED_STEPS + i), *timed) if timed else ([], None)
+    captures = dp.train_step_compiled.stats() if compiled else []
+    for attr in ("edge_group", "node_group"):
+        setattr(module.gnn, attr, None)
+    if compiled:
+        dp.clear()
+    return {"losses": losses, "state": state, "ms": statistics.median(times) if times else None, "times": times,
+            "busy": busy, "captures": captures}
 
 
 def held_to_eager(name, got, want):
@@ -4511,7 +4911,8 @@ def main() -> None:
     # ---- 18-20. edge features, the BPE embedder, data parallelism -----------
     edge_counts, edge_adj = edge_features_phase(dev, card)
     bpe_counts = bpe_phase(dev, card)
-    dp_counts = data_parallel_phase(dev, card)
+    epochs = epoch_data()
+    dp_counts = data_parallel_phase(dev, card, model, batches, epochs)
 
     # ---- 21-22. edge and node sharding -----------------------------------------
     ep_counts = edge_parallel_phase(dev, card)
@@ -4519,7 +4920,6 @@ def main() -> None:
 
     # ---- 23-28. the assembler, prefetch, OOM skips, autotune, checkpoints, profiling
     t_new = time.perf_counter()
-    epochs = epoch_data()
     na_counts, prefetch_two = native_assembler_phase(dev, card, model, ppi_model, ppi_samples, epochs)
     pf_counts = prefetch_phase(dev, card, model, epochs, prefetch_two)
     oom_counts = oom_phase(dev, card, model, epochs)

@@ -15,14 +15,27 @@ one Python dispatch per kernel.
   here as under ``jit``), and whether autograd records: jit's per-shape
   cache key.
 * **First call of a signature** on CUDA: static input buffers are allocated
-  and filled; :data:`WARMUP_CALLS` eager calls run on a side stream (with
+  and filled; ``warmup_calls`` eager calls (:data:`WARMUP_CALLS` unless the
+  step sets its own) run on a side stream and grow what a step allocates
+  lazily (the row reductions' scratch, cuBLAS's workspace, NCCL's
+  communicators); the last of them runs with
   ``torch.cuda.set_sync_debug_mode("error")``, so a step that waits for the
-  device raises) and grow what a step allocates lazily (the row reductions'
-  scratch, cuBLAS's workspace); the tensors the step writes in place
-  (``state``: parameters, gradients, optimizer state) and its generators are
-  then put back as they were, and one call is captured. That call's graph is
-  then replayed for the first call's result, so the first call returns what
-  an eager call would have, and leaves the state as an eager call would.
+  device raises. The tensors the step writes in place (``state``:
+  parameters, gradients, optimizer state) and its generators are then put
+  back as they were, and one call is captured. That call's graph is then
+  replayed for the first call's result, so the first call returns what an
+  eager call would have, and leaves the state as an eager call would.
+  Whatever ``state`` does not name carries on from the warm-ups: that is
+  how a step keeps bookkeeping that must advance, such as
+  ``DistributedDataParallel``'s reducer, which needs its first eager
+  iterations (bucket rebuild, static-graph discovery) behind it before a
+  capture.
+* **Collectives.** NCCL collectives (``all_reduce``, ``broadcast``,
+  ``all_to_all_single``) issued on the capture stream are captured like
+  kernels and run on every replay. The process group must be made with
+  NCCL's asynchronous error handling off
+  (``parallel/distributed_trainer.initialize_multi_host`` sees to it), so
+  that no watchdog queries an event of a captured collective.
 * **Later calls** copy the arguments into the static buffers, replay the
   graph and return the static outputs. A replay overwrites the outputs of
   the previous one: the caller takes what it keeps before the next call.
@@ -32,9 +45,11 @@ one Python dispatch per kernel.
   propagates as ``torch.OutOfMemoryError``, so the trainer's skip handles it.
 * **Counters.** A capture runs the step's Python once, but launches nothing.
   The counters in :data:`REPLAYED_COUNTERS` (the kernel wrappers'
-  ``launches``, and any a caller registers) are put back after a capture to
-  their values before it, and every replay adds what the capture added, so
-  they count what ran on the card: the warm-up calls and every replay.
+  ``launches``, and any a caller registers) and those a step names
+  (``counters``: a data-parallel step's all-reduce calls and bytes) are put
+  back after a capture to their values before it, and every replay adds
+  what the capture added, so they count what ran on the card: the warm-up
+  calls and every replay.
 * **Generators** (``generators``) are registered with each graph, so a
   replay draws from the generator's current seed and offset: reseeded with
   ``s``, it draws exactly what an eager call seeded with ``s`` draws.
@@ -48,7 +63,7 @@ import torch
 
 from ptgnn_tpu_torch.ops import segment_kernels as sk
 
-__all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS"]
+__all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS", "canonical_device"]
 
 # Eager calls before a capture. One is enough for the port's steps: it runs
 # every lazy allocation of the step on the stream the capture uses.
@@ -57,6 +72,15 @@ WARMUP_CALLS = 1
 # (owner, attribute) of every integer counter that a replay adds to as its
 # capture did: the kernel wrappers' launch counters, and any a caller adds.
 REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()]
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with the current card's index where it names CUDA
+    without one: the device a compiled step runs on, and a cache key."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +142,6 @@ class _Entry(NamedTuple):
     stats: CaptureStats
 
 
-def _read_counters() -> List[int]:
-    return [getattr(owner, name) for owner, name in REPLAYED_COUNTERS]
-
-
 def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:
     """End a capture whose step raised, and drop what it recorded. A capture
     that the error invalidated ends all the same: its stream leaves capture
@@ -137,8 +157,11 @@ def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:
 class CompiledStep:
     """``fn`` compiled per call signature on ``device`` (a plain call on the
     CPU). ``state``: returns the tensors a call writes in place (restored
-    after the warm-up); ``generators``: those the step draws from.
-    ``fn`` is the uncompiled function: calling it runs the step eagerly."""
+    after the warm-up); ``generators``: those the step draws from;
+    ``warmup_calls``: the eager calls before a capture; ``counters``:
+    ``(owner, attribute)`` integer counters of this step's own, replayed
+    as :data:`REPLAYED_COUNTERS` are. ``fn`` is the uncompiled function:
+    calling it runs the step eagerly."""
 
     def __init__(
         self,
@@ -147,13 +170,17 @@ class CompiledStep:
         *,
         state: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
         generators: Sequence[torch.Generator] = (),
+        warmup_calls: Optional[int] = None,
+        counters: Sequence[Tuple[Any, str]] = (),
     ):
         self.fn = fn
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = canonical_device(device)
         self._state = state
         self._generators = list(generators)
+        self.warmup_calls = WARMUP_CALLS if warmup_calls is None else warmup_calls
+        if self.warmup_calls < 1:
+            raise ValueError("a compiled step needs at least one warm-up call")
+        self._counters = list(counters)
         self._entries: Dict[Hashable, _Entry] = {}
 
     def __call__(self, *args, **kwargs):
@@ -206,7 +233,8 @@ class CompiledStep:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # the warm-up's blocks, for the graph's pool
         reserved = torch.cuda.memory_reserved(self.device)
-        before = _read_counters()
+        counters = REPLAYED_COUNTERS + self._counters
+        before = [getattr(owner, name) for owner, name in counters]
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
             with torch.cuda.stream(stream):
@@ -218,17 +246,19 @@ class CompiledStep:
                     raise
                 graph.capture_end()
         finally:
-            after = _read_counters()
-            for (owner, name), value in zip(REPLAYED_COUNTERS, before):
+            after = [getattr(owner, name) for owner, name in counters]
+            for (owner, name), value in zip(counters, before):
                 setattr(owner, name, value)
             torch.cuda.current_stream(self.device).wait_stream(stream)
-        counted = [(owner, name, a - b) for (owner, name), a, b in zip(REPLAYED_COUNTERS, after, before) if a != b]
+        counted = [(owner, name, a - b) for (owner, name), a, b in zip(counters, after, before) if a != b]
         stats = CaptureStats(time.perf_counter() - t0, torch.cuda.memory_reserved(self.device) - reserved)
         return _Entry(graph, inputs, outputs, counted, stats)
 
     def _warm_up(self, stream: torch.cuda.Stream, args: tuple, kwargs: dict) -> None:
-        """:data:`WARMUP_CALLS` eager calls on ``stream`` that may not wait
-        for the device; then the state and the generators as before them."""
+        """``warmup_calls`` eager calls on ``stream``, the last of which may
+        not wait for the device (the earlier ones may: a step's first
+        iterations can hold one-off bookkeeping); then the state and the
+        generators as before them."""
         current = torch.cuda.current_stream(self.device)
         state = list(self._state()) if self._state is not None else []
         saved = [t.clone() for t in state]
@@ -237,10 +267,11 @@ class CompiledStep:
         stream.wait_stream(current)
         try:
             with torch.cuda.stream(stream):
+                for _ in range(self.warmup_calls - 1):
+                    self.fn(*args, **kwargs)
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    for _ in range(WARMUP_CALLS):
-                        self.fn(*args, **kwargs)
+                    self.fn(*args, **kwargs)
                 finally:
                     torch.cuda.set_sync_debug_mode(debug_mode)
         finally:

@@ -33,6 +33,13 @@ class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeu
     def __init__(self):
         self.__metadata_initialized = False
 
+    def __getstate__(self):
+        """Models pickle whole (checkpoints are (model, state dict) blobs);
+        an attribute ending in ``_compiled_cache`` holds compiled steps
+        (CUDA graphs), which cannot pickle, and is dropped: it is rebuilt
+        at the next call, as the JAX package drops its ``_jit_cache``."""
+        return {k: v for k, v in self.__dict__.items() if not k.endswith("_compiled_cache")}
+
     # ---- metadata ----
     def initialize_metadata(self) -> None:
         """Set up temporary metadata accumulators (children handled separately)."""

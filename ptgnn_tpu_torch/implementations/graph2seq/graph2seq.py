@@ -6,7 +6,9 @@ nodes (the padded ``backbone_nodes`` reference set); its initial state is a
 multi-head self-attention reduce over each graph's [input | output] node
 rows. Decoder target rows align one to one with graph slots. Decoding
 (:meth:`Graph2Seq.greedy_decode`, :meth:`Graph2Seq.beam_decode`) runs on
-the module's device, CUDA unless the caller passes ``device="cpu"``.
+the module's device, CUDA unless the caller passes ``device="cpu"``: the
+compiled encoder, then the decoder's compiled loop (a CUDA graph per batch
+signature, both kept on the model for later calls).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, TypedDict
 import torch
 
 from ptgnn_tpu_torch.core.iterators import ThreadedIterator
-from ptgnn_tpu_torch.core.compiled_step import CompiledStep
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep, canonical_device
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
 from ptgnn_tpu_torch.graph.gnn import GraphNeuralNetwork, GraphNeuralNetworkModel
@@ -204,6 +206,16 @@ class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2Se
         )
         return {"batch": encoder["batch"], **decoder}
 
+    def compiled_encoder(self, trained_network: Graph2SeqModule, device: torch.device) -> CompiledStep:
+        """The compiled encoder of ``trained_network`` on ``device``, kept
+        on this model for later decodes (a graph per batch signature)."""
+        cache = self.__dict__.setdefault("_encoder_compiled_cache", {})
+        key = (id(trained_network), canonical_device(device))
+        entry = cache.get(key)
+        if entry is None or entry[0] is not trained_network:
+            entry = cache[key] = (trained_network, CompiledStep(trained_network.encode, device))
+        return entry[1]
+
     def _decode_minibatches(
         self,
         data: List[CodeGraph2Seq],
@@ -219,7 +231,7 @@ class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2Se
         other's results."""
         device = resolve_device(device)
         trained_network.to(device).eval()
-        encode = CompiledStep(trained_network.encode, device)
+        encode = self.compiled_encoder(trained_network, device)
         indexed_stream = ThreadedIterator(((self.tensorize(d), i) for i, d in enumerate(data)), enabled=True)
         decoded: List = []
         survivor_idx: List[int] = []

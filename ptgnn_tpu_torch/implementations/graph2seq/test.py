@@ -7,7 +7,8 @@ Usage:
     python -m ptgnn_tpu_torch.implementations.graph2seq.test MODEL_FILENAME \\
         TEST_DATA [--beam-size K] [--device cpu]
 
-Runs on CUDA unless ``--device cpu`` is given.
+Runs on CUDA unless ``--device cpu`` is given; there the encoder and the
+decode loops run as compiled steps (CUDA graphs).
 """
 from __future__ import annotations
 

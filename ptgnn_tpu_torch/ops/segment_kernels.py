@@ -103,10 +103,11 @@ def with_row_index(plan: AggregationPlan) -> AggregationPlan:
         return plan
     n = plan.counts.numel()
     rows = plan_rows(plan, n)
-    order = torch.sort(rows, stable=True).indices
-    row_slots = torch.where(rows[order] < n, order, torch.full_like(order, -1)).int()
-    per_row = torch.bincount(rows, minlength=n + 1)[:n]
-    row_offsets = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)]).int()
+    ordered, order = torch.sort(rows, stable=True)
+    row_slots = torch.where(ordered < n, order, torch.full_like(order, -1)).int()
+    # Row i's slots start after every slot of a lower row: a search of the
+    # sorted rows, which, unlike a bincount, never waits for the device.
+    row_offsets = torch.searchsorted(ordered, torch.arange(n + 1, device=rows.device)).int()
     return plan._replace(row_offsets=row_offsets, row_slots=row_slots)
 
 

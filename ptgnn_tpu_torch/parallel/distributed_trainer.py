@@ -29,6 +29,11 @@ weighted one.
   the single-device trainer's); the ranks of a node group share theirs.
 * ``prefetch_to_device`` works as in :class:`ModelTrainer`, on this rank's
   minibatch of each group (after the node-sharded trainer takes its shard).
+* The steps are :class:`~ptgnn_tpu_torch.parallel.dp.DataParallel`'s
+  compiled ones (a CUDA graph per batch signature on the card): its train
+  step without gradient accumulation, else its accumulation pair, and its
+  eval step. They stay compiled across epochs, as :class:`ModelTrainer`'s
+  do, and are made anew with the module.
 
 A device OOM is not caught: a rank that skipped its minibatch would leave
 the others waiting in the collective.
@@ -62,9 +67,17 @@ def initialize_multi_host(
     """Join the process group: torchrun's environment (``env://``) unless
     ``init_method`` names another rendezvous (``file://`` or ``tcp://``,
     with ``world_size`` and ``rank``). The backend is NCCL where CUDA is
-    available, gloo otherwise. Call before creating the trainer."""
+    available, gloo otherwise. Call before creating the trainer.
+
+    Under NCCL the compiled steps capture collectives, and PyTorch's CUDA
+    graph notes ask for NCCL's asynchronous error handling to be off: its
+    watchdog would otherwise query the events of collectives while a graph
+    is being captured, which a capture forbids. So it is set off here, for
+    this process, before the group is made."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
     dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size or -1,
                             rank=rank if rank is not None else -1)
 
@@ -255,7 +268,6 @@ class DistributedModelTrainer(ModelTrainer):
         start_time = time.time()
         self._opt_steps_this_epoch = 0
         dp = self.data_parallel
-        generator = torch.Generator(device=self._device)
         mb_iter = self._model.minibatch_iterator(
             training_tensors(),
             max_minibatch_size=self._minibatch_size,
@@ -271,12 +283,17 @@ class DistributedModelTrainer(ModelTrainer):
             lr_factor = 1.0 if scheduler is None else scheduler.step(
                 epoch, self._opt_steps_this_epoch if self._grad_accum_steps > 1 else step_idx
             )
-            generator.manual_seed(step_seed(self._seed, epoch, step_idx, self.dropout_rank))
-            loss, metrics, _ = dp.grad_step(mb_data, weight, generator)
-            self._accumulated += 1
-            self._last_lr_factor = lr_factor
-            if self._accumulated >= self._grad_accum_steps:
-                self._apply(dp, optimizer, base_lrs, lr_factor)
+            dp.generator.manual_seed(step_seed(self._seed, epoch, step_idx, self.dropout_rank))
+            if self._grad_accum_steps == 1:
+                loss, metrics = dp.train_step(mb_data, weight, None, optimizer, base_lrs,
+                                              clip_gradient_norm=self._clip_gradient_norm, lr_factor=lr_factor)
+                self._opt_steps_this_epoch += 1
+            else:
+                loss, metrics, _ = dp.grad_step(mb_data, weight)
+                self._accumulated += 1
+                self._last_lr_factor = lr_factor
+                if self._accumulated >= self._grad_accum_steps:
+                    self._apply(dp, optimizer, base_lrs, lr_factor)
             loss_f = float(loss)  # the same on every rank: all raise together
             if not math.isfinite(loss_f):
                 raise RuntimeError("Loss has a NaN value.")

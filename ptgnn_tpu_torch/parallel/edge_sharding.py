@@ -154,7 +154,10 @@ class EdgeParallel:
     def train_step(self, minibatch: Dict[str, Any], optimizer: torch.optim.Optimizer, *,
                    generator: Optional[torch.Generator] = None, clip_gradient_norm: Optional[float] = None):
         """One optimizer step on this rank's device-resident sharded
-        minibatch. Returns (loss, metrics)."""
-        return self.data_parallel.train_step(minibatch, 1.0, generator, optimizer,
-                                             [g["lr"] for g in optimizer.param_groups],
+        minibatch, through the compiled data-parallel train step (a CUDA
+        graph per batch signature on the card, the aggregations'
+        all-reduces inside it). Returns (loss, metrics)."""
+        from ptgnn_tpu_torch.parallel.dp import base_rates
+
+        return self.data_parallel.train_step(minibatch, 1.0, generator, optimizer, base_rates(optimizer),
                                              clip_gradient_norm=clip_gradient_norm)

@@ -50,7 +50,7 @@ from ptgnn_tpu_torch.ops.segment_kernels import (
 )
 from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
 from ptgnn_tpu_torch.parallel.collectives import all_to_all
-from ptgnn_tpu_torch.parallel.dp import LOCAL, DataParallel
+from ptgnn_tpu_torch.parallel.dp import LOCAL, DataParallel, base_rates
 
 __all__ = [
     "BoundaryBudgetError",
@@ -628,8 +628,9 @@ class NodeParallel:
     def train_step(self, minibatch: Dict[str, Any], optimizer: torch.optim.Optimizer, *, weight: float = 1.0,
                    generator: Optional[torch.Generator] = None, clip_gradient_norm: Optional[float] = None):
         """One optimizer step on this rank's device-resident view of its
-        node group's minibatch. Returns (weighted mean loss, metrics summed
-        over the data axis)."""
-        return self.data_parallel.train_step(minibatch, weight, generator, optimizer,
-                                             [g["lr"] for g in optimizer.param_groups],
+        node group's minibatch, through the compiled data-parallel train
+        step (a CUDA graph per batch signature on the card, the boundary
+        exchanges' ``all_to_all`` inside it). Returns (weighted mean loss,
+        metrics summed over the data axis)."""
+        return self.data_parallel.train_step(minibatch, weight, generator, optimizer, base_rates(optimizer),
                                              clip_gradient_norm=clip_gradient_norm)

@@ -17,13 +17,20 @@ package leaves them to XLA.
 
 Decoding (:meth:`GruCopyingDecoderModel.greedy_decode` and
 :meth:`~GruCopyingDecoderModel.beam_decode`) runs on the memories' device:
-the host numbers one copy group per distinct (sample, string), and a Python
-loop over ``max_seq_len`` steps keeps every state on the device; the emitted
-ids and log-probabilities reach the host after the last step. Beams fold into
-the batch axis: beam j of sample b is row ``j * B_pad + b``.
+the host numbers one copy group per distinct (sample, string), and a loop
+over ``max_seq_len`` steps keeps every state on the device; the emitted ids
+and log-probabilities reach the host after the last step. Beams fold into
+the batch axis: beam j of sample b is row ``j * B_pad + b``. The loop is a
+compiled step (``core/compiled_step.py``), as the JAX package jits its
+``lax.scan`` per static shape: one CUDA graph per (batch, memory and group
+budgets, beam count, sampling or not), kept on the decoder model
+(:meth:`GruCopyingDecoderModel.decode_loop`); the copy groups' tensors are
+its inputs, and the group budget is a power of two, so a stream of batches
+has few signatures.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from collections import Counter
@@ -32,6 +39,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ptgnn_tpu_torch.core.compiled_step import CompiledStep, canonical_device
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import GRU, Embedding, Linear, dropout
@@ -194,7 +202,8 @@ class GruCopyingDecoder(torch.nn.Module):
 
 class _CopyGroups(NamedTuple):
     """The copy groups of one decode batch, folded for ``k`` beams, on the
-    memories' device (see :meth:`GruCopyingDecoderModel._build_copy_groups`)."""
+    memories' device (see :meth:`GruCopyingDecoderModel._build_copy_groups`):
+    the decode loop's tensor inputs. Each group's string stays on the host."""
 
     memories: torch.Tensor  # [k*M, D]
     origin: torch.Tensor  # [k*M], beam j's sample b at j*B + b; padding k*B
@@ -204,8 +213,10 @@ class _CopyGroups(NamedTuple):
     flat_idx: torch.Tensor  # [k*G] (row, vocabulary id) of each in-vocabulary group; others out of range
     in_vocab: torch.Tensor  # [k*G]
     oov_live: torch.Tensor  # [B, G]: group g is an out-of-vocabulary string of sample b
-    strings: List[str]  # each group's string
-    g_pad: int
+
+    @property
+    def g_pad(self) -> int:
+        return self.oov_live.shape[1]
 
 
 class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, GruCopyingDecoder]):
@@ -434,8 +445,10 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
                 group_strings, g_pad, m_pad)
 
     def _copy_groups(self, k: int, input_concrete_values, input_memories, input_memories_origin_idx,
-                     memory_mask, batch_size: int, b_pad: int, vocab_size: int, unk_id: int) -> _CopyGroups:
-        """The copy groups on the memories' device, folded for ``k`` beams."""
+                     memory_mask, batch_size: int, b_pad: int, vocab_size: int,
+                     unk_id: int) -> Tuple[_CopyGroups, List[str]]:
+        """The copy groups on the memories' device, folded for ``k`` beams,
+        and each group's string."""
         device = input_memories.device
         origin_np = np.asarray(input_memories_origin_idx.cpu())
         mask_np = np.asarray(memory_mask.cpu())
@@ -463,9 +476,7 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
             flat_idx=dev(flat_idx.reshape(-1).astype(np.int64)),
             in_vocab=dev(np.tile(in_vocab, k)),
             oov_live=dev(oov_live),
-            strings=strings,
-            g_pad=g_pad,
-        )
+        ), strings
 
     @staticmethod
     def _candidate_logprobs(neural_module: GruCopyingDecoder, groups: _CopyGroups, states, tokens):
@@ -512,27 +523,60 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
     ) -> List[Tuple[List[str], float]]:
-        b_pad = initial_states.shape[0]
+        b_pad, device = initial_states.shape[0], initial_states.device
         batch_size = int(num_real_targets) if num_real_targets is not None else b_pad
-        groups = self._copy_groups(1, input_concrete_values, input_memories, input_memories_origin_idx,
-                                   memory_mask, batch_size, b_pad, neural_module.vocabulary_size,
-                                   neural_module.unk_id)
-        emitted, logps = self._greedy_loop(neural_module, groups, initial_states, temperature, generator)
-        emitted_np, logps_np = emitted.cpu().numpy(), logps.cpu().numpy()  # the loop's results reach the host
-        return [(self._tokens(emitted_np[bi], neural_module.vocabulary_size, groups.strings), float(logps_np[bi]))
-                for bi in range(batch_size)]
-
-    def _greedy_loop(self, neural_module: GruCopyingDecoder, groups: _CopyGroups, initial_states: torch.Tensor,
-                     temperature: float = 0.0, generator: Optional[torch.Generator] = None):
-        """The greedy loop over ``max_seq_len`` steps on the device: each
-        step's action is the best merged candidate (or a Gumbel-max sample
-        from ``generator``). Nothing in it waits for the device. Returns the
-        emitted candidate ids ``[B, S]`` (-1 after END) and each row's summed
-        log-probability ``[B]``, on the device."""
-        vocab_size, unk_id = neural_module.vocabulary_size, neural_module.unk_id
-        end_id = self.__output_vocabulary.get_id_or_unk(self.END)
         if temperature > 0.0 and generator is None:
             raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+        groups, strings = self._copy_groups(1, input_concrete_values, input_memories, input_memories_origin_idx,
+                                            memory_mask, batch_size, b_pad, neural_module.vocabulary_size,
+                                            neural_module.unk_id)
+        # Sampling or not is part of the loop's signature; the temperature is
+        # one of its tensor inputs.
+        temp = torch.tensor(temperature, dtype=torch.float32, device=device) if temperature > 0.0 else None
+        loop = self.decode_loop("greedy", neural_module, device, generator if temp is not None else None)
+        emitted, logps = loop(groups, initial_states, temp)
+        # The loop's results reach the host here, before the next call
+        # replays into the same buffers.
+        emitted_np, logps_np = emitted.cpu().numpy(), logps.cpu().numpy()
+        return [(self._tokens(emitted_np[bi], neural_module.vocabulary_size, strings), float(logps_np[bi]))
+                for bi in range(batch_size)]
+
+    def decode_loop(self, kind: str, neural_module: GruCopyingDecoder, device: torch.device,
+                    generator: Optional[torch.Generator] = None) -> CompiledStep:
+        """The compiled decode loop of ``neural_module``: ``kind`` "greedy"
+        (:meth:`_greedy_loop`, sampling from ``generator``, which the graphs
+        register) or "beam" (:meth:`_beam_loop`). One per (kind, module,
+        device, generator), kept on this model as the JAX package keeps its
+        jitted decodes; each holds a graph per signature (batch, memory and
+        group budgets, beams, sampling or not). Its ``fn`` runs the loop
+        eagerly. The graphs read the module's parameters where they lie, so
+        they see later in-place updates (training, ``load_state_dict``)."""
+        cache = self.__dict__.setdefault("_decode_loops_compiled_cache", {})
+        key = (kind, id(neural_module), canonical_device(device), None if generator is None else id(generator))
+        entry = cache.get(key)
+        if entry is None or entry[0] is not neural_module or entry[1] is not generator:
+            if kind == "greedy":
+                fn = functools.partial(self._greedy_loop, neural_module, generator=generator)
+            elif kind == "beam":
+                fn = functools.partial(self._beam_loop, neural_module)
+            else:
+                raise ValueError(f"unknown decode loop {kind!r}")
+            generators = [] if generator is None else [generator]
+            entry = cache[key] = (neural_module, generator, CompiledStep(fn, device, generators=generators))
+        return entry[2]
+
+    def _greedy_loop(self, neural_module: GruCopyingDecoder, groups: _CopyGroups, initial_states: torch.Tensor,
+                     temperature: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+        """The greedy loop over ``max_seq_len`` steps on the device: each
+        step's action is the best merged candidate, or with ``temperature``
+        (a device scalar) a Gumbel-max sample from ``generator``. Nothing in
+        it waits for the device. Returns the emitted candidate ids ``[B, S]``
+        (-1 after END) and each row's summed log-probability ``[B]``, on the
+        device."""
+        vocab_size, unk_id = neural_module.vocabulary_size, neural_module.unk_id
+        end_id = self.__output_vocabulary.get_id_or_unk(self.END)
+        if temperature is not None and generator is None:
+            raise ValueError("sampling (a temperature) needs a torch.Generator")
         b_pad, device = initial_states.shape[0], initial_states.device
         states = initial_states
         next_tokens = torch.full((b_pad, 1), self.__output_vocabulary.get_id_or_unk(self.START),
@@ -543,7 +587,7 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
         for _ in range(self.max_seq_len):
             cand, states = self._candidate_logprobs(neural_module, groups, states, next_tokens)
             choose = cand
-            if temperature > 0.0:
+            if temperature is not None:
                 # Gumbel-max: argmax(cand + T * gumbel) samples in proportion
                 # to exp(cand / T); -inf candidates stay -inf.
                 u = torch.rand(cand.shape, generator=generator, device=device).clamp_min(1e-20)
@@ -587,10 +631,13 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
         b_pad = initial_states.shape[0]
         batch_size = int(num_real_targets) if num_real_targets is not None else b_pad
         vocab_size = neural_module.vocabulary_size
-        groups = self._copy_groups(beam_size, input_concrete_values, input_memories, input_memories_origin_idx,
-                                   memory_mask, batch_size, b_pad, vocab_size, neural_module.unk_id)
-        emits, parents, scores = self._beam_loop(neural_module, groups, initial_states, beam_size)
-        # The loop's results reach the host here.
+        groups, strings = self._copy_groups(beam_size, input_concrete_values, input_memories,
+                                            input_memories_origin_idx, memory_mask, batch_size, b_pad, vocab_size,
+                                            neural_module.unk_id)
+        loop = self.decode_loop("beam", neural_module, initial_states.device)
+        emits, parents, scores = loop(groups, initial_states, beam_size)
+        # The loop's results reach the host here, before the next call
+        # replays into the same buffers.
         emits_np, parents_np, scores_np = emits.cpu().numpy(), parents.cpu().numpy(), scores.cpu().numpy()
         results: List[List[Tuple[List[str], float]]] = []
         for bi in range(batch_size):
@@ -601,7 +648,7 @@ class GruCopyingDecoderModel(AbstractNeuralModel[DecoderData, TokenizedOutput, G
                     actions.append(int(emits_np[t, bi, idx]))
                     idx = int(parents_np[t, bi, idx])
                 actions.reverse()
-                beams.append((self._tokens(actions, vocab_size, groups.strings), float(scores_np[bi, rank])))
+                beams.append((self._tokens(actions, vocab_size, strings), float(scores_np[bi, rank])))
             results.append(beams)
         return results
 

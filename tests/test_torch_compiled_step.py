@@ -29,6 +29,8 @@ CPU, against the JAX package.
   replay, so two steps that return one buffer accumulate to the sum of both.
 * The optimizer state of a compiled step round-trips through both
   checkpointers bitwise; an optimizer that cannot be captured raises.
+* A step's own warm-up count and counters: on the CPU a plain call that
+  advances its counters once a call; fewer than one warm-up raises.
 """
 import jax
 import jax.numpy as jnp
@@ -170,6 +172,27 @@ def test_an_optimizer_that_cannot_be_captured_raises():
     module, _ = _minibatch()
     with pytest.raises(TypeError, match="SGD"):
         TrainStep(module, torch.optim.SGD(module.parameters(), lr=0.1))
+
+
+def test_a_steps_own_warm_ups_and_counters_on_the_cpu():
+    from ptgnn_tpu_torch.core.compiled_step import CompiledStep, canonical_device
+
+    class Owner:
+        calls = 0
+
+    owner = Owner()
+
+    def step(x):
+        owner.calls += 1
+        return x * 2
+
+    compiled = CompiledStep(step, CPU, warmup_calls=11, counters=[(owner, "calls")])
+    assert compiled.warmup_calls == 11 and canonical_device("cpu") == CPU
+    for _ in range(3):
+        assert torch.equal(compiled(torch.ones(2)), torch.full((2,), 2.0))
+    assert owner.calls == 3 and len(compiled) == 0  # plain calls: no graph, no warm-up
+    with pytest.raises(ValueError, match="warm-up"):
+        CompiledStep(step, CPU, warmup_calls=0)
 
 
 # ---------------------------------------------------------------------------

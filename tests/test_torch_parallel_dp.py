@@ -267,6 +267,58 @@ def test_dp_gradient_accumulation_matches_weighted_mean_step(setup, tmp_path):
         assert_step_matches(r["params"], module, [w for ws in weights for w in ws], tmbs[:4], expected)
 
 
+def test_dp_step_pair_with_new_weights_and_rates_matches_jax_and_eager(setup, tmp_path):
+    """The compiled step pair (``core/compiled_step.py``: on the CPU a plain
+    call) over two accumulation windows, the second with other weights and
+    another ``lr_factor``: after each window the parameters equal those of
+    the functions it compiles, called directly, bit for bit; the first
+    window equals JAX's ``build_accum_steps`` (its ``lr_factor`` scales the
+    update, SGD's the rate: the same step) within the JAX tolerance, and
+    the second the port's own weighted mean step from the first window's
+    parameters within 1e-6 (JAX's second window starts from JAX's own first
+    one, whose max-aggregation near-ties may route otherwise). A step that
+    kept the first call's weight or rate would miss the second window."""
+    from ptgnn_tpu_torch.core.trainer import module_loss
+    from ptgnn_tpu_torch.graph.structs import tree_to
+
+    mesh, _, jmodule, params, jmbs, tmodel, state, tmbs = setup
+    weights = [[[3.0, 1.0], [2.0, 0.0]], [[1.0, 4.0], [0.0, 2.0]]]
+    lr_factors = [0.5, 0.25]
+    dp = JaxDataParallel(jmodule, optax.sgd(0.1), mesh)
+    grad_step, apply_step = dp.build_accum_steps()
+    acc = jax.tree_util.tree_map(lambda p: jnp.zeros(jnp.shape(p), jnp.float32), params)
+    w_acc = jnp.float32(0.0)
+    for g, w in enumerate(weights[0]):
+        acc, w_acc, _, _ = grad_step(params, acc, w_acc, dp.device_put_batch(stack_minibatches(jmbs[2 * g:2 * g + 2])),
+                                     jax.random.PRNGKey(g), dp.device_put_weights(np.asarray(w, np.float32)))
+    expected, _ = apply_step(jax.tree_util.tree_map(jnp.copy, params), optax.sgd(0.1).init(params), acc, w_acc,
+                             lr_factors[0])
+    ranks = launch("step_pair", {"model": tmodel, "state": state, "minibatches": tmbs[:4], "weights": weights,
+                                 "lr_factors": lr_factors}, tmp_path)
+    module = port_module(tmodel, state)
+    flat_weights = [[w for ws in window for w in ws] for window in weights]
+    for r in ranks:
+        for compiled, eager in zip(r["compiled"], r["eager"]):
+            for name, value in compiled.items():
+                assert torch.equal(value, eager[name]), name
+        assert_step_matches(r["compiled"][0], module, flat_weights[0], tmbs[:4], expected, lr=0.1 * lr_factors[0])
+    second = port_module(tmodel, {**state, **ranks[0]["compiled"][0]})
+    total = {n: torch.zeros_like(p) for n, p in second.named_parameters()}
+    for w, mb in zip(flat_weights[1], tmbs[:4]):
+        second.zero_grad(set_to_none=True)
+        loss, _ = module_loss(second, tree_to(mb, torch.device("cpu")), train=True, generator=torch.Generator())
+        loss.backward()
+        for n, p in second.named_parameters():
+            total[n] += w * p.grad
+    for r in ranks:
+        for name, p in second.named_parameters():
+            want = p.detach() - 0.1 * lr_factors[1] * total[name] / sum(flat_weights[1])
+            torch.testing.assert_close(r["compiled"][1][name], want, rtol=0,
+                                       atol=1e-6 * float(want.abs().max()), msg=name)
+    for name in ranks[0]["compiled"][-1]:
+        assert torch.equal(ranks[0]["compiled"][-1][name], ranks[1]["compiled"][-1][name]), name
+
+
 def run_cli(argv, cwd):
     """The CLI in a process group of its own, killed with the ranks it
     spawned if it runs past the timeout."""

@@ -208,4 +208,29 @@ def _world_one(payload, rank, world, tmp):
     return out
 
 
-CASES = {"world_one": _world_one, "sgd_step": _sgd_step, "zero1": _zero1, "accumulate": _accumulate, "groups": _groups, "nodes": _nodes}
+def _step_pair(payload, rank, world, tmp):
+    """Two accumulation windows of the step pair (two grad steps, then one
+    SGD apply), each with other weights and another ``lr_factor``, through
+    the steps as the trainers call them and through the functions they
+    compile: the parameters after each window, both ways."""
+    from ptgnn_tpu_torch.parallel.dp import DataParallel
+
+    out = {}
+    for mode in ("compiled", "eager"):
+        module = _module(payload)
+        optimizer = torch.optim.SGD(module.parameters(), lr=0.1)
+        dp = DataParallel(module)
+        if mode == "eager":
+            for name in ("train_step_compiled", "grad_step_compiled", "apply_step_compiled", "eval_step_compiled"):
+                setattr(dp, name, getattr(dp, name).fn)
+        windows = []
+        for window, factor in zip(payload["weights"], payload["lr_factors"]):
+            for g, weights in enumerate(window):
+                dp.grad_step(_batch(payload["minibatches"][g * world + rank]), weights[rank], torch.Generator())
+            dp.apply_gradients(optimizer, [0.1], lr_factor=factor)
+            windows.append(_params(module))
+        out[mode] = windows
+    return out
+
+
+CASES = {"step_pair": _step_pair, "world_one": _world_one, "sgd_step": _sgd_step, "zero1": _zero1, "accumulate": _accumulate, "groups": _groups, "nodes": _nodes}
