@@ -104,15 +104,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    summariser's segment sums (sort + K1 into 64 rows), timed;
 15. kernels: each kernel's time (CUDA events over a CUDA graph of launches
    on rotating inputs), its bound, its plain version's and one library
-   call's time, as one JSON line; before it, the argmax extremum against
+   call's time, as one JSON line; the broadcast (K3) at every (row bytes,
+   dtype) that a path launched it at (each wrapper call is tallied by
+   width: D, M and the backward's widened g | ties | node_states table, in
+   float32 and bf16 AMP), on that path's layout (Graph2Class's, PPI's,
+   Graph2Seq's, the layers stack's, a 2-way node shard's interior and
+   boundary), bitwise against its plain version, with its one-tile floor
+   (the same harness over the layout's first tile); before it, the argmax extremum against
    its plain version at M 64 and 128, float32 and bf16, max and min, with
    planted ties, and the extremum, the argmax extremum and the sum on a
    skewed layout (the benchmark batch plus one hub row of 4,096 slots, which
    the kernels split) against their plain versions, timed beside
    scatter_reduce and index_add_; then the extremum, the broadcast and the
    sum on a VarMisuse batch's layout at the path's widths against their
-   plain versions, and timed; then the sum and the broadcast on a Graph2Seq
-   batch's layout at width 128 against their plain versions, and timed
+   plain versions, and timed; then the sum on a Graph2Seq batch's layout at
+   width 128 against its plain version, and timed
    (entries of the kernels line);
 16. sanitizer: every kernel once at a small size under compute-sanitizer's
    memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
@@ -416,12 +422,37 @@ def graphs(seed: int = SEED):
     )
 
 
+class Launches(dict):
+    """The kernels' launch counts by kernel name; ``by_width`` holds the
+    broadcast's (K3's) by (row bytes, dtype name). Equality compares the
+    counts by kernel only."""
+
+    def __init__(self, counts=(), by_width=None):
+        super().__init__(counts)
+        self.by_width = dict(by_width or {})
+
+
+def launch_counts() -> Launches:
+    """The launch counters now, with K3's tally by width."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    return Launches(sk.launch_counts(), sk.broadcast_launches_by_width())
+
+
+def _by_width(counts) -> dict:
+    return getattr(counts, "by_width", {})
+
+
 def delta(after, before):
-    return {k: after[k] - before[k] for k in after}
+    widths = {k: n - _by_width(before).get(k, 0) for k, n in _by_width(after).items()}
+    return Launches({k: after[k] - before[k] for k in after}, {k: n for k, n in widths.items() if n})
 
 
 def add_counts(a, b):
-    return {k: a[k] + b[k] for k in a}
+    widths = dict(_by_width(a))
+    for k, n in _by_width(b).items():
+        widths[k] = widths.get(k, 0) + n
+    return Launches({k: a[k] + b[k] for k in a}, widths)
 
 
 def set_dropout(module, rate: float) -> None:
@@ -508,31 +539,38 @@ class LayoutKernel(NamedTuple):
     ops: int
 
 
-def layout_kernel(kind: str, adj, width: int, dev, gen) -> LayoutKernel:
+def layout_kernel(kind: str, adj, width: int, dev, gen, dtype=torch.float32, plan=None) -> LayoutKernel:
     """``kind`` (the sum, the max extremum, the max extremum with its
     winning slots, or the broadcast) on ``adj``'s layout at ``width``,
-    float32. Bytes, each input read once and each output written once: a
-    reduction reads the real slots' rows and slot ids and the row offsets
-    (an extremum the counts too) and writes a row per node (and the slots);
-    the broadcast reads the receivers' rows, the slot rows and the tile rows
-    and writes a row per slot. Operations: one per real element of a
-    reduction. Library calls: ``index_add_``; ``scatter_reduce`` amax
-    (values only for the argmax: a partial stand-in); ``index_select`` and
-    the mask."""
+    float32 (the broadcast also in ``dtype``, over ``plan`` if given, else
+    the supertile plan). Bytes, each input read once and each output
+    written once: a reduction reads the real slots' rows and slot ids and
+    the row offsets (an extremum the counts too) and writes a row per node
+    (and the slots); the broadcast reads the receivers' rows, the slot rows
+    and the tile rows and writes a row per slot, rows of ``width`` elements
+    of ``dtype``. Operations: one per real element of a reduction. Library
+    calls: ``index_add_``; ``scatter_reduce`` amax (values only for the
+    argmax: a partial stand-in); ``index_select`` and the mask."""
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
     num_nodes = adj.agg_counts.numel()
     e_pad, e_real = adj.mask.shape[0], int(adj.mask.sum())
     valid = adj.receivers < num_nodes
     if kind == "broadcast_to_edges":
-        plan = sk.sum_plan_from_adjacency(adj)
-        safe = torch.where(valid, adj.receivers, 0).long()
-        rows = int(torch.unique(adj.receivers[adj.mask]).numel())
+        plan = sk.sum_plan_from_adjacency(adj) if plan is None else plan
+        slots = plan.local_rows.shape[0]
+        plan_rows = sk.plan_rows(plan, num_nodes)
+        real = plan_rows < num_nodes
+        safe = torch.where(real, plan_rows, 0)
+        rows = int(torch.unique(plan_rows[real]).numel())
+        row_bytes = width * torch.empty((), dtype=dtype).element_size()
         return LayoutKernel(
             lambda t: sk.planned_broadcast_to_edges(t, plan), lambda t: sk.broadcast_plain(t, plan),
-            lambda t: torch.where(valid[:, None], t.index_select(0, safe), 0.0),
-            lambda: torch.randn(num_nodes, width, device=dev, generator=gen), num_nodes * width * 4,
-            rows * width * 4 + e_pad * 4 + plan.tile_row_blocks.numel() * 4 + e_pad * width * 4, 0)
+            lambda t: torch.where(real[:, None], t.index_select(0, safe), torch.zeros((), dtype=t.dtype, device=dev)),
+            lambda: torch.randn(num_nodes, width, device=dev, generator=gen).to(dtype), num_nodes * row_bytes,
+            rows * row_bytes + slots * 4 + plan.tile_row_blocks.numel() * 4 + slots * row_bytes, 0)
+    if dtype != torch.float32 or plan is not None:
+        raise ValueError(f"layout_kernel: {kind} is timed in float32 on the batch's own plan")
     nbytes = e_real * width * 4 + e_real * 4 + (num_nodes + 1) * 4 + num_nodes * width * 4
     fill = 0.0 if kind == "segment_sum" else -3.0e38
 
@@ -573,6 +611,41 @@ def layout_times(k: LayoutKernel, make=None) -> dict:
              for key, f in (("ms", k.kernel), ("plain_ms", k.plain), ("library_ms", k.library))}
     del inputs
     return times
+
+
+def one_tile_plan(adj):
+    """``adj``'s supertile plan cut to its first tile: the broadcast over it
+    is one launch that moves almost nothing, the launch floor."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    plan = sk.sum_plan_from_adjacency(adj)
+    return sk.AggregationPlan(plan.local_rows[:plan.tile].contiguous(), plan.tile_row_blocks[:1].contiguous(),
+                              plan.counts)
+
+
+def broadcast_width_entries(adj, layout: str, keys, by_path: dict, dev, gen, entry) -> list:
+    """K3 on ``adj``'s layout at every (row bytes, dtype name) of ``keys``:
+    bitwise equal to its plain version, then timed (``layout_times``) beside
+    its one-tile floor (the same harness over the layout's first tile).
+    ``by_path``: each path's K3 launches by (row bytes, dtype). Kernels-line
+    entries through ``entry``."""
+    entries = []
+    for row_bytes, dtype_name in sorted(keys):
+        dtype = getattr(torch, dtype_name)
+        width = row_bytes // torch.empty((), dtype=dtype).element_size()
+        k = layout_kernel("broadcast_to_edges", adj, width, dev, gen, dtype)
+        table = k.make()
+        if not bitwise_equal(k.kernel(table), k.plain(table)):
+            raise RuntimeError(f"broadcast kernel != plain version on the {layout} at {width} {dtype_name}")
+        floor = layout_kernel("broadcast_to_edges", adj, width, dev, gen, dtype, plan=one_tile_plan(adj))
+        launches = {path: widths[(row_bytes, dtype_name)] for path, widths in by_path.items()
+                    if widths.get((row_bytes, dtype_name))}
+        e = entry("broadcast_to_edges", width, layout_times(k), k, dtype_name)
+        e.update(layout=layout, row_bytes=row_bytes, max_abs_err=0.0, floor_ms=layout_times(floor)["ms"],
+                 launches_at_width=sum(launches.values()), launches_by_path_at_width=launches)
+        phase("kernels", f"{layout} " + json.dumps(e))
+        entries.append(e)
+    return entries
 
 
 def bound(nbytes: int, ops: int, peak: float = F32_OPS_PER_S) -> dict:
@@ -700,7 +773,7 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
     if backwards[0] == 0 or not checkpoint.exists():
         raise RuntimeError("ModelTrainer.train took no step or wrote no checkpoint")
     steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, name, per_step)
-    counts = sk.launch_counts()  # the train path ends here
+    counts = launch_counts()  # the train path ends here
     for hook in hooks:
         hook.remove()
     expected = {
@@ -755,11 +828,11 @@ def train_steps_phase(model, minibatches, dev, card, name, per_step, steps=TRAIN
     total = 0
     for dtype_name, amp in (("float32", False), ("bf16 AMP", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
-        before = sk.launch_counts()
+        before = launch_counts()
         stats = train_steps(steps_module, minibatches, steps=steps, enable_amp=amp, seed=SEED, **train_kw)
         runs = executions(stats, steps)
         total += runs
-        got = {k: v / runs for k, v in delta(sk.launch_counts(), before).items()}
+        got = {k: v / runs for k, v in delta(launch_counts(), before).items()}
         if got != per_step:
             raise RuntimeError(f"expected {per_step} launches per {name} step, got {got}")
         if not math.isfinite(stats["loss"]):
@@ -1095,13 +1168,13 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
           f"({report_forwards} forwards; host tensorize + batching included)")
     eval_losses = {}
     for name, amp in (("float32", False), ("bf16", True)):
-        before, before_forwards = sk.launch_counts(), forwards[0]
+        before, before_forwards = launch_counts(), forwards[0]
         eval_losses[name] = eval_forward_phase(module, batches, card, "ppi-serving", reps, amp)
-        per_forward = {k: v / (forwards[0] - before_forwards) for k, v in delta(sk.launch_counts(), before).items()}
+        per_forward = {k: v / (forwards[0] - before_forwards) for k, v in delta(launch_counts(), before).items()}
         if per_forward != PPI_PER_FORWARD[name]:
             raise RuntimeError(f"expected {PPI_PER_FORWARD[name]} launches per {name} forward, got {per_forward}")
         phase("ppi-serving", f"{name} launches per forward {per_forward}")
-    counts = sk.launch_counts()  # the ppi-serving path ends here
+    counts = launch_counts()  # the ppi-serving path ends here
     counter.remove()
     if abs(eval_losses["bf16"] - eval_losses["float32"]) > 2e-2 * abs(eval_losses["float32"]):
         raise RuntimeError(f"bf16 eval loss {eval_losses['bf16']} is not within 2e-2 of float32's")
@@ -1147,8 +1220,8 @@ def ppi_train_phase(model, samples, batches, dev, card):
         hook.remove()
     fw, bw = forwards[0], backwards[0]
     expected = {k: PPI_PER_FORWARD["bf16"][k] * fw + (PPI_PER_TRAIN_STEP["bf16"][k] - PPI_PER_FORWARD["bf16"][k]) * bw
-                for k in sk.launch_counts()}
-    got = sk.launch_counts()
+                for k in launch_counts()}
+    got = launch_counts()
     phase("ppi-train", f"ModelTrainer.train (bf16 AMP): 1 epoch over {len(samples)} graphs with validation "
           f"over {len(valid)} before and after in {t_train:.2f} s (host tensorize + batching included): {bw} "
           f"train steps, {fw - bw} validation forwards; validation metrics {valid_metrics}; launches {got}")
@@ -1158,10 +1231,10 @@ def ppi_train_phase(model, samples, batches, dev, card):
         raise RuntimeError(f"ModelTrainer.train launches {got} != {expected} expected from {fw} forwards and {bw} backwards")
     for name, amp in (("float32", False), ("bf16", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
-        before = sk.launch_counts()
+        before = launch_counts()
         stats = train_steps(steps_module, batches, steps=PPI_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-3, seed=SEED)
         runs = executions(stats, PPI_TRAIN_STEPS)
-        per_step = {k: v / runs for k, v in delta(sk.launch_counts(), before).items()}
+        per_step = {k: v / runs for k, v in delta(launch_counts(), before).items()}
         if per_step != PPI_PER_TRAIN_STEP[name]:
             raise RuntimeError(f"expected {PPI_PER_TRAIN_STEP[name]} launches per {name} PPI step, got {per_step}")
         if not math.isfinite(stats["loss"]):
@@ -1171,7 +1244,7 @@ def ppi_train_phase(model, samples, batches, dev, card):
               f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
               f"launches per step {per_step}")
         expected = add_counts(expected, {k: v * runs for k, v in PPI_PER_TRAIN_STEP[name].items()})
-    counts = sk.launch_counts()  # the ppi-train path ends here
+    counts = launch_counts()  # the ppi-train path ends here
     phase("ppi-train", f"launches over the ppi-train path: {counts}")
     if counts != expected:
         raise RuntimeError(f"ppi-train launches {counts} != {expected} expected")
@@ -1562,7 +1635,7 @@ def ggnn_phase(dev, card, reps: int = 3):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     counter.remove()
-    serving = sk.launch_counts()
+    serving = launch_counts()
     if serving != {k: v * forwards[0] for k, v in GGNN_PER_FORWARD.items()}:
         raise RuntimeError(f"expected {GGNN_PER_FORWARD} launches per ggnn forward, got {serving}")
     losses = torch.stack(losses).cpu().numpy()
@@ -1574,7 +1647,7 @@ def ggnn_phase(dev, card, reps: int = 3):
           f"launches over {forwards[0]} forwards {serving}")
     steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, "ggnn",
                                      GGNN_PER_TRAIN_STEP)
-    counts = sk.launch_counts()  # the ggnn path ends here
+    counts = launch_counts()  # the ggnn path ends here
     expected = add_counts(serving, steps_counts)
     phase("ggnn", f"launches over the ggnn path: {counts}")
     if counts != expected:
@@ -1623,7 +1696,7 @@ def cli_phase(card):
         for architecture, argmax in (("mlp", True), ("ggnn", False)):
             if argmax:
                 os.environ[typilus_train.ARGMAX_ROUTING_ENV] = "1"
-            before = sk.launch_counts()
+            before = launch_counts()
             t0 = time.perf_counter()
             out = stdio.StringIO()
             try:
@@ -1633,7 +1706,7 @@ def cli_phase(card):
                          "--architecture", architecture]))
             finally:
                 os.environ.pop(typilus_train.ARGMAX_ROUTING_ENV, None)
-            launched = delta(sk.launch_counts(), before)
+            launched = delta(launch_counts(), before)
             if (launched["segment_extremum_argmax"] > 0) != argmax or (launched["segment_extremum"] > 0) == argmax:
                 raise RuntimeError(f"the {architecture} CLI run took the wrong extremum: {launched}")
             line = [ln for ln in out.getvalue().splitlines() if ln.startswith("Test accuracy:")]
@@ -1651,7 +1724,7 @@ def cli_phase(card):
         lines = out.getvalue().strip().splitlines()
     finally:
         os.chdir(cwd)
-    counts = sk.launch_counts()  # the cli path ends here
+    counts = launch_counts()  # the cli path ends here
     if printed != len(lines) or printed == 0 or not all(" Predicted: `" in ln for ln in lines):
         raise RuntimeError(f"predict printed {len(lines)} lines, counted {printed}")
     phase("cli", f"predict on the ggnn model: {printed} suggestions for the 4 test graphs in "
@@ -1723,7 +1796,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
           f"({forwards[0]} forwards; host tensorize + batching included)")
     eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
-    serving = sk.launch_counts()
+    serving = launch_counts()
     if serving != {k: v * forwards[0] for k, v in per_forward.items()}:
         raise RuntimeError(f"expected {per_forward} launches per {name} forward, got {serving} over {forwards[0]}")
     phase(name, f"launches over the serving path's {forwards[0]} forwards {serving}")
@@ -1758,7 +1831,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     expected = {k: serving[k] + per_forward[k] * fw + (per_step[k] - per_forward[k]) * bw for k in serving}
     expected = add_counts(expected, train_steps_phase(model, batches, dev, card, name, per_step, VM_TRAIN_STEPS,
                                                       learning_rate=1e-4, clip_gradient_norm=0.5))
-    counts = sk.launch_counts()  # the varmisuse path ends here
+    counts = launch_counts()  # the varmisuse path ends here
     phase(name, f"launches of K1 (segment_sum), K2 (segment_extremum), K3 (broadcast_to_edges), K4 "
           f"(segment_extremum_argmax) and K5 (typed_matmul) over the {name} path: {counts}; K5's bf16 gate "
           f"{'opened' if counts['typed_matmul'] else 'stayed closed'} (it needs D and M multiples of 128 and "
@@ -2220,7 +2293,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
     counter.remove()
     for loop_name in ("_greedy_loop", "_beam_loop"):
         delattr(model.decoder_model, loop_name)  # the model is pickled into checkpoints below
-    serving = sk.launch_counts()
+    serving = launch_counts()
     loss_forwards, loops = forwards[0] - encodes, loop_calls.n
     want = {k: G2S_PER_ENCODE[k] * encodes + G2S_PER_DECODE_LOOP[k] * loops + G2S_PER_FORWARD[k] * loss_forwards
             for k in serving}
@@ -2258,7 +2331,7 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
                 for k in serving}
     expected = add_counts(expected, train_steps_phase(model, batches, dev, card, name, G2S_PER_TRAIN_STEP,
                                                       G2S_TRAIN_STEPS, learning_rate=1e-3, clip_gradient_norm=None))
-    counts = sk.launch_counts()  # the graph2seq path ends here
+    counts = launch_counts()  # the graph2seq path ends here
     phase(name, f"launches of K1 (segment_sum), K2 (segment_extremum), K3 (broadcast_to_edges), K4 "
           f"(segment_extremum_argmax) and K5 (typed_matmul) over the {name} path: {counts}; K5's bf16 gate "
           f"{'opened' if counts['typed_matmul'] else 'stayed closed'}")
@@ -2278,11 +2351,10 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
 
 
 def graph2seq_kernel_entries(adj, dev, gen, entry):
-    """K1 and K3 on a Graph2Seq batch's layout (8 edge types, 131,072 slots)
-    at the path's width 128: bitwise against their plain versions (K1 against
-    its plain version on the CPU, as on the VarMisuse layout), then timed
-    beside index_add_ / index_select; kernels-line entries through
-    ``entry``."""
+    """K1 on a Graph2Seq batch's layout (8 edge types, 131,072 slots) at the
+    path's width 128: bitwise against its plain version on the CPU (as on
+    the VarMisuse layout), then timed beside index_add_; a kernels-line
+    entry through ``entry``. K3 on this layout: ``broadcast_width_entries``."""
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import segment_kernels as sk
 
@@ -2296,25 +2368,18 @@ def graph2seq_kernel_entries(adj, dev, gen, entry):
     if not bitwise_equal(got.cpu(), sk.segment_sum_plain(data.cpu(), cpu_plan, num_nodes)):
         raise RuntimeError("sum kernel != its plain version on the CPU on the Graph2Seq layout")
     sum_err = float((got - sk.segment_sum_plain(data, plan, num_nodes)).abs().max())
-    table = torch.randn(num_nodes, width, device=dev, generator=gen)
-    if not bitwise_equal(sk.planned_broadcast_to_edges(table, plan), sk.broadcast_plain(table, plan)):
-        raise RuntimeError("broadcast kernel != plain version on the Graph2Seq layout")
     torch.cuda.synchronize()
     degrees = torch.bincount(adj.receivers[adj.mask].long(), minlength=num_nodes)
     phase("kernels", f"Graph2Seq layout ({e_real} real slots of {e_pad}, {int(adj.tile_types.max()) + 1} types, "
           f"in-degree max {int(degrees.max())}, mean {float(degrees[degrees > 0].float().mean()):.2f}): the sum at "
           f"{width} bitwise equal to its plain version on the CPU (max abs err against the plain version on the "
-          f"card {sum_err:.3e}), the broadcast at {width} bitwise equal to its plain version")
-
-    entries = []
-    for name, err in (("segment_sum", sum_err), ("broadcast_to_edges", 0.0)):
-        k = layout_kernel(name, adj, width, dev, gen)
-        e = entry(name, width, layout_times(k), k)
-        e.update(layout="Graph2Seq batch", max_abs_err=err, launches_per_forward=G2S_PER_FORWARD[name],
-                 launches_per_train_step=G2S_PER_TRAIN_STEP[name])
-        phase("kernels", "Graph2Seq layout " + json.dumps(e))
-        entries.append(e)
-    return entries
+          f"card {sum_err:.3e})")
+    k = layout_kernel("segment_sum", adj, width, dev, gen)
+    e = entry("segment_sum", width, layout_times(k), k)
+    e.update(layout="Graph2Seq batch", max_abs_err=sum_err, launches_per_forward=G2S_PER_FORWARD["segment_sum"],
+             launches_per_train_step=G2S_PER_TRAIN_STEP["segment_sum"])
+    phase("kernels", "Graph2Seq layout " + json.dumps(e))
+    return [e]
 
 
 HUB_SLOTS = 4096
@@ -2686,7 +2751,7 @@ def layers_phase(dev, card, reps: int = 3):
         for amp in (False, True):
             eval_forward_phase(module, mbs, card, name, reps, amp=amp)
         counter.remove()
-        serving = sk.launch_counts()
+        serving = launch_counts()
         phase(name, f"launches over {forwards[0]} eval forwards {serving}; fused-op calls {len(fused)}")
         if serving != {k: v * forwards[0] for k, v in LAYERS_PER_FORWARD.items()}:
             raise RuntimeError(f"expected {LAYERS_PER_FORWARD} launches per layers forward, got {serving}")
@@ -2699,19 +2764,19 @@ def layers_phase(dev, card, reps: int = 3):
         drop = model.build_neural_module(device=dev, seed=SEED)
         drop.gnn.edge_dropout_rate = LAYERS_EDGE_DROPOUT
         fused.clear()
-        before = sk.launch_counts()
+        before = launch_counts()
         stats = train_steps(drop, mbs, steps=LAYERS_EDGE_DROPOUT_STEPS, seed=SEED)
         loss, _ = module_loss(drop, mbs[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
         loss.backward()
         steps = executions(stats, LAYERS_EDGE_DROPOUT_STEPS) + 1
-        per_step = {k: v / steps for k, v in delta(sk.launch_counts(), before).items()}
+        per_step = {k: v / steps for k, v in delta(launch_counts(), before).items()}
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in drop.parameters() if p.grad is not None)
         if per_step != LAYERS_PER_EDGE_DROPOUT_STEP or fused:
             raise RuntimeError(f"edge dropout step: launches {per_step} (expected {LAYERS_PER_EDGE_DROPOUT_STEP}), "
                                f"{len(fused)} fused-op calls")
         if not (math.isfinite(stats["loss"]) and math.isfinite(float(loss.detach())) and grads_finite):
             raise RuntimeError(f"edge dropout step: loss {stats['loss']} / {float(loss)}, finite grads {grads_finite}")
-        counts = sk.launch_counts()  # the layers path ends here
+        counts = launch_counts()  # the layers path ends here
         phase(name, f"train_steps float32 with edge dropout {LAYERS_EDGE_DROPOUT}: {LAYERS_EDGE_DROPOUT_STEPS} steps "
               f"after 1 warm-up, loss {stats['loss']:.6f}, {stats['ms_per_step']:.3f} ms/step, "
               f"{stats['graphs_per_s']:.1f} graphs/s, {stats['edges_per_s']:.0f} edges/s on {card}; launches per "
@@ -2988,9 +3053,9 @@ def edge_features_phase(dev, card, reps: int = 3):
             counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
             for amp in (False, True):
                 dtype = "bf16" if amp else "float32"
-                before, n0 = sk.launch_counts(), forwards[0]
+                before, n0 = launch_counts(), forwards[0]
                 eval_forward_phase(module, mbs, card, f"{name} {stack}", reps, amp=amp)
-                got = delta(sk.launch_counts(), before)
+                got = delta(launch_counts(), before)
                 want = {k: v * (forwards[0] - n0) for k, v in EDGE_PER_FORWARD[dtype].items()}
                 if got != want:
                     raise RuntimeError(f"{stack} {dtype} eval forwards launched {got}, expected {want}")
@@ -2999,10 +3064,10 @@ def edge_features_phase(dev, card, reps: int = 3):
             for amp in (False, True):
                 dtype = "bf16" if amp else "float32"
                 steps_module = model.build_neural_module(device=dev, seed=SEED)
-                before = sk.launch_counts()
+                before = launch_counts()
                 stats = train_steps(steps_module, mbs, steps=EDGE_TRAIN_STEPS, enable_amp=amp, seed=SEED)
                 per_step = {k: v / executions(stats, EDGE_TRAIN_STEPS)
-                            for k, v in delta(sk.launch_counts(), before).items()}
+                            for k, v in delta(launch_counts(), before).items()}
                 if per_step != EDGE_PER_TRAIN_STEP[stack][dtype]:
                     raise RuntimeError(f"{stack} {dtype} step launched {per_step}, expected "
                                        f"{EDGE_PER_TRAIN_STEP[stack][dtype]}")
@@ -3015,7 +3080,7 @@ def edge_features_phase(dev, card, reps: int = 3):
                 checks.append(f"{stack} {dtype} step")
             if not gated:
                 first = (model, minibatches[0], mbs[0])
-    counts = sk.launch_counts()  # the edge-features path ends here
+    counts = launch_counts()  # the edge-features path ends here
     phase(name, f"launches over the edge-features path {counts}, each forward and step as counted "
           f"({checks}); fused-op calls {len(fused)}")
     if fused:
@@ -3058,7 +3123,7 @@ def bpe_phase(dev, card, reps: int = 3):
     counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     sk.reset_launch_counts()  # the bpe path starts here
     eval_forward_phase(module, mbs, card, name, reps)
-    counts = sk.launch_counts()  # the bpe path ends here
+    counts = launch_counts()  # the bpe path ends here
     counter.remove()
     if counts != {k: v * forwards[0] for k, v in PER_FORWARD.items()}:
         raise RuntimeError(f"bpe forwards launched {counts}, expected {PER_FORWARD} x {forwards[0]}")
@@ -3157,7 +3222,7 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         trainer.train(train_graphs, valid_graphs, initialize_metadata=False, **run)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        trainer_counts = sk.launch_counts()
+        trainer_counts = launch_counts()
         for hook in hooks:
             hook.remove()
         moments = moment_elements(optimizers[0])
@@ -3202,7 +3267,7 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         folds.append(str(root / fold))
     cwd = os.getcwd()
     os.chdir(root)  # the CLI's log file goes under the working directory
-    before = sk.launch_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     try:
         out = stdio.StringIO()
@@ -3212,7 +3277,7 @@ def data_parallel_phase(dev, card, model, batches, epochs):
                  "--world-size", "1", "--quiet"]))
     finally:
         os.chdir(cwd)
-    cli = delta(sk.launch_counts(), before)
+    cli = delta(launch_counts(), before)
     line = [ln for ln in out.getvalue().splitlines() if ln.startswith("Test accuracy:")]
     if not line or accuracy is None or not 0.0 <= accuracy <= 1.0 or not (root / "dist.pkl.gz").exists():
         raise RuntimeError(f"traindistributed printed {line}, returned {accuracy}")
@@ -3220,9 +3285,9 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         raise RuntimeError(f"the distributed CLI run missed a kernel: {cli}")
     phase(name, f"traindistributed --world-size 1 (NCCL, ZeRO-1): 1 epoch over 12 graphs in "
           f"{time.perf_counter() - t0:.2f} s; '{line[0]}'; launches {cli}")
-    before = sk.launch_counts()
+    before = launch_counts()
     world_one(lambda: dp_compiled_checks(dev, card, model, batches, epochs))
-    compiled_counts = delta(sk.launch_counts(), before)
+    compiled_counts = delta(launch_counts(), before)
     counts = add_counts(add_counts(trainer_counts, cli), compiled_counts)  # the data-parallel path ends here
     phase(name, f"launches over the data-parallel path {counts}; the 2-rank path runs on the CPU over gloo "
           f"(tests/test_torch_parallel_dp.py): this machine has one card; phase total "
@@ -3363,7 +3428,7 @@ def held_steps(single, sharded, single_mbs, sharded_mbs, sharded_step, steps: in
     opt_sharded = torch.optim.SGD(sharded.parameters(), lr=lr)
     device = next(single.parameters()).device
     losses, sharded_losses, worst, where, bitwise, elapsed, elapsed_single = [], [], 0.0, "", True, 0.0, 0.0
-    launches = {k: 0 for k in sk.launch_counts()}
+    launches = {k: 0 for k in launch_counts()}
     for i in range(steps):
         sharded.load_state_dict(single.state_dict())
         torch.cuda.synchronize()
@@ -3372,13 +3437,13 @@ def held_steps(single, sharded, single_mbs, sharded_mbs, sharded_step, steps: in
                                                torch.Generator(device=device).manual_seed(SEED + i))))
         torch.cuda.synchronize()
         elapsed_single += time.perf_counter() - t0
-        before = sk.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         sharded_losses.append(float(sharded_step(sharded_mbs[i], opt_sharded,
                                                  torch.Generator(device=device).manual_seed(SEED + i))))
         torch.cuda.synchronize()
         elapsed += time.perf_counter() - t0
-        launches = add_counts(launches, delta(sk.launch_counts(), before))
+        launches = add_counts(launches, delta(launch_counts(), before))
         err, name, same = params_apart(single, sharded)
         bitwise &= same
         if err > worst:
@@ -3559,9 +3624,9 @@ def edge_parallel_phase(dev, card):
         out = held_steps(single, sharded, device_mbs, local,
                          lambda mb, opt, g: ep.train_step(mb, opt, generator=g)[0], EP_STEPS)
         sharded.gnn.edge_group = None
-        before = sk.launch_counts()
+        before = launch_counts()
         compiled = sharded_compiled_against_eager(model, local, dev, EdgeParallel)
-        return out, compiled, delta(sk.launch_counts(), before)
+        return out, compiled, delta(launch_counts(), before)
 
     (single_losses, losses, worst, where, bitwise, ms, counts), compiled, compiled_counts = world_one(run)
     np.testing.assert_allclose(losses, single_losses, rtol=1e-5)
@@ -3790,11 +3855,11 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
         held = held_steps(single, sharded, device_mbs, local,
                           lambda mb, opt, g: npar.train_step(mb, opt, generator=g)[0], NP_STEPS)
         sharded.gnn.node_group = None
-        before = sk.launch_counts()
+        before = launch_counts()
         exchange = one_rank_exchange(model, local, dev, budgets)
         compiled = sharded_compiled_against_eager(model, local, dev,
                                                   lambda m: NodeParallel(m, **budgets))
-        compiled_counts = delta(sk.launch_counts(), before)
+        compiled_counts = delta(launch_counts(), before)
 
         trainer = NodeShardedModelTrainer(
             create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
@@ -3803,13 +3868,13 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
             target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
         train_graphs = list(graphs(SEED))[:24]
         trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
-        before = sk.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         trainer.train(train_graphs, list(graphs(SEED + 1))[:6], initialize_metadata=False, patience=0,
                       parallelize=False)
         torch.cuda.synchronize()
         t_trainer = time.perf_counter() - t0
-        trainer_counts = delta(sk.launch_counts(), before)
+        trainer_counts = delta(launch_counts(), before)
         eager_trainer = NodeShardedModelTrainer(
             create_graph2class_gnn_model(hidden_state_size=64, padding=default_padding()),
             out_dir / "np-trainer-eager.pkl.gz", node_shards=1, max_num_epochs=1, minibatch_size=300, device=dev,
@@ -3817,13 +3882,13 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
             target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
         eager_trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
         eager_dp(eager_trainer.data_parallel)
-        before = sk.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         eager_trainer.train(train_graphs, list(graphs(SEED + 1))[:6], initialize_metadata=False, patience=0,
                             parallelize=False)
         torch.cuda.synchronize()
         t_eager = time.perf_counter() - t0
-        trainer_counts = add_counts(trainer_counts, delta(sk.launch_counts(), before))
+        trainer_counts = add_counts(trainer_counts, delta(launch_counts(), before))
         apart = params_apart(trainer.neural_module, eager_trainer.neural_module)
         if not apart[2]:
             raise RuntimeError(f"{name}: the compiled NodeShardedModelTrainer epoch != the eager one ({apart[1]} "
@@ -3857,7 +3922,7 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
         folds.append(str(root / fold))
     cwd = os.getcwd()
     os.chdir(root)  # the CLI's log file goes under the working directory
-    before = sk.launch_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     try:
         printed = stdio.StringIO()
@@ -3867,7 +3932,7 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
                  "--world-size", "1", "--node-shards", "1", "--quiet"]))
     finally:
         os.chdir(cwd)
-    cli = delta(sk.launch_counts(), before)
+    cli = delta(launch_counts(), before)
     line = [ln for ln in printed.getvalue().splitlines() if ln.startswith("Test accuracy:")]
     if not line or accuracy is None or not 0.0 <= accuracy <= 1.0 or not (root / "np.pkl.gz").exists():
         raise RuntimeError(f"traindistributed --node-shards 1 printed {line}, returned {accuracy}")
@@ -3925,7 +3990,7 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
             npar = NodeParallel(m, enable_amp=amp, node_aligned=ppi_model.node_aligned_minibatch_keys, **budgets)
             routes[amp] = (m, npar, tree_to(npar.shard_batch(ppi_minibatches[0]), dev),
                            torch.optim.SGD(m.parameters(), lr=lr))
-        launches = {k: 0 for k in sk.launch_counts()}
+        launches = {k: 0 for k in launch_counts()}
         rows, losses, param_err, elapsed = [], [], 0.0, 0.0
         for _ in range(NP_STEPS):
             state = {k: v.clone() for k, v in single.state_dict().items()}
@@ -3940,7 +4005,7 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
             for amp in (True, False):
                 m, npar, local, opt = routes[amp]
                 m.load_state_dict(state)
-                before = sk.launch_counts()
+                before = launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 loss, _, _ = npar.data_parallel.grad_step(local, 1.0, None)
@@ -3949,7 +4014,7 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
                 torch.cuda.synchronize()
                 if amp:
                     elapsed += time.perf_counter() - t0
-                launches = add_counts(launches, delta(sk.launch_counts(), before))
+                launches = add_counts(launches, delta(launch_counts(), before))
             losses.append((sharded[True][0], plain[True][0], sharded[False][0], plain[False][0]))
             for (n, g16), (_, g32), (_, p16), (_, p32) in zip(sharded[True][1], sharded[False][1], plain[True][1],
                                                              plain[False][1]):
@@ -4186,7 +4251,7 @@ def native_assembler_phase(dev, card, model, ppi_model, ppi_samples, epochs):
                                      name=f"assembler-{label}"))
     busy = {label: g2c_epoch(model, train, valid, dev, numpy_layout=label == "numpy", profiled=True,
                              name=f"assembler-{label}-profiled")["busy"] for label in ("C++", "numpy")}
-    counts = sk.launch_counts()  # the native-assembler path ends here
+    counts = launch_counts()  # the native-assembler path ends here
     for label in ("C++", "numpy"):
         phase(name, f"ModelTrainer epoch with the {label} assembler (worker threads on, prefetch 2): "
               f"{runs[label][0]['steps']} steps over {len(train)} graphs in "
@@ -4206,7 +4271,7 @@ def prefetch_phase(dev, card, model, epochs, prefetch_two):
     name = "prefetch"
     sk.reset_launch_counts()  # the prefetch path starts here
     ones = [g2c_epoch(model, *epochs, dev, prefetch=1, name=f"prefetch-1-{i}") for i in range(2)]
-    counts = sk.launch_counts()  # the prefetch path ends here
+    counts = launch_counts()  # the prefetch path ends here
     phase(name, f"ModelTrainer epoch, {ones[0]['steps']} steps: prefetch_to_device 1 "
           f"{[round(r['seconds'], 3) for r in ones]} s, 2 {[round(r['seconds'], 3) for r in prefetch_two]} s "
           f"(the native-assembler phase's C++ epochs) on {card}; launches {counts}")
@@ -4303,7 +4368,7 @@ def oom_phase(dev, card, model, epochs):
         torch.cuda.set_per_process_memory_fraction(1.0)
         logger.removeHandler(handler)
         torch.cuda.empty_cache()
-    counts = sk.launch_counts()  # the oom path ends here
+    counts = launch_counts()  # the oom path ends here
     phase(name, f"catch_device_ooms on: the epoch ended in {t_caught:.2f} s after {len(run['losses'])} steps, "
           f"{len(caught)} minibatch skipped ({caught[:1]}); off: {raised}; launches {counts}")
     if len(caught) != 1 or raised is None or not raised[2]:
@@ -4358,7 +4423,7 @@ def autotune_phase(dev, card):
         typilus_train.autotune_task_model = real
         sys.argv = argv
         os.chdir(cwd)
-    counts = sk.launch_counts()  # the autotune path ends here
+    counts = launch_counts()  # the autotune path ends here
     t_cli = time.perf_counter() - t0
     (tuned, results, t_sweep), = sweeps
     for r in sorted(results, key=lambda r: (r.padding.max_nodes, r.padding.max_edge_slots)):
@@ -4474,7 +4539,7 @@ def checkpoint_phase(dev, card, model, batches):
 
     sk.reset_launch_counts()  # the checkpoint path starts here
     world_one(run)
-    counts = sk.launch_counts()  # the checkpoint path ends here
+    counts = launch_counts()  # the checkpoint path ends here
     phase(name, f"launches {counts}")
     return counts
 
@@ -4509,7 +4574,7 @@ def profiling_phase(dev, card, model, batches):
     with profile_trace(out_dir) as prof:
         for i in range(steps):
             step(1 + i)
-    counts = sk.launch_counts()  # the profiling path ends here
+    counts = launch_counts()  # the profiling path ends here
     for h in handles:
         h.remove()
     trace = (out_dir / "trace.json").read_text()
@@ -4705,7 +4770,7 @@ def compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, vm_model, 
     name = "compiled"
     t_phase = time.perf_counter()
     sk.reset_launch_counts()  # the compiled path starts here
-    expected = {k: 0 for k in sk.launch_counts()}
+    expected = {k: 0 for k in launch_counts()}
     g2c_mbs = [g2c_minibatch(b) for b in batches]
     cases = [("Graph2Class float32", model, g2c_mbs, False, PER_TRAIN_STEP, 2.5e-4),
              ("Graph2Class bf16 AMP", model, g2c_mbs, True, PER_TRAIN_STEP, 2.5e-4),
@@ -4740,7 +4805,7 @@ def compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, vm_model, 
               f"eager {e['ms']:.3f} {[round(t, 3) for t in e['times']]} ({e['ms'] / c['ms']:.2f}x); device busy "
               f"{100 * c['busy']:.1f} % compiled, {100 * e['busy']:.1f} % eager (profiled run); "
               f"{len(c['captures'])} signature(s): capture (warm-up included) {captures} on {card}")
-        got = sk.launch_counts()
+        got = launch_counts()
         if got != expected:
             raise RuntimeError(f"{label}: launches {got} != {expected} expected from the steps run")
 
@@ -4765,8 +4830,8 @@ def compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, vm_model, 
             ms[mode] = 1e3 * (time.perf_counter() - t0) / (TIMED_STEPS * len(batches))
             executions += TIMED_STEPS * len(batches)
     expected = add_counts(expected, {k: v * executions for k, v in PER_FORWARD.items()})
-    if sk.launch_counts() != expected:
-        raise RuntimeError(f"predict_probs: launches {sk.launch_counts()} != {expected}")
+    if launch_counts() != expected:
+        raise RuntimeError(f"predict_probs: launches {launch_counts()} != {expected}")
     cap = predict.stats()[0]
     phase(name, f"Graph2Class predict_probs over {len(batches)} batches: compiled bitwise equal to eager; ms/batch "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
@@ -4788,9 +4853,88 @@ def compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, vm_model, 
         + f" s, eager {runs[(k, 'eager')]['seconds']:.3f} s" for k in (1, 2)) + "): compiled bitwise equal to "
         f"eager (losses and parameters) at both, on {card}; the steps and predict_probs took {t_steps:.1f} s "
         f"of the phase")
-    counts = sk.launch_counts()  # the compiled path ends here
+    counts = launch_counts()  # the compiled path ends here
     phase(name, f"launches over the compiled path {counts}; phase total {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# Graph2Class's K3 widths (D, M and the backward's widened table, float32
+# and bf16 AMP) and PPI's 256; on a 2-way node shard's layouts, D and M.
+AB_WIDTHS = ((64, "float32"), (128, "float32"), (192, "float32"), (256, "float32"), (384, "float32"),
+             (64, "bfloat16"), (128, "bfloat16"), (192, "bfloat16"), (384, "bfloat16"))
+AB_NP_WIDTHS = ((64, "float32"), (128, "float32"))
+
+
+def broadcast_ab(sources: list) -> None:
+    """``chip_smoke.py --broadcast-ab SOURCE...``: the checkout's K3 against
+    other sources of the same C entry (``ptgnn_broadcast_rows``; e.g. an
+    earlier commit's ``csrc/broadcast_rows.cu``), each built with the same
+    nvcc flags into build/broadcast-ab/, timed in turns (the checkout, the
+    others, then back in reverse order) on the benchmark batch's layout at
+    the Graph2Class path's widths (``AB_WIDTHS``) and on a 2-way node
+    shard's interior and boundary layouts (``AB_NP_WIDTHS``), each also over
+    its first tile alone (the floor): ms per launch in ``layout_times``'
+    harness, each build bitwise against the plain version first; beside
+    them a write-only yardstick (``torch.zeros`` of the output). One JSON
+    line a (layout, width)."""
+    import ctypes
+
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import cuda_build
+    from ptgnn_tpu_torch.parallel import shard_batch_by_nodes, suggest_budgets
+    from ptgnn_tpu_torch.parallel.node_sharding import local_shard
+
+    dev = torch.device("cuda")
+    cuda_build.build_all()
+    cuda_build.kernel_function("broadcast")
+    libs = {"checkout": cuda_build._LIBS["broadcast"]}
+    out_dir = Path(__file__).resolve().parent / "build" / "broadcast-ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _, fname, argtypes = cuda_build._SIGNATURES["broadcast"]
+    for i, source in enumerate(sources):
+        lib_path = out_dir / f"variant{i}.so"
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), source], check=True,
+                       capture_output=True, timeout=600)
+        lib = ctypes.CDLL(str(lib_path))
+        getattr(lib, fname).argtypes, getattr(lib, fname).restype = argtypes, ctypes.c_int
+        lib.ptgnn_error_string.argtypes, lib.ptgnn_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+        libs[source] = lib
+    order = list(libs) + list(libs)[::-1]
+    _, _, minibatches, batches = build_bench(dev)
+    budgets = suggest_budgets(minibatches[:1], 2, reorder="bfs")
+    sharded, _ = shard_batch_by_nodes(minibatches[0], 2, reorder="bfs", **budgets)
+    shard = tree_to(local_shard(sharded, 0), dev)["batch"]
+    cases = [("Graph2Class batch", batches[0][0].adjacency, AB_WIDTHS),
+             ("np 2-way interior", shard.adjacency, AB_NP_WIDTHS),
+             ("np 2-way boundary", shard.node_sharding.adjacency_bnd, AB_NP_WIDTHS)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    card = card_line()
+    try:
+        for layout, adj, widths in cases:
+            for width, dtype_name in widths:
+                dtype = getattr(torch, dtype_name)
+                ks = {"ms": layout_kernel("broadcast_to_edges", adj, width, dev, gen, dtype),
+                      "floor_ms": layout_kernel("broadcast_to_edges", adj, width, dev, gen, dtype,
+                                                plan=one_tile_plan(adj))}
+                times = {part: {name: [] for name in libs} for part in ks}
+                slots = adj.mask.shape[0]
+                # A yardstick: one library kernel that only writes the output rows.
+                fill_ms = graph_time_ms([lambda: torch.zeros(slots, width, dtype=dtype, device=dev)] * 16)
+                for name in order:
+                    cuda_build._LIBS["broadcast"] = libs[name]
+                    for part, k in ks.items():
+                        table = k.make()
+                        if not bitwise_equal(k.kernel(table), k.plain(table)):
+                            raise RuntimeError(f"{name}: broadcast != plain version on the {layout} at {width} "
+                                               f"{dtype_name} ({part})")
+                        inputs = rotating(k.make, k.input_bytes)
+                        times[part][name].append(graph_time_ms(
+                            [lambda x=inputs[i % len(inputs)], f=k.kernel: f(x) for i in range(16)]))
+                        del inputs
+                print(json.dumps({"layout": layout, "width": width, "dtype": dtype_name, **times, "fill_ms": fill_ms,
+                                  **bound(ks["ms"].nbytes, 0), "card": card}), flush=True)
+    finally:
+        cuda_build._LIBS["broadcast"] = libs["checkout"]
 
 
 def main() -> None:
@@ -4802,6 +4946,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--layers-gate"]:
         layers_gate_repeats(int(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--broadcast-ab"]:
+        broadcast_ab(sys.argv[2:])
         return
     from ptgnn_tpu_torch import native
     from ptgnn_tpu_torch.graph.structs import tree_to
@@ -4859,7 +5006,7 @@ def main() -> None:
                 losses.append(module(batch, targets)[0])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-    serving_counts = sk.launch_counts()  # the serving path ends here
+    serving_counts = launch_counts()  # the serving path ends here
     counter.remove()
 
     losses = torch.stack(losses).cpu().numpy()
@@ -5054,7 +5201,7 @@ def main() -> None:
     # ---- 7. kernel timings -------------------------------------------------
     kernels = []
 
-    def entry(name, width, times, k):
+    def entry(name, width, times, k, dtype="float32"):
         return {
             "name": name, "route": "cuda", "source": KERNEL_FILES[name][0], "replaces": KERNEL_FILES[name][1],
             "launches": main_counts[name],
@@ -5062,13 +5209,21 @@ def main() -> None:
             "launches_per_forward": PER_FORWARD[name], "launches_per_train_step": PER_TRAIN_STEP[name],
             "max_abs_err": max_abs_err[name],
             "ms": times["ms"], "plain_ms": times["plain_ms"], **bound(k.nbytes, k.ops),
-            "library_ms": times["library_ms"], "width": width, "dtype": "float32",
+            "library_ms": times["library_ms"], "width": width, "dtype": dtype,
         }
 
+    # K3 at every (row bytes, dtype) a path launched it at, on that path's
+    # layout: Graph2Class's (serving and train: D and M, the backward's
+    # widened g | ties | node_states table, in float32 and bf16 AMP), PPI's,
+    # Graph2Seq's, the layers stack's, and a 2-way node shard's interior and
+    # boundary at the float32 widths both Graph2Class and node-parallel ran.
+    widths_by_path = {path: counts.by_width for path, counts in paths.items()}
+    phase("kernels", f"K3 launches by (row bytes, dtype) and path: {widths_by_path}")
+    g2c_keys = set(paths["serving"].by_width) | set(paths["train"].by_width)
+    kernels += broadcast_width_entries(adj, "Graph2Class batch", g2c_keys, widths_by_path, dev, gen, entry)
     # The path's float32 widths: the sum's tie counts 64 and 128 and combined
     # node cotangent 128 and 256; D = M = 64 before the residuals, 128 after.
-    for name, widths in (("segment_sum", (64, 128, 256)), ("broadcast_to_edges", (64, 128)),
-                         ("segment_extremum", (64, 128))):
+    for name, widths in (("segment_sum", (64, 128, 256)), ("segment_extremum", (64, 128))):
         for width in widths:
             k = layout_kernel(name, adj, width, dev, gen)
             e = entry(name, width, layout_times(k), k)
@@ -5076,14 +5231,15 @@ def main() -> None:
                 kernels.append(e)
             phase("kernels", json.dumps(e))
     # The PPI layout's sum widths (the forward 256, the backward's combined
-    # cotangents 512) and broadcast width (256).
+    # cotangents 512).
     ppi_adj = ppi_batches[0]["batch"].adjacency
-    for name, width in (("segment_sum", 256), ("segment_sum", 512), ("broadcast_to_edges", 256)):
-        k = layout_kernel(name, ppi_adj, width, dev, gen)
-        e = entry(name, width, layout_times(k), k)
-        # the broadcast bitwise equal to its plain version (ppi-parity)
-        e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"] if name == "segment_sum" else 0.0
+    for width in (256, 512):
+        k = layout_kernel("segment_sum", ppi_adj, width, dev, gen)
+        e = entry("segment_sum", width, layout_times(k), k)
+        e["max_abs_err"] = ppi_max_abs_err[f"segment_sum {width} float32"]
         phase("kernels", "PPI layout " + json.dumps(e))
+    ppi_keys = set(paths["ppi-serving"].by_width) | set(paths["ppi-train"].by_width)
+    kernels += broadcast_width_entries(ppi_adj, "PPI batch", ppi_keys, widths_by_path, dev, gen, entry)
     kernels += ppi_kernel_entries(ppi_adj, dev, gen, ppi_max_abs_err, main_counts, paths)
     # The edge-feature path's typed matmul shapes (bf16; forward and dx of
     # both stacks) on its layout.
@@ -5095,20 +5251,28 @@ def main() -> None:
                                   per_step=EDGE_PER_TRAIN_STEP["mlp"])
     # The node-parallel layouts: K1, K2, K3 on a 2-way shard's interior and
     # boundary layouts, K5 (bf16) on PPI's node-sharded ones.
+    np_keys = {key for key in paths["node-parallel"].by_width if key in g2c_keys and key[1] == "float32"}
     for label in ("np 2-way interior", "np 2-way boundary"):
-        for name in ("segment_sum", "broadcast_to_edges", "segment_extremum"):
+        for name in ("segment_sum", "segment_extremum"):
             k = layout_kernel(name, np_layouts[label], 64, dev, gen)
             e = {**entry(name, 64, layout_times(k), k), "layout": label, "max_abs_err": np_err[name]}
             kernels.append(e)
             phase("kernels", json.dumps(e))
+        kernels += broadcast_width_entries(np_layouts[label], label, np_keys, widths_by_path, dev, gen, entry)
     for label in ("ppi np interior", "ppi np boundary"):
         errs = {k[:-len(label) - 1]: v for k, v in np_err.items() if k.endswith(" " + label)}
         kernels += ppi_kernel_entries(np_layouts[label], dev, gen, errs, main_counts, paths,
                                       dtypes=((torch.bfloat16, BF16_OPS_PER_S),), layout=label, per_step=None)
     skewed_layout_checks(minibatches[0]["batch"].adjacency, dev, gen)
     varmisuse_kernel_checks(vm_batches[0]["batch"].adjacency, dev, gen)
-    kernels += graph2seq_kernel_entries(g2s_batches[0]["batch"].adjacency, dev, gen, entry)
-    kernels += layers_kernel_entries(layers_batches[0][0].adjacency, layers_seen, dev, gen, entry)
+    g2s_adj = g2s_batches[0]["batch"].adjacency
+    kernels += graph2seq_kernel_entries(g2s_adj, dev, gen, entry)
+    kernels += broadcast_width_entries(g2s_adj, "Graph2Seq batch", paths["graph2seq"].by_width, widths_by_path,
+                                       dev, gen, entry)
+    layers_adj = layers_batches[0][0].adjacency
+    kernels += layers_kernel_entries(layers_adj, layers_seen, dev, gen, entry)
+    kernels += broadcast_width_entries(layers_adj, "Graph2Class batch, layers stack", paths["layers"].by_width,
+                                       widths_by_path, dev, gen, entry)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

@@ -45,11 +45,12 @@ one Python dispatch per kernel.
   propagates as ``torch.OutOfMemoryError``, so the trainer's skip handles it.
 * **Counters.** A capture runs the step's Python once, but launches nothing.
   The counters in :data:`REPLAYED_COUNTERS` (the kernel wrappers'
-  ``launches``, and any a caller registers) and those a step names
-  (``counters``: a data-parallel step's all-reduce calls and bytes) are put
-  back after a capture to their values before it, and every replay adds
-  what the capture added, so they count what ran on the card: the warm-up
-  calls and every replay.
+  ``launches``, the broadcast's launches by width, and any a caller
+  registers) and those a step names (``counters``: a data-parallel step's
+  all-reduce calls and bytes) are put back after a capture to their values
+  before it, and every replay adds what the capture added, so they count
+  what ran on the card: the warm-up calls and every replay. A counter is an
+  integer or a dict of integers (a tally by key).
 * **Generators** (``generators``) are registered with each graph, so a
   replay draws from the generator's current seed and offset: reseeded with
   ``s``, it draws exactly what an eager call seeded with ``s`` draws.
@@ -69,9 +70,43 @@ __all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS", "canonical_devic
 # every lazy allocation of the step on the stream the capture uses.
 WARMUP_CALLS = 1
 
-# (owner, attribute) of every integer counter that a replay adds to as its
-# capture did: the kernel wrappers' launch counters, and any a caller adds.
-REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()]
+# (owner, attribute) of every counter that a replay adds to as its capture
+# did: the kernel wrappers' launch counters, the broadcast's tally by width,
+# and any a caller adds.
+REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()] + [
+    (sk.planned_broadcast_to_edges, "launches_by_width")
+]
+
+
+def _counter_value(owner: Any, name: str) -> Any:
+    value = getattr(owner, name)
+    return dict(value) if isinstance(value, dict) else value
+
+
+def _counter_added(after: Any, before: Any) -> Any:
+    """What a capture added to a counter (an integer, or a dict of the keys
+    that changed); falsy when nothing."""
+    if isinstance(after, dict):
+        return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    return after - before
+
+
+def _counter_set(owner: Any, name: str, value: Any) -> None:
+    current = getattr(owner, name)
+    if isinstance(current, dict):  # in place: callers may hold the dict
+        current.clear()
+        current.update(value)
+    else:
+        setattr(owner, name, value)
+
+
+def _counter_add(owner: Any, name: str, added: Any) -> None:
+    current = getattr(owner, name)
+    if isinstance(current, dict):
+        for k, n in added.items():
+            current[k] = current.get(k, 0) + n
+    else:
+        setattr(owner, name, current + added)
 
 
 def canonical_device(device) -> torch.device:
@@ -196,7 +231,7 @@ class CompiledStep:
                 buf.copy_(leaf)
         entry.graph.replay()
         for owner, name, added in entry.counted:
-            setattr(owner, name, getattr(owner, name) + added)
+            _counter_add(owner, name, added)
         return entry.outputs
 
     # ------------------------------------------------------------------
@@ -234,7 +269,7 @@ class CompiledStep:
         torch.cuda.empty_cache()  # the warm-up's blocks, for the graph's pool
         reserved = torch.cuda.memory_reserved(self.device)
         counters = REPLAYED_COUNTERS + self._counters
-        before = [getattr(owner, name) for owner, name in counters]
+        before = [_counter_value(owner, name) for owner, name in counters]
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
             with torch.cuda.stream(stream):
@@ -246,11 +281,12 @@ class CompiledStep:
                     raise
                 graph.capture_end()
         finally:
-            after = [getattr(owner, name) for owner, name in counters]
+            after = [_counter_value(owner, name) for owner, name in counters]
             for (owner, name), value in zip(counters, before):
-                setattr(owner, name, value)
+                _counter_set(owner, name, value)
             torch.cuda.current_stream(self.device).wait_stream(stream)
-        counted = [(owner, name, a - b) for (owner, name), a, b in zip(counters, after, before) if a != b]
+        counted = [(owner, name, added) for (owner, name), a, b in zip(counters, after, before)
+                   if (added := _counter_added(a, b))]
         stats = CaptureStats(time.perf_counter() - t0, torch.cuda.memory_reserved(self.device) - reserved)
         return _Entry(graph, inputs, outputs, counted, stats)
 

@@ -13,7 +13,8 @@ host), over which the extremum and sum kernels reduce row by row; a plan
 built by hand gets it from :func:`with_row_index`.
 
 Each kernel has a plain PyTorch version in this module and a launch counter
-on its wrapper (``<wrapper>.launches``). A wrapper runs the plain version
+on its wrapper (``<wrapper>.launches``; the broadcast also tallies its
+launches by row width and dtype). A wrapper runs the plain version
 for a tensor on the CPU and the kernel for a tensor on a CUDA device; it
 never falls back from one to the other.
 
@@ -149,23 +150,21 @@ def broadcast_plain(table: torch.Tensor, plan: AggregationPlan) -> torch.Tensor:
 
 def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> torch.Tensor:
     """[N, D] node table -> [E_pad, D] per-slot receiver rows in plan order,
-    0 at padding slots. CPU: the plain version; CUDA: the kernel."""
+    0 at padding slots. CPU: the plain version; CUDA: the kernel, for rows
+    of any width in whole elements (a non-contiguous table is made
+    contiguous; a table whose address or rows are not whole 16-byte vectors
+    goes by the kernel's narrow route)."""
     if table.device.type == "cpu":
         return broadcast_plain(table, plan)
     _require_cuda(table, "planned_broadcast_to_edges")
     _check_plan(plan, table.device)
-    if table.ndim != 2 or 16 % table.element_size():
-        raise ValueError("the broadcast table must be an [N, D] tensor of 1, 2, 4, 8 or 16-byte elements")
-    d = table.shape[1]
-    per_unit = 16 // table.element_size()
-    width = -(-d // per_unit) * per_unit
-    if width != d or not table.is_contiguous() or table.data_ptr() % 16:
-        # The kernel moves whole 16-byte units: other rows ride in a
-        # zero-padded, aligned copy (off the main path, whose rows are whole).
-        padded = table.new_zeros((table.shape[0], max(width, per_unit)))
-        padded[:, :d] = table
-        return planned_broadcast_to_edges(padded, plan)[:, :d]
+    if table.ndim != 2 or 16 % table.element_size() or table.data_ptr() % table.element_size():
+        raise ValueError("the broadcast table must be an [N, D] tensor of aligned 1, 2, 4, 8 or 16-byte elements")
     e_pad = plan.local_rows.shape[0]
+    if max(e_pad, table.shape[0], plan.counts.numel()) >= 2**31:
+        raise ValueError("the broadcast kernel counts slots and rows in 32 bits")
+    table = table.contiguous()
+    d = table.shape[1]
     out = torch.empty((e_pad, d), dtype=table.dtype, device=table.device)
     fn = cuda_build.kernel_function("broadcast")
     err = fn(
@@ -175,10 +174,15 @@ def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> to
     )
     cuda_build.check("broadcast", err)
     planned_broadcast_to_edges.launches += 1
+    key = (d * table.element_size(), str(table.dtype).removeprefix("torch."))
+    by_width = planned_broadcast_to_edges.launches_by_width
+    by_width[key] = by_width.get(key, 0) + 1
     return out
 
 
 planned_broadcast_to_edges.launches = 0
+# The launches by (row bytes, dtype): the widths the path runs the kernel at.
+planned_broadcast_to_edges.launches_by_width = {}
 
 
 def adjacency_broadcast_to_edges(table: torch.Tensor, adj) -> torch.Tensor:
@@ -577,6 +581,12 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def broadcast_launches_by_width() -> Dict[Tuple[int, str], int]:
+    """The broadcast kernel's launches by (row bytes, dtype name)."""
+    return dict(planned_broadcast_to_edges.launches_by_width)
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    planned_broadcast_to_edges.launches_by_width.clear()

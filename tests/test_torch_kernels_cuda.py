@@ -240,19 +240,98 @@ def test_argmax_extremum_kernel_splits_a_hub_row(cuda_device, reduction, dtype, 
     assert _bits(runs[0][0])[7, 2] == 0  # +0.0
 
 
+def _broadcast_width(d, dtype):
+    """The main path's widths (64, 128 and the widened backward tables 192
+    and 256) and an odd one: 67 columns of 4 bytes, 65 of 2 (rows that are
+    not whole 16-byte vectors: the kernel's narrow route)."""
+    if d != "odd":
+        return d
+    return 67 if dtype.itemsize == 4 else 65
+
+
+def _launch_broadcast(table, cplan, times=1):
+    """The kernel on ``table`` (on the card), with its launch count and its
+    tally by (row bytes, dtype) checked."""
+    key = (table.shape[1] * table.element_size(), str(table.dtype).removeprefix("torch."))
+    before = tsk.planned_broadcast_to_edges.launches
+    before_width = tsk.broadcast_launches_by_width().get(key, 0)
+    got = tsk.planned_broadcast_to_edges(table, cplan)
+    torch.cuda.synchronize()
+    assert tsk.planned_broadcast_to_edges.launches == before + 1
+    assert tsk.broadcast_launches_by_width()[key] == before_width + 1
+    return got
+
+
 @pytest.mark.parametrize("tile", [32, 128, 512])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, "odd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_broadcast_kernel_matches_plain_bitwise(cuda_device, dtype, d, tile):
+    """A table of 500 rows, shorter than the plan's 512: 0 at sentinel
+    slots and at rows past the table."""
+    d = _broadcast_width(d, dtype)
     plan, _ = make_plan(d + tile, tile, tile)
     table = torch.randn(500, d, generator=torch.Generator().manual_seed(d)).to(dtype)
     plain = tsk.planned_broadcast_to_edges(table, plan)
-    cplan = tree_to(plan, cuda_device)
-    before = tsk.planned_broadcast_to_edges.launches
-    got = tsk.planned_broadcast_to_edges(table.to(cuda_device), cplan)
-    torch.cuda.synchronize()
-    assert tsk.planned_broadcast_to_edges.launches == before + 1
+    got = _launch_broadcast(table.to(cuda_device), tree_to(plan, cuda_device))
     np.testing.assert_array_equal(_bits(got), _bits(plain))
+
+
+@pytest.mark.parametrize("d", [64, 256, "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_broadcast_kernel_zeroes_sentinel_tiles_and_rows_past_a_short_table(cuda_device, dtype, d):
+    """A table of 100 rows under a plan of 512 (most slots' rows lie past
+    it), one tile all sentinels and one whose row block lies wholly past the
+    table: bitwise the plain version, those tiles 0."""
+    d = _broadcast_width(d, dtype)
+    tile = 128
+    plan, _ = make_plan(d + 1, tile, tile)
+    local_rows, trb = plan.local_rows.clone(), plan.tile_row_blocks.clone()
+    local_rows[:tile] = R  # tile 0: every slot a sentinel
+    trb[1] = plan.counts.shape[0] - 1  # tile 1: rows 384-511
+    plan = plan._replace(local_rows=local_rows, tile_row_blocks=trb)
+    table = torch.randn(100, d, generator=torch.Generator().manual_seed(d)).to(dtype)
+    plain = tsk.planned_broadcast_to_edges(table, plan)
+    got = _launch_broadcast(table.to(cuda_device), tree_to(plan, cuda_device))
+    np.testing.assert_array_equal(_bits(got), _bits(plain))
+    assert not got[:2 * tile].float().any()
+    assert got[2 * tile:].float().any()
+
+
+@pytest.mark.parametrize("d", [64, 192, "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_broadcast_kernel_takes_misaligned_and_strided_tables(cuda_device, dtype, d):
+    """A contiguous table view one element past a 16-byte boundary (the
+    narrow route, no padded copy) and a view with a row stride wider than
+    its rows (made contiguous): bitwise the plain version."""
+    d = _broadcast_width(d, dtype)
+    plan, _ = make_plan(d + 2, 128, 512)
+    cplan = tree_to(plan, cuda_device)
+    g = torch.Generator().manual_seed(d + 2)
+    flat = torch.randn(500 * d + 1, generator=g).to(dtype).to(cuda_device)
+    shifted = flat[1:].view(500, d)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    wide = torch.randn(500, d + 3, generator=g).to(dtype).to(cuda_device)
+    strided = wide[:, 1:d + 1]
+    assert not strided.is_contiguous()
+    for table in (shifted, strided):
+        got = _launch_broadcast(table, cplan)
+        np.testing.assert_array_equal(_bits(got), _bits(tsk.planned_broadcast_to_edges(table.cpu(), plan)))
+
+
+@pytest.mark.parametrize("d", [64, 256, "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_broadcast_kernel_replays_in_a_cuda_graph_bitwise(cuda_device, dtype, d):
+    """Captured on one table and replayed on another: the bits of the plain
+    version on the second, and of an eager call."""
+    d = _broadcast_width(d, dtype)
+    plan, _ = make_plan(d + 3, 128, 512)
+    cplan = tree_to(plan, cuda_device)
+    g = torch.Generator().manual_seed(d + 3)
+    first, second = (torch.randn(500, d, generator=g).to(dtype) for _ in range(2))
+    captured, eager = _graph_replays(lambda t: tsk.planned_broadcast_to_edges(t, cplan), first.to(cuda_device),
+                                     second.to(cuda_device))
+    np.testing.assert_array_equal(_bits(captured), _bits(tsk.planned_broadcast_to_edges(second, plan)))
+    np.testing.assert_array_equal(_bits(captured), _bits(eager))
 
 
 def supertile_plan(plan, tile, align):

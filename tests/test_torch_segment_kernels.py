@@ -72,10 +72,17 @@ def test_extremum_plain_matches_jax_kernel_bitwise(reduction, dtype, m):
     assert not got[200:].float().any() and not got[[3, 11]].float().any()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+# The widths the main path broadcasts (D, M and the backward's widened
+# g | ties | node_states tables, 192 and 256) and an odd width: 67 in
+# float32, 65 in bf16 (rows that are not whole 16-byte vectors).
+ODD_WIDTH = {"float32": 67, "bfloat16": 65}
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, "odd"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("granularity", ["edge_tile", "supertile"])
 def test_broadcast_plain_matches_jax_kernel_bitwise(granularity, dtype, d):
+    d = ODD_WIDTH[dtype] if d == "odd" else d
     receivers, local_rows, _, trb, counts = make_layout(seed=d + 1)
     tile = TILE
     if granularity == "supertile":
