@@ -229,6 +229,25 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``predict_probs`` bitwise and its ms/batch; ModelTrainer epochs of 17
    benchmark steps with the host pipeline, compiled against eager, at
    gradient accumulation 1 and 2, bitwise.
+30. multiprocess-tensorize: the forked tensorize (``tensorize_dataset``'s
+   ``use_multiprocessing``, the default of ``ModelTrainer.train``) against
+   the thread pool on phase 23's Graph2Class epoch: the seconds from the
+   call to the first sample of each (the fork of this process with its
+   CUDA context live), four epochs in turns (forked, threads, threads,
+   forked) bitwise equal in losses and parameters with their seconds, the
+   device's busy share of a profiled epoch of each; a tensorize raising on
+   its 5th sample in the child surfaces as RuntimeError with the child's
+   traceback; DistributedModelTrainer at world 1 over NCCL with and
+   without the fork, bitwise; no child left behind;
+31. linear-residual: the benchmark stack at width 64 with its two concat
+   residuals replaced by LinearResidualLayers: an eval forward and its
+   logits against the CPU, a train step (dropout 0) against the CPU
+   (``step_against_cpu``), with K1-K3's launches counted on a path of
+   their own.
+
+Every phase that runs ModelTrainer.train, a task model's report or a
+train CLI with the worker threads on forks a tensorize child (their
+default); the bitwise gates of the epochs hold with it.
 
 Every path above that trains or serves through an entry point runs compiled
 steps on the card. Their launch counters count executions: a capture's
@@ -3298,14 +3317,15 @@ def data_parallel_phase(dev, card, model, batches, epochs):
 DP_EPOCH_GRAPHS = 30  # about 10 benchmark batches
 
 
-def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str):
+def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str, **train_kw):
     """One DistributedModelTrainer epoch at world 1 (``model``: the
     benchmark Graph2Class model with its metadata; dropout 0.1, Adam with
     the clip) over ``train``,
     then validation, its steps compiled or (``eager_steps``) called
-    directly. Returns the step losses, the parameters, Adam's state, the
-    validation metrics, the seconds of the epoch and the data-parallel
-    steps."""
+    directly; the host pipeline sequential unless ``train_kw`` (more
+    ``train`` arguments) says otherwise. Returns the step losses, the
+    parameters, Adam's state, the validation metrics, the seconds of the
+    epoch and the data-parallel steps."""
     from ptgnn_tpu_torch.parallel import DistributedModelTrainer
 
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp-epochs"
@@ -3330,7 +3350,8 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
         optimizers.append(optimizer), marks.__setitem__("start", time.perf_counter())))
     trainer.register_train_epoch_end_hook(lambda *_: marks.__setitem__("end", time.perf_counter()))
     trainer.register_validation_epoch_end_hook(lambda m, mod, ep, valid_metrics: metrics.append(valid_metrics))
-    trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0, parallelize=False)
+    trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0,
+                  **{"parallelize": False, **train_kw})
     torch.cuda.synchronize()
     return {"losses": losses, "state": {**{f"param {k}": v.detach().clone()
                                            for k, v in trainer.neural_module.named_parameters()},
@@ -4132,10 +4153,11 @@ def device_ms(prof) -> float:
 
 
 def g2c_epoch(model, train, valid, dev, *, prefetch=2, numpy_layout=False, profiled=False, catch_device_ooms=False,
-              inject=None, name="epoch", eager_steps=False, **trainer_kw):
+              inject=None, name="epoch", eager_steps=False, use_multiprocessing=True, **trainer_kw):
     """One ModelTrainer epoch of the benchmark Graph2Class model (dropout
-    0.1, seeded) over ``train`` with the worker threads on, then validation
-    on ``valid``. ``inject``: (position, host minibatch, raw samples) put
+    0.1, seeded) over ``train`` with the worker threads on (and the forked
+    tensorize, unless ``use_multiprocessing`` is off), then validation on
+    ``valid``. ``inject``: (position, host minibatch, raw samples) put
     into the training pass. Returns the epoch's seconds (training start to
     the train epoch's end), the step losses, the parameters, the steps, and
     with ``profiled`` the busy share of the whole train() call.
@@ -4181,12 +4203,14 @@ def g2c_epoch(model, train, valid, dev, *, prefetch=2, numpy_layout=False, profi
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0)
+                trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0,
+                              use_multiprocessing=use_multiprocessing)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             busy = device_ms(prof) / (1e3 * wall)
         else:
-            trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0)
+            trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0,
+                          use_multiprocessing=use_multiprocessing)
     return {"seconds": marks["end"] - marks["start"], "losses": list(trainer.losses), "busy": busy,
             "params": {k: v.detach().clone() for k, v in trainer.neural_module.named_parameters()},
             "steps": len(trainer.losses)}
@@ -4278,6 +4302,189 @@ def prefetch_phase(dev, card, model, epochs, prefetch_two):
     if not all(same_epoch(one, prefetch_two[0]) for one in ones):
         raise RuntimeError("prefetch_to_device 1 and 2 gave different epochs")
     phase(name, f"losses and parameters bitwise equal at prefetch 1 and 2 ({len(ones[0]['losses'])} losses)")
+    return counts
+
+
+MT_ORDER = (True, False, False, True)  # use_multiprocessing, in turns: forked, threads, threads, forked
+
+
+def first_sample_seconds(model, samples, use_multiprocessing: bool) -> float:
+    """Seconds from a ``tensorize_dataset`` call to its first sample: with
+    ``use_multiprocessing``, the fork of this process (its CUDA context
+    live) and the child's first tensorize; else the thread pool's first.
+    The stream is closed at once (the child terminated and joined)."""
+    t0 = time.perf_counter()
+    stream = model.tensorize_dataset(iter(samples), use_multiprocessing=use_multiprocessing)
+    next(stream)
+    seconds = time.perf_counter() - t0
+    stream.close()
+    return seconds
+
+
+def host_tensorize_costs(model, samples) -> dict:
+    """Host seconds over ``samples`` in this thread: tensorize each, pickle
+    each result (the child's work beside tensorizing) and unpickle it (the
+    parent's), and the pickled bytes."""
+    import pickle
+
+    t0 = time.perf_counter()
+    tensorized = [model.tensorize(sample) for sample in samples]
+    t1 = time.perf_counter()
+    blobs = [pickle.dumps(t, protocol=pickle.HIGHEST_PROTOCOL) for t in tensorized]
+    t2 = time.perf_counter()
+    for blob in blobs:
+        pickle.loads(blob)
+    t3 = time.perf_counter()
+    return {"tensorize_s": t1 - t0, "pickle_s": t2 - t1, "unpickle_s": t3 - t2,
+            "mbytes": sum(len(b) for b in blobs) / 1e6}
+
+
+def planted_tensorize_error(model, samples) -> tuple:
+    """A ``tensorize`` that raises on its 5th sample, run in the forked
+    child of this process (CUDA context live): the consumer must get
+    ``RuntimeError`` carrying the child's traceback after the samples
+    before it (those of the first 4 that tensorize), and the parent's copy
+    of the call count must stay 0 (the calls ran in the child). Returns (samples received, the error's last
+    line)."""
+    real = model.tensorize
+    calls = [0]
+
+    def failing(datapoint):
+        calls[0] += 1
+        if calls[0] == 5:
+            raise ValueError("planted failure on the 5th sample")
+        return real(datapoint)
+
+    model.tensorize = failing
+    received, message = 0, None
+    try:
+        for _ in model.tensorize_dataset(iter(samples), use_multiprocessing=True):
+            received += 1
+    except RuntimeError as error:
+        message = str(error)
+    finally:
+        del model.tensorize
+    expected = sum(real(datapoint) is not None for datapoint in samples[:4])
+    if message is None or "Traceback" not in message or "ValueError: planted failure on the 5th sample" not in message \
+            or received != expected or calls[0] != 0:
+        raise RuntimeError(f"the planted tensorize error did not surface as the child's traceback: received "
+                           f"{received}, parent calls {calls[0]}, message {message!r}")
+    return received, message.strip().splitlines()[-1]
+
+
+def multiprocess_tensorize_phase(dev, card, model, epochs):
+    """The forked tensorize (``use_multiprocessing``, the default) against
+    the thread pool on the benchmark Graph2Class epoch (phase 23's: 54
+    graphs, compiled steps, prefetch 2): the seconds to a first sample of
+    each, in turns; four epochs in turns (forked, threads, threads,
+    forked), bitwise equal in losses and parameters, with their seconds and
+    a profiled epoch of each (the device's busy share); a tensorize that
+    raises on its 5th sample in the forked child (RuntimeError with the
+    child's traceback, then the phase goes on); DistributedModelTrainer at
+    world 1 (NCCL) with and without the fork, bitwise; no child left.
+    Returns the launch counts of the path."""
+    import multiprocessing
+
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "multiprocess-tensorize"
+    t_phase = time.perf_counter()
+    train, valid = epochs
+    label = {True: "forked", False: "threads"}
+    firsts = {True: [], False: []}
+    for mp_on in MT_ORDER:
+        firsts[mp_on].append(first_sample_seconds(model, train, mp_on))
+    costs = host_tensorize_costs(model, train)
+    phase(name, f"host seconds over the {len(train)} graphs in one thread: tensorize {costs['tensorize_s']:.3f}, "
+          f"pickle {costs['pickle_s']:.3f} (the child's), unpickle {costs['unpickle_s']:.3f} (the parent's), "
+          f"{costs['mbytes']:.1f} MB pickled")
+    sk.reset_launch_counts()  # the multiprocess-tensorize path starts here
+    runs = {True: [], False: []}
+    for i, mp_on in enumerate(MT_ORDER):
+        runs[mp_on].append(g2c_epoch(model, train, valid, dev, use_multiprocessing=mp_on, name=f"mt-{i}"))
+    busy = {mp_on: g2c_epoch(model, train, valid, dev, use_multiprocessing=mp_on, profiled=True,
+                             name=f"mt-{label[mp_on]}-profiled")["busy"] for mp_on in (True, False)}
+    received, last_line = planted_tensorize_error(model, train)
+    phase(name, f"a tensorize raising on its 5th sample in the forked child: {received} samples, then "
+          f"RuntimeError with the child's traceback ({last_line!r}); the phase goes on")
+    dp = world_one(lambda: {mp_on: dp_epoch(model, train[:DP_EPOCH_GRAPHS], valid, dev, zero1=True, accumulate=1,
+                                            eager_steps=False, name=f"mt-dp-{label[mp_on]}", parallelize=True,
+                                            use_multiprocessing=mp_on) for mp_on in (True, False)})
+    counts = launch_counts()  # the multiprocess-tensorize path ends here
+    for mp_on in (True, False):
+        phase(name, f"{label[mp_on]} tensorize: first sample {[round(t, 4) for t in firsts[mp_on]]} s after the "
+              f"call; ModelTrainer epoch ({runs[mp_on][0]['steps']} steps over {len(train)} graphs, compiled, "
+              f"prefetch 2) {[round(r['seconds'], 3) for r in runs[mp_on]]} s (in turns forked, threads, threads, "
+              f"forked); device busy {100 * busy[mp_on]:.1f} % of a profiled epoch + validation on {card}")
+    first = runs[True][0]
+    if not all(same_epoch(first, r) for r in runs[True][1:] + runs[False]):
+        raise RuntimeError("the epochs with the forked and the thread-pool tensorize differ")
+    a, b = dp[True], dp[False]
+    apart = [key for key in b["state"] if not bitwise_equal(a["state"][key], b["state"][key])]
+    if a["losses"] != b["losses"] or apart or a["metrics"] != b["metrics"] or not a["losses"]:
+        raise RuntimeError(f"{name}: DistributedModelTrainer forked != threads: losses {a['losses']} / "
+                           f"{b['losses']}, tensors apart {apart[:6]}")
+    for run in dp.values():
+        run["dp"].clear()
+    left = multiprocessing.active_children()
+    if left:
+        raise RuntimeError(f"tensorize children still alive after the phase: {left}")
+    phase(name, f"the four epochs bitwise equal (losses and parameters); DistributedModelTrainer (world 1, NCCL, "
+          f"ZeRO-1) {len(a['losses'])} steps forked and threads bitwise equal (losses, {len(a['state'])} tensors, "
+          f"validation metrics), epoch {a['seconds']:.3f} s forked, {b['seconds']:.3f} s threads; no child left; "
+          f"launches {counts}; phase total {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
+def linear_residual_phase(dev, card):
+    """The benchmark Graph2Class stack at width 64 with its two concat
+    residuals replaced by LinearResidualLayers
+    (``harness.LinearResidualStackCreator``): one eval forward on the card
+    (8 extremum and 8 broadcast launches), its logits against the CPU's
+    under the parity phase's limits, and one train step (dropout 0) held
+    against the CPU with ``step_against_cpu`` (17 sum, 24 broadcast and 8
+    extremum launches: the residuals are dense products). Returns the launch
+    counts of the path."""
+    from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
+    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "linear-residual"
+    t0 = time.perf_counter()
+    model, module, minibatches = build_graph2class(
+        padding=default_padding(), num_metadata_graphs=bench_graph_count(NUM_BATCHES), mean_nodes=2500,
+        max_graph_nodes=8000, hidden_state_size=64, seed=SEED, num_minibatches=1, minibatch_size=300, device=dev,
+        architecture="linear-residual")
+    module.eval()
+    batch = (minibatches[0]["batch"].to(dev), torch.from_numpy(minibatches[0]["target_classes"]).to(dev))
+    kinds = [type(layer).__name__ for layer in module.gnn.message_passing_layers]
+    residuals = [i for i, kind in enumerate(kinds) if kind == "LinearResidualLayer"]
+    if residuals != [4, 10]:
+        raise RuntimeError(f"{name}: unexpected stack {kinds}")
+    phase(name, f"setup {time.perf_counter() - t0:.2f} s; stack {kinds}; residual weights "
+          f"{[tuple(module.gnn.message_passing_layers[i].linear.weight.shape) for i in residuals]}")
+    sk.reset_launch_counts()  # the linear-residual path starts here
+    with torch.inference_mode():
+        gpu_logits = module._logits(batch[0], train=False)[0].cpu().numpy()
+        loss, _ = module(*batch)
+    forward_counts = launch_counts()
+    _, _, grads = step_against_cpu(model, g2c_minibatch(batch), minibatches[0], dev, name)
+    counts = launch_counts()  # the linear-residual path ends here
+    want = add_counts(Launches({k: 2 * v for k, v in PER_FORWARD.items()}), Launches(PER_TRAIN_STEP))
+    if forward_counts != {k: 2 * v for k, v in PER_FORWARD.items()} or counts != want:
+        raise RuntimeError(f"{name}: launches {forward_counts} over two forwards and {counts} with the step, "
+                           f"expected {want}")
+    cpu_module = model.build_neural_module(device="cpu", seed=SEED).eval()
+    with torch.inference_mode():
+        cpu_logits = cpu_module._logits(minibatches[0]["batch"].to("cpu"), train=False)[0].numpy()
+    atol = 1e-4 * float(np.abs(cpu_logits).max())
+    np.testing.assert_allclose(gpu_logits, cpu_logits, rtol=1e-4, atol=atol)
+    residual_grads = {n: float(g.abs().max()) for n, g, _ in grads if ".linear.weight" in n and "passing" in n}
+    if len(residual_grads) != 2 or not all(v > 0 for v in residual_grads.values()) or not np.isfinite(float(loss)):
+        raise RuntimeError(f"{name}: residual gradients {residual_grads}, eval loss {float(loss)}")
+    phase(name, f"eval loss {float(loss):.6f}; logits card vs CPU max abs err "
+          f"{float(np.abs(gpu_logits - cpu_logits).max()):.3e} (rtol 1e-4, atol {atol:.3e} = 1e-4 x max|logit|); "
+          f"residual weight gradients max|g| {residual_grads}; launches {counts} on {card}")
     return counts
 
 
@@ -5075,7 +5282,9 @@ def main() -> None:
     pr_counts = profiling_phase(dev, card, model, batches)
     cs_counts = compiled_phase(dev, card, model, batches, ppi_model, ppi_batches, *vm_models["mlp"], g2s_model,
                                g2s_batches, epochs)
-    phase("total", f"phases 23-28 in {time.perf_counter() - t_new:.1f} s")
+    mt_counts = multiprocess_tensorize_phase(dev, card, model, epochs)
+    lr_counts = linear_residual_phase(dev, card)
+    phase("total", f"phases 23-31 in {time.perf_counter() - t_new:.1f} s")
     paths = {"serving": serving_counts, "train": train_counts,
              "ppi-serving": ppi_serving_counts, "ppi-train": ppi_train_counts,
              "argmax-train": argmax_counts, "ggnn": ggnn_counts, "cli": cli_counts,
@@ -5084,7 +5293,7 @@ def main() -> None:
              "bpe": bpe_counts, "data-parallel": dp_counts, "edge-parallel": ep_counts,
              "node-parallel": np_counts, "native-assembler": na_counts, "prefetch": pf_counts, "oom": oom_counts,
              "autotune": at_counts, "checkpoint": ck_counts, "profiling": pr_counts,
-             "compiled": cs_counts}
+             "compiled": cs_counts, "multiprocess-tensorize": mt_counts, "linear-residual": lr_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")

@@ -6,6 +6,11 @@ a ported path is a CUDA C++ kernel under ``csrc/``, built at first use. Entry
 points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``, which runs each kernel's plain PyTorch version instead.
 """
-from ptgnn_tpu_torch.device import resolve_device
+__version__ = "0.2.0"
 
-__all__ = ["resolve_device"]
+from ptgnn_tpu_torch.core.model import AbstractNeuralModel
+from ptgnn_tpu_torch.core.trainer import ModelTrainer
+from ptgnn_tpu_torch.device import resolve_device
+from ptgnn_tpu_torch.nn.module import Module
+
+__all__ = ["AbstractNeuralModel", "ModelTrainer", "Module", "__version__", "resolve_device"]

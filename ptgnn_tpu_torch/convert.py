@@ -43,7 +43,10 @@ and ``bias``, each ``[1, D]``; self-attention ``head_transforms`` and
 ``layer_{i}`` Linears. ``mp_layers`` holds one entry
 per unique layer object, in stack order; a layer object used at several
 positions (the GGNN stack's shared layer) loads its one entry at each of
-them, and residual entries are ``{}`` and map to nothing. A JAX key without
+them. The entries of residual origins and of mean and concat residual
+layers are ``{}`` and map to nothing; a ``LinearResidualLayer``'s holds
+``linear.weight`` ``[out, d1 + d2]`` (no bias), which loads under
+``gnn.message_passing_layers.{i}.linear.weight``. A JAX key without
 a counterpart raises here; a port parameter that no JAX key fills raises in
 ``load_state_dict``.
 """

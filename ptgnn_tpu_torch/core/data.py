@@ -1,4 +1,5 @@
-"""Re-invokable dataset iterables (the subset the ported trainers use).
+"""Re-invokable dataset iterables: a factory, a factory of a worker's
+shard, and a factory memoized in RAM.
 
 Training loops iterate the same dataset once per epoch, so a dataset handle
 is an *iterator factory*, not a one-shot iterator.
@@ -6,7 +7,7 @@ is an *iterator factory*, not a one-shot iterator.
 from __future__ import annotations
 
 import random
-from typing import Callable, Iterable, Iterator, List, Optional, TypeVar
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple, TypeVar
 
 T = TypeVar("T")
 
@@ -20,6 +21,24 @@ class LazyDataIterable(Iterable[T]):
 
     def __iter__(self) -> Iterator[T]:
         return self._make_iter()
+
+
+class ShardedLazyDataIterable(Iterable[T]):
+    """A dataset handle whose factory takes ``rank`` and ``world_size``
+    keywords: after :meth:`set_rank`, every ``iter()`` yields that worker's
+    input shard. Before it the factory gets ``rank=None, world_size=None``
+    (a single process may read everything)."""
+
+    def __init__(self, base_iterable_func: Callable[..., Iterator[T]]):
+        self._make_iter = base_iterable_func
+        self._placement: Tuple[Optional[int], Optional[int]] = (None, None)
+
+    def set_rank(self, rank: int, world_size: int) -> None:
+        self._placement = (rank, world_size)
+
+    def __iter__(self) -> Iterator[T]:
+        rank, world_size = self._placement
+        return self._make_iter(rank=rank, world_size=world_size)
 
 
 class MemorizedDataIterable(Iterable[T]):

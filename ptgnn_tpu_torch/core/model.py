@@ -17,7 +17,7 @@ from typing import Any, Dict, Generic, Iterator, List, Mapping, Optional, Tuple,
 import torch
 
 from ptgnn_tpu_torch.core.checkpoint import cpu_state, read_pickle, write_pickle
-from ptgnn_tpu_torch.core.iterators import ThreadedIterator, shuffled_iterator
+from ptgnn_tpu_torch.core.iterators import BufferedIterator, ThreadedIterator, shuffled_iterator
 
 _EXHAUSTED = object()
 
@@ -102,27 +102,47 @@ class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeu
         """Convert one raw example; return None to discard it."""
         raise NotImplementedError()
 
+    def _tensorized_stream(self, dataset_iterator: Iterator[TRawDatapoint], return_input_data: bool):
+        for datapoint in dataset_iterator:
+            yield self.tensorize(datapoint), (datapoint if return_input_data else None)
+
     def tensorize_dataset(
         self,
         dataset_iterator: Iterator[TRawDatapoint],
         *,
         parallelize: bool = True,
+        use_multiprocessing: bool = True,
         return_input_data: bool = False,
     ) -> Iterator[Tuple[TTensorizedDatapoint, Optional[TRawDatapoint]]]:
-        """Stream (tensorized, raw-or-None) pairs, skipping discarded samples.
-        ``parallelize`` tensorizes on a thread pool with a bounded window."""
+        """Stream (tensorized, raw-or-None) pairs, skipping discarded samples,
+        in the input's order. With ``parallelize`` and ``use_multiprocessing``
+        (the default) a forked child process tensorizes (a
+        :class:`BufferedIterator`): ``tensorize`` must then be numpy-only (no
+        CUDA: the parent may hold a CUDA context) and the tensorized samples
+        must pickle. With ``parallelize`` alone a thread pool tensorizes,
+        with a bounded window; without it, this thread. An abandoned stream
+        terminates and joins its child."""
         if not self.__metadata_initialized:
             raise RuntimeError("Metadata has not been initialized.")
+        if parallelize and use_multiprocessing:
+            stream = BufferedIterator(self._tensorized_stream(dataset_iterator, return_input_data),
+                                      max_queue_size=500)
+            try:
+                for sample in stream:
+                    if sample[0] is not None:
+                        yield sample
+            finally:
+                stream.close()
+            return
+        if not parallelize:
+            for sample in self._tensorized_stream(dataset_iterator, return_input_data):
+                if sample[0] is not None:
+                    yield sample
+            return
 
         def one(dp):
             return self.tensorize(dp), (dp if return_input_data else None)
 
-        if not parallelize:
-            for datapoint in dataset_iterator:
-                sample = one(datapoint)
-                if sample[0] is not None:
-                    yield sample
-            return
         window = 64
         with futures.ThreadPoolExecutor() as pool:
             pending: "deque[futures.Future]" = deque()

@@ -394,6 +394,44 @@ def prefetch_to_device(
         yield (hand_over(moved, copied), *rest)
 
 
+def _tqdm():
+    """``tqdm.tqdm``, or None where ``tqdm`` is not installed (it is
+    imported only when a bar is asked for)."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    return tqdm
+
+
+def with_progress_bar(items: Iterable, enabled: bool, desc: str, unit: str) -> Iterable:
+    """``items`` counted by a ``tqdm`` bar when ``enabled`` and ``tqdm`` is
+    installed; else ``items`` as they are."""
+    bar = _tqdm() if enabled else None
+    return items if bar is None else bar(items, desc=desc, unit=unit, leave=False)
+
+
+class EpochProgress:
+    """A training epoch's progress bar: minibatches, and the loss as an
+    exponential moving average (0.97). A no-op unless ``enabled`` and
+    ``tqdm`` is installed."""
+
+    def __init__(self, enabled: bool, epoch: int):
+        bar = _tqdm() if enabled else None
+        self._bar = None if bar is None else bar(desc=f"epoch {epoch + 1}", unit="mb", leave=False)
+        self._ema: Optional[float] = None
+
+    def update(self, loss: float) -> None:
+        if self._bar is not None:
+            self._ema = loss if self._ema is None else 0.97 * self._ema + 0.03 * loss
+            self._bar.update(1)
+            self._bar.set_postfix(loss=f"{self._ema:.3f}")
+
+    def close(self) -> None:
+        if self._bar is not None:
+            self._bar.close()
+
+
 class ModelTrainer:
     LOGGER = logging.getLogger(__name__)
 
@@ -485,9 +523,15 @@ class ModelTrainer:
     # ------------------------------------------------------------------
     # Setup and checkpoints
     # ------------------------------------------------------------------
-    def load_metadata_and_create_network(self, training_data: Iterable, parallelize: bool = True) -> None:
+    def load_metadata_and_create_network(self, training_data: Iterable, parallelize: bool = True,
+                                         show_progress_bar: bool = False) -> None:
+        """The metadata pass over ``training_data`` (skipped when the model
+        has its metadata already; ``show_progress_bar`` counts its samples),
+        then the module, built from ``seed`` on the trainer's device, and
+        the first checkpoint."""
         if not self._model.metadata_initialized:
-            self._model.compute_metadata(iter(training_data), parallelize)
+            self._model.compute_metadata(with_progress_bar(iter(training_data), show_progress_bar, "metadata",
+                                                           "sample"), parallelize)
         self._neural_module = self._model.build_neural_module(device=self._device, seed=self._seed)
         num_params = sum(p.numel() for p in self._neural_module.parameters())
         self.LOGGER.info("Model metadata loaded; %s trainable parameters.", num_params)
@@ -583,11 +627,12 @@ class ModelTrainer:
     # Epoch loops
     # ------------------------------------------------------------------
     def _run_training(self, training_tensors, epoch, optimizer, base_lrs, scheduler, parallelize,
-                      shuffle_input=True) -> None:
+                      shuffle_input=True, show_progress_bar=False) -> None:
         sum_epoch_loss, num_minibatches, num_samples = 0.0, 0, 0
         metrics_acc = MetricsAccumulator()
         start_time = time.time()
         self._opt_steps_this_epoch = 0
+        progress = EpochProgress(show_progress_bar, epoch)
         step = self._train_step_for(optimizer)
         generator = step.generator
         mb_iter = self._model.minibatch_iterator(
@@ -627,6 +672,8 @@ class ModelTrainer:
             num_minibatches += 1
             num_samples += len(raw_samples)
             metrics_acc.update(metrics)
+            progress.update(loss_f)
+        progress.close()
         if self._accumulated:  # a trailing partial accumulation group
             self._apply_accumulated(self._last_lr_factor)
         self._report_training_epoch(epoch, sum_epoch_loss, num_minibatches, num_samples, metrics_acc,
@@ -704,18 +751,31 @@ class ModelTrainer:
         patience: int = 5,
         initialize_metadata: bool = True,
         parallelize: bool = True,
+        use_multiprocessing: bool = True,
         store_tensorized_data_in_memory: bool = False,
         shuffle_training_data: bool = True,
         start_epoch_idx: int = 0,
+        show_progress_bar: bool = False,
     ) -> None:
+        """Train up to ``max_num_epochs`` with validation after each (and
+        before the first, with ``validate_on_start``), early stopping after
+        ``patience`` epochs without improvement, and the best checkpoint
+        restored at the end. ``parallelize`` pipelines the host work in
+        worker threads; with ``use_multiprocessing`` too (the default), a
+        forked child tensorizes each pass
+        (:meth:`AbstractNeuralModel.tensorize_dataset`).
+        ``show_progress_bar`` shows each training epoch's minibatches and
+        loss (with ``tqdm``, where it is installed)."""
         if initialize_metadata:
-            self.load_metadata_and_create_network(training_data, parallelize)
+            self.load_metadata_and_create_network(training_data, parallelize, show_progress_bar)
 
         def training_tensors():
-            return self._model.tensorize_dataset(iter(training_data), parallelize=parallelize)
+            return self._model.tensorize_dataset(iter(training_data), parallelize=parallelize,
+                                                 use_multiprocessing=use_multiprocessing)
 
         def validation_tensors():
-            return self._model.tensorize_dataset(iter(validation_data), parallelize=parallelize)
+            return self._model.tensorize_dataset(iter(validation_data), parallelize=parallelize,
+                                                 use_multiprocessing=use_multiprocessing)
 
         if store_tensorized_data_in_memory:
             training_tensors = MemorizedDataIterable(
@@ -745,7 +805,8 @@ class ModelTrainer:
         num_epochs_not_improved = 0
         for epoch in range(start_epoch_idx, self._max_num_epochs):
             self._run_training(
-                training_tensors, epoch, optimizer, base_lrs, scheduler, parallelize, shuffle_training_data
+                training_tensors, epoch, optimizer, base_lrs, scheduler, parallelize, shuffle_training_data,
+                show_progress_bar,
             )
             self._save_optimizer_state(optimizer, epoch + 1)
             target_metric, improved, validation_metrics = self._run_validation(

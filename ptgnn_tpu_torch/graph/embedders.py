@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
+from ptgnn_tpu_torch.graph.structs import AbstractNodeEmbedder
 from ptgnn_tpu_torch.nn import initializers as init
 from ptgnn_tpu_torch.nn.layers import Conv1d, Embedding, Linear, dropout
 from ptgnn_tpu_torch.utils.text import BpeVocabulary, CharTensorizer, Vocabulary, split_identifier_into_parts
@@ -43,7 +44,7 @@ class LinearFeatureEmbedder(torch.nn.Module):
         return out if self.activation is None else _ACTIVATIONS[self.activation](out)
 
 
-class FeatureRepresentationModel(AbstractNeuralModel):
+class FeatureRepresentationModel(AbstractNeuralModel, AbstractNodeEmbedder):
     """Node embedder for fixed-size float feature vectors."""
 
     def __init__(self, *, embedding_size: int = 64, activation: Optional[str] = None):
@@ -176,7 +177,7 @@ class CharUnitEmbedder(torch.nn.Module):
         return dropout(x.amax(dim=-1), self.dropout_rate, train, generator)
 
 
-class StrElementRepresentationModel(AbstractNeuralModel):
+class StrElementRepresentationModel(AbstractNeuralModel, AbstractNodeEmbedder):
     """String node-label embedder with token, subtoken, bpe or char
     splitting. ``bpe`` counts whole tokens, trains a :class:`BpeVocabulary`
     of ``vocabulary_size`` entries and embeds the pieces as subtokens."""

@@ -104,7 +104,7 @@ class GraphNeuralNetwork(torch.nn.Module):
             if isinstance(layer, _ResidualOriginLayer):
                 stash[id(layer.target_layer)] = h
             elif isinstance(layer, AbstractResidualLayer):
-                h = layer.combine(stash.pop(id(layer)), h, train=train)
+                h = layer.combine(stash.pop(id(layer)), h, train=train, generator=generator)
             elif layer_input is None:
                 h = layer(h, ctx, train=train, generator=generator)
             else:

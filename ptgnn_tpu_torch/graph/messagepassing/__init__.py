@@ -15,6 +15,7 @@ from ptgnn_tpu_torch.graph.messagepassing.pna import PnaMessageAggregation
 from ptgnn_tpu_torch.graph.messagepassing.residual import (
     AbstractResidualLayer,
     ConcatResidualLayer,
+    LinearResidualLayer,
     MeanResidualLayer,
 )
 from ptgnn_tpu_torch.graph.messagepassing.selfatt import MultiHeadSelfAttentionMessagePassing
@@ -30,6 +31,7 @@ __all__ = [
     "GraphContext",
     "GraphNorm",
     "GruGlobalStateUpdate",
+    "LinearResidualLayer",
     "MeanResidualLayer",
     "MlpMessagePassingLayer",
     "MultiHeadSelfAttentionMessagePassing",

@@ -6,9 +6,13 @@ combines the stashed states with the current ones (graph/gnn.py).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ptgnn_tpu_torch.graph.messagepassing.base import AbstractMessagePassingLayer
+from ptgnn_tpu_torch.nn import initializers as init
+from ptgnn_tpu_torch.nn.layers import Linear, dropout
 
 
 class _ResidualOriginLayer(AbstractMessagePassingLayer):
@@ -39,7 +43,10 @@ class AbstractResidualLayer(AbstractMessagePassingLayer):
     def pass_through_dummy_layer(self) -> _ResidualOriginLayer:
         return _ResidualOriginLayer(self.input_state_dimension, target_layer=self)
 
-    def combine(self, original: torch.Tensor, node_states: torch.Tensor, *, train: bool):
+    def combine(self, original: torch.Tensor, node_states: torch.Tensor, *, train: bool,
+                generator: Optional[torch.Generator] = None):
+        """The states after the block from the stashed ``original`` and the
+        current ``node_states``; ``generator`` draws any dropout mask."""
         raise NotImplementedError
 
 
@@ -48,7 +55,7 @@ class MeanResidualLayer(AbstractResidualLayer):
         super().__init__()
         self.__input_dim = input_dim
 
-    def combine(self, original, node_states, *, train=False):
+    def combine(self, original, node_states, *, train=False, generator=None):
         return (original + node_states) * 0.5
 
     @property
@@ -65,7 +72,7 @@ class ConcatResidualLayer(AbstractResidualLayer):
         super().__init__()
         self.__input_dim = input_dim
 
-    def combine(self, original, node_states, *, train=False):
+    def combine(self, original, node_states, *, train=False, generator=None):
         return torch.cat([original, node_states], dim=-1)
 
     @property
@@ -75,3 +82,34 @@ class ConcatResidualLayer(AbstractResidualLayer):
     @property
     def output_state_dimension(self) -> int:
         return 2 * self.__input_dim
+
+
+class LinearResidualLayer(AbstractResidualLayer):
+    """A bias-free linear map of the concatenated states (``[original,
+    node_states]``, ``linear.weight`` ``[target_state_size, d1 + d2]``),
+    then dropout. The origin layer passes ``state_dimension1`` wide states;
+    the layer takes ``state_dimension2`` wide ones."""
+
+    def __init__(self, state_dimension1: int, state_dimension2: int, target_state_size: int,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.__input_dim1 = state_dimension1
+        self.__input_dim2 = state_dimension2
+        self.dropout_rate = dropout_rate
+        self.linear = Linear(state_dimension1 + state_dimension2, target_state_size,
+                             weight_init=init.kaiming_uniform(), use_bias=False)
+
+    def pass_through_dummy_layer(self) -> _ResidualOriginLayer:
+        return _ResidualOriginLayer(self.__input_dim1, target_layer=self)
+
+    def combine(self, original, node_states, *, train=False, generator=None):
+        out = self.linear(torch.cat([original, node_states], dim=-1))
+        return dropout(out, self.dropout_rate, train, generator)
+
+    @property
+    def input_state_dimension(self) -> int:
+        return self.__input_dim2
+
+    @property
+    def output_state_dimension(self) -> int:
+        return self.linear.out_features

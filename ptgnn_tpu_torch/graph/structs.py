@@ -240,45 +240,62 @@ class GnnOutput(NamedTuple):
     shard_group: Any = None  # the node group under node sharding
 
     @property
+    def reference_nodes_idx(self) -> Dict[str, Any]:
+        return self.node_idx_references
+
+    @property
     def reference_nodes_graph_idx(self) -> Dict[str, Any]:
         return self.node_graph_idx_reference
+
+    def _table(self, which: str) -> torch.Tensor:
+        """This rank's rows of the ``"output"`` or ``"input"`` (the
+        embedder's) representations."""
+        if which == "output":
+            return self.output_node_representations
+        if which == "input":
+            return self.input_node_representations
+        raise ValueError(f"no node table {which!r}")
 
     def node_table(self, which: str = "output") -> torch.Tensor:
         """The full ``[max_nodes, D]`` node table, ``"output"`` or ``"input"``
         (the embedder's) representations; one all-gather under node
         sharding."""
-        if which == "output":
-            table = self.output_node_representations
-        elif which == "input":
-            table = self.input_node_representations
-        else:
-            raise ValueError(f"no node table {which!r}")
+        table = self._table(which)
         if self.shard_group is None:
             return table
         from ptgnn_tpu_torch.parallel.collectives import all_gather_rows
 
         return all_gather_rows(table, self.shard_group)
 
-    def node_rows(self, node_ids: torch.Tensor) -> torch.Tensor:
-        """Output representations by node id, NaN at an out-of-range id (the
-        JAX package's ``jnp.take`` default). Padding references carry node
-        id 0, so the task heads read only real rows and mask the padding
-        ones."""
+    def node_rows(self, node_ids: torch.Tensor, which: str = "output") -> torch.Tensor:
+        """The ``"output"`` or ``"input"`` representations by node id, NaN
+        at an out-of-range id (the JAX package's ``jnp.take`` default).
+        Padding references carry node id 0, so the task heads read only real
+        rows and mask the padding ones."""
+        table = self._table(which)
         if self.shard_group is None:
-            return masked_take(self.output_node_representations, node_ids, float("nan"))
+            return masked_take(table, node_ids, float("nan"))
         import torch.distributed as dist
 
         from ptgnn_tpu_torch.parallel.collectives import all_reduce_sum
 
-        local = self.output_node_representations
-        rows_per = local.shape[0]
+        rows_per = table.shape[0]
         total = rows_per * dist.get_world_size(self.shard_group)
         valid = (node_ids >= 0) & (node_ids < total)
         mine = valid & (node_ids // rows_per == dist.get_rank(self.shard_group))
-        picked = masked_take(local, torch.where(mine, node_ids % rows_per, -1), 0.0)
+        picked = masked_take(table, torch.where(mine, node_ids % rows_per, -1), 0.0)
         rows = all_reduce_sum(picked, self.shard_group)
         return torch.where(valid[:, None], rows, torch.full((), float("nan"), dtype=rows.dtype, device=rows.device))
 
-    def reference_rows(self, name: str) -> torch.Tensor:
-        """``[R_pad, D]`` output representations of the named reference set."""
-        return self.node_rows(self.node_idx_references[name])
+    def reference_rows(self, name: str, which: str = "output") -> torch.Tensor:
+        """``[R_pad, D]`` ``"output"`` or ``"input"`` representations of the
+        named reference set."""
+        return self.node_rows(self.node_idx_references[name], which)
+
+
+class AbstractNodeEmbedder:
+    """The node embedders' interface: a node representation model whose
+    module embeds each node in ``representation_size()`` columns."""
+
+    def representation_size(self) -> int:
+        raise NotImplementedError

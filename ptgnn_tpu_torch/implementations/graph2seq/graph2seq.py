@@ -114,12 +114,12 @@ class Graph2SeqModule(Module):
 
 
 class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2SeqModule]):
-    NUM_SUMMARIZATION_HEADS = 8
-
-    def __init__(self, gnn_model: GraphNeuralNetworkModel, decoder: GruCopyingDecoderModel):
+    def __init__(self, gnn_model: GraphNeuralNetworkModel, decoder: GruCopyingDecoderModel,
+                 num_summarization_heads: int = 8):
         super().__init__()
         self.__gnn_model = gnn_model
         self.__decoder_model = decoder
+        self.num_summarization_heads = num_summarization_heads
 
     @property
     def gnn_model(self) -> GraphNeuralNetworkModel:
@@ -163,7 +163,7 @@ class Graph2Seq(AbstractNeuralModel[CodeGraph2Seq, TensorizedGraph2Seq, Graph2Se
             input_representation_size=width,
             hidden_size=width,
             output_representation_size=gnn.output_node_state_dim,
-            num_heads=self.NUM_SUMMARIZATION_HEADS,
+            num_heads=self.num_summarization_heads,
             query_representation_summarizer=SimpleVarSizedElementReduce("max"),
         )
         module = Graph2SeqModule(gnn, self.__decoder_model.build_neural_module(), summarizer)

@@ -71,23 +71,30 @@ def create_graph2seq_model(
     dropout_rate: float = 0.1,
     padding: Optional[BatchPadding] = None,
     max_seq_len: int = 8,
+    token_vocabulary_size: int = 10000,
+    decoder_hidden_size: Optional[int] = None,
+    decoder_embedding_size: Optional[int] = None,
 ) -> Graph2Seq:
-    """The JAX package's factory at its default vocabulary sizes (10,000 node
-    tokens, 20,000 output tokens). The decoder's hidden size is
-    ``embedding_size`` and its token embedding twice that (128/256 at the
-    default)."""
+    """The JAX package's factory: a node-token vocabulary of
+    ``token_vocabulary_size`` (the output vocabulary caps at 20,000). The
+    decoder's hidden size defaults to ``embedding_size`` and its token
+    embedding to twice that (128/256 at the default)."""
     padding = padding if padding is not None else g2s_padding()
+    if decoder_hidden_size is None:
+        decoder_hidden_size = embedding_size
+    if decoder_embedding_size is None:
+        decoder_embedding_size = 2 * embedding_size
     return Graph2Seq(
         gnn_model=GraphNeuralNetworkModel(
             node_representation_model=StrElementRepresentationModel(
-                token_splitting="token", embedding_size=embedding_size, vocabulary_size=10000,
+                token_splitting="token", embedding_size=embedding_size, vocabulary_size=token_vocabulary_size,
             ),
             message_passing_layer_creator=GatedStackCreator(embedding_size, dropout_rate),
             padding=padding,
         ),
         decoder=GruCopyingDecoderModel(
-            hidden_size=embedding_size,
-            embedding_size=2 * embedding_size,
+            hidden_size=decoder_hidden_size,
+            embedding_size=decoder_embedding_size,
             memories_hidden_dim=embedding_size,
             max_seq_len=max_seq_len,
         ),

@@ -5,8 +5,9 @@ step loop serves any task module: PPI's too).
 
 Besides the CLI's 'mlp' and 'ggnn' stacks, ``architecture="layers"``
 builds :class:`LayersStackCreator`'s stack of the library's other
-message-passing families (for the smoke run, the tests and the profiler; it
-is no CLI option)."""
+message-passing families, and ``architecture="linear-residual"``
+:class:`LinearResidualStackCreator`'s (for the smoke run, the tests and the
+profiler; they are no CLI options)."""
 from __future__ import annotations
 
 import time
@@ -19,13 +20,18 @@ from ptgnn_tpu_torch.device import DeviceLike
 from ptgnn_tpu_torch.graph.messagepassing import (
     EGCMessagePassingLayer,
     GraphNorm,
+    LinearResidualLayer,
     MlpMessagePassingLayer,
     MultiHeadSelfAttentionMessagePassing,
     PnaMessageAggregation,
 )
 from ptgnn_tpu_torch.graph.structs import BatchPadding
 from ptgnn_tpu_torch.implementations.typilus.graph2class import Graph2Class, Graph2ClassModule
-from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model, graph2class_model
+from ptgnn_tpu_torch.implementations.typilus.train import (
+    MlpStackCreator,
+    create_graph2class_gnn_model,
+    graph2class_model,
+)
 from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
 
 
@@ -85,6 +91,31 @@ class LayersStackCreator:
         ]
 
 
+class LinearResidualStackCreator(MlpStackCreator):
+    """The benchmark 'mlp' stack with each of its two concat residuals
+    replaced by a :class:`LinearResidualLayer` (the stashed and the current
+    h-wide states to 2h, bias-free, then dropout), so every position keeps
+    the benchmark's widths."""
+
+    def __call__(self, num_edges: int):
+        h = self.hidden_state_size
+        r1 = LinearResidualLayer(h, h, 2 * h, self.dropout_rate)
+        r2 = LinearResidualLayer(h, h, 2 * h, self.dropout_rate)
+        return [
+            r1.pass_through_dummy_layer(),
+            self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h),
+            r1,
+            self._mlp_mp(num_edges, 2 * h, 2 * h),
+            r2.pass_through_dummy_layer(),
+            self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h), self._mlp_mp(num_edges, h, h),
+            r2,
+            self._mlp_mp(num_edges, 2 * h, 2 * h),
+        ]
+
+
+_HARNESS_STACKS = {"layers": LayersStackCreator, "linear-residual": LinearResidualStackCreator}
+
+
 def build_graph2class(
     *,
     padding: BatchPadding,
@@ -102,13 +133,14 @@ def build_graph2class(
     device: DeviceLike = None,
 ) -> Tuple[Graph2Class, Graph2ClassModule, List[Dict[str, Any]]]:
     """Returns (model, module on ``device`` with seeded weights, host
-    minibatches). ``architecture``: 'mlp', 'ggnn' or 'layers'
-    (:class:`LayersStackCreator`); ``argmax_routing``: single-winner
+    minibatches). ``architecture``: 'mlp', 'ggnn', 'layers'
+    (:class:`LayersStackCreator`) or 'linear-residual'
+    (:class:`LinearResidualStackCreator`); ``argmax_routing``: single-winner
     gradients of the max aggregation (the fused routes of 'mlp' and
     'ggnn'). Edge dropout is the module's ``gnn.edge_dropout_rate``."""
-    if architecture == "layers":
+    if architecture in _HARNESS_STACKS:
         model = graph2class_model(
-            LayersStackCreator(hidden_state_size, dropout_rate), hidden_state_size=hidden_state_size,
+            _HARNESS_STACKS[architecture](hidden_state_size, dropout_rate), hidden_state_size=hidden_state_size,
             dropout_rate=dropout_rate, padding=padding,
         )
     else:

@@ -1,4 +1,5 @@
 from ptgnn_tpu_torch.nn.layers import (
+    ACTIVATIONS,
     MLP,
     Activation,
     Conv1d,
@@ -14,6 +15,7 @@ from ptgnn_tpu_torch.nn.layers import (
 from ptgnn_tpu_torch.nn.module import Module, init_parameters
 
 __all__ = [
+    "ACTIVATIONS",
     "Activation",
     "Conv1d",
     "Embedding",

@@ -166,3 +166,15 @@ def typed_tile_matmul(
     wt = take_rows(weight_stack.reshape(weight_stack.shape[0], -1), tile_types)
     wt = wt.reshape(-1, d, m).to(x.dtype)  # [nt, D, M]
     return torch.bmm(xt, wt).reshape(e, m)
+
+
+def typed_tile_bias_add(
+    y: torch.Tensor, bias_stack: torch.Tensor, tile_types: torch.Tensor, edge_tile: int
+) -> torch.Tensor:
+    """y: [E, M] plus each row's type's bias: bias_stack [T, M] taken by
+    tile_types [E // edge_tile], in y's dtype."""
+    e, m = y.shape
+    if e % edge_tile:
+        raise ValueError(f"{e} edge slots are not a multiple of the tile {edge_tile}")
+    bt = take_rows(bias_stack, tile_types).to(y.dtype)  # [nt, M]
+    return (y.reshape(e // edge_tile, edge_tile, m) + bt[:, None, :]).reshape(e, m)

@@ -51,7 +51,14 @@ import torch
 import torch.distributed as dist
 
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
-from ptgnn_tpu_torch.core.trainer import ModelTrainer, make_capturable, shuffle_seed, step_seed
+from ptgnn_tpu_torch.core.trainer import (
+    EpochProgress,
+    ModelTrainer,
+    make_capturable,
+    shuffle_seed,
+    step_seed,
+    with_progress_bar,
+)
 from ptgnn_tpu_torch.graph.structs import tree_to
 from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
 
@@ -128,14 +135,16 @@ class DistributedModelTrainer(ModelTrainer):
         for tensor in self.neural_module.state_dict().values():
             dist.broadcast(tensor, src=0)
 
-    def load_metadata_and_create_network(self, training_data, parallelize: bool = True) -> None:
+    def load_metadata_and_create_network(self, training_data, parallelize: bool = True,
+                                         show_progress_bar: bool = False) -> None:
         """Rank 0 computes the metadata over the full ``training_data`` (the
         other ranks do not read it) and broadcasts the model; every rank
         builds the module and takes rank 0's weights."""
         if not self._model.metadata_initialized:
             payload = [None]
             if self.is_coordinator:
-                self._model.compute_metadata(iter(training_data), parallelize)
+                self._model.compute_metadata(with_progress_bar(iter(training_data), show_progress_bar, "metadata",
+                                                               "sample"), parallelize)
                 payload = [self._model]
             dist.broadcast_object_list(payload, src=0, device=self._device if self._device.type == "cuda" else None)
             if not self.is_coordinator:
@@ -261,12 +270,19 @@ class DistributedModelTrainer(ModelTrainer):
     # ------------------------------------------------------------------
     # Epoch loops
     # ------------------------------------------------------------------
+    def _pass_samples(self, num_samples: int, weight_sum: float) -> int:
+        """The samples a pass counts, from ``num_samples`` (its groups' raw
+        samples) and ``weight_sum`` (the weights of this rank's slots): every
+        slot with samples runs here, so the raw count."""
+        return num_samples
+
     def _run_training(self, training_tensors, epoch, optimizer, base_lrs, scheduler, parallelize,
-                      shuffle_input=True) -> None:
-        sum_epoch_loss, num_minibatches, num_samples = 0.0, 0, 0
+                      shuffle_input=True, show_progress_bar=False) -> None:
+        sum_epoch_loss, num_minibatches, num_samples, weight_sum = 0.0, 0, 0, 0.0
         metrics_acc = MetricsAccumulator()
         start_time = time.time()
         self._opt_steps_this_epoch = 0
+        progress = EpochProgress(show_progress_bar, epoch)
         dp = self.data_parallel
         mb_iter = self._model.minibatch_iterator(
             training_tensors(),
@@ -300,10 +316,14 @@ class DistributedModelTrainer(ModelTrainer):
             sum_epoch_loss += loss_f
             num_minibatches += 1
             num_samples += len(raw_samples)
+            weight_sum += weight
             metrics_acc.update(metrics)
+            progress.update(loss_f)
+        progress.close()
         if self._accumulated:  # a trailing partial accumulation group
             self._apply(dp, optimizer, base_lrs, self._last_lr_factor)
-        self._report_training_epoch(epoch, sum_epoch_loss, num_minibatches, num_samples, metrics_acc,
+        self._report_training_epoch(epoch, sum_epoch_loss, num_minibatches,
+                                    self._pass_samples(num_samples, weight_sum), metrics_acc,
                                     time.time() - start_time)
 
     def _apply(self, dp: DataParallel, optimizer, base_lrs, lr_factor: float) -> None:
@@ -315,7 +335,7 @@ class DistributedModelTrainer(ModelTrainer):
     def _run_validation(self, validation_tensors, epoch, best_target_metric, parallelize):
         """The epoch's loss weights each group by its real-sample count (a
         group of padding alone counts 0); metrics are summed over ranks."""
-        sum_epoch_loss, sum_weight, num_samples = 0.0, 0.0, 0
+        sum_epoch_loss, sum_weight, num_samples, weight_sum = 0.0, 0.0, 0, 0.0
         metrics_acc = MetricsAccumulator()
         start_time = time.time()
         dp = self.data_parallel
@@ -332,7 +352,9 @@ class DistributedModelTrainer(ModelTrainer):
             sum_epoch_loss += float(loss) * group_weight
             sum_weight += group_weight
             num_samples += len(raw_samples)
+            weight_sum += weight
             metrics_acc.update(metrics)
+        num_samples = self._pass_samples(num_samples, weight_sum)
         if self.num_nodes > 1:  # each node counted its own groups' samples
             count = torch.tensor([num_samples if self.local_rank == 0 else 0], device=self._device)
             dist.all_reduce(count)

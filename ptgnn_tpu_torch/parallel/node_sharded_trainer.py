@@ -23,7 +23,9 @@ node groups.
   a warning: its slot runs the empty minibatch at weight 0, so the other
   node groups need not know. (The JAX package drops it from the group and
   closes the group with the next one; the same minibatches train, grouped
-  otherwise. The epoch's sample count still counts the skipped one's.)
+  otherwise.) A pass counts the samples of the slots that ran, as the JAX
+  package does: the weights of each node group's slots, summed over the
+  node's ranks at the pass's end.
 * ZeRO-1 shards the optimizer's moments over the data group.
 """
 from __future__ import annotations
@@ -220,6 +222,16 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
             return super()._run_training(*args, **kwargs)
         finally:
             self._log_shard_stats()
+
+    def _pass_samples(self, num_samples: int, weight_sum: float) -> int:
+        """The samples of the slots that ran on this node: a skipped slot
+        ran at weight 0. One rank of each node group adds its slots'
+        weights to its node's entry; a sum over the world."""
+        counts = torch.zeros(self.num_nodes, dtype=torch.int64, device=self._device)
+        if self.rank % self.node_shards == 0:
+            counts[self.node_rank] = int(round(weight_sum))
+        dist.all_reduce(counts)
+        return int(counts[self.node_rank].item())
 
     # -- this rank's shard -------------------------------------------------------
     @staticmethod

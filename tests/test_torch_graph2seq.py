@@ -172,9 +172,9 @@ def _converted_pair(samples):
     return jmodel, jmodule, params, jmbs, tmodel, tmodule, tmbs
 
 
-def test_model_loss_and_gradients_match_jax(monkeypatch):
-    force_jax_fused_interpret(monkeypatch)
-    jmodel, jmodule, params, jmbs, tmodel, tmodule, tmbs = _converted_pair(_samples())
+def _loss_and_gradients_against_jax(jmodule, params, jmbs, tmodule, tmbs):
+    """The first minibatch's loss, metrics and every parameter gradient in
+    eval mode; returns the port's gradients by name."""
     jmb = jax.tree_util.tree_map(jnp.asarray, jmbs[0])
 
     def loss_fn(p):
@@ -189,11 +189,62 @@ def test_model_loss_and_gradients_match_jax(monkeypatch):
         assert int(metrics[key]) == int(jmetrics[key]), key
     assert int(metrics["num_sequences"]) == 8
     got = {name: p.grad.numpy() for name, p in tmodule.named_parameters()}  # a shared layer once
-    assert set(got) <= set(expected) and len(got) == 22
+    assert set(got) <= set(expected)
     _assert_close_per_tensor(got, expected)
     assert all(np.abs(g).max() > 0 for g in got.values())
+    return got
+
+
+def test_model_loss_and_gradients_match_jax(monkeypatch):
+    force_jax_fused_interpret(monkeypatch)
+    jmodel, jmodule, params, jmbs, tmodel, tmodule, tmbs = _converted_pair(_samples())
+    got = _loss_and_gradients_against_jax(jmodule, params, jmbs, tmodule, tmbs)
+    assert len(got) == 22
     layers = tmodule.gnn.message_passing_layers
     assert sum(layer is layers[1] for layer in layers) == 7 and layers[1] is not layers[-1]
+
+
+NON_DEFAULT = dict(token_vocabulary_size=500, decoder_hidden_size=32, decoder_embedding_size=48)
+
+
+def test_non_default_heads_vocabulary_and_decoder_match_jax(monkeypatch):
+    """JAX's parameters at values other than their defaults: 4
+    summarization heads, a 500-token node vocabulary cap, a decoder at
+    hidden 32 and token embedding 48. The loss and every gradient against
+    JAX's with converted params; the sizes in both modules' weights; and a
+    cap that binds (20 tokens) gives both the same vocabulary."""
+    from ptgnn_tpu.implementations.graph2seq.graph2seq import Graph2Seq as JaxGraph2Seq
+
+    force_jax_fused_interpret(monkeypatch)
+    samples = _samples()
+    factory = jax_create(embedding_size=EMBEDDING, padding=JaxBatchPadding(**PAD), max_seq_len=6, dropout_rate=0.0,
+                         **NON_DEFAULT)
+    jmodel = JaxGraph2Seq(factory.gnn_model, factory.decoder_model, num_summarization_heads=4)
+    jmodel.compute_metadata(iter(samples), parallelize=False)
+    jmodule = jmodel.build_neural_module()
+    params = jmodule.init(jax.random.PRNGKey(1))
+    jmbs = [mb for mb, _ in jmodel.minibatch_iterator(
+        jmodel.tensorize_dataset(iter(samples), parallelize=False), max_minibatch_size=8, parallelize=False)]
+    factory = g2s_train.create_graph2seq_model(embedding_size=EMBEDDING, padding=BatchPadding(**PAD), max_seq_len=6,
+                                               dropout_rate=0.0, **NON_DEFAULT)
+    tmodel = Graph2Seq(factory.gnn_model, factory.decoder_model, num_summarization_heads=4)
+    assert tmodel.num_summarization_heads == jmodel.num_summarization_heads == 4
+    tmodel.compute_metadata(iter(samples), parallelize=False)
+    tmodule = tmodel.build_neural_module(device="cpu", seed=3)
+    tmbs = [mb for mb, _ in tmodel.minibatch_iterator(
+        tmodel.tensorize_dataset(iter(samples), parallelize=False), max_minibatch_size=8, parallelize=False)]
+    load_jax_params(tmodule, _np(params))
+    assert tmodule.summarizer.output.weight.shape == (EMBEDDING, 2 * EMBEDDING * 4)  # [D, 2D x heads]
+    decoder = tmodule.decoder
+    assert decoder.embedding.weight.shape[1] == 48 and decoder.gru.weight_hh.shape == (3 * 32, 32)
+    assert tmodel.gnn_model.node_embedding_model.max_vocabulary_size == 500
+    _loss_and_gradients_against_jax(jmodule, params, jmbs, tmodule, tmbs)
+    capped = {}
+    for create, pad in ((jax_create, JaxBatchPadding(**PAD)), (g2s_train.create_graph2seq_model, BatchPadding(**PAD))):
+        model = create(embedding_size=EMBEDDING, padding=pad, token_vocabulary_size=20)
+        model.compute_metadata(iter(samples), parallelize=False)
+        capped[create] = model.gnn_model.node_embedding_model.vocabulary.id_to_token
+    assert len(capped[jax_create]) == 20 and list(capped.values())[0] == list(capped.values())[1]
 
 
 @pytest.mark.parametrize("beam_size", [None, 3])

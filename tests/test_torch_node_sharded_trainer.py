@@ -152,6 +152,19 @@ def test_over_budget_batch_is_skipped_with_log(world):
         assert got["weight"] == 0.0 and got["empty_nodes"] == 0
 
 
+def test_skipped_minibatch_samples_are_not_counted(world):
+    """Each node group's second training minibatch is forced over budget:
+    the epoch counts the samples of the slots that trained, on every rank,
+    not the node's raw samples."""
+    counts = [rank[3]["count"] for rank in world["ranks"]]
+    skipped = counts[0]["skipped_graphs"] + counts[2]["skipped_graphs"]  # node groups (0, 1) and (2, 3)
+    assert counts[1]["skipped_graphs"] == counts[0]["skipped_graphs"] > 0
+    assert counts[3]["skipped_graphs"] == counts[2]["skipped_graphs"] > 0
+    (raw, _), = counts[0]["reported"]
+    for got in counts:
+        assert got["reported"] == [(raw, raw - skipped)], got
+
+
 def test_budgets_reprobed_on_first_training_pass(world):
     for rank in world["ranks"]:
         got = rank[3]["reprobe"]

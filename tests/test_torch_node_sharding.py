@@ -527,12 +527,19 @@ def world(tmp_path_factory):
                                                 "minibatch": imbs[0], "budgets": tns.suggest_budgets(imbs[:1], S)}))
     cases.append(("node_edge_dropout", {"model": imodel, "state": imodule.state_dict(), "minibatch": imbs[0],
                                         "budgets": tns.suggest_budgets(imbs[:1], S), "lr": LR}))
+    # which="input" on the sharded accessors, against JAX's unsharded GnnOutput
+    rng = np.random.RandomState(4)
+    tables = {"input": rng.randn(8 * S, 6).astype(np.float32), "output": rng.randn(8 * S, 5).astype(np.float32)}
+    ids = np.array([0, 7, 8, 31, 13, 25, -1, 8 * S], np.int64)  # the last two are out of range
+    refs_ids = rng.randint(0, 8 * S, 11).astype(np.int64)
+    refs["rows_input"] = (tables, ids, refs_ids)
+    cases.append(("node_rows_input", {**tables, "ids": ids, "refs": refs_ids}))
     ranks = launch(cases, tmp_path_factory.mktemp("node_world"), world=S)
     return refs, ranks
 
 
 CASE = {"mlp-single": 0, "ggnn-single": 1, "mlp": 2, "ggnn": 3, "hetero": 4, "edge_features": 5, "graphnorm": 6,
-        "ppi": 7, "large": 8, "interior": 9, "edge_dropout": 10}
+        "ppi": 7, "large": 8, "interior": 9, "edge_dropout": 10, "rows_input": 11}
 
 
 def assert_matches_port_step(got, loss, want, state):
@@ -637,3 +644,29 @@ def test_edge_dropout_under_node_sharding_keeps_one_step(world):
     assert not all(torch.equal(got[0]["mask"], g["mask"]) for g in got[1:])
     for name, p in got[0]["params"].items():
         assert all(torch.equal(p, g["params"][name]) for g in got[1:]), name
+
+
+def test_sharded_node_rows_read_the_input_table(world):
+    """``which="input"`` (and ``"output"``) on the node-sharded accessors:
+    each rank's rows assembled over the world equal JAX's unsharded
+    ``GnnOutput`` on the whole table; an out-of-range id reads NaN (the
+    port's choice on both branches; JAX's sharded branch clamps)."""
+    from ptgnn_tpu.graph.structs import GnnOutput as JaxGnnOutput
+
+    refs, ranks = world
+    tables, ids, ref_ids = refs["rows_input"]
+    jout = JaxGnnOutput(input_node_representations=jnp.asarray(tables["input"]),
+                        output_node_representations=jnp.asarray(tables["output"]), node_to_graph_idx=None,
+                        node_mask=None, node_idx_references={"refs": jnp.asarray(ref_ids)},
+                        node_graph_idx_reference={}, reference_masks={}, num_graphs=None, graph_mask=None)
+    valid = (ids >= 0) & (ids < len(tables["input"]))
+    for rank in ranks:
+        got = rank[CASE["rows_input"]]
+        for which in ("input", "output"):
+            want = np.asarray(jout.node_rows(jnp.asarray(ids), which=which))
+            rows = got[which]["rows"].numpy()
+            np.testing.assert_array_equal(rows[valid], want[valid])
+            assert np.isnan(rows[~valid]).all()
+            np.testing.assert_array_equal(got[which]["refs"].numpy(),
+                                          np.asarray(jout.reference_rows("refs", which=which)))
+            np.testing.assert_array_equal(got[which]["table"].numpy(), np.asarray(jout.node_table(which)))

@@ -292,6 +292,27 @@ def node_interior_independent(payload, rank, world, tmp):
     return {"clean": clean, "poisoned": poisoned, "control": control}
 
 
+def node_rows_input(payload, rank, world, tmp):
+    """The accessors of a node-sharded ``GnnOutput`` over the world: this
+    rank holds rows [rank x rows, (rank + 1) x rows) of the input and the
+    output tables; ``node_rows``, ``reference_rows`` and ``node_table`` of
+    each."""
+    from ptgnn_tpu_torch.graph.structs import GnnOutput
+
+    rows = payload["input"].shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    out = GnnOutput(
+        input_node_representations=torch.from_numpy(payload["input"][mine]),
+        output_node_representations=torch.from_numpy(payload["output"][mine]),
+        node_to_graph_idx=None, node_mask=None, node_idx_references={"refs": torch.from_numpy(payload["refs"])},
+        node_graph_idx_reference={}, reference_masks={}, num_graphs=None, graph_mask=None,
+        shard_group=dist.group.WORLD,
+    )
+    ids = torch.from_numpy(payload["ids"])
+    return {which: {"rows": out.node_rows(ids, which=which), "refs": out.reference_rows("refs", which=which),
+                    "table": out.node_table(which)} for which in ("input", "output")}
+
+
 # ---------------------------------------------------------------------------
 # the node-sharded trainer
 # ---------------------------------------------------------------------------
@@ -453,6 +474,10 @@ def trainer_budgets(payload, rank, world, tmp):
                    "messages": handler.messages, "weight": weight,
                    "empty_nodes": int(prepared["batch"].num_nodes)}
 
+    sub = Path(tmp) / "count"
+    sub.mkdir(exist_ok=True)
+    out["count"] = _skipped_sample_count(payload, sub, rank)
+
     sub = Path(tmp) / "reprobe"
     sub.mkdir(exist_ok=True)
     model, trainer = _trainer(payload, sub, rank, node_shards=4, max_num_epochs=1)
@@ -461,6 +486,43 @@ def trainer_budgets(payload, rank, world, tmp):
                       "provisional": trainer._budgets_provisional,
                       "skipped": [m for m in messages if "batches skipped" in m]}
     return out
+
+
+def _skipped_sample_count(payload, sub, rank):
+    """A training epoch (data 2 x node 2) in which each node group's second
+    minibatch is forced over budget (its ``shard_batch`` raises the budget
+    error): the graphs of this node group's skipped minibatch, and (the
+    raw samples of the node's groups, the samples the epoch reported)."""
+    from ptgnn_tpu_torch.parallel.node_sharding import BoundaryBudgetError
+
+    model, trainer = _trainer(payload, sub, rank, max_num_epochs=1)
+    seen = {"group_raw": 0, "calls": 0, "skipped_graphs": 0, "reported": []}
+    real_group, real_report = trainer.group_minibatches, trainer._report_training_epoch
+
+    def group_minibatches(it):
+        for mb, raw, weight in real_group(it):
+            seen["group_raw"] += len(raw)
+            yield mb, raw, weight
+
+    def report(epoch, loss, num_minibatches, num_samples, *rest):  # the training pass's end
+        seen["reported"].append((seen["group_raw"], num_samples))
+        return real_report(epoch, loss, num_minibatches, num_samples, *rest)
+
+    trainer.group_minibatches, trainer._report_training_epoch = group_minibatches, report
+    trainer.load_metadata_and_create_network(_data(24, 1), parallelize=False)
+    np_ = trainer.node_parallel
+    real_shard = np_.shard_batch
+
+    def shard_batch(mb, **kw):
+        seen["calls"] += 1
+        if seen["calls"] == 2:
+            seen["skipped_graphs"] = int(mb["batch"].num_graphs)
+            raise BoundaryBudgetError("forced over budget")
+        return real_shard(mb, **kw)
+
+    np_.shard_batch = shard_batch
+    _train(trainer, _data(24, 1), _data(6, 2), initialize_metadata=False, validate_on_start=False)
+    return {"skipped_graphs": seen["skipped_graphs"], "reported": seen["reported"]}
 
 
 # ---------------------------------------------------------------------------
@@ -557,6 +619,7 @@ CASES: Dict[str, Callable] = {
     "node_edge_dropout": node_edge_dropout,
     "node_large_graph": node_large_graph,
     "node_interior_independent": node_interior_independent,
+    "node_rows_input": node_rows_input,
     "hybrid_step": hybrid_step,
     "zero1_moments": zero1_moments,
     "trainer_lifecycle": trainer_lifecycle,
