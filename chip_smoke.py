@@ -167,7 +167,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    largest magnitude; bitwise equality printed), with the all-reduce calls
    and bytes per step and the trainer's launches; then the distributed
    Typilus CLI with ``--world-size 1`` for one epoch on synthetic folds. The
-   2-rank path runs on the CPU over gloo in the tests;
+   4-rank path runs on four cards under ``--world 4`` (below) and on the
+   CPU over gloo in the tests;
 21. edge-parallel: ``shard_adjacency`` cuts a benchmark batch into 4
    tile-aligned shards; each shard's K2 and K1 over its own row index on the
    card, combined as the all-reduce would (the max bitwise the unsharded
@@ -189,7 +190,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    --node-shards 1``; PPI at hidden 256 node-sharded in bf16 AMP (K5 open)
    and in float32 against the unsharded steps (losses, gradients, stepped
    parameters), and K5 held on its interior and boundary layouts. The 2-
-   and 4-rank paths run on the CPU over gloo in the tests.
+   and 4-rank paths run on four cards under ``--world 4`` (below) and on
+   the CPU over gloo in the tests.
 23. native-assembler (after node-parallel; the library is built in phase 2):
    the C++ layout assembler (``ptgnn_tpu_torch/native/``) against the numpy
    oracle on the benchmark batch, a PPI batch and a 2-way node-parallel
@@ -265,6 +267,48 @@ of its gathers (``take_rows``) included.
 Then the total seconds. The last line is {"ok": true, "device": {...}};
 the line before it is the card's name and power limit as nvidia-smi
 reports them, and the one before that the kernels JSON line.
+
+The multi-card path, on four cards of one host (it raises with fewer and
+never falls back):
+
+    python3 chip_smoke.py --world 4
+
+builds the kernels once, runs leg 1 in this process, then spawns 4 ranks
+(``spawn``, a ``file://`` rendezvous in a temporary directory, NCCL,
+``initialize_multi_host``, one card a rank), joined with a time limit:
+
+1. kernels: K1-K5 on cards 0-3, each called from a thread whose current
+   device is card 0, bitwise against their plain versions (K1's on the
+   CPU, K5's on integer data) and card 0's results; then phase 29's
+   compiled step and phase 30's DistributedModelTrainer epoch at world 1;
+2. DistributedModelTrainer with ZeRO-1 at the benchmark configuration,
+   float32 and bf16 AMP, 3 steps of 4 minibatches: step 1 within 1e-5 of
+   each parameter's max of one card's step on the weighted mean gradient;
+   compiled against eager bitwise (losses, parameters, both moments); each
+   rank's share of the moments, the all-reduces, and the launches against
+   the world-1 constants; DataParallel's train step compiled against eager,
+   timed, and NCCL's share of a profiled run;
+3. EdgeParallel, a benchmark batch's edges over the 4 cards: 3 SGD steps
+   within 1e-5 of each parameter's max of the single-device step;
+   compiled against eager bitwise;
+4. NodeParallel over the 4 cards (BFS reorder): the forward states bitwise
+   the in-process 4-shard stack's (``node_sharded_stack``); gradients
+   within 1e-4 of each max of the unsharded step; steps as in 3; PPI at
+   hidden 256 in bf16 AMP (K5 in the cross-card graph) and float32;
+   compiled against eager bitwise; the boundary rows and bytes;
+5. the 2 data x 2 node hybrid: a step within 1e-4 of each update's max of
+   the unsharded weighted-mean step; ZeRO-1 over the data group;
+   NodeShardedModelTrainer for an epoch, compiled against eager bitwise;
+6. DistributedCheckpointer with ZeRO-1 at world 4 (phase 27's round trip);
+7. traindistributed --world-size 4, and with --node-shards 2, for an
+   epoch each (after the ranks end);
+8. readings: ms per step of legs 2-5 against the world-1 step, the epoch at
+   world 4 against world 1 with each rank's host tensorize seconds, NCCL's
+   share, the launches by path on every rank.
+
+A failed gate is recorded and the legs go on; the run then prints every
+failure and exits non-zero. The ranks' logs go to build/chip_smoke/world/.
+The last line is {"ok": true, "device": {..., "count": 4}}.
 """
 from __future__ import annotations
 
@@ -420,16 +464,35 @@ def executions(stats: dict, steps: int) -> int:
     return steps + 1 + WARMUP_CALLS * len(stats["captures"])
 
 
+# Where a rank of the multi-card path sends the phase lines (``world_rank``).
+PHASE_SINK: Callable[[str, str], None] | None = None
+
+
 def phase(name: str, msg: str) -> None:
+    if PHASE_SINK is not None:
+        PHASE_SINK(name, msg)
+        return
     print(f"[{name}] {msg}", flush=True)
 
 
-def card_line() -> str:
+def synchronize() -> None:
+    """Wait for the card: a no-op where there is none (the multi-card legs
+    also run on the CPU, in tests/test_torch_multicard.py)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def graphs(seed: int = SEED):
@@ -3232,8 +3295,10 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         forwards, backwards, traffic = Tally(), Tally(), {}
         hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
                  module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
+        # read at the epoch's end: train() frees the compiled steps' graphs as it returns
         trainer.register_train_epoch_end_hook(lambda *_: traffic.update(
-            calls=trainer.data_parallel.allreduce_calls, bytes=trainer.data_parallel.allreduce_bytes))
+            calls=trainer.data_parallel.allreduce_calls, bytes=trainer.data_parallel.allreduce_bytes,
+            captures=len(trainer.data_parallel.train_step_compiled)))
         optimizers = []
         trainer.register_training_start_hook(lambda model, module, optimizer: optimizers.append(optimizer))
         sk.reset_launch_counts()  # the data-parallel path starts here
@@ -3250,7 +3315,7 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         shutil.rmtree(rendezvous, ignore_errors=True)
     steps = (trainer._opt_steps_this_epoch, single._opt_steps_this_epoch)
     # the compiled train step ran its DDP warm-ups once, then a replay a step
-    executions = dp_steps + DDP_WARMUP_CALLS * len(trainer.data_parallel.train_step_compiled)
+    executions = dp_steps + DDP_WARMUP_CALLS * traffic["captures"]
     if steps != (dp_steps, dp_steps) or backwards[0] != executions or dp_steps < 2:
         raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards[0]}: expected "
                            f"{dp_steps} steps and {executions} executions")
@@ -3308,8 +3373,8 @@ def data_parallel_phase(dev, card, model, batches, epochs):
     world_one(lambda: dp_compiled_checks(dev, card, model, batches, epochs))
     compiled_counts = delta(launch_counts(), before)
     counts = add_counts(add_counts(trainer_counts, cli), compiled_counts)  # the data-parallel path ends here
-    phase(name, f"launches over the data-parallel path {counts}; the 2-rank path runs on the CPU over gloo "
-          f"(tests/test_torch_parallel_dp.py): this machine has one card; phase total "
+    phase(name, f"launches over the data-parallel path {counts}; the 4-rank path runs under --world 4 on four "
+          f"cards and on the CPU over gloo (tests/test_torch_multicard.py); phase total "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -3352,7 +3417,7 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
     trainer.register_validation_epoch_end_hook(lambda m, mod, ep, valid_metrics: metrics.append(valid_metrics))
     trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0,
                   **{"parallelize": False, **train_kw})
-    torch.cuda.synchronize()
+    synchronize()
     return {"losses": losses, "state": {**{f"param {k}": v.detach().clone()
                                            for k, v in trainer.neural_module.named_parameters()},
                                         **adam_state(optimizers[0])},
@@ -3452,17 +3517,17 @@ def held_steps(single, sharded, single_mbs, sharded_mbs, sharded_step, steps: in
     launches = {k: 0 for k in launch_counts()}
     for i in range(steps):
         sharded.load_state_dict(single.state_dict())
-        torch.cuda.synchronize()
+        synchronize()
         t0 = time.perf_counter()
         losses.append(float(plain_step(single)(single_mbs[i], opt_single,
                                                torch.Generator(device=device).manual_seed(SEED + i))))
-        torch.cuda.synchronize()
+        synchronize()
         elapsed_single += time.perf_counter() - t0
         before = launch_counts()
         t0 = time.perf_counter()
         sharded_losses.append(float(sharded_step(sharded_mbs[i], opt_sharded,
                                                  torch.Generator(device=device).manual_seed(SEED + i))))
-        torch.cuda.synchronize()
+        synchronize()
         elapsed += time.perf_counter() - t0
         launches = add_counts(launches, delta(launch_counts(), before))
         err, name, same = params_apart(single, sharded)
@@ -3489,13 +3554,14 @@ def plain_step(module):
 SHARDED_TIMED = (3, 10)  # the sharded steps' timed runs: their count and length
 
 
-def sharded_compiled_against_eager(model, local, dev, make_sharder) -> str:
+def sharded_compiled_against_eager(model, local, dev, make_sharder, timed=SHARDED_TIMED) -> tuple:
     """A sharded train step (``make_sharder(module)``: EdgeParallel or
-    NodeParallel at world 1) through DataParallel's compiled train step
-    against the same step called eagerly: COMPILED_STEPS Adam steps from
-    the model's seeded weights on the device-resident shards ``local``, the
-    rate changing every step, bit for bit (raises otherwise); and each
-    one's ms/step and busy share. Returns the line to print."""
+    NodeParallel) through DataParallel's compiled train step against the
+    same step called eagerly: COMPILED_STEPS Adam steps from the model's
+    seeded weights on the device-resident shards ``local``, the rate
+    changing every step, bit for bit (raises beyond rtol 1e-6); and each
+    one's ms/step and busy share (``timed``: the timed runs' count and
+    length, None for none). Returns the line to print and the verdict."""
     t_start = time.perf_counter()
 
     def make(module):
@@ -3503,16 +3569,19 @@ def sharded_compiled_against_eager(model, local, dev, make_sharder) -> str:
         return (lambda mb, optimizer: sharder.train_step(mb, optimizer)), sharder.data_parallel
 
     runs = {mode: dp_step_runs(model, local, dev, compiled=mode == "compiled", zero1=False, make=make,
-                               timed=SHARDED_TIMED) for mode in ("eager", "compiled")}
+                               timed=timed) for mode in ("eager", "compiled")}
     e, c = runs["eager"], runs["compiled"]
     verdict = held_to_eager("sharded train step", c, e)
+    if dev.type != "cuda":
+        return f"{COMPILED_STEPS} steps compiled (a plain call here) against eager {verdict}", verdict, c
     captures = "; ".join(f"{cap.seconds:.3f} s, {cap.pool_bytes / 2**20:.1f} MiB" for cap in c["captures"])
     if len(c["captures"]) != 1:
         raise RuntimeError(f"the sharded train step took {len(c['captures'])} signatures, not one")
-    return (f"{COMPILED_STEPS} steps compiled against eager {verdict}; ms/step (median of {SHARDED_TIMED[0]} runs "
-            f"of {SHARDED_TIMED[1]}) compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, eager {e['ms']:.3f} "
+    return (f"{COMPILED_STEPS} steps compiled against eager {verdict}; ms/step (median of {timed[0]} runs "
+            f"of {timed[1]}) compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, eager {e['ms']:.3f} "
             f"{[round(t, 3) for t in e['times']]} ({e['ms'] / c['ms']:.2f}x); device busy {100 * c['busy']:.1f} % "
-            f"compiled, {100 * e['busy']:.1f} % eager; capture {captures}; {time.perf_counter() - t_start:.1f} s")
+            f"compiled, {100 * e['busy']:.1f} % eager; capture {captures}; {time.perf_counter() - t_start:.1f} s",
+            verdict, c)
 
 
 def one_rank_exchange(model, local, dev, budgets) -> str:
@@ -3646,7 +3715,7 @@ def edge_parallel_phase(dev, card):
                          lambda mb, opt, g: ep.train_step(mb, opt, generator=g)[0], EP_STEPS)
         sharded.gnn.edge_group = None
         before = launch_counts()
-        compiled = sharded_compiled_against_eager(model, local, dev, EdgeParallel)
+        compiled, _, _ = sharded_compiled_against_eager(model, local, dev, EdgeParallel)
         return out, compiled, delta(launch_counts(), before)
 
     (single_losses, losses, worst, where, bitwise, ms, counts), compiled, compiled_counts = world_one(run)
@@ -3878,8 +3947,7 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
         sharded.gnn.node_group = None
         before = launch_counts()
         exchange = one_rank_exchange(model, local, dev, budgets)
-        compiled = sharded_compiled_against_eager(model, local, dev,
-                                                  lambda m: NodeParallel(m, **budgets))
+        compiled, _, _ = sharded_compiled_against_eager(model, local, dev, lambda m: NodeParallel(m, **budgets))
         compiled_counts = delta(launch_counts(), before)
 
         trainer = NodeShardedModelTrainer(
@@ -3965,25 +4033,31 @@ def node_parallel_phase(dev, card, ppi_model, ppi_minibatches):
     counts = add_counts(add_counts(add_counts(step_counts, trainer_counts), cli), ppi_counts)
     if min(counts[k] for k in ("segment_extremum", "broadcast_to_edges", "segment_sum", "typed_matmul")) <= 0:
         raise RuntimeError(f"{name}: a kernel of the path was never launched: {counts}")
-    phase(name, f"launches over the node-parallel path {counts}; the 2- and 4-rank paths run on the CPU over "
-          f"gloo (tests/test_torch_node_sharding.py): this machine has one card; phase total "
+    phase(name, f"launches over the node-parallel path {counts}; the 4-rank and the 2 x 2 paths run under "
+          f"--world 4 on four cards and on the CPU over gloo (tests/test_torch_multicard.py); phase total "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts, layouts, {**layout_err, **ppi_err}
 
 
-def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
-    """PPI at its reference width, node-sharded at world 1 over NCCL
-    (``NodeParallel``, dropout 0), in bf16 AMP (K5's gate open on the
+def ppi_np_steps(ppi_model, ppi_minibatches, dev, card, shards: int = 1, within=None):
+    """PPI at its reference width, node-sharded over ``shards`` ranks
+    (``NodeParallel``, dropout 0; inside ``within``, a one-rank NCCL group
+    by default), in bf16 AMP (K5's gate open on the
     sub-layouts) and in float32, against the unsharded steps of
     ModelTrainer's step function on the same minibatch: NP_STEPS SGD steps,
     each from the unsharded module's weights. Held: both losses within rtol
-    1e-5; each float32 gradient within 1e-4 of its max, and the float32
-    step's parameters within 1e-5 of each max; each bf16 gradient no
-    farther from its own route's float32 gradient than 1.5 times the
-    unsharded route's distance (or 1e-2 of its norm), as ppi-parity holds
-    the card's bf16 step. K5 is then held on the interior and boundary
-    layouts (``typed_matmul_checks``, bf16). Returns the launches of the
-    sharded steps, the two layouts and K5's errors on them."""
+    1e-5 (over several shards the bf16 loss no farther from the float32
+    loss than 1.5 times the unsharded bf16 loss, or rtol 1e-5 of it); each
+    float32 gradient within 1e-4 of its max, and the float32
+    step's parameters within 1e-5 of each max; each bf16 gradient, and all
+    of them together, no farther from its own route's float32 gradient than
+    1.5 times the unsharded route's distance (or 1e-2 of its norm), as
+    ppi-parity holds the card's bf16 step (over several shards all of them
+    together: a small tensor's bf16 rounding is noise there, and its ratio
+    is printed). K5 is then held on the interior and boundary
+    layouts (``typed_matmul_checks``, bf16; on the card). Returns the
+    launches of the sharded steps, this rank's two layouts and K5's errors
+    on them."""
     from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
     from ptgnn_tpu_torch.graph.structs import tree_to
     from ptgnn_tpu_torch.ops import segment_kernels as sk
@@ -3993,7 +4067,7 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
     single = ppi_model.build_neural_module(device=dev, seed=SEED)
     set_dropout(single, 0.0)
     single_mb = tree_to(ppi_minibatches[0], dev)
-    budgets = suggest_budgets(ppi_minibatches[:1], 1)
+    budgets = suggest_budgets(ppi_minibatches[:1], shards)
     opt_single = torch.optim.SGD(single.parameters(), lr=lr)
 
     def grads(m):
@@ -4012,7 +4086,7 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
             routes[amp] = (m, npar, tree_to(npar.shard_batch(ppi_minibatches[0]), dev),
                            torch.optim.SGD(m.parameters(), lr=lr))
         launches = {k: 0 for k in launch_counts()}
-        rows, losses, param_err, elapsed = [], [], 0.0, 0.0
+        rows, whole, losses, param_err, elapsed = [], [], [], 0.0, 0.0
         for _ in range(NP_STEPS):
             state = {k: v.clone() for k, v in single.state_dict().items()}
             plain = {}
@@ -4027,12 +4101,12 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
                 m, npar, local, opt = routes[amp]
                 m.load_state_dict(state)
                 before = launch_counts()
-                torch.cuda.synchronize()
+                synchronize()
                 t0 = time.perf_counter()
                 loss, _, _ = npar.data_parallel.grad_step(local, 1.0, None)
                 sharded[amp] = (float(loss), grads(m))
                 npar.data_parallel.apply_gradients(opt, [lr])
-                torch.cuda.synchronize()
+                synchronize()
                 if amp:
                     elapsed += time.perf_counter() - t0
                 launches = add_counts(launches, delta(launch_counts(), before))
@@ -4041,40 +4115,56 @@ def ppi_np_steps(ppi_model, ppi_minibatches, dev, card):
                                                              plain[False][1]):
                 rows.append((rel(g16, g32), rel(p16, p32), rel(g16, p16),
                              float((g32 - p32).abs().max() / p32.abs().max().clamp_min(1e-30)), n))
+            flat = [torch.cat([g.flatten() for _, g in route]) for route in (
+                sharded[True][1], sharded[False][1], plain[True][1], plain[False][1])]
+            whole.append((rel(flat[0], flat[1]), rel(flat[2], flat[3])))
             for (pname, p), (_, w) in zip(routes[False][0].named_parameters(), plain[False][1]):
                 want = state[pname] - lr * w
                 param_err = max(param_err, float((p.detach() - want).abs().max() / want.abs().max().clamp_min(1e-30)))
         for m, _, _, _ in routes.values():
             m.gnn.node_group = None
         local_batch = routes[True][2]["batch"]
-        return (rows, losses, param_err, 1e3 * elapsed / NP_STEPS, launches,
+        return (rows, whole, losses, param_err, 1e3 * elapsed / NP_STEPS, launches,
                 {"ppi np interior": local_batch.adjacency, "ppi np boundary": local_batch.node_sharding.adjacency_bnd})
 
-    rows, losses, param_err, ms, counts, layouts = world_one(run)
+    rows, whole, losses, param_err, ms, counts, layouts = (within or world_one)(run)
     for np16, p16, np32, p32 in losses:
-        np.testing.assert_allclose([np16, np32], [p16, p32], rtol=1e-5)
+        np.testing.assert_allclose(np32, p32, rtol=1e-5)
+        if shards == 1:
+            np.testing.assert_allclose(np16, p16, rtol=1e-5)
+        elif abs(np16 - p32) > max(1.5 * abs(p16 - p32), 1e-5 * abs(p32)):
+            # over several shards the bf16 sums round in other groups
+            raise RuntimeError(f"{name}: PPI bf16 loss over {shards} shards {np16} is farther from the float32 "
+                               f"loss {p32} than 1.5x the unsharded bf16 loss {p16}")
     for np_own, plain_own, _, f32_err, n in rows:
         if f32_err > 1e-4:
             raise RuntimeError(f"{name}: PPI float32 gradient {n} is {f32_err:.3e} of its max from the unsharded one")
-        if np_own > max(1.5 * plain_own, 1e-2):
+        if shards == 1 and np_own > max(1.5 * plain_own, 1e-2):
             raise RuntimeError(f"{name}: PPI bf16 gradient {n}: {np_own:.3e} of its norm from its own float32 "
                                f"gradient, against the unsharded route's {plain_own:.3e}")
+    for np_own, plain_own in whole:
+        if np_own > max(1.5 * plain_own, 1e-2):
+            raise RuntimeError(f"{name}: PPI bf16 gradient (all tensors): {np_own:.3e} of its norm from its own "
+                               f"float32 gradient, against the unsharded route's {plain_own:.3e}")
     if param_err > 1e-5:
         raise RuntimeError(f"{name}: PPI float32 step's parameters {param_err:.3e} of their max from the unsharded step's")
-    if counts["typed_matmul"] <= 0:
+    if dev.type == "cuda" and counts["typed_matmul"] <= 0:
         raise RuntimeError(f"{name}: PPI bf16 node-sharded steps never launched the typed matmul: {counts}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     k5_err = {}
-    for label, adj in layouts.items():
+    for label, adj in layouts.items() if dev.type == "cuda" else ():
         errs = {}
         typed_matmul_checks(adj, dev, gen, errs, dtypes=(torch.bfloat16,), name=f"{name} {label}")
         k5_err.update({f"{key} {label}": v for key, v in errs.items()})
-    phase(name, f"PPI (hidden 256) node-sharded at world 1 (NCCL) vs the unsharded steps, {NP_STEPS} SGD steps "
+    phase(name, f"PPI node-sharded over {shards} rank{'s' if shards > 1 else ''} "
+          f"({'NCCL' if dev.type == 'cuda' else 'gloo'}) vs the unsharded steps, {NP_STEPS} SGD steps "
           f"(dropout 0), each from the unsharded weights: losses (sharded bf16, unsharded bf16, sharded float32, "
           f"unsharded float32) {losses} (rtol 1e-5); float32 gradients within {max(r[3] for r in rows):.3e} of "
           f"each max (limit 1e-4), the stepped parameters within {param_err:.3e} (limit 1e-5); each bf16 "
           f"gradient from its own route's float32 gradient: sharded largest {max(r[0] for r in rows):.3e}, "
-          f"unsharded {max(r[1] for r in rows):.3e} (limit 1.5x the unsharded, or 1e-2); sharded bf16 vs "
+          f"unsharded {max(r[1] for r in rows):.3e} (limit 1.5x the unsharded, or 1e-2), largest ratio "
+          f"{max(r[0] / max(r[1], 1e-30) for r in rows):.2f}; all tensors together, sharded {max(w[0] for w in whole):.3e}, "
+          f"unsharded {max(w[1] for w in whole):.3e}; sharded bf16 vs "
           f"unsharded bf16 largest {max(r[2] for r in rows):.3e} of the norm; {ms:.2f} ms a bf16 step on "
           f"{card}; launches of both routes {counts} (K5 open in bf16)")
     return counts, layouts, k5_err
@@ -4665,18 +4755,25 @@ def autotune_phase(dev, card):
     return counts
 
 
-def checkpoint_phase(dev, card, model, batches):
-    """DistributedCheckpointer at world 1 over NCCL with ZeRO-1: an async
-    save after step 3 while steps 4-5 run; a restore into a fresh module
-    and optimizer (parameters and both Adam moments bitwise); the resumed
-    step 4 bitwise the uninterrupted one; retention."""
+def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int = 1) -> dict:
+    """DistributedCheckpointer with ZeRO-1 over the process group: Adam
+    steps on device-resident minibatches ``mbs`` (step i takes
+    ``mbs[(i * world + rank) % len(mbs)]``), an async save after step 3
+    while steps 4-5 run, a restore into a fresh module and optimizer, the
+    resumed step 4, then saves of steps 4 and 5 with max_to_keep 2. The
+    uninterrupted step 4 runs through a DataParallel of its own, as the
+    resumed one does: a DDP's first iteration reduces over its initial
+    buckets and later ones over its rebuilt buckets, and over more than two
+    ranks the all-reduce adds an element's partials in an order that
+    depends on its place in the bucket. Returns
+    the verdicts (parameters, this rank's Adam moments and steps, and the
+    resumed step bitwise; the steps and sidecars kept), the seconds of the
+    save, commit and restore, and the saved step's bytes and files."""
+    import torch.distributed as dist
+
     from ptgnn_tpu_torch.core.dcp_checkpoint import DistributedCheckpointer
-    from ptgnn_tpu_torch.ops import segment_kernels as sk
     from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
 
-    name = "checkpoint"
-    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dcp"
-    shutil.rmtree(root, ignore_errors=True)
     lr = 2.5e-4
 
     def fresh(seed):
@@ -4684,10 +4781,10 @@ def checkpoint_phase(dev, card, model, batches):
         optimizer = zero1_optimizer(module.parameters(), lambda p: torch.optim.Adam(p, lr=lr))
         return module, optimizer, DataParallel(module)
 
-    def step(trio, i):
-        module, optimizer, dp = trio
-        dp.train_step(g2c_minibatch(batches[i % len(batches)]), 1.0, torch.Generator(device=dev).manual_seed(SEED + i),
-                      optimizer, [lr], clip_gradient_norm=1.0)
+    def step(trio, i, dp=None):
+        module, optimizer, dp = trio[0], trio[1], dp or trio[2]
+        generator = torch.Generator(device=dev).manual_seed(SEED + i)
+        dp.train_step(mbs[(i * world + rank) % len(mbs)], 1.0, generator, optimizer, [lr], clip_gradient_norm=1.0)
 
     def state(trio):
         module, optimizer, _ = trio
@@ -4695,58 +4792,76 @@ def checkpoint_phase(dev, card, model, batches):
         return ({n: p.detach().clone() for n, p in module.named_parameters()},
                 {names[id(p)]: {k: v.clone() for k, v in st.items()} for p, st in optimizer.optim.state.items()})
 
-    def run():
-        trio = fresh(SEED)
-        for i in range(3):
-            step(trio, i)
-        params3, moments3 = state(trio)
-        ckpt = DistributedCheckpointer(root, max_to_keep=2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ckpt.save(3, trio[0], trio[1], model=model)
-        t_stage = time.perf_counter() - t0
-        step(trio, 3)
-        params4, _ = state(trio)
-        step(trio, 4)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ckpt.wait()
-        t_commit = time.perf_counter() - t0
-        other = fresh(SEED + 1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored_step = ckpt.restore(module=other[0], optimizer=other[1])
-        torch.cuda.synchronize()
-        t_restore = time.perf_counter() - t0
-        got_params, got_moments = state(other)
-        same_params = all(bitwise_equal(got_params[k], params3[k]) for k in params3)
-        same_moments = got_moments.keys() == moments3.keys() and all(
-            bitwise_equal(got_moments[n][k].to(moments3[n][k].device), moments3[n][k])
-            for n in moments3 for k in moments3[n])
-        step(other, 3)
-        resumed, _ = state(other)
-        same_step = all(bitwise_equal(resumed[k], params4[k]) for k in params4)
-        ckpt.save(4, trio[0], trio[1], model=model)
-        ckpt.save(5, trio[0], trio[1], model=model, wait=True)
-        kept = ckpt.all_steps()
-        sidecars = sorted(p.name for p in root.glob("*.model.pkl.gz"))
-        loaded = type(ckpt.restore_model()).__name__
-        ckpt.close()
-        size = sum(p.stat().st_size for p in (root / "5").iterdir())
-        phase(name, f"ZeRO-1 at world 1 over NCCL: save after step 3 returned in {t_stage:.3f} s (the state staged "
-              f"on the host), steps 4-5 ran, commit waited {t_commit:.3f} s more; restore {t_restore:.3f} s "
-              f"(step {restored_step}); a step is {size} bytes in {len(list((root / '5').iterdir()))} files on {card}")
-        phase(name, f"restored parameters bitwise {same_params}, Adam moments and steps bitwise {same_moments} "
-              f"({sum(len(v) for v in moments3.values())} tensors); resumed step 4 bitwise the uninterrupted "
-              f"step 4: {same_step}; after saving steps 4 and 5 with max_to_keep 2 the steps are {kept}, the "
-              f"sidecars {sidecars}, restore_model gives a {loaded}")
-        if not (same_params and same_moments and same_step and restored_step == 3 and kept == [4, 5]
-                and sidecars == ["4.model.pkl.gz", "5.model.pkl.gz"]):
-            raise RuntimeError("the checkpoint round trip or retention failed")
+    trio = fresh(SEED)
+    for i in range(3):
+        step(trio, i)
+    params3, moments3 = state(trio)
+    ckpt = DistributedCheckpointer(root, max_to_keep=2)
+    synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(3, trio[0], trio[1], model=model)
+    t_stage = time.perf_counter() - t0
+    step(trio, 3, DataParallel(trio[0]))
+    params4, _ = state(trio)
+    step(trio, 4)
+    synchronize()
+    t0 = time.perf_counter()
+    ckpt.wait()
+    t_commit = time.perf_counter() - t0
+    other = fresh(SEED + 1)
+    synchronize()
+    t0 = time.perf_counter()
+    restored_step = ckpt.restore(module=other[0], optimizer=other[1])
+    synchronize()
+    t_restore = time.perf_counter() - t0
+    got_params, got_moments = state(other)
+    same_params = all(bitwise_equal(got_params[k], params3[k]) for k in params3)
+    same_moments = got_moments.keys() == moments3.keys() and all(
+        bitwise_equal(got_moments[n][k].to(moments3[n][k].device), moments3[n][k])
+        for n in moments3 for k in moments3[n])
+    step(other, 3)
+    resumed, _ = state(other)
+    same_step = all(bitwise_equal(resumed[k], params4[k]) for k in params4)
+    ckpt.save(4, trio[0], trio[1], model=model)
+    ckpt.save(5, trio[0], trio[1], model=model, wait=True)
+    if dist.is_initialized():
+        dist.barrier()  # rank 0 applies the retention
+    kept = ckpt.all_steps()
+    sidecars = sorted(p.name for p in root.glob("*.model.pkl.gz"))
+    loaded = type(ckpt.restore_model()).__name__
+    ckpt.close()
+    files = list((root / "5").iterdir())
+    return {"same_params": same_params, "same_moments": same_moments, "same_step": same_step,
+            "restored_step": restored_step, "kept": kept, "sidecars": sidecars, "loaded": loaded,
+            "moment_tensors": sum(len(v) for v in moments3.values()), "stage_s": t_stage, "commit_s": t_commit,
+            "restore_s": t_restore, "bytes": sum(p.stat().st_size for p in files), "files": len(files),
+            "ok": bool(same_params and same_moments and same_step and restored_step == 3 and kept == [4, 5]
+                       and sidecars == ["4.model.pkl.gz", "5.model.pkl.gz"])}
 
+
+def checkpoint_phase(dev, card, model, batches):
+    """DistributedCheckpointer at world 1 over NCCL with ZeRO-1
+    (``checkpoint_round_trip``): an async save after step 3 while steps 4-5
+    run; a restore into a fresh module and optimizer (parameters and both
+    Adam moments bitwise); the resumed step 4 bitwise the uninterrupted
+    one; retention."""
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+
+    name = "checkpoint"
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dcp"
+    shutil.rmtree(root, ignore_errors=True)
     sk.reset_launch_counts()  # the checkpoint path starts here
-    world_one(run)
+    r = world_one(lambda: checkpoint_round_trip(model, [g2c_minibatch(b) for b in batches], dev, root))
     counts = launch_counts()  # the checkpoint path ends here
+    phase(name, f"ZeRO-1 at world 1 over NCCL: save after step 3 returned in {r['stage_s']:.3f} s (the state staged "
+          f"on the host), steps 4-5 ran, commit waited {r['commit_s']:.3f} s more; restore {r['restore_s']:.3f} s "
+          f"(step {r['restored_step']}); a step is {r['bytes']} bytes in {r['files']} files on {card}")
+    phase(name, f"restored parameters bitwise {r['same_params']}, Adam moments and steps bitwise "
+          f"{r['same_moments']} ({r['moment_tensors']} tensors); resumed step 4 bitwise the uninterrupted "
+          f"step 4: {r['same_step']}; after saving steps 4 and 5 with max_to_keep 2 the steps are {r['kept']}, the "
+          f"sidecars {r['sidecars']}, restore_model gives a {r['loaded']}")
+    if not r["ok"]:
+        raise RuntimeError("the checkpoint round trip or retention failed")
     phase(name, f"launches {counts}")
     return counts
 
@@ -4854,11 +4969,12 @@ def step_runs(model, mbs, dev, *, amp, compiled, lr=2.5e-4, timed=True):
             "captures": captures, "executions": calls[0] + WARMUP_CALLS * len(captures)}
 
 
-def timed_runs(run, runs: int = TIMED_RUNS, steps: int = TIMED_STEPS):
+def timed_runs(run, runs: int = TIMED_RUNS, steps: int = TIMED_STEPS, profiles: list | None = None):
     """``runs`` timed runs of ``steps`` calls ``run(0..steps-1)``, each
     between synchronisations, then one run of PROFILED_STEPS calls under
-    the profiler. Returns (ms per call of each timed run, the device's busy
-    share of the profiled run)."""
+    the profiler (kept in ``profiles`` where given, with its wall seconds).
+    Returns (ms per call of each timed run, the device's busy share of the
+    profiled run)."""
     times, busy = [], None
     for r in range(runs + 1):
         profiled = r == runs
@@ -4871,6 +4987,8 @@ def timed_runs(run, runs: int = TIMED_RUNS, steps: int = TIMED_STEPS):
             elapsed = time.perf_counter() - t0
         if profiled:
             busy = busy_share(prof, elapsed)
+            if profiles is not None:
+                profiles.append((prof, elapsed))
         else:
             times.append(1e3 * elapsed / steps)
     return times, busy
@@ -4878,14 +4996,38 @@ def timed_runs(run, runs: int = TIMED_RUNS, steps: int = TIMED_STEPS):
 
 def eager_dp(dp):
     """``dp`` (a DataParallel) with its compiled steps replaced by the
-    functions they compile: the same steps, called directly."""
+    functions they compile: the same steps, called directly, each after the
+    warm-up that its capture runs (``warmed_up``)."""
     from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 
     for name in ("train_step_compiled", "grad_step_compiled", "apply_step_compiled", "eval_step_compiled"):
         compiled = getattr(dp, name)
         if isinstance(compiled, CompiledStep):
-            setattr(dp, name, compiled.fn)
+            setattr(dp, name, warmed_up(compiled))
     return dp
+
+
+def warmed_up(compiled):
+    """``compiled.fn``, called directly, after the warm-up calls that
+    ``compiled`` runs before a capture (once per call signature, on the
+    card; the state and generators put back after them). DDP rebuilds its
+    gradient buckets in the warm-up, and over more than two ranks the
+    all-reduce adds an element's partials in an order that depends on its
+    place in the bucket: so the eager steps reduce over the buckets that
+    the captured ones reduce over."""
+    from ptgnn_tpu_torch.core.compiled_step import signature
+
+    seen = set()
+
+    def call(*args, **kwargs):
+        if compiled.device.type == "cuda":
+            key, _ = signature(args, kwargs)
+            if key not in seen:
+                seen.add(key)
+                compiled._warm_up(torch.cuda.Stream(compiled.device), args, kwargs)
+        return compiled.fn(*args, **kwargs)
+
+    return call
 
 
 def adam_state(optimizer) -> dict:
@@ -4895,7 +5037,8 @@ def adam_state(optimizer) -> dict:
     return {f"adam {i} {k}": v.clone() for i, st in enumerate(inner.state.values()) for k, v in st.items()}
 
 
-def dp_step_runs(model, mbs, dev, *, compiled, zero1=True, lr=2.5e-4, timed=(TIMED_RUNS, TIMED_STEPS), make=None):
+def dp_step_runs(model, mbs, dev, *, compiled, zero1=True, lr=2.5e-4, timed=(TIMED_RUNS, TIMED_STEPS), make=None,
+                 profiles=None):
     """DataParallel's train step (ZeRO-1 or full Adam, clip 1.0) at world 1
     from the model's seeded weights, compiled or eagerly, as
     :func:`step_runs` runs a TrainStep: COMPILED_STEPS steps whose losses
@@ -4903,7 +5046,8 @@ def dp_step_runs(model, mbs, dev, *, compiled, zero1=True, lr=2.5e-4, timed=(TIM
     a learning-rate factor that changes every step, then (``timed``) the
     timed and profiled runs (``timed``: their count and length, or None).
     ``make(module) -> (train_step, data_parallel)``
-    builds another step on DataParallel (EdgeParallel's, NodeParallel's)."""
+    builds another step on DataParallel (EdgeParallel's, NodeParallel's);
+    ``profiles`` keeps the profiled run (``timed_runs``)."""
     from ptgnn_tpu_torch.parallel import DataParallel, zero1_optimizer
 
     module = model.build_neural_module(device=dev, seed=SEED)
@@ -4934,8 +5078,8 @@ def dp_step_runs(model, mbs, dev, *, compiled, zero1=True, lr=2.5e-4, timed=(TIM
     losses = torch.stack([run(i).clone() for i in range(COMPILED_STEPS)])
     state = {f"param {k}": v.detach().clone() for k, v in module.named_parameters()}
     state.update(adam_state(optimizer))
-    times, busy = timed_runs(lambda i: run(COMPILED_STEPS + i), *timed) if timed else ([], None)
-    captures = dp.train_step_compiled.stats() if compiled else []
+    times, busy = timed_runs(lambda i: run(COMPILED_STEPS + i), *timed, profiles=profiles) if timed else ([], None)
+    captures = dp.train_step_compiled.stats() if compiled and dev.type == "cuda" else []
     for attr in ("edge_group", "node_group"):
         setattr(module.gnn, attr, None)
     if compiled:
@@ -5144,6 +5288,1000 @@ def broadcast_ab(sources: list) -> None:
         cuda_build._LIBS["broadcast"] = libs["checkout"]
 
 
+# ---------------------------------------------------------------------------
+# 32. the multi-card path: python3 chip_smoke.py --world 4
+# ---------------------------------------------------------------------------
+WORLD_CARDS = 4
+WORLD_JOIN_S = 480  # the ranks' time limit; what is left is killed
+WORLD_DP_STEPS = 3  # leg 2: optimizer steps, each over one minibatch a rank
+WORLD_LR = 2.5e-4
+WORLD_SGD_LR = 0.05
+
+
+class WorldSizes(NamedTuple):
+    """What the multi-card legs run at: on the card the benchmark
+    configuration (8192-node batches, hidden 64, the 'mlp' stack) and PPI at
+    hidden 256; on the CPU (tests/test_torch_multicard.py) the small
+    Graph2Class of tests/test_torch_node_sharded_trainer.py (256-node
+    batches, hidden 32) and a small PPI."""
+
+    hidden: int
+    minibatch_size: int  # the trainers' samples a minibatch
+    graph_kw: dict  # synthetic_typilus_graphs' sizes
+    padding: Callable  # the Graph2Class trainers' BatchPadding
+    timed: tuple | None  # the timed runs of the compiled steps (count, length), None on the CPU
+
+
+def world_sizes(dev) -> WorldSizes:
+    from ptgnn_tpu_torch.implementations.typilus.harness import small_padding
+    from ptgnn_tpu_torch.implementations.typilus.train import default_padding
+
+    if dev.type == "cuda":
+        return WorldSizes(64, 300, dict(mean_nodes=2500, max_nodes=8000), default_padding, SHARDED_TIMED)
+    return WorldSizes(32, 4, dict(mean_nodes=30, max_nodes=80),
+                      lambda: small_padding(max_nodes=256, max_graphs=8), None)
+
+
+def world_graphs(sizes: WorldSizes, count: int, seed: int) -> list:
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    return list(synthetic_typilus_graphs(count, seed=seed, **sizes.graph_kw))
+
+
+def g2c_world_model(sizes: WorldSizes, dropout_rate: float = 0.0):
+    from ptgnn_tpu_torch.implementations.typilus.train import create_graph2class_gnn_model
+
+    return create_graph2class_gnn_model(hidden_state_size=sizes.hidden, dropout_rate=dropout_rate,
+                                        padding=sizes.padding())
+
+
+def full_batches(sizes: WorldSizes, count: int, seed: int) -> list:
+    """Graphs that make exactly ``count`` full minibatches in order (the
+    trainers drop the partial one that the last graph opens)."""
+    probe = g2c_world_model(sizes)
+    every = world_graphs(sizes, 4 * count + 16, seed)
+    probe.compute_metadata(iter(every), parallelize=False)
+    batched = [raw for _, raw in probe.minibatch_iterator(
+        probe.tensorize_dataset(iter(every), parallelize=False, return_input_data=True),
+        max_minibatch_size=sizes.minibatch_size, parallelize=False)]
+    if len(batched) <= count:
+        raise RuntimeError(f"{len(every)} graphs make {len(batched)} minibatches, fewer than {count + 1}")
+    return [g for raw in batched[:count] for g in raw] + batched[count][:1]
+
+
+def host_minibatches(model, graphs_, sizes: WorldSizes) -> list:
+    """(host minibatch, its real samples) of ``graphs_`` in order, full
+    minibatches only: the groups the distributed trainers form."""
+    return [(mb, len(raw)) for mb, raw in model.minibatch_iterator(
+        model.tensorize_dataset(iter(graphs_), parallelize=False), max_minibatch_size=sizes.minibatch_size,
+        yield_partial_minibatches=False, shuffle_input=False, parallelize=False)]
+
+
+# Node sharding splits a graph too large for one card: PPI's graph 4 times
+# over (its widths and edge density), so that each of 4 shards' boundary
+# layout holds the 32 MB gathered stack that opens K5's gate.
+WORLD_PPI_SCALE = 4
+
+
+def world_ppi(dev):
+    """PPI at its reference width (hidden 256, 50 features, 121 labels, 14.4
+    edges a node) on graphs of WORLD_PPI_SCALE times its published node
+    count in batches of WORLD_PPI_SCALE x 4,096 nodes on the card; small on
+    the CPU. Returns (model, host minibatches)."""
+    from ptgnn_tpu_torch.graph.structs import BatchPadding
+    from ptgnn_tpu_torch.implementations.ppi.harness import PPI_GRAPH_SIZES, build_ppi, synthetic_ppi_samples
+    from ptgnn_tpu_torch.implementations.ppi.train import create_ppi_gnn_model, ppi_padding
+
+    if dev.type == "cuda":
+        sizes = {**PPI_GRAPH_SIZES, "mean_nodes": WORLD_PPI_SCALE * PPI_GRAPH_SIZES["mean_nodes"]}
+        samples = synthetic_ppi_samples(1, SEED, **sizes)
+        model = create_ppi_gnn_model(hidden_state_size=256, padding=ppi_padding(max_nodes=WORLD_PPI_SCALE * 4096))
+        # the model's 6,000-node cap on a graph is one card's; sharded, the batch's budget holds
+        model.gnn_model.max_nodes_per_graph = model.gnn_model.padding.max_nodes
+        model.compute_metadata(iter(samples), parallelize=False)
+        minibatches = [mb for mb, _ in model.minibatch_iterator(
+            model.tensorize_dataset(iter(samples), parallelize=False), max_minibatch_size=50, parallelize=False)]
+        if len(minibatches) != 1:
+            raise RuntimeError(f"the scaled PPI graph made {len(minibatches)} minibatches, not one")
+        return model, minibatches
+    pad = BatchPadding(max_nodes=512, max_edge_slots=128 * 96, max_graphs=4, edge_tile=128, agg_rows=128)
+    model, _, minibatches = build_ppi(padding=pad, samples=synthetic_ppi_samples(
+        2, 3, mean_nodes=200, edges_per_node=6, num_features=12, num_labels=5), hidden_state_size=32,
+        minibatch_size=2, seed=SEED, device=dev)
+    return model, minibatches
+
+
+def world_epoch(dev, name: str) -> dict:
+    """One DistributedModelTrainer epoch (``dp_epoch``: ZeRO-1, compiled,
+    dropout 0.1, the forked tensorize on the card) over DP_EPOCH_GRAPHS
+    benchmark graphs (24 small ones on the CPU) at the process group's world
+    size, then validation; and this process's host seconds to tensorize the
+    graphs in one thread. Phase 30's world-1 epoch, at any world size."""
+    sizes = world_sizes(dev)
+    train = world_graphs(sizes, DP_EPOCH_GRAPHS if dev.type == "cuda" else 24, SEED + 50)
+    valid = world_graphs(sizes, 4, SEED + 51)
+    model = g2c_world_model(sizes, dropout_rate=0.1)
+    model.compute_metadata(iter(train), parallelize=False)
+    costs = host_tensorize_costs(model, train)
+    run = dp_epoch(model, train, valid, dev, zero1=True, accumulate=1, eager_steps=False, name=name,
+                   parallelize=True, use_multiprocessing=dev.type == "cuda")
+    run["dp"].clear()
+    return {"seconds": run["seconds"], "steps": len(run["losses"]), "losses": run["losses"], "graphs": len(train),
+            "tensorize_s": costs["tensorize_s"]}
+
+
+def nccl_share(prof) -> dict:
+    """Device ms of a profile by kernel class: NCCL's kernels against the
+    rest, and NCCL's share."""
+    nccl = other = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+        if "nccl" in evt.key.lower():
+            nccl += us
+        else:
+            other += us
+    return {"nccl_ms": nccl / 1e3, "other_ms": other / 1e3, "nccl_share": nccl / max(nccl + other, 1e-9)}
+
+
+def params_of(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+def worst_apart(got: dict, want: dict) -> tuple:
+    """(the worst max |got - want| over max |want| of any tensor, its name)."""
+    return max(((float((got[k].double() - w.double()).abs().max() / w.double().abs().max().clamp_min(1e-30)), k)
+                for k, w in want.items()), default=(0.0, ""))
+
+
+def same_tensors(a: dict, b: dict) -> list:
+    """The keys whose tensors are not bitwise equal."""
+    return [k for k in b if not bitwise_equal(a[k], b[k])]
+
+
+class WorldRank:
+    """The legs of ``python3 chip_smoke.py --world 4`` as one rank runs
+    them, inside a process group of ``world`` ranks (NCCL, one card a rank;
+    gloo on the CPU in tests/test_torch_multicard.py, at ``world_sizes``'
+    small size). Every rank runs every leg and every collective in the same
+    order. A gate that fails is recorded (``failures``) and the legs go on,
+    so one run reports every gate; ``readings`` keeps the numbers."""
+
+    def __init__(self, rank: int, world: int, dev: torch.device, tmp: Path, log):
+        self.rank, self.world, self.dev, self.tmp, self.log = rank, world, dev, tmp, log
+        self.sizes = world_sizes(dev)
+        self.card = card_line() if dev.type == "cuda" else "cpu"
+        self.failures: list = []
+        self.held: list = []
+        self.readings: dict = {"launches": {}}
+        self.out_dir = tmp / "out"
+
+    # -- reporting -------------------------------------------------------------
+    def say(self, name: str, msg: str) -> None:
+        line = f"[{name} r{self.rank}] {msg}"
+        self.log.write(line + "\n")
+        self.log.flush()
+        if self.rank == 0:
+            print(line, flush=True)
+
+    def hold(self, name: str, ok: bool, msg: str) -> None:
+        if ok:
+            self.held.append(f"{name}: {msg}")
+            self.say(name, "held: " + msg)
+        else:
+            self.failures.append(f"{name}: {msg}")
+            self.say(name, "FAILED: " + msg)
+            if self.rank:
+                print(f"[{name} r{self.rank}] FAILED: {msg}", flush=True)
+
+    def checked(self, name: str, fn):
+        """``fn()``, a reused check that raises on its gate after its
+        collectives: the raise is recorded as a failed gate."""
+        try:
+            return fn()
+        except (RuntimeError, AssertionError) as failure:
+            self.hold(name, False, str(failure))
+            return None
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        synchronize()
+        dist.barrier()
+
+    # -- data --------------------------------------------------------------------
+    def setup(self) -> None:
+        from ptgnn_tpu_torch.graph.structs import tree_to
+        from ptgnn_tpu_torch.implementations.typilus.harness import bench_graph_count, build_graph2class
+
+        t0 = time.perf_counter()
+        s = self.sizes
+        kw = (dict(num_metadata_graphs=32, mean_nodes=30, max_graph_nodes=80, minibatch_size=4)
+              if self.dev.type != "cuda" else
+              dict(num_metadata_graphs=bench_graph_count(max(2 * self.world, NUM_BATCHES)), mean_nodes=2500,
+                   max_graph_nodes=8000,
+                   minibatch_size=300))
+        self.model, _, self.minibatches = build_graph2class(
+            padding=s.padding(), hidden_state_size=s.hidden, seed=SEED, num_minibatches=max(2 * self.world, NUM_BATCHES),
+            device=self.dev, **kw)
+        self.device_mbs = [tree_to(mb, self.dev) for mb in self.minibatches]
+        self.dp_train = full_batches(s, self.world * WORLD_DP_STEPS, SEED + 60)
+        self.valid = world_graphs(s, 4, SEED + 61)
+        self.ppi_model, self.ppi_minibatches = world_ppi(self.dev)
+        self.say("world-setup", f"{len(self.minibatches)} Graph2Class minibatches (graphs, nodes) "
+                 f"{[(int(mb['batch'].num_graphs), int(mb['batch'].num_nodes)) for mb in self.minibatches]}, "
+                 f"hidden {s.hidden}; {len(self.dp_train)} graphs for the trainers' {WORLD_DP_STEPS} steps; "
+                 f"{time.perf_counter() - t0:.1f} s on {self.dev}")
+
+    def counts_of_path(self, fn):
+        """(``fn()``, the launches it made)."""
+        before = launch_counts()
+        out = fn()
+        return out, delta(launch_counts(), before)
+
+    def compiled_against_eager(self, name: str, key: str, what: str, local: list, make_sharder) -> None:
+        """A sharded train step compiled against eager at this world
+        (``sharded_compiled_against_eager``: Adam, dropout on), bitwise, and
+        its ms/step (``readings[key + " ms/step"]``)."""
+        out = self.checked(name, lambda: sharded_compiled_against_eager(self.model, local, self.dev, make_sharder,
+                                                                         timed=self.sizes.timed))
+        if out is not None:
+            line, verdict, c = out
+            self.hold(name, verdict.startswith("bitwise"), f"{what} (Adam, dropout on) {line}")
+            if self.sizes.timed:
+                self.readings[f"{key} ms/step"] = c["ms"]
+
+    # -- NCCL's all-reduce in a graph ------------------------------------------------
+    def leg_nccl(self) -> None:
+        """The all-reduce of this rank's seeded floats at the sizes of the
+        data-parallel step's two gradient buckets, an edge-sharded
+        aggregation and the small reductions: called eagerly twice, and on
+        the card replayed twice from a CUDA graph, bitwise the same sums
+        (what compiled against eager rests on)."""
+        import torch.distributed as dist
+
+        name = "world-nccl"
+        sizes = (262144, 1050000, 8192 * 64, 3) if self.dev.type == "cuda" else (4096, 3)
+        gen = torch.Generator().manual_seed(SEED + self.rank)
+        apart = []
+        for n in sizes:
+            x = torch.randn(n, generator=gen).to(self.dev)
+            sums = []
+            for _ in range(2):
+                y = x.clone()
+                dist.all_reduce(y)
+                sums.append(y)
+            if self.dev.type == "cuda":
+                buf = torch.empty_like(x)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    buf.copy_(x)
+                    dist.all_reduce(buf)
+                for _ in range(2):
+                    graph.replay()
+                    sums.append(buf.clone())
+                synchronize()
+                graph.reset()  # before the group goes: NCCL waits for the graphs that captured it
+            apart += [f"{n} floats, call {i}" for i, y in enumerate(sums[1:], 1) if not bitwise_equal(y, sums[0])]
+        replayed = " and replayed twice from a CUDA graph" if self.dev.type == "cuda" else ""
+        self.hold(name, not apart, f"all_reduce of {list(sizes)} floats, eager twice{replayed}: bitwise the first "
+                                   f"eager sum: {not apart} {apart[:6]}")
+
+    # -- leg 2: DistributedModelTrainer with ZeRO-1 --------------------------------
+    def dp_trainer(self, amp: bool, eager_steps: bool) -> dict:
+        """DistributedModelTrainer (ZeRO-1, Adam, clip 1.0, dropout 0) for one
+        epoch of WORLD_DP_STEPS groups of one minibatch a rank, in order;
+        each step's loss and parameters, Adam's state, the all-reduces, and
+        the launches against the forwards and steps that ran."""
+        from ptgnn_tpu_torch.parallel import DistributedModelTrainer, moment_elements
+
+        mode = "eager" if eager_steps else "compiled"
+        trainer = DistributedModelTrainer(
+            g2c_world_model(self.sizes), self.out_dir / f"dp-{amp}-{mode}.pkl.gz", zero1=True, max_num_epochs=1,
+            minibatch_size=self.sizes.minibatch_size, clip_gradient_norm=1.0, enable_amp=amp, device=self.dev,
+            seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=WORLD_LR),
+            target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
+        trainer.load_metadata_and_create_network(self.dp_train, parallelize=False)
+        module = trainer.neural_module
+        initial = params_of(module)
+        dp = trainer.data_parallel
+        if eager_steps:
+            eager_dp(dp)
+        steps, optimizers = [], []
+        real = dp.train_step
+
+        def recorded(mb, weight, *args, **kwargs):
+            out = real(mb, weight, *args, **kwargs)
+            steps.append({"loss": float(out[0]), "weight": weight, "params": params_of(module)})
+            return out
+
+        dp.train_step = recorded
+        trainer.register_training_start_hook(lambda model, module, optimizer: optimizers.append(optimizer))
+        forwards, backwards = Tally(), Tally()
+        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+                 module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
+        t0 = time.perf_counter()
+        (_, counts) = self.counts_of_path(lambda: trainer.train(
+            self.dp_train, self.valid, initialize_metadata=False, validate_on_start=False, patience=0,
+            parallelize=False, shuffle_training_data=False))
+        synchronize()
+        seconds = time.perf_counter() - t0
+        for hook in hooks:
+            hook.remove()
+        total = 2 * sum(p.numel() for p in module.parameters())
+        run = {"steps": steps, "initial": initial, "model": trainer._model, "adam": adam_state(optimizers[0]),
+               "moments": moment_elements(optimizers[0]), "total_moments": total, "counts": counts,
+               "forwards": forwards[0], "backwards": backwards[0], "seconds": seconds,
+               "allreduce": (dp.allreduce_calls, dp.allreduce_bytes)}
+        if not eager_steps:
+            dp.clear()
+        return run
+
+    def weighted_mean_steps(self, model, initial: dict, amp: bool) -> list:
+        """One card's steps on the weighted mean gradient sum_r w_r g_r /
+        sum_r w_r of each group's minibatches (every rank computes it: the
+        same work on the same data), clipped, the trainer's capturable Adam:
+        the parameters after each step. The mean is formed as DataParallel
+        forms it, sum_r grad(loss_r x w_r world / sum w) / world, so that
+        what differs is the order of the all-reduce's sum (in bf16 AMP the
+        scale enters the bf16 backward)."""
+        from ptgnn_tpu_torch.core.trainer import clip_by_global_norm_, make_capturable, module_loss
+        from ptgnn_tpu_torch.graph.structs import tree_to
+
+        module = model.build_neural_module(device=self.dev, seed=SEED)
+        module.load_state_dict(initial, strict=False)
+        optimizer = torch.optim.Adam(module.parameters(), lr=WORLD_LR)
+        make_capturable(optimizer, self.dev)
+        mbs = host_minibatches(model, self.dp_train, self.sizes)
+        out = []
+        for s in range(WORLD_DP_STEPS):
+            group = mbs[s * self.world:(s + 1) * self.world]
+            total = torch.full((), float(sum(w for _, w in group)), device=self.dev)
+            acc = {n: torch.zeros_like(p) for n, p in module.named_parameters()}
+            for mb, w in group:
+                module.zero_grad(set_to_none=True)
+                loss, _ = module_loss(module, tree_to(mb, self.dev), train=True, amp=amp)
+                (loss * (torch.full((), float(w), device=self.dev) * self.world / total)).backward()
+                for n, p in module.named_parameters():
+                    acc[n] += p.grad / self.world
+            for n, p in module.named_parameters():
+                p.grad = acc[n]
+            clip_by_global_norm_([p.grad for p in module.parameters()], 1.0)
+            optimizer.step()
+            out.append(params_of(module))
+        return out
+
+    def leg_dp(self) -> None:
+        from ptgnn_tpu_torch.parallel.dp import DDP_WARMUP_CALLS
+
+        name = "world-dp"
+        t_leg = time.perf_counter()
+        for amp in (False, True):
+            label = "bf16 AMP" if amp else "float32"
+            runs = {mode: self.dp_trainer(amp, mode == "eager") for mode in ("compiled", "eager")}
+            c, e = runs["compiled"], runs["eager"]
+            ok = len(c["steps"]) == len(e["steps"]) == WORLD_DP_STEPS
+            self.hold(name, ok, f"{label}: {len(c['steps'])} optimizer steps compiled and {len(e['steps'])} eager "
+                                f"(expected {WORLD_DP_STEPS}), weights {[s['weight'] for s in c['steps']]}")
+            if not ok:
+                continue
+            want = self.weighted_mean_steps(c["model"], c["initial"], amp)
+            first = worst_apart(c["steps"][0]["params"], want[0])
+            last = worst_apart(c["steps"][-1]["params"], want[-1])
+            self.hold(name, first[0] <= 1e-5,
+                      f"{label}: ZeRO-1 step 1 against one card's step on the weighted mean gradient of the "
+                      f"{self.world} minibatches: every parameter within {first[0]:.3e} of its max (limit 1e-5; "
+                      f"worst {first[1]}); after {WORLD_DP_STEPS} steps {last[0]:.3e} ({last[1]})")
+            apart = [f"step {i} {k}" for i, (a, b) in enumerate(zip(c["steps"], e["steps"]))
+                     for k in same_tensors(a["params"], b["params"])]
+            apart += same_tensors(c["adam"], e["adam"])
+            losses = [s["loss"] for s in c["steps"]], [s["loss"] for s in e["steps"]]
+            self.hold(name, not apart and losses[0] == losses[1],
+                      f"{label}: the trainer's compiled steps against eager at world {self.world}: losses "
+                      f"{losses[0]} / {losses[1]}, parameters after every step and both Adam moments "
+                      f"({len(c['adam'])} tensors) bitwise equal: {not apart} {apart[:4]}")
+            share = c["moments"] / c["total_moments"]
+            self.hold(name, 0.5 / self.world < share < 2.0 / self.world,
+                      f"{label}: ZeRO-1 holds {c['moments']} of the {c['total_moments']} moment elements on this "
+                      f"rank ({100 * share:.1f} %)")
+            executions = WORLD_DP_STEPS + (DDP_WARMUP_CALLS if self.dev.type == "cuda" else 0)
+            calls, nbytes = c["allreduce"]
+            self.readings[f"dp {label} all-reduce per execution"] = (calls / executions, nbytes / executions)
+            self.say(name, f"{label}: all-reduces per execution of the train step (of {executions}: "
+                           f"{WORLD_DP_STEPS} steps and the DDP warm-ups) {calls / executions:.2f} calls, "
+                           f"{nbytes / executions:.0f} bytes; epoch (3 steps + validation) {c['seconds']:.2f} s "
+                           f"compiled, {e['seconds']:.2f} s eager")
+            if self.dev.type == "cuda":
+                for mode, run in runs.items():
+                    expected = {k: PER_FORWARD[k] * run["forwards"]
+                                + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * run["backwards"] for k in run["counts"]}
+                    self.hold(name, run["counts"] == expected,
+                              f"{label} {mode}: this rank's launches {dict(run['counts'])} from {run['forwards']} "
+                              f"forwards and {run['backwards']} steps, the world-1 constants per minibatch")
+                    self.readings["launches"][f"dp {label} {mode}"] = dict(run["counts"])
+        # DataParallel's train step alone: compiled against eager, timed, NCCL's share
+        mbs = self.device_mbs[self.rank::self.world]
+        profiles = []
+        runs = {mode: dp_step_runs(self.model, mbs, self.dev, compiled=mode == "compiled",
+                                   timed=(TIMED_RUNS, TIMED_STEPS) if self.sizes.timed else None,
+                                   profiles=profiles if mode == "compiled" else None)
+                for mode in ("eager", "compiled")}
+        # the eager step again: whether the all-reduces repeat from run to run
+        again = dp_step_runs(self.model, mbs, self.dev, compiled=False, timed=None)
+        verdict = self.checked(name, lambda: held_to_eager("world DataParallel eager train step", again,
+                                                           runs["eager"])) or "beyond rtol 1e-6"
+        self.hold(name, verdict.startswith("bitwise"),
+                  f"DataParallel's eager train step run twice at world {self.world}, {COMPILED_STEPS} steps: {verdict}")
+        verdict = self.checked(name, lambda: held_to_eager("world DataParallel train step", runs["compiled"],
+                                                           runs["eager"])) or "beyond rtol 1e-6"
+        self.hold(name, verdict.startswith("bitwise"),
+                  f"DataParallel's train step (ZeRO-1 Adam, clip 1.0, dropout on, the weight and rate changing "
+                  f"every step) {COMPILED_STEPS} steps compiled against eager at world {self.world}: {verdict}")
+        if self.sizes.timed:
+            c = runs["compiled"]
+            share = nccl_share(profiles[0][0])
+            self.readings["dp ms/step"] = c["ms"]
+            self.readings["dp nccl"] = share
+            self.say(name, f"DataParallel train step ms/step (median of {TIMED_RUNS} runs of {TIMED_STEPS}) "
+                           f"compiled {c['ms']:.3f} {[round(t, 3) for t in c['times']]}, eager "
+                           f"{runs['eager']['ms']:.3f}; device busy {100 * c['busy']:.1f} %; a profiled run of "
+                           f"{PROFILED_STEPS} compiled steps: NCCL kernels {share['nccl_ms']:.3f} device ms, the rest "
+                           f"{share['other_ms']:.3f} ({100 * share['nccl_share']:.1f} % NCCL) on {self.card}")
+        self.say(name, f"leg total {time.perf_counter() - t_leg:.1f} s")
+
+    # -- leg 3: EdgeParallel -----------------------------------------------------------
+    def leg_edge(self) -> None:
+        from ptgnn_tpu_torch.graph.structs import tree_to
+        from ptgnn_tpu_torch.parallel import EdgeParallel
+
+        name = "world-edge"
+        t_leg = time.perf_counter()
+        single = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(single, 0.0)
+        sharded = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(sharded, 0.0)
+        ep = EdgeParallel(sharded)
+        host = self.minibatches[:EP_STEPS]
+        local = [tree_to(ep.shard_batch(mb), self.dev) for mb in host]
+        real = [int(mb["batch"].adjacency.mask.sum()) for mb in local]
+        held = held_steps(single, sharded, self.device_mbs[:EP_STEPS], local,
+                          lambda mb, opt, g: ep.train_step(mb, opt, generator=g)[0], EP_STEPS, lr=WORLD_SGD_LR)
+        sharded.gnn.edge_group = None
+        single_losses, losses, worst, where, bitwise, ms, counts = held
+        close = bool(np.allclose(losses, single_losses, rtol=1e-5, atol=0))
+        self.hold(name, worst <= 1e-5 and close,
+                  f"EdgeParallel, one batch's edges in {self.world} tile-aligned shards (this rank's {real} real "
+                  f"slots), {EP_STEPS} SGD steps (dropout 0) each from the single-device step's weights: losses "
+                  f"{losses} vs {single_losses} (rtol 1e-5), parameters within {worst:.3e} of each max (limit 1e-5; "
+                  f"worst {where}; bitwise {bitwise})")
+        self.readings["launches"]["edge steps"] = dict(counts)
+        self.compiled_against_eager(name, "edge", "EdgeParallel's train step", local, EdgeParallel)
+        self.say(name, f"leg total {time.perf_counter() - t_leg:.1f} s")
+
+    # -- leg 4: NodeParallel ---------------------------------------------------------------
+    def leg_node(self) -> None:
+        import torch.distributed as dist
+
+        from ptgnn_tpu_torch.core.trainer import module_loss
+        from ptgnn_tpu_torch.graph.structs import tree_to
+        from ptgnn_tpu_torch.parallel import NodeParallel, shard_batch_by_nodes, suggest_budgets
+        from ptgnn_tpu_torch.parallel.node_sharding import local_shard
+
+        name = "world-node"
+        t_leg = time.perf_counter()
+        module = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(module, 0.0)
+        host_mb = self.minibatches[0]
+        budgets = suggest_budgets([host_mb], self.world, reorder="bfs")
+        sharded, stats = shard_batch_by_nodes(host_mb, self.world, reorder="bfs", **budgets)
+        local_all = [tree_to(local_shard(sharded, s), self.dev)["batch"] for s in range(self.world)]
+        with torch.no_grad():
+            in_process = node_sharded_stack(module.gnn, local_all).detach().chunk(self.world)[self.rank]
+            module.gnn.node_group = dist.group.WORLD
+            out, _ = module.gnn._forward_node_sharded(local_all[self.rank], train=True, generator=None,
+                                                      return_all_states=False)
+            module.gnn.node_group = None
+        got = out.output_node_representations
+        d = got.shape[1]
+        self.hold(name, bitwise_equal(got, in_process),
+                  f"{self.world} shards (BFS reorder): this rank's final node states through the cross-card "
+                  f"exchange ({'NCCL' if self.dev.type == 'cuda' else 'gloo'} all_to_all) bitwise equal to the "
+                  f"in-process {self.world}-shard stack's on the same shards: {bitwise_equal(got, in_process)} "
+                  f"(max abs err {float((got - in_process).abs().max()):.3e})")
+        self.readings["node exchange"] = {
+            "boundary_rows": int(stats["boundary_nodes_total"]), "nodes": int(host_mb["batch"].num_nodes),
+            "rows_per_layer": int(stats["exchanged_rows_real"]), "bytes_per_layer": 4 * d * int(stats["exchanged_rows_real"]),
+            "padded_bytes_per_layer": 4 * d * int(stats["exchanged_rows_padded"])}
+        self.say(name, f"boundary rows {stats['boundary_nodes_total']} of {int(host_mb['batch'].num_nodes)} nodes; "
+                       f"a layer exchanges {stats['exchanged_rows_real']} rows = "
+                       f"{4 * d * stats['exchanged_rows_real']} float32 bytes "
+                       f"({4 * d * stats['exchanged_rows_padded']} as the padded all_to_all ships them)")
+
+        # gradients and steps against the unsharded ones
+        budgets = suggest_budgets(self.minibatches[:NP_STEPS], self.world)
+        single = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(single, 0.0)
+        shard_module = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(shard_module, 0.0)
+        npar = NodeParallel(shard_module, **budgets)
+        local = [tree_to(npar.shard_batch(mb), self.dev) for mb in self.minibatches[:NP_STEPS]]
+        npar.data_parallel.grad_step(local[0], 1.0, None)
+        synchronize()
+        single.zero_grad(set_to_none=True)
+        loss, _ = module_loss(single, self.device_mbs[0], train=True)
+        loss.backward()
+        grad_err = max((float((p.grad - q.grad).abs().max() / q.grad.abs().max().clamp_min(1e-30)), k)
+                       for (k, p), q in zip(shard_module.named_parameters(), single.parameters()))
+        npar.data_parallel.zero_grad()
+        single.zero_grad(set_to_none=True)
+        self.hold(name, grad_err[0] <= 1e-4,
+                  f"NodeParallel's gradients of one minibatch against the unsharded step's: within "
+                  f"{grad_err[0]:.3e} of each gradient's max (limit 1e-4; worst {grad_err[1]})")
+        held = held_steps(single, shard_module, self.device_mbs[:NP_STEPS], local,
+                          lambda mb, opt, g: npar.train_step(mb, opt, generator=g)[0], NP_STEPS, lr=WORLD_SGD_LR)
+        shard_module.gnn.node_group = None
+        single_losses, losses, worst, where, bitwise, ms, counts = held
+        close = bool(np.allclose(losses, single_losses, rtol=1e-5, atol=0))
+        self.hold(name, worst <= 1e-5 and close,
+                  f"NodeParallel ({self.world} shards), {NP_STEPS} SGD steps (dropout 0) each from the "
+                  f"single-device step's weights: losses {losses} vs {single_losses} (rtol 1e-5), parameters "
+                  f"within {worst:.3e} of each max (limit 1e-5; worst {where}; bitwise {bitwise})")
+        self.readings["launches"]["node steps"] = dict(counts)
+        self.compiled_against_eager(name, "node", "NodeParallel's train step", local,
+                                    lambda m: NodeParallel(m, **budgets))
+        # PPI node-sharded in bf16 AMP (K5 inside the cross-card graph) and float32
+        ppi = self.checked(name, lambda: ppi_np_steps(self.ppi_model, self.ppi_minibatches, self.dev, self.card,
+                                                      shards=self.world, within=lambda fn: fn()))
+        if ppi is not None:
+            self.hold(name, True, f"PPI node-sharded over {self.world} ranks against the unsharded steps (bf16 "
+                                  f"AMP and float32; ppi_np_steps' limits); launches {dict(ppi[0])}")
+            self.readings["launches"]["ppi node steps"] = dict(ppi[0])
+        self.say(name, f"leg total {time.perf_counter() - t_leg:.1f} s")
+
+    # -- leg 5: the hybrid, 2 data x 2 node ------------------------------------------------
+    def leg_hybrid(self) -> None:
+        from ptgnn_tpu_torch.core.trainer import module_loss
+        from ptgnn_tpu_torch.graph.structs import tree_to
+        from ptgnn_tpu_torch.parallel import NodeParallel, NodeShardedModelTrainer, moment_elements, suggest_budgets
+        from ptgnn_tpu_torch.parallel.dp import zero1_optimizer
+        from ptgnn_tpu_torch.parallel.node_sharded_trainer import node_data_groups
+
+        name = "world-hybrid"
+        t_leg = time.perf_counter()
+        node_shards = 2
+        if self.world % node_shards:
+            self.say(name, f"needs an even world: none at world {self.world}")
+            return
+        data_size = self.world // node_shards
+        node_group, data_group = node_data_groups(node_shards)  # every rank makes every group, in one order
+        d = self.rank // node_shards
+        host = self.minibatches[:data_size]
+        weights = [float(mb["batch"].num_graphs) for mb in host]
+        budgets = suggest_budgets(host, node_shards)
+        state = self.model.build_neural_module(device=self.dev, seed=SEED).state_dict()
+
+        def fresh():
+            module = self.model.build_neural_module(device=self.dev, seed=SEED)
+            set_dropout(module, 0.0)
+            npar = NodeParallel(module, node_group=node_group, data_group=data_group, **budgets)
+            return module, npar, tree_to(npar.shard_batch(host[d]), self.dev)
+
+        module, npar, local = fresh()
+        optimizer = torch.optim.SGD(module.parameters(), lr=WORLD_SGD_LR)
+        loss, _ = npar.train_step(local, optimizer, weight=weights[d], generator=None)
+        got = params_of(module)
+        module.gnn.node_group = None
+        single = self.model.build_neural_module(device=self.dev, seed=SEED)
+        set_dropout(single, 0.0)
+        acc = {n: torch.zeros_like(p) for n, p in single.named_parameters()}
+        want_loss = 0.0
+        for w, mb in zip(weights, self.device_mbs[:data_size]):
+            single.zero_grad(set_to_none=True)
+            l, _ = module_loss(single, mb, train=True)
+            l.backward()
+            want_loss += w * float(l) / sum(weights)
+            for n, p in single.named_parameters():
+                acc[n] += w * p.grad
+        err = max((float((got[n] - state[n] + WORLD_SGD_LR * acc[n] / sum(weights)).abs().max()
+                         / (WORLD_SGD_LR * acc[n] / sum(weights)).abs().max().clamp_min(1e-30)), n) for n in acc)
+        self.hold(name, err[0] <= 1e-4 and abs(float(loss) - want_loss) <= 1e-5 * abs(want_loss),
+                  f"{data_size} data x {node_shards} node groups: one SGD step against one card's unsharded step on "
+                  f"the weighted mean gradient of the {data_size} data groups' minibatches (weights {weights}): "
+                  f"each update within {err[0]:.3e} of its max (limit 1e-4; worst {err[1]}); loss {float(loss):.7f} "
+                  f"vs {want_loss:.7f} (rtol 1e-5)")
+
+        module, npar, local = fresh()
+        optimizer = zero1_optimizer(module.parameters(), lambda p: torch.optim.Adam(p, lr=WORLD_LR), group=data_group)
+        npar.train_step(local, optimizer, generator=None)
+        module.gnn.node_group = None
+        total = 2 * sum(p.numel() for p in module.parameters())
+        share = moment_elements(optimizer) / total
+        self.hold(name, 0.5 / data_size < share < 1.5 / data_size,
+                  f"ZeRO-1 over the data group: this rank holds {moment_elements(optimizer)} of {total} moment "
+                  f"elements ({100 * share:.1f} %)")
+        self.compiled_against_eager(name, "hybrid", "the hybrid train step", [local],
+                                    lambda m: NodeParallel(m, node_group=node_group, data_group=data_group, **budgets))
+
+        # NodeShardedModelTrainer for an epoch, compiled and eager, over the
+        # data-parallel trainers' graphs (a group of data_size minibatches a step)
+        train = self.dp_train
+        runs = {}
+        for mode in ("compiled", "eager"):
+            trainer = NodeShardedModelTrainer(
+                g2c_world_model(self.sizes, dropout_rate=0.1), self.out_dir / f"hybrid-{mode}.pkl.gz",
+                node_shards=node_shards, max_num_epochs=1, minibatch_size=self.sizes.minibatch_size,
+                device=self.dev, seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=WORLD_LR),
+                clip_gradient_norm=1.0, target_validation_metric="Accuracy",
+                target_validation_metric_higher_is_better=True)
+            trainer.load_metadata_and_create_network(train, parallelize=False)
+            if mode == "eager":
+                eager_dp(trainer.data_parallel)
+            losses = []
+            real = trainer.data_parallel.train_step
+
+            def recorded(*args, _real=real, _losses=losses, **kwargs):
+                out = _real(*args, **kwargs)
+                _losses.append(float(out[0]))
+                return out
+
+            trainer.data_parallel.train_step = recorded
+            t0 = time.perf_counter()
+            (_, counts) = self.counts_of_path(lambda: trainer.train(
+                train, self.valid, initialize_metadata=False, patience=0, parallelize=False))
+            synchronize()
+            runs[mode] = {"losses": losses, "params": params_of(trainer.neural_module),
+                          "seconds": time.perf_counter() - t0, "budgets": trainer._budgets, "counts": counts}
+            trainer.neural_module.gnn.node_group = None
+        c, e = runs["compiled"], runs["eager"]
+        apart = same_tensors(c["params"], e["params"])
+        self.hold(name, not apart and c["losses"] == e["losses"] and len(c["losses"]) >= 2
+                  and all(math.isfinite(x) and x > 0 for x in c["losses"]),
+                  f"NodeShardedModelTrainer ({data_size} x {node_shards}, ZeRO-1 over the data group, dropout on) "
+                  f"for an epoch over {len(train)} graphs with validation, compiled against eager: losses "
+                  f"{c['losses']} / {e['losses']}, parameters bitwise equal: {not apart} {apart[:4]}; "
+                  f"{c['seconds']:.2f} s compiled, {e['seconds']:.2f} s eager; budgets {c['budgets']}")
+        self.readings["launches"]["hybrid trainer"] = dict(c["counts"])
+        self.say(name, f"leg total {time.perf_counter() - t_leg:.1f} s")
+
+    # -- leg 6: DistributedCheckpointer with ZeRO-1 --------------------------------------------
+    def leg_checkpoint(self) -> None:
+        name = "world-checkpoint"
+        t_leg = time.perf_counter()
+        r = checkpoint_round_trip(self.model, self.device_mbs, self.dev, self.tmp / "dcp", self.rank, self.world)
+        self.hold(name, r["ok"],
+                  f"ZeRO-1 at world {self.world}: async save after step 3 while steps 4-5 ran; restored parameters "
+                  f"bitwise {r['same_params']}, this rank's Adam moments and steps bitwise {r['same_moments']} "
+                  f"({r['moment_tensors']} tensors), the resumed step 4 bitwise the uninterrupted one "
+                  f"{r['same_step']}; steps kept {r['kept']}, sidecars {r['sidecars']}")
+        self.readings["checkpoint s"] = {k: r[k] for k in ("stage_s", "commit_s", "restore_s")}
+        self.say(name, f"save returned in {r['stage_s']:.3f} s, commit waited {r['commit_s']:.3f} s more, restore "
+                       f"{r['restore_s']:.3f} s; a step is {r['bytes']} bytes in {r['files']} files; leg total "
+                       f"{time.perf_counter() - t_leg:.1f} s")
+
+    # -- leg 8: the epoch at world 4 -----------------------------------------------------------------
+    def leg_epoch(self) -> None:
+        name = "world-epoch"
+        e = world_epoch(self.dev, f"world-epoch-r{self.rank}")
+        self.readings["epoch"] = e
+        self.hold(name, e["steps"] > 0 and all(math.isfinite(x) for x in e["losses"]),
+                  f"DistributedModelTrainer epoch (ZeRO-1, compiled, the tensorize forked on the card) over "
+                  f"{e['graphs']} graphs: {e['steps']} steps in {e['seconds']:.3f} s; this rank's host tensorize of "
+                  f"the {e['graphs']} graphs in one thread {e['tensorize_s']:.3f} s")
+
+    def run(self) -> dict:
+        self.setup()
+        for leg in (self.leg_nccl, self.leg_dp, self.leg_edge, self.leg_node, self.leg_hybrid, self.leg_checkpoint, self.leg_epoch):
+            self.barrier()
+            leg()
+        self.barrier()
+        return {"rank": self.rank, "device": str(self.dev), "failures": self.failures, "held": self.held,
+                "readings": self.readings}
+
+
+def world_rank(rank: int, world: int, tmp: str, device: str = "cuda", extra: str | None = None) -> None:
+    """One rank of the multi-card path (a spawned process): joins the group
+    through ``initialize_multi_host`` (NCCL on its card; gloo where
+    ``device`` is "cpu"), runs the legs (``WorldRank``) and ``extra``
+    ("module:function", called as ``function(payload, rank, world, tmp)`` on
+    ``tmp/extra.pt``: a test's own case in the same world), and writes its
+    results to ``tmp/rank{rank}.pt``, its traceback to ``tmp/error{rank}.txt``."""
+    import importlib
+    import traceback
+
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.parallel import initialize_multi_host
+
+    global PHASE_SINK
+    tmp = Path(tmp)
+    try:
+        with open(tmp / f"rank{rank}.log", "w") as log:
+            if device == "cpu":
+                torch.set_num_threads(1)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            initialize_multi_host("nccl" if device == "cuda" else "gloo", f"file://{tmp}/store", world, rank)
+            try:
+                dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
+                if device == "cuda" and dev.index != rank:
+                    raise RuntimeError(f"rank {rank} was bound to {dev}")
+                legs = WorldRank(rank, world, dev, tmp, log)
+                PHASE_SINK = legs.say
+                out = legs.run()
+                if extra is not None:
+                    module_name, fn = extra.split(":")
+                    payload = torch.load(tmp / "extra.pt", weights_only=False)
+                    out["extra"] = getattr(importlib.import_module(module_name), fn)(payload, rank, world, tmp)
+                    dist.barrier()
+            finally:
+                PHASE_SINK = None
+                legs = None
+                legs_left = free_compiled_steps()
+                log.write(f"the legs ended; {legs_left} compiled steps still held graphs, freed\n")
+                log.flush()
+                dist.destroy_process_group()
+                log.write("the process group is destroyed\n")
+        torch.save(out, tmp / f"rank{rank}.pt")
+    except BaseException:
+        (tmp / f"error{rank}.txt").write_text(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def free_compiled_steps() -> int:
+    """Free the graphs of every compiled step still alive in this process,
+    after a collection; returns how many held any. NCCL's group
+    destruction waits for every CUDA graph that captured one of its
+    collectives."""
+    from ptgnn_tpu_torch.core.compiled_step import CompiledStep
+
+    gc.collect()
+    # type(), not isinstance(), which warns on deprecated module objects
+    held = [obj for obj in gc.get_objects() if type(obj) is CompiledStep and len(obj)]
+    for step in held:
+        step.clear()
+    synchronize()
+    return len(held)
+
+
+def launch_world(world: int, tmp: Path, device: str = "cuda", extra: str | None = None) -> list:
+    """``world`` ranks of ``world_rank`` (spawned, a ``file://`` rendezvous
+    in ``tmp``), joined with a timeout; what is left is killed. Returns each
+    rank's results; raises with the ranks' tracebacks where one failed."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=world_rank, args=(r, world, str(tmp), device, extra)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + WORLD_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = [(tmp / f"error{r}.txt").read_text() for r in range(world) if (tmp / f"error{r}.txt").exists()]
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise RuntimeError(f"ranks {hung} still running after {WORLD_JOIN_S} s were killed; exit codes {codes}\n"
+                           + "\n".join(errors))
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def kernels_on_every_card(host_adj, cards: int) -> list:
+    """Leg 1: K1-K5 on every card, each called from a thread whose current
+    device is card 0 (the wrappers enter their tensors' card): K1-K4 at 64
+    columns on the benchmark batch's layout and K5 at PPI's bf16 shape
+    (122,880 slots in tiles of 128 of 3 types, 256 x 256), each bitwise
+    against its plain version (K1's on the CPU; K5's on integer data, whose
+    products and sums float32 holds exactly) and against card 0's result.
+    Returns a line a kernel and card; raises on a failed check."""
+    import threading
+
+    from ptgnn_tpu_torch.graph.structs import tree_to
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    results, errors = [], []
+    cpu = torch.device("cpu")
+
+    def check(kind, card, got, want, first):
+        same = all(bitwise_equal(a, b) for a, b in zip(got, want))
+        across = first is None or all(bitwise_equal(a.cpu(), b) for a, b in zip(got, first))
+        if not (same and across and torch.cuda.current_device() == 0):
+            raise RuntimeError(f"{kind} on cuda:{card}: plain {same}, card 0 {across}, current device "
+                               f"{torch.cuda.current_device()}")
+
+    def run():
+        try:
+            torch.cuda.set_device(0)
+            first = {}
+            for card in range(cards):
+                dev = torch.device("cuda", card)
+                adj = tree_to(host_adj, dev)
+                gen = torch.Generator(device=dev).manual_seed(SEED)  # the same inputs on every card
+                before = launch_counts()
+                for kind in ("segment_sum", "segment_extremum", "segment_extremum_argmax", "broadcast_to_edges"):
+                    k = layout_kernel(kind, adj, 64, dev, gen)
+                    x = k.make()
+                    got = k.kernel(x)
+                    got = got if isinstance(got, tuple) else (got,)
+                    if kind == "segment_sum":  # the CPU's plain version adds in the kernel's order
+                        plain = sk.segment_sum_plain(x.cpu(), tree_to(sk.sum_plan_from_adjacency(adj), cpu),
+                                                     adj.agg_counts.numel())
+                        got, want = tuple(t.cpu() for t in got), (plain,)
+                    else:
+                        want = k.plain(x)
+                        want = want if isinstance(want, tuple) else (want,)
+                        if kind == "segment_extremum_argmax":  # values apart from the sign of zero
+                            got, want = (got[0] + 0.0, got[1]), (want[0] + 0.0, want[1])
+                    check(kind, card, got, want, first.get(kind))
+                    first.setdefault(kind, tuple(t.cpu() for t in got))
+                tiles = 960
+                tt = torch.randint(0, 3, (tiles,), device=dev, generator=gen, dtype=torch.int32)
+                x = torch.randint(-2, 3, (tiles * 128, 256), device=dev, generator=gen).to(torch.bfloat16)
+                w = torch.randint(-2, 3, (3, 256, 256), device=dev, generator=gen).to(torch.bfloat16)
+                got = (ttl.typed_matmul_kernel(x, w, tt, 128),)
+                check("typed_matmul", card, got, (ttl.typed_matmul_plain(x, w, tt, 128),), first.get("typed_matmul"))
+                first.setdefault("typed_matmul", tuple(t.cpu() for t in got))
+                torch.cuda.synchronize(dev)
+                launched = delta(launch_counts(), before)
+                if min(launched.values()) < 1:
+                    raise RuntimeError(f"cuda:{card}: a kernel did not launch: {launched}")
+                results.append(f"cuda:{card} {dict(launched)}")
+        except BaseException as failure:  # noqa: BLE001 - raised in the caller
+            errors.append(failure)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(600)
+    if errors or thread.is_alive():
+        raise RuntimeError(f"kernels on every card: {errors or 'the thread hung'}")
+    return results
+
+
+def world_cli(world: int, card: str) -> list:
+    """Leg 7: ``traindistributed --world-size N`` and ``--world-size N
+    --node-shards 2`` for one epoch each on synthetic folds (phase 20's
+    sizes), each a process of its own with a time limit: exit 0, a test
+    accuracy and a finite train loss in its log. Returns the lines."""
+    import os
+    import re
+
+    from ptgnn_tpu_torch.utils.io import write_jsonl_gz
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
+
+    lines = []
+    for label, extra in (("dp", []), ("np", ["--node-shards", "2"])):
+        root = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"world-cli-{label}"
+        shutil.rmtree(root, ignore_errors=True)
+        folds = []
+        for i, (fold, count) in enumerate((("train", 12), ("valid", 4), ("test", 4))):
+            (root / fold).mkdir(parents=True)
+            write_jsonl_gz(root / fold / "part0.jsonl.gz",
+                           synthetic_typilus_graphs(count, seed=SEED + 30 + i, mean_nodes=1500, max_nodes=4000))
+            folds.append(str(root / fold))
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+        done = subprocess.run(
+            [sys.executable, "-m", "ptgnn_tpu_torch.implementations.typilus.traindistributed", *folds,
+             str(root / "m.pkl.gz"), "--max-num-epochs", "1", "--max-nodes", "8192", "--world-size", str(world),
+             *extra], cwd=root, env=env, capture_output=True, text=True, timeout=180)
+        log = (root / "logs" / "full.log").read_text() if (root / "logs" / "full.log").exists() else ""
+        losses = [float(m) for m in re.findall(r"Train Loss ([-+0-9.eE]+|nan|inf)", log)]
+        accuracy = [ln for ln in done.stdout.splitlines() if ln.startswith("Test accuracy:")]
+        if done.returncode != 0 or not accuracy or not losses or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"traindistributed --world-size {world} {' '.join(extra)}: exit {done.returncode}, "
+                               f"{accuracy}, train losses {losses}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+        lines.append(f"traindistributed --world-size {world} {' '.join(extra)}: exit 0 in "
+                     f"{time.perf_counter() - t0:.1f} s, train loss {losses}, '{accuracy[0]}' on {card}")
+    return lines
+
+
+def world_main(world: int) -> None:
+    """``python3 chip_smoke.py --world 4``: the multi-card path on ``world``
+    cards of one host. Leg 1 (K1-K5 on every card from a thread on card 0)
+    and the world-1 references (phase 29's compiled step, phase 30's
+    DistributedModelTrainer epoch) in this process; legs 2-6 and the epoch
+    in ``world`` spawned ranks over NCCL (``WorldRank``); leg 7 (the
+    distributed CLI at world ``world``, data-parallel and 2 node shards);
+    then the readings. Raises with fewer cards; never falls back."""
+    import tempfile
+
+    from ptgnn_tpu_torch import native
+    from ptgnn_tpu_torch.ops import cuda_build
+
+    t_start = time.perf_counter()
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"--world {world} needs {world} cards; this machine has {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    phase("device", f"{torch.cuda.device_count()} x {kind}; nvidia-smi: {card_lines()}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    build_s = cuda_build.build_all()
+    native_s = native.build()
+    phase("build", f"{build_s:.2f} s for {sorted(cuda_build.BUILD_LOG) or 'nothing (cached)'}; native assembler "
+          f"{native_s:.2f} s; into {cuda_build.BUILD_DIR.parent}")
+
+    # ---- leg 1: the kernels on every card ----------------------------------
+    model, _, minibatches, batches = build_bench(dev)
+    for line in kernels_on_every_card(minibatches[0]["batch"].adjacency, world):
+        phase("world-kernels", f"K1-K5 from a thread whose current device is cuda:0, bitwise against their plain "
+              f"versions and card 0's results: {line}")
+
+    # ---- world-1 references ---------------------------------------------------
+    step_ms = step_runs(model, [g2c_minibatch(b) for b in batches], dev, amp=False, compiled=True)["ms"]
+    phase("world-1", f"phase 29's compiled Graph2Class train step at world 1: {step_ms:.3f} ms/step on {card}")
+    one = world_one(lambda: world_epoch(dev, "world-1-epoch"))
+    phase("world-1", f"phase 30's DistributedModelTrainer epoch at world 1 (ZeRO-1, compiled, forked tensorize) over "
+          f"{one['graphs']} graphs: {one['steps']} steps in {one['seconds']:.3f} s; host tensorize "
+          f"{one['tensorize_s']:.3f} s in one thread")
+    del model, minibatches, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- legs 2-6 and the epoch on `world` ranks ----------------------------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_world_"))
+    logs = Path(__file__).resolve().parent / "build" / "chip_smoke" / "world"
+    t0 = time.perf_counter()
+    try:
+        ranks = launch_world(world, tmp)
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+        logs.mkdir(parents=True, exist_ok=True)
+        for log in tmp.glob("*.log"):
+            shutil.copy(log, logs / log.name)
+        for err in tmp.glob("error*.txt"):
+            shutil.copy(err, logs / err.name)
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("world", f"{world} ranks ran legs 2-6 and the epoch in {time.perf_counter() - t0:.1f} s (rank logs under "
+          f"{logs})")
+    failures = [f"rank {r['rank']}: {f}" for r in ranks for f in r["failures"]]
+
+    # ---- leg 7: the distributed CLI -------------------------------------------------
+    try:
+        for line in world_cli(world, card):
+            phase("world-cli", line)
+    except (RuntimeError, subprocess.TimeoutExpired) as failure:
+        failures.append(f"leg 7: {failure}")
+
+    # ---- leg 8: readings ---------------------------------------------------------------
+    r0 = ranks[0]["readings"]
+    readings = {"card": card, "cards": world, "world1_step_ms": step_ms, "world1_epoch": one,
+                "ranks": [r["readings"] for r in ranks]}
+    ms = {leg: r0.get(f"{leg} ms/step") for leg in ("dp", "edge", "node", "hybrid")}
+    phase("world-readings", f"ms per step at world {world} (rank 0, compiled, median of the timed runs): {ms} "
+          f"against the world-1 compiled step's {step_ms:.3f}")
+    epochs = [r["readings"]["epoch"] for r in ranks]
+    phase("world-readings", f"DistributedModelTrainer epoch over {one['graphs']} graphs: world {world} "
+          f"{[round(e['seconds'], 3) for e in epochs]} s a rank ({epochs[0]['steps']} steps) against world 1 "
+          f"{one['seconds']:.3f} s ({one['steps']} steps); each rank's host tensorize "
+          f"{[round(e['tensorize_s'], 3) for e in epochs]} s (world 1: {one['tensorize_s']:.3f} s)")
+    if "dp nccl" in r0:
+        phase("world-readings", f"NCCL's share of a profiled run of compiled DataParallel steps on rank 0: {r0['dp nccl']}")
+    for r in ranks:
+        phase("world-readings", f"rank {r['rank']} launches of K1-K5 by path {r['readings']['launches']}")
+    if failures:
+        for f in failures:
+            print(f"FAILED {f}", flush=True)
+        raise RuntimeError(f"{len(failures)} gates failed at world {world}")
+    phase("world", f"every gate held on every rank ({sum(len(r['held']) for r in ranks)} gate lines); total "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"world": readings}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5156,6 +6294,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--broadcast-ab"]:
         broadcast_ab(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--world"]:
+        world_main(int(sys.argv[2]))
         return
     from ptgnn_tpu_torch import native
     from ptgnn_tpu_torch.graph.structs import tree_to
@@ -5488,6 +6629,10 @@ def main() -> None:
     torch.cuda.synchronize()
     sanitizer_phase()
 
+    phase("world", "this run drives one card; the multi-card path (DistributedModelTrainer with ZeRO-1, the "
+          "edge-, node- and 2 x 2 hybrid-sharded steps and trainer, checkpoints and the distributed CLI at world 4 "
+          "over NCCL, compiled against eager) runs under `python3 chip_smoke.py --world 4` on four cards of one "
+          "host")
     phase("total", f"{time.perf_counter() - t_start:.1f} s from the start, the kernel builds included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -57,6 +57,7 @@ one Python dispatch per kernel.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -245,6 +246,8 @@ class CompiledStep:
     def clear(self) -> None:
         """Free every signature's graph and its memory pool."""
         entries, self._entries = list(self._entries.values()), {}
+        if entries and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # no replay in flight
         for entry in entries:
             entry.graph.reset()
         del entries
@@ -271,6 +274,12 @@ class CompiledStep:
         counters = REPLAYED_COUNTERS + self._counters
         before = [_counter_value(owner, name) for owner, name in counters]
         stream.wait_stream(torch.cuda.current_stream(self.device))
+        # No collection during the capture: garbage that holds another
+        # graph would free it there, which the CUDA runtime does not permit
+        # while a stream captures, and the capture would be invalidated.
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin()
@@ -281,6 +290,8 @@ class CompiledStep:
                     raise
                 graph.capture_end()
         finally:
+            if collecting:
+                gc.enable()
             after = [_counter_value(owner, name) for owner, name in counters]
             for (owner, name), value in zip(counters, before):
                 _counter_set(owner, name, value)

@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -528,10 +530,12 @@ bool bf16_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+constexpr int kMaxDevices = 64;
+
 int sm_count() {
-  static int counts[64] = {};
+  static int counts[kMaxDevices] = {};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
   if (counts[dev] == 0 && cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 132;
   return counts[dev];
@@ -541,10 +545,21 @@ template <int BN>
 int launch_bf16(const void* x, const void* wt, const int* tile_types, void* y, long long num_tiles, int tile,
                 int din, int m, int num_types, cudaStream_t stream) {
   constexpr size_t smem = bf16_smem_bytes<BN>();
-  // Opt in once per instantiation (the first call comes before any capture).
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      typed_matmul_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (configured != cudaSuccess) return static_cast<int>(configured);
+  // The opt-in holds for the current device only: once per instantiation
+  // and device, at the first launch on each card (before any capture).
+  // Two threads that race on a card both set the same attribute.
+  static std::atomic<int> configured[kMaxDevices];  // 0: not yet, else the opt-in's error + 1
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  int state = configured[dev].load();
+  if (state == 0) {
+    state = 1 + static_cast<int>(cudaFuncSetAttribute(typed_matmul_bf16_kernel<BN>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                      static_cast<int>(smem)));
+    configured[dev].store(state);
+  }
+  if (state != 1) return state - 1;
   CUtensorMap xmap, wmap, ymap;
   if (!bf16_map(&xmap, x, din, tile, num_tiles, tile > 64 ? kRows : 64) ||
       !bf16_map(&wmap, wt, din, m, num_types, BN) || !bf16_map(&ymap, y, m, tile, num_tiles, 64))

@@ -9,7 +9,8 @@ as the oracle (``graph/batching.assemble_layout_arrays(...,
 native_assembler=False)``).
 
 The library is built at first use with the host's ``g++`` into
-``build/native/`` beside the package; its file name carries a hash of the
+``_build/native/`` inside the package (beside ``ops/cuda_build.py``'s
+``_build/kernels/``); its file name carries a hash of the
 source, the flags and ``g++ --version``, so a changed source or compiler
 rebuilds and an unchanged one is reused. The flags name no host CPU
 (no ``-march=native``): a checkout shared by two hosts never loads the other
@@ -33,7 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "batch_assembler.cc"
-BUILD_DIR = SOURCE.parents[2] / "build" / "native"
+BUILD_DIR = SOURCE.parents[1] / "_build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _LOCK = threading.Lock()

@@ -3,7 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``. Builds happen
 at first use, all sources at once (one ``nvcc`` process each, started
-together), into ``build/kernels/`` beside the package; a library's file name
+together), into ``_build/kernels/`` inside the package (beside its
+sources, as the JAX package builds beside ``ptgnn_tpu/native/``, so two
+installs never share a build); a library's file name
 carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
 flags, so a changed source or header rebuilds and an unchanged one is
 reused. Nothing is built or loaded at import.
@@ -22,7 +24,7 @@ from typing import Dict, Optional
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+BUILD_DIR = _PKG_DIR / "_build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

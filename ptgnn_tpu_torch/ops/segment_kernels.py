@@ -127,6 +127,11 @@ def _check_plan(plan: AggregationPlan, device: torch.device) -> None:
         raise ValueError("the plan's row index does not match its slots and rows")
 
 
+# Every launch runs under its tensors' device guard (``torch.cuda.device``):
+# the CUDA runtime launches on the calling thread's current device, and the
+# kernels read that device's SM count and keep per-device state, so a rank
+# or thread whose current device is another card still launches on the
+# tensors' own.
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -157,22 +162,24 @@ def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> to
     if table.device.type == "cpu":
         return broadcast_plain(table, plan)
     _require_cuda(table, "planned_broadcast_to_edges")
-    _check_plan(plan, table.device)
-    if table.ndim != 2 or 16 % table.element_size() or table.data_ptr() % table.element_size():
-        raise ValueError("the broadcast table must be an [N, D] tensor of aligned 1, 2, 4, 8 or 16-byte elements")
-    e_pad = plan.local_rows.shape[0]
-    if max(e_pad, table.shape[0], plan.counts.numel()) >= 2**31:
-        raise ValueError("the broadcast kernel counts slots and rows in 32 bits")
-    table = table.contiguous()
-    d = table.shape[1]
-    out = torch.empty((e_pad, d), dtype=table.dtype, device=table.device)
-    fn = cuda_build.kernel_function("broadcast")
-    err = fn(
-        table.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
-        out.data_ptr(), e_pad, d * table.element_size(), plan.tile, plan.counts.shape[1],
-        table.shape[0], _stream(table.device),
-    )
-    cuda_build.check("broadcast", err)
+    with torch.cuda.device(table.device):
+        _check_plan(plan, table.device)
+        if table.ndim != 2 or 16 % table.element_size() or table.data_ptr() % table.element_size():
+            raise ValueError("the broadcast table must be an [N, D] tensor of aligned 1, 2, 4, 8 or 16-byte "
+                             "elements")
+        e_pad = plan.local_rows.shape[0]
+        if max(e_pad, table.shape[0], plan.counts.numel()) >= 2**31:
+            raise ValueError("the broadcast kernel counts slots and rows in 32 bits")
+        table = table.contiguous()
+        d = table.shape[1]
+        out = torch.empty((e_pad, d), dtype=table.dtype, device=table.device)
+        fn = cuda_build.kernel_function("broadcast")
+        err = fn(
+            table.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+            out.data_ptr(), e_pad, d * table.element_size(), plan.tile, plan.counts.shape[1],
+            table.shape[0], _stream(table.device),
+        )
+        cuda_build.check("broadcast", err)
     planned_broadcast_to_edges.launches += 1
     key = (d * table.element_size(), str(table.dtype).removeprefix("torch."))
     by_width = planned_broadcast_to_edges.launches_by_width
@@ -217,7 +224,8 @@ _RETIRED: List[torch.Tensor] = []
 
 def _scratch(device: torch.device, name: str, size: int, dtype: torch.dtype) -> torch.Tensor:
     """A per-device buffer of at least ``size`` elements, shared by the
-    launches on the device's stream. Grown, never shrunk; a replaced buffer
+    launches on the device's stream (allocated under the launch's device
+    guard, on ``device`` itself). Grown, never shrunk; a replaced buffer
     stays alive, since a captured CUDA graph may still point at it. New
     buffers are zero (the kernels leave their counters at 0)."""
     key = (device.index, name)
@@ -271,19 +279,20 @@ def planned_segment_extremum(
     if data.device.type == "cpu":
         return segment_extremum_plain(data, plan, num_nodes, is_max)
     _require_cuda(data, "planned_segment_extremum")
-    plan, out = _row_reduce_setup(data, plan, num_nodes, "extremum")
-    if out.numel() == 0:
-        return out
-    partials, counters = _row_reduce_scratch(data, num_nodes)
-    fn = cuda_build.kernel_function("extremum")
-    err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
-        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
-        plan.counts.data_ptr(), out.data_ptr(), partials.data_ptr(), partials.numel(),
-        counters.data_ptr(), counters.numel(), num_nodes, data.shape[0], plan.tile,
-        plan.counts.shape[1], data.shape[1], ROW_CHUNK, _stream(data.device),
-    )
-    cuda_build.check("extremum", err)
+    with torch.cuda.device(data.device):
+        plan, out = _row_reduce_setup(data, plan, num_nodes, "extremum")
+        if out.numel() == 0:
+            return out
+        partials, counters = _row_reduce_scratch(data, num_nodes)
+        fn = cuda_build.kernel_function("extremum")
+        err = fn(
+            data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
+            plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+            plan.counts.data_ptr(), out.data_ptr(), partials.data_ptr(), partials.numel(),
+            counters.data_ptr(), counters.numel(), num_nodes, data.shape[0], plan.tile,
+            plan.counts.shape[1], data.shape[1], ROW_CHUNK, _stream(data.device),
+        )
+        cuda_build.check("extremum", err)
     planned_segment_extremum.launches += 1
     return out
 
@@ -337,25 +346,26 @@ def planned_segment_extremum_with_argmax(
     if data.device.type == "cpu":
         return segment_extremum_argmax_plain(data, plan, num_nodes, is_max)
     _require_cuda(data, "planned_segment_extremum_with_argmax")
-    plan, vals = _row_reduce_setup(data, plan, num_nodes, "extremum")
-    if data.shape[0] >= 2**31:
-        raise ValueError("slot ids must fit in int32")
-    args = torch.empty(vals.shape, dtype=torch.int32, device=data.device)
-    if vals.numel() == 0:
-        return vals, args
-    partials, counters = _row_reduce_scratch(data, num_nodes)
-    # The int32 slot partials beside the float32 ones, of the same capacity.
-    partial_slots = _scratch(data.device, "partial_slots", partials.numel(), torch.int32)
-    fn = cuda_build.kernel_function("extremum_argmax")
-    err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
-        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
-        plan.counts.data_ptr(), vals.data_ptr(), args.data_ptr(), partials.data_ptr(),
-        partial_slots.data_ptr(), partials.numel(), counters.data_ptr(),
-        counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1], data.shape[1],
-        ROW_CHUNK, _stream(data.device),
-    )
-    cuda_build.check("extremum_argmax", err)
+    with torch.cuda.device(data.device):
+        plan, vals = _row_reduce_setup(data, plan, num_nodes, "extremum")
+        if data.shape[0] >= 2**31:
+            raise ValueError("slot ids must fit in int32")
+        args = torch.empty(vals.shape, dtype=torch.int32, device=data.device)
+        if vals.numel() == 0:
+            return vals, args
+        partials, counters = _row_reduce_scratch(data, num_nodes)
+        # The int32 slot partials beside the float32 ones, of the same capacity.
+        partial_slots = _scratch(data.device, "partial_slots", partials.numel(), torch.int32)
+        fn = cuda_build.kernel_function("extremum_argmax")
+        err = fn(
+            data.data_ptr(), _KERNEL_DTYPES[data.dtype], int(is_max), plan.row_offsets.data_ptr(),
+            plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+            plan.counts.data_ptr(), vals.data_ptr(), args.data_ptr(), partials.data_ptr(),
+            partial_slots.data_ptr(), partials.numel(), counters.data_ptr(),
+            counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1], data.shape[1],
+            ROW_CHUNK, _stream(data.device),
+        )
+        cuda_build.check("extremum_argmax", err)
     planned_segment_extremum_with_argmax.launches += 1
     return vals, args
 
@@ -388,19 +398,20 @@ def planned_segment_sum(
     if data.device.type == "cpu":
         return segment_sum_plain(data, plan, num_nodes)
     _require_cuda(data, "planned_segment_sum")
-    plan, out = _row_reduce_setup(data, plan, num_nodes, "sum")
-    if out.numel() == 0:
-        return out
-    partials, counters = _row_reduce_scratch(data, num_nodes)
-    fn = cuda_build.kernel_function("sum")
-    err = fn(
-        data.data_ptr(), _KERNEL_DTYPES[data.dtype], plan.row_offsets.data_ptr(),
-        plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
-        out.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
-        counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1],
-        data.shape[1], ROW_CHUNK, _stream(data.device),
-    )
-    cuda_build.check("sum", err)
+    with torch.cuda.device(data.device):
+        plan, out = _row_reduce_setup(data, plan, num_nodes, "sum")
+        if out.numel() == 0:
+            return out
+        partials, counters = _row_reduce_scratch(data, num_nodes)
+        fn = cuda_build.kernel_function("sum")
+        err = fn(
+            data.data_ptr(), _KERNEL_DTYPES[data.dtype], plan.row_offsets.data_ptr(),
+            plan.row_slots.data_ptr(), plan.local_rows.data_ptr(), plan.tile_row_blocks.data_ptr(),
+            out.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
+            counters.numel(), num_nodes, data.shape[0], plan.tile, plan.counts.shape[1],
+            data.shape[1], ROW_CHUNK, _stream(data.device),
+        )
+        cuda_build.check("sum", err)
     planned_segment_sum.launches += 1
     return out
 

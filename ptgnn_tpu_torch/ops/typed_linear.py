@@ -76,7 +76,8 @@ def typed_matmul_kernel(
     int32. The kernel takes each type's block transposed ([T, M, D], D
     contiguous), cast to x's dtype here: a copy of the forward's stack, and
     none for the backward's dx call, which passes W's transpose. Raises on
-    what the kernel does not take; counts its launches in
+    what the kernel does not take; launches on x's card
+    (under its device guard); counts its launches in
     ``typed_matmul_kernel.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"typed_matmul_kernel: no kernel for a tensor on {x.device}")
@@ -94,20 +95,21 @@ def typed_matmul_kernel(
         raise ValueError("tile_types must be an int32 tensor of one entry per tile")
     if weight_stack.device != x.device or tile_types.device != x.device:
         raise ValueError("x, the weights and the tile types must lie on one device")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    w_t = weight_stack.transpose(1, 2)
-    if w_t.dtype != x.dtype or not w_t.is_contiguous() or w_t.data_ptr() % 16:
-        w_t = torch.empty(w_t.shape, dtype=x.dtype, device=x.device).copy_(w_t)
-    tile_types = tile_types.contiguous()
-    y = torch.empty((e, m), dtype=x.dtype, device=x.device)
-    fn = cuda_build.kernel_function("typed_matmul")
-    err = fn(
-        x.data_ptr(), w_t.data_ptr(), tile_types.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype],
-        e // edge_tile, edge_tile, d, m, num_types, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    cuda_build.check("typed_matmul", err)
+    with torch.cuda.device(x.device):
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        w_t = weight_stack.transpose(1, 2)
+        if w_t.dtype != x.dtype or not w_t.is_contiguous() or w_t.data_ptr() % 16:
+            w_t = torch.empty(w_t.shape, dtype=x.dtype, device=x.device).copy_(w_t)
+        tile_types = tile_types.contiguous()
+        y = torch.empty((e, m), dtype=x.dtype, device=x.device)
+        fn = cuda_build.kernel_function("typed_matmul")
+        err = fn(
+            x.data_ptr(), w_t.data_ptr(), tile_types.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype],
+            e // edge_tile, edge_tile, d, m, num_types, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        cuda_build.check("typed_matmul", err)
     typed_matmul_kernel.launches += 1
     return y
 

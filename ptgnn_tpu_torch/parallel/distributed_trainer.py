@@ -50,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ptgnn_tpu_torch.core.compiled_step import canonical_device
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.trainer import (
     EpochProgress,
@@ -76,6 +77,13 @@ def initialize_multi_host(
     with ``world_size`` and ``rank``). The backend is NCCL where CUDA is
     available, gloo otherwise. Call before creating the trainer.
 
+    Under NCCL the rank is bound to its card first: ``LOCAL_RANK`` from
+    torchrun's environment, else the rank modulo the local world size
+    (``LOCAL_WORLD_SIZE``, else the cards of this host). That card becomes
+    the current device (``torch.cuda.set_device``), the hand kernels'
+    launches and the trainer's ``device`` go to it, and the group is made
+    with it as its ``device_id``. Under gloo nothing touches CUDA.
+
     Under NCCL the compiled steps capture collectives, and PyTorch's CUDA
     graph notes ask for NCCL's asynchronous error handling to be off: its
     watchdog would otherwise query the events of collectives while a graph
@@ -83,10 +91,26 @@ def initialize_multi_host(
     this process, before the group is made."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    rank = rank if rank is not None else -1
+    kwargs = {}
     if backend == "nccl":
         os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
+        kwargs["device_id"] = _local_device(rank)
+        torch.cuda.set_device(kwargs["device_id"])
     dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size or -1,
-                            rank=rank if rank is not None else -1)
+                            rank=rank, **kwargs)
+
+
+def _local_device(rank: int) -> torch.device:
+    """This rank's card under NCCL: ``LOCAL_RANK`` where torchrun set it,
+    else ``rank`` (torchrun's ``RANK`` when -1) modulo the local world size
+    (``LOCAL_WORLD_SIZE``, else the number of cards on this host)."""
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if rank < 0:
+        rank = int(os.environ.get("RANK", 0))
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 0)) or torch.cuda.device_count()
+    return torch.device("cuda", rank % per_host)
 
 
 class DistributedModelTrainer(ModelTrainer):
@@ -94,8 +118,9 @@ class DistributedModelTrainer(ModelTrainer):
     gradient over the process group's ranks. ``zero1`` shards the
     optimizer's moments (ZeRO-1). ``local_world_size`` is the number of
     ranks on each node (torchrun's ``LOCAL_WORLD_SIZE``; all of them when
-    it is not set). ``device`` is this rank's card (``cuda:<local_rank>``)
-    or the CPU."""
+    it is not set). ``device`` is this rank's card (``cuda:<local_rank>``,
+    the current device, which ``initialize_multi_host`` binds; under NCCL
+    another device raises) or the CPU."""
 
     LOGGER = logging.getLogger(__name__)
 
@@ -105,6 +130,11 @@ class DistributedModelTrainer(ModelTrainer):
         super().__init__(*args, **kwargs)
         if self._catch_device_ooms:
             raise ValueError("catch_device_ooms: a rank that skipped a minibatch would stall the others")
+        if dist.get_backend() == "nccl" and canonical_device(self._device) != torch.device(
+                "cuda", torch.cuda.current_device()):
+            raise ValueError(f"under NCCL the trainer's device ({self._device}) must be this rank's card, the "
+                             f"current device (cuda:{torch.cuda.current_device()}): initialize_multi_host "
+                             "binds it, or call torch.cuda.set_device")
         self._zero1 = zero1
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
@@ -126,6 +156,21 @@ class DistributedModelTrainer(ModelTrainer):
         if self._dp is None or self._dp.module is not self.neural_module:
             self._dp = DataParallel(self.neural_module, enable_amp=self._enable_amp)
         return self._dp
+
+    def train(self, *args, **kwargs) -> None:
+        """:meth:`ModelTrainer.train`, then (whatever its outcome) the
+        compiled data-parallel steps' graphs are freed: NCCL's group
+        destruction waits for every CUDA graph that captured one of its
+        collectives, so a group destroyed after training would otherwise
+        wait forever. A later call captures anew."""
+        try:
+            super().train(*args, **kwargs)
+        finally:
+            self._free_graphs()
+
+    def _free_graphs(self) -> None:
+        if self._dp is not None:
+            self._dp.clear()
 
     # ------------------------------------------------------------------
     # Setup, checkpoints, optimizer

@@ -61,6 +61,7 @@ plain calls.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -189,7 +190,12 @@ class DataParallel:
             torch.cuda.current_stream(self.device).wait_stream(side)
         else:
             self._ddp = DistributedDataParallel(module, static_graph=True)
-        self._ddp.register_comm_hook(self, _counting_allreduce_hook)
+        # The hook's state is a weak proxy: DDP's C++ reducer keeps its state
+        # alive, and a strong reference would tie this object (its graphs,
+        # which hold NCCL's persistent work, included) to the reducer in a
+        # cycle the collector cannot see. NCCL's group destruction waits
+        # for every graph that captured one of its collectives.
+        self._ddp.register_comm_hook(weakref.proxy(self), _counting_allreduce_hook)
         self._weight = torch.zeros((), device=self.device)  # this rank's weight, filled before each call
         self._weight_acc = torch.zeros((), device=self.device)  # the weight total of the steps held in .grad
         self._held = 0  # grad steps held in .grad (host bookkeeping)

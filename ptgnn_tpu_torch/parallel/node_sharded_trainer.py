@@ -144,6 +144,10 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
     def data_parallel(self) -> DataParallel:
         return self.node_parallel.data_parallel
 
+    def _free_graphs(self) -> None:
+        if self._np is not None:
+            self._np.data_parallel.clear()
+
     # -- the optimizer: ZeRO-1 over the data group ----------------------------
     def _create_optimizer(self):
         if not self._zero1 or self.data_group == LOCAL:

@@ -143,6 +143,43 @@ def test_launch_counters_count_warm_ups_and_replays(cuda_device):
     assert sk.launch_counts() == {k: v * (cs.WARMUP_CALLS + n) for k, v in per_step.items()}
 
 
+def test_the_collector_frees_nothing_while_a_step_captures(cuda_device):
+    """Garbage freed during a capture may hold another graph, whose release
+    the CUDA runtime does not permit while a stream captures (the capture is
+    invalidated): the collector runs before a capture and is off during it.
+    The step makes cyclic garbage and allocates, with a collection due at
+    nearly every allocation; each finalizer records whether it ran while
+    the stream captured."""
+    import gc
+    import weakref
+
+    class Node:
+        pass
+
+    freed = []
+
+    def step(x):
+        for _ in range(20):
+            node = Node()
+            node.me = node
+            weakref.finalize(node, lambda: freed.append(torch.cuda.is_current_stream_capturing()))
+            del node
+            [[] for _ in range(50)]
+        return x * 2
+
+    compiled = CompiledStep(step, cuda_device)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = compiled(torch.ones(4, device=cuda_device))
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((4,), 2.0, device=cuda_device))
+    assert len(freed) == 20 * (cs.WARMUP_CALLS + 1) and not any(freed), freed.count(True)
+
+
 def test_the_cache_reuses_a_signature_and_adds_one_per_padding(cuda_device):
     module, mbs = _graph2class(cuda_device)
     _, wide = _graph2class(cuda_device, max_nodes=1024, num_minibatches=1)

@@ -1097,3 +1097,93 @@ def test_take_rows_backward_on_card_repeats_bit_for_bit(cuda_device, dtype):
     tol = 1e-5 * scale + (want.abs() * 2.0**-8 if dtype == torch.bfloat16 else 0.0)
     err = (grads[0] - want).abs()
     assert bool((err <= tol + 1e-30).all()), float((err - tol).max())
+
+
+# ---------------------------------------------------------------------------
+# Every kernel launches on its tensors' card, whatever the current device
+# ---------------------------------------------------------------------------
+def _card(cuda_device, card):
+    """``cuda:card`` with the current device set to cuda:0; skips below two
+    cards (the wrappers' device guard needs another card to show)."""
+    if torch.cuda.device_count() < max(2, card + 1):
+        pytest.skip(f"needs {max(2, card + 1)} CUDA devices: a launch on another card than the current one")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", card)
+
+
+def _integer_typed_inputs(device, seed=0):
+    """K5 at PPI's bf16 shape on integers in [-2, 2]: every product and sum is
+    exact in float32, so the kernel and its plain version round the same
+    values to bf16."""
+    g = torch.Generator().manual_seed(seed)
+    tt = torch.randint(0, 3, (960,), generator=g, dtype=torch.int32)
+    x = torch.randint(-2, 3, (960 * 128, 256), generator=g).to(torch.bfloat16)
+    w = torch.randint(-2, 3, (3, 256, 256), generator=g).to(torch.bfloat16)
+    return x.to(device), w.to(device), tt.to(device)
+
+
+def _on_other_card(kernel, dev):
+    """(the kernel's result on ``dev`` called from cuda:0, its plain version
+    on the CPU or, for K5, on the card), moved to the CPU; the launch
+    counted."""
+    plan, mask = make_plan(71, 128, 512)
+    g = torch.Generator().manual_seed(3)
+    if kernel == "typed_matmul":
+        x, w, tt = _integer_typed_inputs(dev)
+        before = ttl.typed_matmul_kernel.launches
+        got = ttl.typed_matmul_kernel(x, w, tt, 128)
+        assert ttl.typed_matmul_kernel.launches == before + 1
+        return (got.cpu(),), (ttl.typed_matmul_plain(x, w, tt, 128).cpu(),)
+    cplan = tree_to(plan, dev)
+    if kernel == "broadcast_to_edges":
+        table = torch.randn(500, 64, generator=g)
+        return (_launch_broadcast(table.to(dev), cplan).cpu(),), (tsk.planned_broadcast_to_edges(table, plan),)
+    wrapper = {"segment_sum": tsk.planned_segment_sum, "segment_extremum": tsk.planned_segment_extremum,
+               "segment_extremum_argmax": tsk.planned_segment_extremum_with_argmax}[kernel]
+    before = wrapper.launches
+    if kernel == "segment_sum":  # 0/1 data: small integer sums, exact in any order
+        data = (torch.rand(plan.local_rows.shape[0], 64, generator=g) < 0.3).float() * mask[:, None].float()
+        got, plain = wrapper(data.to(dev), cplan, 450), wrapper(data, plan, 450)
+    else:
+        data = torch.where(mask[:, None], torch.randn(plan.local_rows.shape[0], 64, generator=g),
+                           torch.full((), -3.0e38))
+        got, plain = wrapper(data.to(dev), cplan, 450, True), wrapper(data, plan, 450, True)
+    assert wrapper.launches == before + 1
+    got, plain = (got if isinstance(got, tuple) else (got,)), (plain if isinstance(plain, tuple) else (plain,))
+    if kernel == "segment_extremum_argmax":  # values apart from the sign of zero, slots exactly
+        got, plain = (got[0] + 0.0, got[1]), (plain[0] + 0.0, plain[1])
+    return tuple(t.cpu() for t in got), plain
+
+
+@pytest.mark.parametrize("kernel", ["segment_sum", "segment_extremum", "segment_extremum_argmax",
+                                    "broadcast_to_edges", "typed_matmul"])
+def test_kernel_launches_on_its_tensors_card(cuda_device, kernel):
+    """K1-K5 on cuda:1 called while the current device is cuda:0: the
+    wrapper launches on the tensors' card (its stream, its SM count, K5's
+    shared-memory opt-in for that card), bitwise equal to its plain
+    version, and leaves the current device at cuda:0."""
+    dev = _card(cuda_device, 1)
+    got, plain = _on_other_card(kernel, dev)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, plain, strict=True):
+        np.testing.assert_array_equal(_bits(a) if a.is_floating_point() else a.numpy(),
+                                      _bits(b) if b.is_floating_point() else b.numpy())
+
+
+@pytest.mark.parametrize("card", [0, 1, 2, 3])
+def test_typed_matmul_bf16_runs_on_each_card_in_turn(cuda_device, card):
+    """K5 (bf16, the TMA + wgmma route and its dynamic shared memory) on each
+    card in turn from cuda:0: bitwise its plain version, and card 0's bits
+    for the same inputs."""
+    dev = _card(cuda_device, card)
+    x, w, tt = _integer_typed_inputs(dev, seed=card)
+    got = ttl.typed_matmul_kernel(x, w, tt, 128)
+    random_x, random_w, random_tt = _typed_inputs((960, 128, 256, 256, 3), torch.bfloat16, dev, seed=9)
+    other = ttl.typed_matmul_kernel(random_x, random_w, random_tt, 128)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(_bits_t(got), _bits_t(ttl.typed_matmul_plain(x, w, tt, 128)))
+    zero = torch.device("cuda", 0)
+    on_zero = ttl.typed_matmul_kernel(random_x.to(zero), random_w.to(zero), random_tt.to(zero), 128)
+    assert torch.equal(_bits_t(other.cpu()), _bits_t(on_zero.cpu()))

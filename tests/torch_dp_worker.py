@@ -233,4 +233,21 @@ def _step_pair(payload, rank, world, tmp):
     return out
 
 
+def zero1_step_world(payload, rank, world, tmp):
+    """One weighted step of DataParallel with ZeRO-1 Adam: this rank's
+    minibatch and weight (the JAX dry run's data-parallel leg at any world
+    size). ``tests/test_torch_multicard.py`` runs it in the multi-card
+    path's world, after the legs (``chip_smoke.world_rank``'s ``extra``)."""
+    from ptgnn_tpu_torch.parallel.dp import DataParallel, moment_elements, zero1_optimizer
+
+    module = _module(payload)
+    optimizer = zero1_optimizer(module.parameters(),
+                                lambda params: torch.optim.Adam(params, lr=payload["lr"], eps=payload["eps"]))
+    dp = DataParallel(module)
+    loss, metrics = dp.train_step(_batch(payload["minibatches"][rank]), payload["weights"][rank], torch.Generator(),
+                                  optimizer, [payload["lr"]])
+    return {"params": _params(module), "loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+            "moments": moment_elements(optimizer), "total": 2 * sum(p.numel() for p in module.parameters())}
+
+
 CASES = {"step_pair": _step_pair, "world_one": _world_one, "sgd_step": _sgd_step, "zero1": _zero1, "accumulate": _accumulate, "groups": _groups, "nodes": _nodes}
