@@ -271,9 +271,9 @@ reports them, and the one before that the kernels JSON line.
 The multi-card path, on four cards of one host (it raises with fewer and
 never falls back):
 
-    python3 chip_smoke.py --world 4
+    python3 chip_smoke.py --world 4 [--legs kernels,nccl,dp,edge,node,hybrid,checkpoint,epoch,cli]
 
-builds the kernels once, runs leg 1 in this process, then spawns 4 ranks
+(every leg, or those named) builds the kernels once, runs leg 1 in this process, then spawns 4 ranks
 (``spawn``, a ``file://`` rendezvous in a temporary directory, NCCL,
 ``initialize_multi_host``, one card a rank), joined with a time limit:
 
@@ -281,9 +281,11 @@ builds the kernels once, runs leg 1 in this process, then spawns 4 ranks
    device is card 0, bitwise against their plain versions (K1's on the
    CPU, K5's on integer data) and card 0's results; then phase 29's
    compiled step and phase 30's DistributedModelTrainer epoch at world 1;
-2. DistributedModelTrainer with ZeRO-1 at the benchmark configuration,
-   float32 and bf16 AMP, 3 steps of 4 minibatches: step 1 within 1e-5 of
-   each parameter's max of one card's step on the weighted mean gradient;
+2. DistributedModelTrainer with ZeRO-1 at the benchmark configuration
+   (Adam eps 1e-3), float32 unclipped and bf16 AMP clipped at 1.0, 3 steps
+   of 4 minibatches: step 1 within 1e-5 of each parameter's max of one
+   card's steps on the weighted mean gradient, step 3 within 4 times the
+   reference's own spread when its sum is taken in other orders;
    compiled against eager bitwise (losses, parameters, both moments); each
    rank's share of the moments, the all-reduces, and the launches against
    the world-1 constants; DataParallel's train step compiled against eager,
@@ -299,11 +301,16 @@ builds the kernels once, runs leg 1 in this process, then spawns 4 ranks
 5. the 2 data x 2 node hybrid: a step within 1e-4 of each update's max of
    the unsharded weighted-mean step; ZeRO-1 over the data group;
    NodeShardedModelTrainer for an epoch, compiled against eager bitwise;
-6. DistributedCheckpointer with ZeRO-1 at world 4 (phase 27's round trip);
+6. DistributedCheckpointer with ZeRO-1 at world 4 (phase 27's round trip,
+   Adam eps 1e-3): the resumed step bitwise a twin run's step through a
+   new DataParallel, and within 1e-5 of each parameter's max of the
+   uninterrupted step (its DataParallel's rebuilt buckets add in another
+   order); then, in the ranks, the epoch: DistributedModelTrainer for 2
+   epochs over 288 benchmark graphs, the second timed alone;
 7. traindistributed --world-size 4, and with --node-shards 2, for an
    epoch each (after the ranks end);
-8. readings: ms per step of legs 2-5 against the world-1 step, the epoch at
-   world 4 against world 1 with each rank's host tensorize seconds, NCCL's
+8. readings: ms per step of legs 2-5 against the world-1 step, each epoch
+   at world 4 against world 1 with each rank's host tensorize seconds, NCCL's
    share, the launches by path on every rank.
 
 A failed gate is recorded and the legs go on; the run then prints every
@@ -3382,21 +3389,26 @@ def data_parallel_phase(dev, card, model, batches, epochs):
 DP_EPOCH_GRAPHS = 30  # about 10 benchmark batches
 
 
-def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str, **train_kw):
-    """One DistributedModelTrainer epoch at world 1 (``model``: the
-    benchmark Graph2Class model with its metadata; dropout 0.1, Adam with
-    the clip) over ``train``,
-    then validation, its steps compiled or (``eager_steps``) called
-    directly; the host pipeline sequential unless ``train_kw`` (more
-    ``train`` arguments) says otherwise. Returns the step losses, the
-    parameters, Adam's state, the validation metrics, the seconds of the
-    epoch and the data-parallel steps."""
+def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str,
+             epochs: int = 1, **train_kw):
+    """``epochs`` DistributedModelTrainer epochs (``model``: the benchmark
+    Graph2Class model with its metadata; dropout 0.1, Adam with the clip)
+    over ``train``, each followed by validation, its steps compiled or
+    (``eager_steps``) called directly; the host pipeline sequential unless
+    ``train_kw`` (more ``train`` arguments) says otherwise. Returns the
+    step losses, the parameters, Adam's state, the validation metrics, the
+    seconds of the first epoch (its captures included) and of each epoch
+    (``epoch_seconds``: a later epoch from the end of the one before, its
+    validation and checkpoint, to its last step), the compiled train
+    step's graphs at each epoch's end (``graphs``), and the data-parallel
+    steps."""
+    from ptgnn_tpu_torch.core.compiled_step import CompiledStep
     from ptgnn_tpu_torch.parallel import DistributedModelTrainer
 
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp-epochs"
     trainer = DistributedModelTrainer(
         model, out_dir / f"{name}.pkl.gz",
-        zero1=zero1, gradient_accumulation_steps=accumulate, max_num_epochs=1, minibatch_size=300,
+        zero1=zero1, gradient_accumulation_steps=accumulate, max_num_epochs=epochs, minibatch_size=300,
         clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4), device=dev, seed=SEED,
         target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
     trainer.load_metadata_and_create_network(train, parallelize=False)
@@ -3411,17 +3423,30 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
             return out
 
         setattr(dp, method, recorded)
+    seconds, graphs = [], []
+
+    def epoch_end(*_):
+        synchronize()
+        seconds.append(time.perf_counter() - marks["start"])
+        graphs.append(len(dp.train_step_compiled) if isinstance(dp.train_step_compiled, CompiledStep) else 0)
+
+    def validation_end(m, mod, ep, valid_metrics):
+        metrics.append(valid_metrics)
+        marks["start"] = time.perf_counter()
+
     trainer.register_training_start_hook(lambda model, module, optimizer: (
         optimizers.append(optimizer), marks.__setitem__("start", time.perf_counter())))
-    trainer.register_train_epoch_end_hook(lambda *_: marks.__setitem__("end", time.perf_counter()))
-    trainer.register_validation_epoch_end_hook(lambda m, mod, ep, valid_metrics: metrics.append(valid_metrics))
-    trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=0,
+    trainer.register_train_epoch_end_hook(epoch_end)
+    trainer.register_validation_epoch_end_hook(validation_end)
+    # the checkpoint of an improved epoch is written after validation
+    trainer.register_epoch_improved_end_hook(lambda *_: marks.__setitem__("start", time.perf_counter()))
+    trainer.train(train, valid, initialize_metadata=False, validate_on_start=False, patience=epochs,
                   **{"parallelize": False, **train_kw})
     synchronize()
     return {"losses": losses, "state": {**{f"param {k}": v.detach().clone()
                                            for k, v in trainer.neural_module.named_parameters()},
                                         **adam_state(optimizers[0])},
-            "metrics": metrics, "seconds": marks["end"] - marks["start"], "dp": dp}
+            "metrics": metrics, "seconds": seconds[0], "epoch_seconds": seconds, "graphs": graphs, "dp": dp}
 
 
 def dp_compiled_checks(dev, card, model, batches, epochs):
@@ -4755,20 +4780,27 @@ def autotune_phase(dev, card):
     return counts
 
 
-def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int = 1) -> dict:
-    """DistributedCheckpointer with ZeRO-1 over the process group: Adam
-    steps on device-resident minibatches ``mbs`` (step i takes
+def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int = 1, eps: float = 1e-8) -> dict:
+    """DistributedCheckpointer with ZeRO-1 (Adam, ``eps``) over the process
+    group: steps on device-resident minibatches ``mbs`` (step i takes
     ``mbs[(i * world + rank) % len(mbs)]``), an async save after step 3
     while steps 4-5 run, a restore into a fresh module and optimizer, the
-    resumed step 4, then saves of steps 4 and 5 with max_to_keep 2. The
-    uninterrupted step 4 runs through a DataParallel of its own, as the
-    resumed one does: a DDP's first iteration reduces over its initial
-    buckets and later ones over its rebuilt buckets, and over more than two
-    ranks the all-reduce adds an element's partials in an order that
-    depends on its place in the bucket. Returns
-    the verdicts (parameters, this rank's Adam moments and steps, and the
-    resumed step bitwise; the steps and sidecars kept), the seconds of the
-    save, commit and restore, and the saved step's bytes and files."""
+    resumed step 4 (through the fresh module's own DataParallel), then
+    saves of steps 4 and 5 with max_to_keep 2.
+
+    At world 1 the resumed step 4 is held bitwise against the uninterrupted
+    one, which ran through the DataParallel of steps 1-3. Over more ranks
+    it need not be: a DDP's first iteration reduces over its initial
+    buckets and later ones over its rebuilt buckets, and over three ranks
+    or more the all-reduce adds an element's partials in an order that may
+    depend on its place in the bucket. There the resumed step is held bitwise against
+    a twin run, steps 1-3 replayed from the same seed (its state bitwise
+    the saved one) and step 4 through a new DataParallel, and its distance
+    from the uninterrupted step is returned (``drift``: the worst max |a -
+    b| over max |b| of any parameter). Returns the verdicts (parameters,
+    this rank's Adam moments and steps, the resumed step; the steps and
+    sidecars kept), the seconds of the save, commit and restore, and the
+    saved step's bytes and files."""
     import torch.distributed as dist
 
     from ptgnn_tpu_torch.core.dcp_checkpoint import DistributedCheckpointer
@@ -4778,7 +4810,7 @@ def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int
 
     def fresh(seed):
         module = model.build_neural_module(device=dev, seed=seed)
-        optimizer = zero1_optimizer(module.parameters(), lambda p: torch.optim.Adam(p, lr=lr))
+        optimizer = zero1_optimizer(module.parameters(), lambda p: torch.optim.Adam(p, lr=lr, eps=eps))
         return module, optimizer, DataParallel(module)
 
     def step(trio, i, dp=None):
@@ -4792,6 +4824,13 @@ def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int
         return ({n: p.detach().clone() for n, p in module.named_parameters()},
                 {names[id(p)]: {k: v.clone() for k, v in st.items()} for p, st in optimizer.optim.state.items()})
 
+    def same_params_as(params, want):
+        return all(bitwise_equal(params[k], want[k]) for k in want)
+
+    def same_moments_as(moments, want):
+        return moments.keys() == want.keys() and all(
+            bitwise_equal(moments[n][k].to(want[n][k].device), want[n][k]) for n in want for k in want[n])
+
     trio = fresh(SEED)
     for i in range(3):
         step(trio, i)
@@ -4801,7 +4840,7 @@ def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int
     t0 = time.perf_counter()
     ckpt.save(3, trio[0], trio[1], model=model)
     t_stage = time.perf_counter() - t0
-    step(trio, 3, DataParallel(trio[0]))
+    step(trio, 3)
     params4, _ = state(trio)
     step(trio, 4)
     synchronize()
@@ -4815,13 +4854,23 @@ def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int
     synchronize()
     t_restore = time.perf_counter() - t0
     got_params, got_moments = state(other)
-    same_params = all(bitwise_equal(got_params[k], params3[k]) for k in params3)
-    same_moments = got_moments.keys() == moments3.keys() and all(
-        bitwise_equal(got_moments[n][k].to(moments3[n][k].device), moments3[n][k])
-        for n in moments3 for k in moments3[n])
+    same_params, same_moments = same_params_as(got_params, params3), same_moments_as(got_moments, moments3)
     step(other, 3)
     resumed, _ = state(other)
-    same_step = all(bitwise_equal(resumed[k], params4[k]) for k in params4)
+    out = {}
+    if world == 1:
+        same_step = same_params_as(resumed, params4)
+    else:
+        twin = fresh(SEED)
+        for i in range(3):
+            step(twin, i)
+        twin_params, twin_moments = state(twin)
+        twin_ok = same_params_as(twin_params, params3) and same_moments_as(twin_moments, moments3)
+        step(twin, 3, DataParallel(twin[0]))
+        twin4, _ = state(twin)
+        same_step = twin_ok and same_params_as(resumed, twin4)
+        out = {"twin_replayed": twin_ok, "drift": worst_apart(resumed, params4),
+               "fresh_is_uninterrupted": same_params_as(twin4, params4)}
     ckpt.save(4, trio[0], trio[1], model=model)
     ckpt.save(5, trio[0], trio[1], model=model, wait=True)
     if dist.is_initialized():
@@ -4834,7 +4883,7 @@ def checkpoint_round_trip(model, mbs, dev, root: Path, rank: int = 0, world: int
     return {"same_params": same_params, "same_moments": same_moments, "same_step": same_step,
             "restored_step": restored_step, "kept": kept, "sidecars": sidecars, "loaded": loaded,
             "moment_tensors": sum(len(v) for v in moments3.values()), "stage_s": t_stage, "commit_s": t_commit,
-            "restore_s": t_restore, "bytes": sum(p.stat().st_size for p in files), "files": len(files),
+            "restore_s": t_restore, "bytes": sum(p.stat().st_size for p in files), "files": len(files), **out,
             "ok": bool(same_params and same_moments and same_step and restored_step == 3 and kept == [4, 5]
                        and sidecars == ["4.model.pkl.gz", "5.model.pkl.gz"])}
 
@@ -5293,8 +5342,28 @@ def broadcast_ab(sources: list) -> None:
 # ---------------------------------------------------------------------------
 WORLD_CARDS = 4
 WORLD_JOIN_S = 480  # the ranks' time limit; what is left is killed
+# The legs of --world N, in their order: leg 1 (kernels) and leg 7 (cli) run
+# in the parent, the rest in the ranks; --legs picks some of them.
+WORLD_LEGS = ("kernels", "nccl", "dp", "edge", "node", "hybrid", "checkpoint", "epoch", "cli")
 WORLD_DP_STEPS = 3  # leg 2: optimizer steps, each over one minibatch a rank
 WORLD_LR = 2.5e-4
+# Leg 2's Adam eps: with the default 1e-8 a step is about lr x sign(g), blind
+# to the gradient's size; at 1e-3 an update's slope in g is at most lr / eps.
+WORLD_ADAM_EPS = 1e-3
+# Leg 2's limit after its 3 steps, in the reference's own spread: the same
+# steps with the minibatches' gradients summed in other orders. A step is
+# held to 1e-5 of each parameter's max, but 3 steps are not: max
+# aggregation routes a gradient to one of near-tied maxima, so rounding
+# flips routes and the states drift apart. On four H100s at the benchmark
+# size the float32 state after 3 steps lay 1.004e-1 of a max from the
+# reference, which the order of its sum alone moved 5.872e-2 (1.14e-5 and
+# 2.9e-5 on the CPU at the test's size); a mean off by 5/4 moves it 0.22
+# on the CPU.
+WORLD_DP_SPREAD = 4
+# Leg 2's clip by precision: none in float32, so that the size of the
+# all-reduced mean enters the step (a clip that binds divides it out); 1.0 in
+# bf16 AMP, where it binds, so that the clip is held too.
+WORLD_DP_CLIP = {False: None, True: 1.0}
 WORLD_SGD_LR = 0.05
 
 
@@ -5391,23 +5460,30 @@ def world_ppi(dev):
     return model, minibatches
 
 
+WORLD_EPOCH_GRAPHS = 288  # about 88 benchmark batches: 22 steps a rank at world 4
+WORLD_EPOCHS = 2  # the first captures the steps; the second is timed as the steady state
+
+
 def world_epoch(dev, name: str) -> dict:
-    """One DistributedModelTrainer epoch (``dp_epoch``: ZeRO-1, compiled,
-    dropout 0.1, the forked tensorize on the card) over DP_EPOCH_GRAPHS
-    benchmark graphs (24 small ones on the CPU) at the process group's world
-    size, then validation; and this process's host seconds to tensorize the
-    graphs in one thread. Phase 30's world-1 epoch, at any world size."""
+    """WORLD_EPOCHS DistributedModelTrainer epochs (``dp_epoch``: ZeRO-1,
+    compiled, dropout 0.1, the forked tensorize on the card) over
+    WORLD_EPOCH_GRAPHS benchmark graphs (24 small ones on the CPU) at the
+    process group's world size, each followed by validation; and this
+    process's host seconds to tensorize the graphs in one thread. The first
+    epoch holds the DDP warm-ups and the captures, the second replays the
+    same graphs (``graphs``: the compiled train step's graphs at each
+    epoch's end). Phase 30's epoch, longer, at any world size."""
     sizes = world_sizes(dev)
-    train = world_graphs(sizes, DP_EPOCH_GRAPHS if dev.type == "cuda" else 24, SEED + 50)
+    train = world_graphs(sizes, WORLD_EPOCH_GRAPHS if dev.type == "cuda" else 24, SEED + 50)
     valid = world_graphs(sizes, 4, SEED + 51)
     model = g2c_world_model(sizes, dropout_rate=0.1)
     model.compute_metadata(iter(train), parallelize=False)
     costs = host_tensorize_costs(model, train)
     run = dp_epoch(model, train, valid, dev, zero1=True, accumulate=1, eager_steps=False, name=name,
-                   parallelize=True, use_multiprocessing=dev.type == "cuda")
+                   epochs=WORLD_EPOCHS, parallelize=True, use_multiprocessing=dev.type == "cuda")
     run["dp"].clear()
-    return {"seconds": run["seconds"], "steps": len(run["losses"]), "losses": run["losses"], "graphs": len(train),
-            "tensorize_s": costs["tensorize_s"]}
+    return {"seconds": run["epoch_seconds"], "steps": len(run["losses"]) // WORLD_EPOCHS, "losses": run["losses"],
+            "graphs": len(train), "captured": run["graphs"], "tensorize_s": costs["tensorize_s"]}
 
 
 def nccl_share(prof) -> dict:
@@ -5571,7 +5647,7 @@ class WorldRank:
 
     # -- leg 2: DistributedModelTrainer with ZeRO-1 --------------------------------
     def dp_trainer(self, amp: bool, eager_steps: bool) -> dict:
-        """DistributedModelTrainer (ZeRO-1, Adam, clip 1.0, dropout 0) for one
+        """DistributedModelTrainer (ZeRO-1, Adam, WORLD_DP_CLIP, dropout 0) for one
         epoch of WORLD_DP_STEPS groups of one minibatch a rank, in order;
         each step's loss and parameters, Adam's state, the all-reduces, and
         the launches against the forwards and steps that ran."""
@@ -5580,8 +5656,8 @@ class WorldRank:
         mode = "eager" if eager_steps else "compiled"
         trainer = DistributedModelTrainer(
             g2c_world_model(self.sizes), self.out_dir / f"dp-{amp}-{mode}.pkl.gz", zero1=True, max_num_epochs=1,
-            minibatch_size=self.sizes.minibatch_size, clip_gradient_norm=1.0, enable_amp=amp, device=self.dev,
-            seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=WORLD_LR),
+            minibatch_size=self.sizes.minibatch_size, clip_gradient_norm=WORLD_DP_CLIP[amp], enable_amp=amp,
+            device=self.dev, seed=SEED, optimizer_creator=lambda p: torch.optim.Adam(p, lr=WORLD_LR, eps=WORLD_ADAM_EPS),
             target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
         trainer.load_metadata_and_create_network(self.dp_train, parallelize=False)
         module = trainer.neural_module
@@ -5619,25 +5695,28 @@ class WorldRank:
             dp.clear()
         return run
 
-    def weighted_mean_steps(self, model, initial: dict, amp: bool) -> list:
+    def weighted_mean_steps(self, model, initial: dict, amp: bool, turn: int = 0) -> list:
         """One card's steps on the weighted mean gradient sum_r w_r g_r /
         sum_r w_r of each group's minibatches (every rank computes it: the
-        same work on the same data), clipped, the trainer's capturable Adam:
-        the parameters after each step. The mean is formed as DataParallel
+        same work on the same data), clipped as WORLD_DP_CLIP says, the
+        trainer's capturable Adam: the parameters after each step and the
+        global norms before the clip. The mean is formed as DataParallel
         forms it, sum_r grad(loss_r x w_r world / sum w) / world, so that
         what differs is the order of the all-reduce's sum (in bf16 AMP the
-        scale enters the bf16 backward)."""
+        scale enters the bf16 backward); ``turn`` starts the sum at the
+        group's minibatch ``turn``."""
         from ptgnn_tpu_torch.core.trainer import clip_by_global_norm_, make_capturable, module_loss
         from ptgnn_tpu_torch.graph.structs import tree_to
 
         module = model.build_neural_module(device=self.dev, seed=SEED)
         module.load_state_dict(initial, strict=False)
-        optimizer = torch.optim.Adam(module.parameters(), lr=WORLD_LR)
+        optimizer = torch.optim.Adam(module.parameters(), lr=WORLD_LR, eps=WORLD_ADAM_EPS)
         make_capturable(optimizer, self.dev)
         mbs = host_minibatches(model, self.dp_train, self.sizes)
-        out = []
+        out, norms = [], []
         for s in range(WORLD_DP_STEPS):
             group = mbs[s * self.world:(s + 1) * self.world]
+            group = group[turn:] + group[:turn]
             total = torch.full((), float(sum(w for _, w in group)), device=self.dev)
             acc = {n: torch.zeros_like(p) for n, p in module.named_parameters()}
             for mb, w in group:
@@ -5648,10 +5727,12 @@ class WorldRank:
                     acc[n] += p.grad / self.world
             for n, p in module.named_parameters():
                 p.grad = acc[n]
-            clip_by_global_norm_([p.grad for p in module.parameters()], 1.0)
+            clip = WORLD_DP_CLIP[amp]
+            norms.append(float(clip_by_global_norm_([p.grad for p in module.parameters()], math.inf if clip is None
+                                                    else clip)))
             optimizer.step()
             out.append(params_of(module))
-        return out
+        return out, norms
 
     def leg_dp(self) -> None:
         from ptgnn_tpu_torch.parallel.dp import DDP_WARMUP_CALLS
@@ -5667,13 +5748,19 @@ class WorldRank:
                                 f"(expected {WORLD_DP_STEPS}), weights {[s['weight'] for s in c['steps']]}")
             if not ok:
                 continue
-            want = self.weighted_mean_steps(c["model"], c["initial"], amp)
-            first = worst_apart(c["steps"][0]["params"], want[0])
-            last = worst_apart(c["steps"][-1]["params"], want[-1])
-            self.hold(name, first[0] <= 1e-5,
-                      f"{label}: ZeRO-1 step 1 against one card's step on the weighted mean gradient of the "
-                      f"{self.world} minibatches: every parameter within {first[0]:.3e} of its max (limit 1e-5; "
-                      f"worst {first[1]}); after {WORLD_DP_STEPS} steps {last[0]:.3e} ({last[1]})")
+            want, norms = self.weighted_mean_steps(c["model"], c["initial"], amp)
+            # the same steps with the minibatches' gradients summed in other orders
+            turned = [self.weighted_mean_steps(c["model"], c["initial"], amp, turn=t)[0] for t in range(1, self.world)]
+            for i in (0, WORLD_DP_STEPS - 1):
+                worst = worst_apart(c["steps"][i]["params"], want[i])
+                spread = max(worst_apart(t[i], want[i])[0] for t in turned)
+                limit = 1e-5 if i == 0 else max(1e-5, WORLD_DP_SPREAD * spread)
+                self.hold(name, worst[0] <= limit,
+                          f"{label}: ZeRO-1 (Adam eps {WORLD_ADAM_EPS}, clip {WORLD_DP_CLIP[amp]}; the mean's global "
+                          f"norms {[round(n, 4) for n in norms]}) after step {i + 1} against one card's steps on the "
+                          f"weighted mean gradient of the {self.world} minibatches a step: every parameter within "
+                          f"{worst[0]:.3e} of its max (limit {limit:.3e}; worst {worst[1]}); the same steps summed "
+                          f"in {len(turned)} other orders up to {spread:.3e}")
             apart = [f"step {i} {k}" for i, (a, b) in enumerate(zip(c["steps"], e["steps"]))
                      for k in same_tensors(a["params"], b["params"])]
             apart += same_tensors(c["adam"], e["adam"])
@@ -5949,12 +6036,22 @@ class WorldRank:
     def leg_checkpoint(self) -> None:
         name = "world-checkpoint"
         t_leg = time.perf_counter()
-        r = checkpoint_round_trip(self.model, self.device_mbs, self.dev, self.tmp / "dcp", self.rank, self.world)
+        r = checkpoint_round_trip(self.model, self.device_mbs, self.dev, self.tmp / "dcp", self.rank, self.world,
+                                  eps=WORLD_ADAM_EPS)
+        reference = ("the uninterrupted one" if self.world == 1 else
+                     f"a twin run's step 4 through a new DataParallel (the twin's steps 1-3 bitwise the saved state "
+                     f"{r['twin_replayed']})")
         self.hold(name, r["ok"],
-                  f"ZeRO-1 at world {self.world}: async save after step 3 while steps 4-5 ran; restored parameters "
-                  f"bitwise {r['same_params']}, this rank's Adam moments and steps bitwise {r['same_moments']} "
-                  f"({r['moment_tensors']} tensors), the resumed step 4 bitwise the uninterrupted one "
-                  f"{r['same_step']}; steps kept {r['kept']}, sidecars {r['sidecars']}")
+                  f"ZeRO-1 at world {self.world} (Adam eps {WORLD_ADAM_EPS}): async save after step 3 while steps "
+                  f"4-5 ran; restored parameters bitwise {r['same_params']}, this rank's Adam moments and steps "
+                  f"bitwise {r['same_moments']} ({r['moment_tensors']} tensors), the resumed step 4 bitwise "
+                  f"{reference}: {r['same_step']}; steps kept {r['kept']}, sidecars {r['sidecars']}")
+        if self.world > 1:
+            drift, worst = r["drift"]
+            self.hold(name, drift <= 1e-5,
+                      f"the resumed step 4 against the uninterrupted one (its DataParallel's rebuilt buckets): "
+                      f"every parameter within {drift:.3e} of its max (limit 1e-5; worst {worst}); bitwise "
+                      f"{r['fresh_is_uninterrupted']}")
         self.readings["checkpoint s"] = {k: r[k] for k in ("stage_s", "commit_s", "restore_s")}
         self.say(name, f"save returned in {r['stage_s']:.3f} s, commit waited {r['commit_s']:.3f} s more, restore "
                        f"{r['restore_s']:.3f} s; a step is {r['bytes']} bytes in {r['files']} files; leg total "
@@ -5965,25 +6062,32 @@ class WorldRank:
         name = "world-epoch"
         e = world_epoch(self.dev, f"world-epoch-r{self.rank}")
         self.readings["epoch"] = e
-        self.hold(name, e["steps"] > 0 and all(math.isfinite(x) for x in e["losses"]),
-                  f"DistributedModelTrainer epoch (ZeRO-1, compiled, the tensorize forked on the card) over "
-                  f"{e['graphs']} graphs: {e['steps']} steps in {e['seconds']:.3f} s; this rank's host tensorize of "
-                  f"the {e['graphs']} graphs in one thread {e['tensorize_s']:.3f} s")
+        least = 20 if self.dev.type == "cuda" else 1
+        self.hold(name, e["steps"] >= least and all(math.isfinite(x) for x in e["losses"])
+                  and len(set(e["captured"])) == 1,
+                  f"DistributedModelTrainer, {WORLD_EPOCHS} epochs (ZeRO-1, compiled, the tensorize forked on the "
+                  f"card) over {e['graphs']} graphs: {e['steps']} steps an epoch (at least {least}) in "
+                  f"{[round(t, 3) for t in e['seconds']]} s, the first with the DDP warm-ups and captures, the "
+                  f"second replaying them (train-step graphs at each epoch's end {e['captured']}); this rank's "
+                  f"host tensorize of the {e['graphs']} graphs in one thread {e['tensorize_s']:.3f} s")
 
-    def run(self) -> dict:
+    def run(self, legs=WORLD_LEGS) -> dict:
+        """The legs of ``legs`` that the ranks run, in WORLD_LEGS' order."""
         self.setup()
-        for leg in (self.leg_nccl, self.leg_dp, self.leg_edge, self.leg_node, self.leg_hybrid, self.leg_checkpoint, self.leg_epoch):
-            self.barrier()
-            leg()
+        for leg in WORLD_LEGS:
+            if leg in legs and hasattr(self, f"leg_{leg}"):
+                self.barrier()
+                getattr(self, f"leg_{leg}")()
         self.barrier()
         return {"rank": self.rank, "device": str(self.dev), "failures": self.failures, "held": self.held,
                 "readings": self.readings}
 
 
-def world_rank(rank: int, world: int, tmp: str, device: str = "cuda", extra: str | None = None) -> None:
+def world_rank(rank: int, world: int, tmp: str, device: str = "cuda", extra: str | None = None,
+               leg_names=WORLD_LEGS) -> None:
     """One rank of the multi-card path (a spawned process): joins the group
     through ``initialize_multi_host`` (NCCL on its card; gloo where
-    ``device`` is "cpu"), runs the legs (``WorldRank``) and ``extra``
+    ``device`` is "cpu"), runs the legs of ``leg_names`` (``WorldRank``) and ``extra``
     ("module:function", called as ``function(payload, rank, world, tmp)`` on
     ``tmp/extra.pt``: a test's own case in the same world), and writes its
     results to ``tmp/rank{rank}.pt``, its traceback to ``tmp/error{rank}.txt``."""
@@ -6009,7 +6113,7 @@ def world_rank(rank: int, world: int, tmp: str, device: str = "cuda", extra: str
                     raise RuntimeError(f"rank {rank} was bound to {dev}")
                 legs = WorldRank(rank, world, dev, tmp, log)
                 PHASE_SINK = legs.say
-                out = legs.run()
+                out = legs.run(leg_names)
                 if extra is not None:
                     module_name, fn = extra.split(":")
                     payload = torch.load(tmp / "extra.pt", weights_only=False)
@@ -6045,14 +6149,15 @@ def free_compiled_steps() -> int:
     return len(held)
 
 
-def launch_world(world: int, tmp: Path, device: str = "cuda", extra: str | None = None) -> list:
-    """``world`` ranks of ``world_rank`` (spawned, a ``file://`` rendezvous
+def launch_world(world: int, tmp: Path, device: str = "cuda", extra: str | None = None, legs=WORLD_LEGS) -> list:
+    """``world`` ranks of ``world_rank`` running ``legs`` (spawned, a ``file://`` rendezvous
     in ``tmp``), joined with a timeout; what is left is killed. Returns each
     rank's results; raises with the ranks' tracebacks where one failed."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=world_rank, args=(r, world, str(tmp), device, extra)) for r in range(world)]
+    procs = [ctx.Process(target=world_rank, args=(r, world, str(tmp), device, extra, tuple(legs)))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + WORLD_JOIN_S
@@ -6183,10 +6288,11 @@ def world_cli(world: int, card: str) -> list:
     return lines
 
 
-def world_main(world: int) -> None:
-    """``python3 chip_smoke.py --world 4``: the multi-card path on ``world``
-    cards of one host. Leg 1 (K1-K5 on every card from a thread on card 0)
-    and the world-1 references (phase 29's compiled step, phase 30's
+def world_main(world: int, legs=WORLD_LEGS) -> None:
+    """``python3 chip_smoke.py --world 4 [--legs dp,epoch,...]``: the
+    multi-card path on ``world`` cards of one host, every leg of WORLD_LEGS
+    or those of ``legs``. Leg 1 (K1-K5 on every card from a thread on card
+    0) and the world-1 references (phase 29's compiled step, phase 30's
     DistributedModelTrainer epoch) in this process; legs 2-6 and the epoch
     in ``world`` spawned ranks over NCCL (``WorldRank``); leg 7 (the
     distributed CLI at world ``world``, data-parallel and 2 node shards);
@@ -6199,6 +6305,8 @@ def world_main(world: int) -> None:
     t_start = time.perf_counter()
     if torch.cuda.device_count() < world:
         raise RuntimeError(f"--world {world} needs {world} cards; this machine has {torch.cuda.device_count()}")
+    if set(legs) - set(WORLD_LEGS):
+        raise ValueError(f"--legs {sorted(set(legs) - set(WORLD_LEGS))}: the legs are {WORLD_LEGS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -6206,7 +6314,7 @@ def world_main(world: int) -> None:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     phase("device", f"{torch.cuda.device_count()} x {kind}; nvidia-smi: {card_lines()}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
+          f"cuda {torch.version.cuda}; legs {[leg for leg in WORLD_LEGS if leg in legs]}")
     build_s = cuda_build.build_all()
     native_s = native.build()
     phase("build", f"{build_s:.2f} s for {sorted(cuda_build.BUILD_LOG) or 'nothing (cached)'}; native assembler "
@@ -6214,17 +6322,22 @@ def world_main(world: int) -> None:
 
     # ---- leg 1: the kernels on every card ----------------------------------
     model, _, minibatches, batches = build_bench(dev)
-    for line in kernels_on_every_card(minibatches[0]["batch"].adjacency, world):
-        phase("world-kernels", f"K1-K5 from a thread whose current device is cuda:0, bitwise against their plain "
-              f"versions and card 0's results: {line}")
+    if "kernels" in legs:
+        for line in kernels_on_every_card(minibatches[0]["batch"].adjacency, world):
+            phase("world-kernels", f"K1-K5 from a thread whose current device is cuda:0, bitwise against their "
+                  f"plain versions and card 0's results: {line}")
 
     # ---- world-1 references ---------------------------------------------------
-    step_ms = step_runs(model, [g2c_minibatch(b) for b in batches], dev, amp=False, compiled=True)["ms"]
-    phase("world-1", f"phase 29's compiled Graph2Class train step at world 1: {step_ms:.3f} ms/step on {card}")
-    one = world_one(lambda: world_epoch(dev, "world-1-epoch"))
-    phase("world-1", f"phase 30's DistributedModelTrainer epoch at world 1 (ZeRO-1, compiled, forked tensorize) over "
-          f"{one['graphs']} graphs: {one['steps']} steps in {one['seconds']:.3f} s; host tensorize "
-          f"{one['tensorize_s']:.3f} s in one thread")
+    step_ms = one = None
+    if set(legs) & {"dp", "edge", "node", "hybrid"}:
+        step_ms = step_runs(model, [g2c_minibatch(b) for b in batches], dev, amp=False, compiled=True)["ms"]
+        phase("world-1", f"phase 29's compiled Graph2Class train step at world 1: {step_ms:.3f} ms/step on {card}")
+    if "epoch" in legs:
+        one = world_one(lambda: world_epoch(dev, "world-1-epoch"))
+        phase("world-1", f"phase 30's DistributedModelTrainer epoch at world 1 (ZeRO-1, compiled, forked "
+              f"tensorize), {WORLD_EPOCHS} epochs over {one['graphs']} graphs: {one['steps']} steps an epoch in "
+              f"{[round(t, 3) for t in one['seconds']]} s (the first with the captures; train-step graphs at each "
+              f"epoch's end {one['captured']}); host tensorize {one['tensorize_s']:.3f} s in one thread")
     del model, minibatches, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -6234,7 +6347,7 @@ def world_main(world: int) -> None:
     logs = Path(__file__).resolve().parent / "build" / "chip_smoke" / "world"
     t0 = time.perf_counter()
     try:
-        ranks = launch_world(world, tmp)
+        ranks = launch_world(world, tmp, legs=legs)
     finally:
         shutil.rmtree(logs, ignore_errors=True)
         logs.mkdir(parents=True, exist_ok=True)
@@ -6243,13 +6356,13 @@ def world_main(world: int) -> None:
         for err in tmp.glob("error*.txt"):
             shutil.copy(err, logs / err.name)
         shutil.rmtree(tmp, ignore_errors=True)
-    phase("world", f"{world} ranks ran legs 2-6 and the epoch in {time.perf_counter() - t0:.1f} s (rank logs under "
-          f"{logs})")
+    phase("world", f"{world} ranks ran {[leg for leg in WORLD_LEGS[1:-1] if leg in legs]} in "
+          f"{time.perf_counter() - t0:.1f} s (rank logs under {logs})")
     failures = [f"rank {r['rank']}: {f}" for r in ranks for f in r["failures"]]
 
     # ---- leg 7: the distributed CLI -------------------------------------------------
     try:
-        for line in world_cli(world, card):
+        for line in world_cli(world, card) if "cli" in legs else ():
             phase("world-cli", line)
     except (RuntimeError, subprocess.TimeoutExpired) as failure:
         failures.append(f"leg 7: {failure}")
@@ -6258,14 +6371,19 @@ def world_main(world: int) -> None:
     r0 = ranks[0]["readings"]
     readings = {"card": card, "cards": world, "world1_step_ms": step_ms, "world1_epoch": one,
                 "ranks": [r["readings"] for r in ranks]}
-    ms = {leg: r0.get(f"{leg} ms/step") for leg in ("dp", "edge", "node", "hybrid")}
-    phase("world-readings", f"ms per step at world {world} (rank 0, compiled, median of the timed runs): {ms} "
-          f"against the world-1 compiled step's {step_ms:.3f}")
-    epochs = [r["readings"]["epoch"] for r in ranks]
-    phase("world-readings", f"DistributedModelTrainer epoch over {one['graphs']} graphs: world {world} "
-          f"{[round(e['seconds'], 3) for e in epochs]} s a rank ({epochs[0]['steps']} steps) against world 1 "
-          f"{one['seconds']:.3f} s ({one['steps']} steps); each rank's host tensorize "
-          f"{[round(e['tensorize_s'], 3) for e in epochs]} s (world 1: {one['tensorize_s']:.3f} s)")
+    if step_ms is not None:
+        ms = {leg: r0.get(f"{leg} ms/step") for leg in ("dp", "edge", "node", "hybrid")}
+        phase("world-readings", f"ms per step at world {world} (rank 0, compiled, median of the timed runs): {ms} "
+              f"against the world-1 compiled step's {step_ms:.3f}")
+    if one is not None:
+        epochs = [r["readings"]["epoch"] for r in ranks]
+        for i, label in enumerate(("first (DDP warm-ups and captures)", "second (steady state)")[:WORLD_EPOCHS]):
+            phase("world-readings", f"DistributedModelTrainer {label} epoch over {one['graphs']} graphs: world "
+                  f"{world} {[round(e['seconds'][i], 3) for e in epochs]} s a rank ({epochs[0]['steps']} steps a "
+                  f"rank) against world 1 {one['seconds'][i]:.3f} s ({one['steps']} steps); ratio "
+                  f"{max(e['seconds'][i] for e in epochs) / one['seconds'][i]:.3f}")
+        phase("world-readings", f"each rank's host tensorize of the {one['graphs']} graphs in one thread "
+              f"{[round(e['tensorize_s'], 3) for e in epochs]} s (world 1: {one['tensorize_s']:.3f} s)")
     if "dp nccl" in r0:
         phase("world-readings", f"NCCL's share of a profiled run of compiled DataParallel steps on rank 0: {r0['dp nccl']}")
     for r in ranks:
@@ -6274,8 +6392,8 @@ def world_main(world: int) -> None:
         for f in failures:
             print(f"FAILED {f}", flush=True)
         raise RuntimeError(f"{len(failures)} gates failed at world {world}")
-    phase("world", f"every gate held on every rank ({sum(len(r['held']) for r in ranks)} gate lines); total "
-          f"{time.perf_counter() - t_start:.1f} s")
+    phase("world", f"every gate of the legs {[leg for leg in WORLD_LEGS if leg in legs]} held on every rank "
+          f"({sum(len(r['held']) for r in ranks)} gate lines); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"world": readings}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -6296,7 +6414,8 @@ def main() -> None:
         broadcast_ab(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--world"]:
-        world_main(int(sys.argv[2]))
+        legs = sys.argv[4].split(",") if sys.argv[3:4] == ["--legs"] else WORLD_LEGS
+        world_main(int(sys.argv[2]), legs)
         return
     from ptgnn_tpu_torch import native
     from ptgnn_tpu_torch.graph.structs import tree_to

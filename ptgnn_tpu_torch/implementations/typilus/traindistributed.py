@@ -29,14 +29,13 @@ scales the node-sharding budgets probed from the first batches.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import os
 import random
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -91,11 +90,12 @@ def _train(local_rank: int, args: argparse.Namespace, init_method: Optional[str]
     rank = None if init_method is None else rank_offset + local_rank
     if args.device == "cuda":
         resolve_device("cuda")  # raises where CUDA is missing
-        # this rank's place on its host, as torchrun states it: the card
-        # that initialize_multi_host binds
-        place = {"LOCAL_RANK": str(local_rank), "LOCAL_WORLD_SIZE": str(args.world_size)}
-        with _environment(place if init_method is not None else {}):
-            initialize_multi_host("nccl", init_method, world_size, rank)
+        if init_method is not None:
+            # this spawned rank's place on its host, as torchrun states it:
+            # the card that initialize_multi_host binds
+            os.environ["LOCAL_RANK"] = str(local_rank)
+            os.environ["LOCAL_WORLD_SIZE"] = str(args.world_size)
+        initialize_multi_host("nccl", init_method, world_size, rank)
         device = torch.device("cuda", torch.cuda.current_device())
     else:
         initialize_multi_host("gloo", init_method, world_size, rank)
@@ -104,21 +104,6 @@ def _train(local_rank: int, args: argparse.Namespace, init_method: Optional[str]
         return _run_rank(args, device)
     finally:
         dist.destroy_process_group()
-
-
-@contextlib.contextmanager
-def _environment(values: Dict[str, str]):
-    """``values`` in ``os.environ`` for the block, restored after it."""
-    saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def _run_rank(args: argparse.Namespace, device: torch.device) -> Optional[float]:

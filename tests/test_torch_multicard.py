@@ -6,9 +6,12 @@ compiled steps are plain calls here, so compiled against eager compares
 two plain runs. Each rank records the gates of legs 2-6 and the epoch, and
 the tests hold them:
 
-* leg 2, ``DistributedModelTrainer`` with ZeRO-1 (float32 and bf16 AMP):
-  step 1 within 1e-5 of each parameter's largest magnitude of one process's
-  step on the weighted mean gradient of the 4 minibatches; compiled against
+* leg 2, ``DistributedModelTrainer`` with ZeRO-1 (Adam eps 1e-3; float32
+  unclipped, bf16 AMP clipped at 1.0): step 1 within 1e-5 of each
+  parameter's largest magnitude of one process's steps on the weighted mean
+  gradient of the 4 minibatches a step, and step 3 within
+  ``chip_smoke.WORLD_DP_SPREAD`` (4) times that reference's own spread over
+  the other orders of its sum (at least 1e-5); compiled against
   eager bitwise; about a quarter of Adam's moments on each rank;
 * leg 3, ``EdgeParallel`` over 4 shards: each SGD step within 1e-5 of each
   parameter's max of the single-device step, the losses to rtol 1e-5;
@@ -20,8 +23,9 @@ the tests hold them:
   unsharded weighted-mean step (the loss to rtol 1e-5); ZeRO-1 moments
   split over the data group; the trainer's epoch compiled against eager
   bitwise;
-* leg 6, ``DistributedCheckpointer`` with ZeRO-1: the round trip and the
-  resumed step bitwise;
+* leg 6, ``DistributedCheckpointer`` with ZeRO-1: the round trip bitwise,
+  the resumed step bitwise a twin run's step through a new DataParallel,
+  and within 1e-5 of each parameter's max of the uninterrupted step;
 
 and, in the same world, a DP + ZeRO-1 Adam step at world 4 against JAX's
 ``DataParallel(zero1=True)`` on a 4-device CPU mesh at the JAX dry run's
@@ -116,7 +120,7 @@ def test_every_gate_of_the_leg_holds_on_every_rank(world, leg):
 def test_the_legs_held_their_gates_in_full(world):
     """Every gate a leg holds on the card is held here too: the count per
     leg, the same on every rank."""
-    want = {"world-nccl": 1, "world-dp": 10, "world-edge": 2, "world-node": 5, "world-hybrid": 4, "world-checkpoint": 1,
+    want = {"world-nccl": 1, "world-dp": 12, "world-edge": 2, "world-node": 5, "world-hybrid": 4, "world-checkpoint": 2,
             "world-epoch": 1}
     for rank in world["ranks"]:
         assert {leg: len(lines(rank, leg)) for leg in LEGS} == want
@@ -149,13 +153,16 @@ def test_zero1_step_at_world_four_matches_jax_data_parallel(world):
 
 def test_readings_are_recorded_on_every_rank(world):
     """The node exchange's boundary rows and bytes, the checkpoint's
-    seconds, the epoch's steps and each rank's host tensorize seconds."""
+    seconds, each epoch's seconds and steps (the second epoch capturing
+    nothing new) and each rank's host tensorize seconds."""
     for rank in world["ranks"]:
         r = rank["readings"]
         assert 0 < r["node exchange"]["boundary_rows"] <= r["node exchange"]["nodes"]
         assert r["node exchange"]["bytes_per_layer"] <= r["node exchange"]["padded_bytes_per_layer"]
         assert set(r["checkpoint s"]) == {"stage_s", "commit_s", "restore_s"}
         assert r["epoch"]["steps"] >= 1 and r["epoch"]["tensorize_s"] > 0
+        assert len(r["epoch"]["seconds"]) == chip_smoke.WORLD_EPOCHS == 2 and min(r["epoch"]["seconds"]) > 0
+        assert len(set(r["epoch"]["captured"])) == 1
         assert r["dp float32 all-reduce per execution"][0] >= 3
 
 
