@@ -300,17 +300,22 @@ never falls back):
    compiled against eager bitwise; the boundary rows and bytes;
 5. the 2 data x 2 node hybrid: a step within 1e-4 of each update's max of
    the unsharded weighted-mean step; ZeRO-1 over the data group;
-   NodeShardedModelTrainer for an epoch, compiled against eager bitwise;
+   NodeShardedModelTrainer for an epoch, compiled against eager bitwise,
+   only the node's assembler (rank 0) tensorizing and resharding;
 6. DistributedCheckpointer with ZeRO-1 at world 4 (phase 27's round trip,
    Adam eps 1e-3): the resumed step bitwise a twin run's step through a
    new DataParallel, and within 1e-5 of each parameter's max of the
    uninterrupted step (its DataParallel's rebuilt buckets add in another
    order); then, in the ranks, the epoch: DistributedModelTrainer for 2
-   epochs over 288 benchmark graphs, the second timed alone;
+   epochs over 288 benchmark graphs, the second timed alone, one node's
+   assembler (rank 0) handing the others their slots: each rank's slots
+   of the first 3 groups bitwise an in-process minibatch_iterator's, and
+   ranks 1-3 with no tensorize, forked child, finalize or reshard;
 7. traindistributed --world-size 4, and with --node-shards 2, for an
    epoch each (after the ranks end);
 8. readings: ms per step of legs 2-5 against the world-1 step, each epoch
-   at world 4 against world 1 with each rank's host tensorize seconds, NCCL's
+   at world 4 against world 1 with each rank's host seconds (tensorize,
+   assemble, finalize, reshard, handoff) and handoff bytes a slot, NCCL's
    share, the launches by path on every rank.
 
 A failed gate is recorded and the legs go on; the run then prints every
@@ -3389,8 +3394,11 @@ def data_parallel_phase(dev, card, model, batches, epochs):
 DP_EPOCH_GRAPHS = 30  # about 10 benchmark batches
 
 
+DP_EPOCH_MINIBATCH = 300  # dp_epoch's samples a minibatch
+
+
 def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_steps: bool, name: str,
-             epochs: int = 1, **train_kw):
+             epochs: int = 1, slot_digests: list | None = None, **train_kw):
     """``epochs`` DistributedModelTrainer epochs (``model``: the benchmark
     Graph2Class model with its metadata; dropout 0.1, Adam with the clip)
     over ``train``, each followed by validation, its steps compiled or
@@ -3400,15 +3408,18 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
     seconds of the first epoch (its captures included) and of each epoch
     (``epoch_seconds``: a later epoch from the end of the one before, its
     validation and checkpoint, to its last step), the compiled train
-    step's graphs at each epoch's end (``graphs``), and the data-parallel
-    steps."""
+    step's graphs at each epoch's end (``graphs``), the trainer's
+    ``handoff_stats`` at the end and at each epoch's end (``handoffs``),
+    and the data-parallel steps. ``slot_digests`` gets the ``host_digest``
+    of this rank's host minibatch of the first WORLD_DIGEST_GROUPS groups
+    of the first training pass."""
     from ptgnn_tpu_torch.core.compiled_step import CompiledStep
     from ptgnn_tpu_torch.parallel import DistributedModelTrainer
 
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp-epochs"
     trainer = DistributedModelTrainer(
         model, out_dir / f"{name}.pkl.gz",
-        zero1=zero1, gradient_accumulation_steps=accumulate, max_num_epochs=epochs, minibatch_size=300,
+        zero1=zero1, gradient_accumulation_steps=accumulate, max_num_epochs=epochs, minibatch_size=DP_EPOCH_MINIBATCH,
         clip_gradient_norm=1.0, optimizer_creator=lambda p: torch.optim.Adam(p, lr=2.5e-4), device=dev, seed=SEED,
         target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True)
     trainer.load_metadata_and_create_network(train, parallelize=False)
@@ -3423,12 +3434,28 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
             return out
 
         setattr(dp, method, recorded)
-    seconds, graphs = [], []
+    seconds, graphs, handoffs = [], [], []
+    if slot_digests is not None:
+        real_groups = trainer.group_minibatches
+
+        def group_minibatches(*args, **kwargs):
+            groups = real_groups(*args, **kwargs)
+            if trainer.group_minibatches is group_minibatches:  # the first pass: record, then stop wrapping
+                trainer.group_minibatches = real_groups
+                for g, item in enumerate(groups):
+                    if g < WORLD_DIGEST_GROUPS:
+                        slot_digests.append(host_digest(item[0]))
+                    yield item
+            else:
+                yield from groups
+
+        trainer.group_minibatches = group_minibatches
 
     def epoch_end(*_):
         synchronize()
         seconds.append(time.perf_counter() - marks["start"])
         graphs.append(len(dp.train_step_compiled) if isinstance(dp.train_step_compiled, CompiledStep) else 0)
+        handoffs.append(trainer.handoff_stats)
 
     def validation_end(m, mod, ep, valid_metrics):
         metrics.append(valid_metrics)
@@ -3446,7 +3473,8 @@ def dp_epoch(model, train, valid, dev, *, zero1: bool, accumulate: int, eager_st
     return {"losses": losses, "state": {**{f"param {k}": v.detach().clone()
                                            for k, v in trainer.neural_module.named_parameters()},
                                         **adam_state(optimizers[0])},
-            "metrics": metrics, "seconds": seconds[0], "epoch_seconds": seconds, "graphs": graphs, "dp": dp}
+            "metrics": metrics, "seconds": seconds[0], "epoch_seconds": seconds, "graphs": graphs,
+            "handoffs": handoffs, "handoff": trainer.handoff_stats, "dp": dp}
 
 
 def dp_compiled_checks(dev, card, model, batches, epochs):
@@ -5462,28 +5490,168 @@ def world_ppi(dev):
 
 WORLD_EPOCH_GRAPHS = 288  # about 88 benchmark batches: 22 steps a rank at world 4
 WORLD_EPOCHS = 2  # the first captures the steps; the second is timed as the steady state
+WORLD_DIGEST_GROUPS = 3  # the epoch leg holds each rank's slots of the first groups against an in-process oracle
+
+
+def host_digest(tree) -> str:
+    """A sha256 of a host minibatch: each leaf's place, type, dtype, shape
+    and bytes, in the tree's order (NamedTuples, dicts, lists, tuples)."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(obj, path):
+        if isinstance(obj, torch.Tensor):
+            obj = obj.numpy()
+        if isinstance(obj, (np.ndarray, np.generic)):
+            arr = np.ascontiguousarray(obj)
+            h.update(f"{path}:{arr.dtype.str}:{arr.shape};".encode())
+            h.update(arr.view(np.uint8).tobytes())
+        elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            h.update(f"{path}:{type(obj).__name__};".encode())
+            for name, x in zip(obj._fields, obj):
+                walk(x, f"{path}.{name}")
+        elif isinstance(obj, dict):
+            for k in sorted(obj):
+                walk(obj[k], f"{path}[{k!r}]")
+        elif isinstance(obj, (list, tuple)):
+            for i, x in enumerate(obj):
+                walk(x, f"{path}[{i}]")
+        else:
+            h.update(f"{path}={obj!r};".encode())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+class HostWork:
+    """Counts and times, in this process, the host work that a node's
+    assembler does, by wrapping the methods of ``model``'s class (and of the
+    port's modules) while the context is open: ``tensorize_dataset`` calls,
+    forked tensorize children (``BufferedIterator``) and their CPU seconds
+    once joined (``RUSAGE_CHILDREN``), in-process ``tensorize`` calls and
+    seconds, the assembling (``initialize_minibatch``, ``can_add_to_minibatch``,
+    ``extend_minibatch_with``) and finalizing seconds, and the reshards
+    (``shard_batch_by_nodes``). Safe across the assembling threads."""
+
+    def __init__(self, model):
+        import threading
+
+        self.cls = type(model)
+        self.calls = {k: 0 for k in ("tensorize_dataset", "children", "tensorize", "finalize", "reshard")}
+        self.seconds = {k: 0.0 for k in ("tensorize", "assemble", "finalize", "reshard", "children_cpu")}
+        self._lock = threading.Lock()
+        self._undo: list = []
+
+    def _add(self, calls: str | None, seconds: str | None, dt: float) -> None:
+        with self._lock:
+            if calls:
+                self.calls[calls] += 1
+            if seconds:
+                self.seconds[seconds] += dt
+
+    def _wrap(self, owner, name: str, calls: str | None, seconds: str | None) -> None:
+        real = getattr(owner, name)
+        had = name in vars(owner)
+
+        @functools.wraps(real)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self._add(calls, seconds, time.perf_counter() - t0)
+
+        setattr(owner, name, timed)
+        self._undo.append(lambda: setattr(owner, name, real) if had else delattr(owner, name))
+
+    def __enter__(self) -> "HostWork":
+        import resource
+
+        from ptgnn_tpu_torch.core import model as model_module
+        from ptgnn_tpu_torch.parallel import node_sharding
+
+        work = self
+        real_buffered = model_module.BufferedIterator
+
+        class CountedBufferedIterator(real_buffered):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                if self.process is not None:
+                    work._add("children", None, 0.0)
+
+        model_module.BufferedIterator = CountedBufferedIterator
+        self._undo.append(lambda: setattr(model_module, "BufferedIterator", real_buffered))
+        self._wrap(self.cls, "tensorize_dataset", "tensorize_dataset", None)
+        self._wrap(self.cls, "tensorize", "tensorize", "tensorize")
+        for name in ("initialize_minibatch", "can_add_to_minibatch", "extend_minibatch_with"):
+            self._wrap(self.cls, name, None, "assemble")
+        self._wrap(self.cls, "finalize_minibatch", "finalize", "finalize")
+        self._wrap(node_sharding, "shard_batch_by_nodes", "reshard", "reshard")
+        usage = resource.getrusage(resource.RUSAGE_CHILDREN)
+        self._children_cpu = usage.ru_utime + usage.ru_stime
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import resource
+
+        usage = resource.getrusage(resource.RUSAGE_CHILDREN)
+        self.seconds["children_cpu"] = usage.ru_utime + usage.ru_stime - self._children_cpu
+        while self._undo:
+            self._undo.pop()()
+
+    def reading(self) -> dict:
+        return {"calls": dict(self.calls), "seconds": dict(self.seconds)}
 
 
 def world_epoch(dev, name: str) -> dict:
     """WORLD_EPOCHS DistributedModelTrainer epochs (``dp_epoch``: ZeRO-1,
     compiled, dropout 0.1, the forked tensorize on the card) over
     WORLD_EPOCH_GRAPHS benchmark graphs (24 small ones on the CPU) at the
-    process group's world size, each followed by validation; and this
-    process's host seconds to tensorize the graphs in one thread. The first
-    epoch holds the DDP warm-ups and the captures, the second replays the
-    same graphs (``graphs``: the compiled train step's graphs at each
-    epoch's end). Phase 30's epoch, longer, at any world size."""
+    process group's world size as one node, each followed by validation.
+    The first epoch holds the DDP warm-ups and the captures, the second
+    replays the same graphs (``graphs``: the compiled train step's graphs
+    at each epoch's end). Phase 30's epoch, longer, at any world size.
+
+    Also this rank's host work in the trainer (``HostWork``: zero on every
+    rank but the node's assembler) and its handoff (the slots it sent or
+    received, their bytes and seconds); and, after the epochs, the oracle:
+    the graphs tensorized in this thread (``tensorize_s``) and
+    ``model.minibatch_iterator`` over them in this process with the first
+    epoch's shuffle, whose minibatches ``g * world + rank`` (the empty
+    minibatch past their end) are this rank's slots of the first groups:
+    ``digests`` and ``oracle`` hold the ``host_digest`` of each."""
+    import random
+
+    import torch.distributed as dist
+
+    from ptgnn_tpu_torch.core.trainer import shuffle_seed
+
     sizes = world_sizes(dev)
     train = world_graphs(sizes, WORLD_EPOCH_GRAPHS if dev.type == "cuda" else 24, SEED + 50)
     valid = world_graphs(sizes, 4, SEED + 51)
     model = g2c_world_model(sizes, dropout_rate=0.1)
     model.compute_metadata(iter(train), parallelize=False)
-    costs = host_tensorize_costs(model, train)
-    run = dp_epoch(model, train, valid, dev, zero1=True, accumulate=1, eager_steps=False, name=name,
-                   epochs=WORLD_EPOCHS, parallelize=True, use_multiprocessing=dev.type == "cuda")
+    digests: list = []
+    with HostWork(model) as work:
+        run = dp_epoch(model, train, valid, dev, zero1=True, accumulate=1, eager_steps=False, name=name,
+                       epochs=WORLD_EPOCHS, slot_digests=digests, parallelize=True,
+                       use_multiprocessing=dev.type == "cuda")
     run["dp"].clear()
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    tensorized = list(model.tensorize_dataset(iter(train), parallelize=False))
+    tensorize_s = time.perf_counter() - t0
+    minibatches = model.minibatch_iterator(
+        iter(tensorized), max_minibatch_size=DP_EPOCH_MINIBATCH, yield_partial_minibatches=False,
+        shuffle_input=True, parallelize=False, shuffle_rng=random.Random(shuffle_seed(SEED, 0, 0)))
+    mine = [mb for i, (mb, _) in enumerate(itertools.islice(minibatches, len(digests) * world)) if i % world == rank]
+    empty = model.finalize_minibatch(model.initialize_minibatch())
+    oracle = [host_digest(mine[g] if g < len(mine) else empty) for g in range(len(digests))]
     return {"seconds": run["epoch_seconds"], "steps": len(run["losses"]) // WORLD_EPOCHS, "losses": run["losses"],
-            "graphs": len(train), "captured": run["graphs"], "tensorize_s": costs["tensorize_s"]}
+            "graphs": len(train), "captured": run["graphs"], "tensorize_s": tensorize_s, "host": work.reading(),
+            "handoff": run["handoff"], "handoffs": run["handoffs"], "digests": digests, "oracle": oracle}
 
 
 def nccl_share(prof) -> dict:
@@ -6015,11 +6183,13 @@ class WorldRank:
 
             trainer.data_parallel.train_step = recorded
             t0 = time.perf_counter()
-            (_, counts) = self.counts_of_path(lambda: trainer.train(
-                train, self.valid, initialize_metadata=False, patience=0, parallelize=False))
+            with HostWork(trainer._model) as work:
+                (_, counts) = self.counts_of_path(lambda: trainer.train(
+                    train, self.valid, initialize_metadata=False, patience=0, parallelize=False))
             synchronize()
             runs[mode] = {"losses": losses, "params": params_of(trainer.neural_module),
-                          "seconds": time.perf_counter() - t0, "budgets": trainer._budgets, "counts": counts}
+                          "seconds": time.perf_counter() - t0, "budgets": trainer._budgets, "counts": counts,
+                          "host": work.reading(), "handoff": trainer.handoff_stats}
             trainer.neural_module.gnn.node_group = None
         c, e = runs["compiled"], runs["eager"]
         apart = same_tensors(c["params"], e["params"])
@@ -6029,6 +6199,18 @@ class WorldRank:
                   f"for an epoch over {len(train)} graphs with validation, compiled against eager: losses "
                   f"{c['losses']} / {e['losses']}, parameters bitwise equal: {not apart} {apart[:4]}; "
                   f"{c['seconds']:.2f} s compiled, {e['seconds']:.2f} s eager; budgets {c['budgets']}")
+        calls, secs, h = c["host"]["calls"], c["host"]["seconds"], c["handoff"]
+        if self.rank == 0:  # the node's assembler: it reshards every slot, once
+            ok = calls["tensorize_dataset"] > 0 and calls["reshard"] > 0 and h["slots"] > 0
+        else:
+            ok = not any(calls.values()) and h["slots"] > 0
+        self.hold(name, ok,
+                  f"the compiled epoch's host work on {'the node assembler' if self.rank == 0 else 'a peer'}: calls "
+                  f"{calls}; reshard {secs['reshard']:.3f} s, finalize {secs['finalize']:.3f} s; handoff "
+                  f"{h['slots']} shards {'sent' if self.rank == 0 else 'received'}, "
+                  f"{h['bytes'] / max(h['slots'], 1) / 1e6:.3f} MB a shard, {h['seconds']:.3f} s in the calls "
+                  f"({h['pack_seconds']:.3f} s packing or unpacking)")
+        self.readings["hybrid host"] = {"host": c["host"], "handoff": h}
         self.readings["launches"]["hybrid trainer"] = dict(c["counts"])
         self.say(name, f"leg total {time.perf_counter() - t_leg:.1f} s")
 
@@ -6068,8 +6250,25 @@ class WorldRank:
                   f"DistributedModelTrainer, {WORLD_EPOCHS} epochs (ZeRO-1, compiled, the tensorize forked on the "
                   f"card) over {e['graphs']} graphs: {e['steps']} steps an epoch (at least {least}) in "
                   f"{[round(t, 3) for t in e['seconds']]} s, the first with the DDP warm-ups and captures, the "
-                  f"second replaying them (train-step graphs at each epoch's end {e['captured']}); this rank's "
+                  f"second replaying them (train-step graphs at each epoch's end {e['captured']}); the oracle's "
                   f"host tensorize of the {e['graphs']} graphs in one thread {e['tensorize_s']:.3f} s")
+        self.hold(name, bool(e["digests"]) and e["digests"] == e["oracle"],
+                  f"this rank's host minibatch of the first {len(e['digests'])} groups bitwise the in-process "
+                  f"minibatch_iterator's minibatch g x {self.world} + {self.rank} over the same graphs and shuffle "
+                  f"seed (sha256 {[d[:12] for d in e['digests']]} / {[d[:12] for d in e['oracle']]})")
+        calls, handoff = e["host"]["calls"], e["handoff"]
+        passes = 2 * WORLD_EPOCHS  # a training and a validation pass an epoch
+        if self.rank == 0:  # the node's assembler
+            ok = (calls["tensorize_dataset"] == passes and calls["finalize"] >= e["steps"] * self.world
+                  and calls["children"] == (passes if self.dev.type == "cuda" else 0)
+                  and handoff["slots"] >= (self.world - 1) * e["steps"])
+        else:
+            ok = (not any(calls.values()) and handoff["slots"] >= e["steps"])
+        self.hold(name, ok,
+                  f"{'the assembler' if self.rank == 0 else 'a peer of the assembler'}: tensorize_dataset calls "
+                  f"{calls['tensorize_dataset']}, forked children {calls['children']}, in-process tensorize calls "
+                  f"{calls['tensorize']}, finalize calls {calls['finalize']}, reshards {calls['reshard']} over "
+                  f"{passes} passes; handoff {handoff['slots']} slots {'sent' if self.rank == 0 else 'received'}")
 
     def run(self, legs=WORLD_LEGS) -> dict:
         """The legs of ``legs`` that the ranks run, in WORLD_LEGS' order."""
@@ -6382,8 +6581,18 @@ def world_main(world: int, legs=WORLD_LEGS) -> None:
                   f"{world} {[round(e['seconds'][i], 3) for e in epochs]} s a rank ({epochs[0]['steps']} steps a "
                   f"rank) against world 1 {one['seconds'][i]:.3f} s ({one['steps']} steps); ratio "
                   f"{max(e['seconds'][i] for e in epochs) / one['seconds'][i]:.3f}")
-        phase("world-readings", f"each rank's host tensorize of the {one['graphs']} graphs in one thread "
-              f"{[round(e['tensorize_s'], 3) for e in epochs]} s (world 1: {one['tensorize_s']:.3f} s)")
+        phase("world-readings", f"the oracle's host tensorize of the {one['graphs']} graphs in one thread, each "
+              f"rank {[round(e['tensorize_s'], 3) for e in epochs]} s (world 1: {one['tensorize_s']:.3f} s)")
+        for label, e in [("world 1", one)] + [(f"world {world} rank {r['rank']}", r["readings"]["epoch"])
+                                              for r in ranks]:
+            calls, secs, h = e["host"]["calls"], e["host"]["seconds"], e["handoff"]
+            phase("world-readings", f"{label}, the trainer's host work over {WORLD_EPOCHS} epochs and their "
+                  f"validation: seconds tensorize (this process) {secs['tensorize']:.3f}, forked children's CPU "
+                  f"{secs['children_cpu']:.3f}, assemble {secs['assemble']:.3f}, finalize {secs['finalize']:.3f}, "
+                  f"reshard {secs['reshard']:.3f}, handoff {h['seconds']:.3f} in the calls, waits included "
+                  f"({h['pack_seconds']:.3f} packing or unpacking); handoff {h['slots']} slots, "
+                  f"{h['bytes'] / max(h['slots'], 1) / 1e6:.3f} MB a slot; calls {calls}; handoff at each epoch's "
+                  f"end {e['handoffs']} on {card}")
     if "dp nccl" in r0:
         phase("world-readings", f"NCCL's share of a profiled run of compiled DataParallel steps on rank 0: {r0['dp nccl']}")
     for r in ranks:

@@ -229,13 +229,9 @@ class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeu
         shuffle_input: bool = False,
         parallelize: bool = True,
         shuffle_rng=None,
-        finalize_slot: Optional[Tuple[int, int]] = None,
-    ) -> Iterator[Tuple[Optional[Dict[str, Any]], List[Optional[TRawDatapoint]]]]:
+    ) -> Iterator[Tuple[Dict[str, Any], List[Optional[TRawDatapoint]]]]:
         """Yield (finalized minibatch, raw inputs) pairs; assembly and
-        finalization run pipelined in worker threads when ``parallelize``.
-        With ``finalize_slot=(k, n)`` only minibatches k, k + n, k + 2n, ...
-        are finalized (a data-parallel rank's slot of each group of n) and
-        the others are yielded as None."""
+        finalization run pipelined in worker threads when ``parallelize``."""
         if not self.__metadata_initialized:
             raise RuntimeError("Metadata has not been initialized.")
         if shuffle_input:
@@ -248,8 +244,7 @@ class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeu
             enabled=parallelize,
         )
         finalized = ThreadedIterator(
-            ((self.finalize_minibatch(d[0]) if finalize_slot is None or i % finalize_slot[1] == finalize_slot[0]
-              else None, d[1]) for i, d in enumerate(unfinalized)),
+            ((self.finalize_minibatch(d[0]), d[1]) for d in unfinalized),
             enabled=parallelize,
         )
         try:

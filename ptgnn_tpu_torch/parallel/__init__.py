@@ -1,7 +1,8 @@
 """Parallel training over ``torch.distributed`` (one process per GPU):
-data parallelism (``dp``, ``distributed_trainer``), edge sharding
-(``edge_sharding``), node sharding (``node_sharding``) and the node-sharded
-trainer (``node_sharded_trainer``)."""
+data parallelism (``dp``, ``distributed_trainer``; each node's assembler
+hands the node's other ranks their minibatches through ``handoff``), edge
+sharding (``edge_sharding``), node sharding (``node_sharding``) and the
+node-sharded trainer (``node_sharded_trainer``)."""
 from ptgnn_tpu_torch.parallel.distributed_trainer import DistributedModelTrainer, initialize_multi_host
 from ptgnn_tpu_torch.parallel.dp import LOCAL, DataParallel, moment_elements, zero1_optimizer
 from ptgnn_tpu_torch.parallel.edge_sharding import EdgeParallel, shard_adjacency, sharded_aggregate

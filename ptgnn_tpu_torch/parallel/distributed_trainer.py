@@ -7,18 +7,25 @@ the CPU), and the step is :class:`~ptgnn_tpu_torch.parallel.dp.DataParallel`'s
 weighted one.
 
 * Groups. The processes of one node form a group of ``local_world_size``
-  slots. Every process of a node runs the same minibatch iterator (the same
-  data, the same shuffle seed) and takes slot ``local_rank`` of each group,
-  so the groups, the weights (each slot's count of real samples) and the
-  padding are the JAX package's single-host groups exactly. Every rank
-  assembles every minibatch (that fixes the group boundaries) but finalizes
-  only its own slot's. A short last group is padded with the model's empty
-  minibatch (``model.finalize_minibatch(model.initialize_minibatch())``) at
-  weight 0.
+  slots. One of them, local rank 0, is the node's assembler: as the JAX
+  package's one process per host, it alone tensorizes the node's data
+  (forking the tensorize child, memorizing the data when asked), assembles
+  and finalizes every minibatch of the node's stream, and hands each other
+  rank of the node its slot of each group, with the slot's weight (its
+  count of real samples) and the group's raw-sample count, over a gloo
+  group of the node's ranks (``parallel/handoff.py``), in a thread that
+  runs ahead of the steps. The other ranks never call the tensorize
+  closures. So the groups, the weights and the padding are the JAX
+  package's single-host groups exactly. A short last group is padded with
+  the model's empty minibatch
+  (``model.finalize_minibatch(model.initialize_minibatch())``) at weight 0.
+  An error on the assembler reaches its peers as a message, and every rank
+  raises. At one rank a node there is no handoff.
 * Nodes. Each node reads its own interleave of the files and, after every
   group, the processes all-reduce an "anyone left" flag; a node that has run
   out feeds empty groups until no node has data, as JAX's
-  ``process_allgather`` loop does.
+  ``process_allgather`` loop does. A rank whose node failed raises after
+  that all-reduce, and the others with it.
 * Metadata is computed by rank 0 over the full data and broadcast with
   ``broadcast_object_list``; every rank then builds the module from the
   same seed, and rank 0's weights are broadcast to be sure.
@@ -27,8 +34,8 @@ weighted one.
 * Dropout: each rank's generator is seeded from (seed, epoch, step) with
   ``dropout_rank`` folded in, so ranks draw different masks (rank 0 draws
   the single-device trainer's); the ranks of a node group share theirs.
-* ``prefetch_to_device`` works as in :class:`ModelTrainer`, on this rank's
-  minibatch of each group (after the node-sharded trainer takes its shard).
+* ``prefetch_to_device`` works as in :class:`ModelTrainer`, on the
+  minibatch this rank received (the node-sharded trainer's shard).
 * The steps are :class:`~ptgnn_tpu_torch.parallel.dp.DataParallel`'s
   compiled ones (a CUDA graph per batch signature on the card): its train
   step without gradient accumulation, else its accumulation pair, and its
@@ -45,12 +52,14 @@ import math
 import os
 import random
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+import traceback
+from typing import Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ptgnn_tpu_torch.core.compiled_step import canonical_device
+from ptgnn_tpu_torch.core.iterators import ThreadedIterator
 from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.trainer import (
     EpochProgress,
@@ -62,8 +71,19 @@ from ptgnn_tpu_torch.core.trainer import (
 )
 from ptgnn_tpu_torch.graph.structs import tree_to
 from ptgnn_tpu_torch.parallel.dp import DataParallel, zero1_optimizer
+from ptgnn_tpu_torch.parallel.handoff import END, ERROR, SLOT, NodeHandoff, node_local_group
 
 __all__ = ["DistributedModelTrainer", "initialize_multi_host"]
+
+_OUT, _HAVE, _FAILED = 0, 1, 2  # a rank's state in the "anyone left" all-reduce
+HANDOFF_AHEAD = 4  # groups that the assembling (or receiving) thread runs ahead of the steps
+
+
+class _NodeEnd(NamedTuple):
+    """The end of a node's stream: this rank's empty slot (host minibatch,
+    weight 0, info, raw count 0), which it runs while other nodes have data."""
+
+    slot: Tuple[Any, float, Dict, int]
 
 
 def initialize_multi_host(
@@ -146,6 +166,8 @@ class DistributedModelTrainer(ModelTrainer):
         self.num_nodes = self.world_size // self.local_world_size
         self._dp: Optional[DataParallel] = None
         self._empty_minibatch: Optional[Dict[str, Any]] = None
+        group, ranks = node_local_group(self.local_world_size)
+        self._handoff = NodeHandoff(group, ranks) if group is not None else None
 
     @property
     def is_coordinator(self) -> bool:
@@ -234,16 +256,35 @@ class DistributedModelTrainer(ModelTrainer):
     # ------------------------------------------------------------------
     # Groups
     # ------------------------------------------------------------------
+    @property
+    def is_assembler(self) -> bool:
+        """Whether this rank assembles its node's minibatches (local rank 0)."""
+        return self.local_rank == 0
+
+    @property
+    def slots_per_group(self) -> int:
+        """The minibatches of each of a node's groups: one a rank."""
+        return self.local_world_size
+
+    @property
+    def handoff_stats(self) -> Dict[str, float]:
+        """This rank's slot messages so far: sent (the assembler) or
+        received, their bytes and host seconds (``NodeHandoff.stats``)."""
+        if self._handoff is None:
+            return {"slots": 0, "bytes": 0, "seconds": 0.0, "pack_seconds": 0.0}
+        return dict(self._handoff.stats)
+
     def empty_minibatch(self) -> Dict[str, Any]:
         """The fully masked minibatch that pads a short group."""
         if self._empty_minibatch is None:
             self._empty_minibatch = self._model.finalize_minibatch(self._model.initialize_minibatch())
         return self._empty_minibatch
 
-    def _anyone_left(self, have: bool) -> bool:
-        flag = torch.tensor([int(have)], device=self._device)
+    def _anyone_left(self, state: int) -> int:
+        """The largest ``state`` (_OUT, _HAVE or _FAILED) of any rank."""
+        flag = torch.tensor([state], device=self._device)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX)
-        return bool(flag.item())
+        return int(flag.item())
 
     @property
     def dropout_rank(self) -> int:
@@ -252,65 +293,122 @@ class DistributedModelTrainer(ModelTrainer):
         work they replicate draws the same masks)."""
         return self.rank
 
-    @property
-    def finalize_slot(self) -> Tuple[int, int]:
-        """(this rank's slot, slots per node) of each group of minibatches."""
-        return self.local_rank, self.local_world_size
+    def _start_groups(self, minibatches: Callable[[], Iterable]) -> Callable[[], Iterable]:
+        """A hook at the start of every pass, on every rank: returns the
+        factory of the node's stream that the assembler groups (the node-
+        sharded trainer probes its budgets on it)."""
+        return minibatches
 
-    def _start_groups(self, minibatch_iterator):
-        """A hook at the start of every pass over the groups: returns the
-        iterator to group (the node-sharded trainer probes its budgets)."""
-        return minibatch_iterator
+    def _prepare_slot(self, mb_data: Dict[str, Any], weight: float) -> Tuple[List[Dict[str, Any]], float, Dict]:
+        """The assembler's work on one slot of a group: (the host minibatch
+        of each rank that takes the slot, the slot's weight, what those
+        ranks record of it)."""
+        return [mb_data], weight, {}
 
-    def _prepare_minibatch(self, mb_data: Dict[str, Any], weight: float) -> Tuple[Dict[str, Any], float]:
-        """A hook on this rank's host minibatch of each group (the node-
-        sharded trainer takes this rank's shard of it)."""
-        return mb_data, weight
+    def _took_slot(self, info: Dict) -> None:
+        """A hook on every rank, for the ``info`` of each slot it takes."""
 
-    def group_minibatches(self, minibatch_iterator) -> Iterator[Tuple[Dict[str, Any], List[Any], float]]:
-        """(this rank's host minibatch, the raw samples of its node's group,
-        this rank's weight) for every group of ``finalize_slot[1]``
-        minibatches; padding slots carry the empty minibatch at weight 0.
-        The iterator needs to finalize only this rank's slot
-        (``finalize_slot``)."""
-        for mb_data, raw, weight in self._group_minibatches(self._start_groups(minibatch_iterator)):
-            mb_data, weight = self._prepare_minibatch(mb_data, weight)
-            yield mb_data, raw, weight
+    def _rank_slots(self, group: List[Tuple[Dict[str, Any], float]]) -> List[Tuple[Dict[str, Any], float, Dict]]:
+        """(host minibatch, weight, info) of each local rank, from a group's
+        (minibatch, weight) slots."""
+        out = []
+        for mb_data, weight in group:
+            payloads, weight, info = self._prepare_slot(mb_data, weight)
+            out += [(payload, weight, info) for payload in payloads]
+        return out
 
-    def _group_minibatches(self, minibatch_iterator) -> Iterator[Tuple[Dict[str, Any], List[Any], float]]:
-        slot, per_node = self.finalize_slot
+    def _assemble(self, minibatches: Iterable) -> Iterator[Tuple[List[Tuple[Dict[str, Any], float, Dict]], int]]:
+        """The assembler's groups of ``slots_per_group`` minibatches: every
+        local rank's (host minibatch, weight, info) and the group's raw-
+        sample count. A short last group is padded with the empty minibatch
+        at weight 0."""
+        group: List[Tuple[Dict[str, Any], float]] = []
+        raw = 0
+        for mb_data, raw_samples in minibatches:
+            group.append((mb_data, float(len(raw_samples))))
+            raw += len(raw_samples)
+            if len(group) == self.slots_per_group:
+                yield self._rank_slots(group), raw
+                group, raw = [], 0
+        if group:
+            group += [(self.empty_minibatch(), 0.0)] * (self.slots_per_group - len(group))
+            yield self._rank_slots(group), raw
 
-        def local_groups():
-            group: List[Dict[str, Any]] = []
-            raw: List[Any] = []
-            counts: List[float] = []
-            for mb_data, raw_samples in minibatch_iterator:
-                group.append(mb_data)
-                raw.extend(raw_samples)
-                counts.append(float(len(raw_samples)))
-                if len(group) == per_node:
-                    yield group, raw, counts
-                    group, raw, counts = [], [], []
-            if group:
-                while len(group) < per_node:
-                    group.append(self.empty_minibatch())
-                    counts.append(0.0)
-                yield group, raw, counts
+    def _assembled(self, minibatches: Callable[[], Iterable]) -> Iterator[Any]:
+        """The assembler's (host minibatch, weight, info, raw count) of each
+        group, each other rank's sent to it first; with other nodes, a last
+        ``_NodeEnd`` with every rank's empty slot. An exception reaches the
+        other ranks of the node as an error message, then raises here."""
+        try:
+            for slots, raw in self._assemble(minibatches()):
+                if self._handoff is not None:
+                    self._handoff.send(SLOT, [(*slot, raw) for slot in slots[1:]])
+                yield (*slots[0], raw)
+            ends = [None] * self.local_world_size
+            if self.num_nodes > 1:
+                ends = [(*slot, 0) for slot in self._rank_slots([(self.empty_minibatch(), 0.0)]
+                                                                * self.slots_per_group)]
+            if self._handoff is not None:
+                self._handoff.send(END, ends[1:])
+            if ends[0] is not None:
+                yield _NodeEnd(ends[0])
+        except Exception:
+            if self._handoff is not None:
+                self._handoff.send(ERROR, [traceback.format_exc()] * len(self._handoff.peers))
+            raise
 
-        if self.num_nodes == 1:
-            for group, raw, counts in local_groups():
-                yield group[slot], raw, counts[slot]
-            return
-        groups = local_groups()
+    def _received(self) -> Iterator[Any]:
+        """The slots that the node's assembler sends this rank, as
+        :meth:`_assembled` yields its own."""
         while True:
-            item = next(groups, None)
-            if not self._anyone_left(item is not None):
+            kind, obj = self._handoff.receive()
+            if kind == ERROR:
+                raise RuntimeError(f"the node's assembler (rank {self._handoff.assembler}) failed:\n{obj}")
+            if kind == END:
+                if obj is not None:
+                    yield _NodeEnd(obj)
                 return
-            if item is None:
-                yield self.empty_minibatch(), [], 0.0
-            else:
-                group, raw, counts = item
-                yield group[slot], raw, counts[slot]
+            yield obj
+
+    def group_minibatches(self, minibatches: Callable[[], Iterable],
+                          parallelize: bool = False) -> Iterator[Tuple[Dict[str, Any], int, float]]:
+        """(this rank's host minibatch, the raw-sample count of its node's
+        group, this rank's weight) for every group of ``slots_per_group``
+        minibatches; padding slots carry the empty minibatch at weight 0.
+        ``minibatches`` makes the node's stream of (finalized minibatch, raw
+        samples); only the node's assembler calls it, and hands the others
+        their slots. With ``parallelize`` the assembling and the handoff run
+        ahead in a thread."""
+        minibatches = self._start_groups(minibatches)
+        local = ThreadedIterator(self._assembled(minibatches) if self.is_assembler else self._received(),
+                                 max_queue_size=HANDOFF_AHEAD, enabled=parallelize)
+        try:
+            if self.num_nodes == 1:
+                for mb_data, weight, info, raw in local:
+                    self._took_slot(info)
+                    yield mb_data, raw, weight
+                return
+            ended = None  # this rank's empty slot, once its node has run out
+            while True:
+                item = None
+                try:
+                    if ended is None:
+                        item = next(local)
+                        if isinstance(item, _NodeEnd):
+                            ended, item = item.slot, None
+                except Exception:
+                    self._anyone_left(_FAILED)
+                    raise
+                state = self._anyone_left(_OUT if item is None else _HAVE)
+                if state == _FAILED:
+                    raise RuntimeError("the data pipeline of another node failed: its ranks raised")
+                if state == _OUT:
+                    return
+                mb_data, weight, info, raw = ended if item is None else item
+                self._took_slot(info)
+                yield mb_data, raw, weight
+        finally:
+            local.close()
 
     # ------------------------------------------------------------------
     # Epoch loops
@@ -329,18 +427,20 @@ class DistributedModelTrainer(ModelTrainer):
         self._opt_steps_this_epoch = 0
         progress = EpochProgress(show_progress_bar, epoch)
         dp = self.data_parallel
-        mb_iter = self._model.minibatch_iterator(
-            training_tensors(),
-            max_minibatch_size=self._minibatch_size,
-            yield_partial_minibatches=False,
-            shuffle_input=shuffle_input,
-            parallelize=parallelize,
-            # the same on every rank of a node, decorrelated across nodes
-            shuffle_rng=random.Random(shuffle_seed(self._seed, epoch, self.node_rank)),
-            finalize_slot=self.finalize_slot,
-        )
-        for step_idx, (mb_data, raw_samples, weight) in enumerate(
-                self._device_minibatches(self.group_minibatches(mb_iter))):
+
+        def minibatches():  # the node's assembler alone makes its stream
+            return self._model.minibatch_iterator(
+                training_tensors(),
+                max_minibatch_size=self._minibatch_size,
+                yield_partial_minibatches=False,
+                shuffle_input=shuffle_input,
+                parallelize=parallelize,
+                # decorrelated across nodes
+                shuffle_rng=random.Random(shuffle_seed(self._seed, epoch, self.node_rank)),
+            )
+
+        for step_idx, (mb_data, num_raw, weight) in enumerate(
+                self._device_minibatches(self.group_minibatches(minibatches, parallelize))):
             lr_factor = 1.0 if scheduler is None else scheduler.step(
                 epoch, self._opt_steps_this_epoch if self._grad_accum_steps > 1 else step_idx
             )
@@ -360,7 +460,7 @@ class DistributedModelTrainer(ModelTrainer):
                 raise RuntimeError("Loss has a NaN value.")
             sum_epoch_loss += loss_f
             num_minibatches += 1
-            num_samples += len(raw_samples)
+            num_samples += num_raw
             weight_sum += weight
             metrics_acc.update(metrics)
             progress.update(loss_f)
@@ -384,19 +484,18 @@ class DistributedModelTrainer(ModelTrainer):
         metrics_acc = MetricsAccumulator()
         start_time = time.time()
         dp = self.data_parallel
-        for mb_data, raw_samples, weight in self.group_minibatches(self._model.minibatch_iterator(
-            validation_tensors(),
-            max_minibatch_size=self._minibatch_size,
-            yield_partial_minibatches=True,
-            shuffle_input=False,
-            parallelize=parallelize,
-            finalize_slot=self.finalize_slot,
-        )):
+
+        def minibatches():  # the node's assembler alone makes its stream
+            return self._model.minibatch_iterator(validation_tensors(), max_minibatch_size=self._minibatch_size,
+                                                  yield_partial_minibatches=True, shuffle_input=False,
+                                                  parallelize=parallelize)
+
+        for mb_data, num_raw, weight in self.group_minibatches(minibatches, parallelize):
             loss, metrics, group_weight = dp.eval_step(tree_to(mb_data, self._device), weight)
             group_weight = float(group_weight)
             sum_epoch_loss += float(loss) * group_weight
             sum_weight += group_weight
-            num_samples += len(raw_samples)
+            num_samples += num_raw
             weight_sum += weight
             metrics_acc.update(metrics)
         num_samples = self._pass_samples(num_samples, weight_sum)

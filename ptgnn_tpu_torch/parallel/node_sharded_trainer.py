@@ -11,28 +11,36 @@ node groups.
 * Ranks. ``node_data_groups`` cuts the world into node groups of
   consecutive ranks (the JAX mesh's ``node`` axis) and data groups of the
   ranks with one shard index (its ``data`` axis). The ranks of one node
-  group take one slot of each group of minibatches, shard it alike and each
-  run their own shard.
-* Budgets. The static edge-slot and boundary budgets are probed over the
-  first minibatches of a pass (``suggest_budgets``, with a headroom
-  factor), max-reduced over the ranks so every rank shards alike, then
-  frozen. Budgets probed on a validation pass before any training are
-  provisional: the first training pass probes again and keeps the larger.
+  group take one slot of each group of minibatches and each run their own
+  shard of it.
+* Who assembles. The node's assembler (its local rank 0, as in
+  :class:`DistributedModelTrainer`) tensorizes, assembles and finalizes
+  the node's minibatches, reshards each slot once and sends rank ``r``
+  shard ``r % node_shards`` of slot ``(r % local_world_size) //
+  node_shards``, with the slot's weight and its resharding stats. The
+  other ranks reshard nothing.
+* Budgets. The static edge-slot and boundary budgets are probed by each
+  node's assembler over the first minibatches of a pass
+  (``suggest_budgets``, with a headroom factor) and max-reduced over the
+  world (the other ranks add zeros), so every rank freezes the same
+  budgets; they are never below what the empty minibatch needs. Budgets
+  probed on a validation pass before any training are provisional: the
+  first training pass probes again and keeps the larger.
 * Over budget. A later minibatch over the frozen budgets is retried under
   the BFS renumbering (when that is not in play already), else skipped with
-  a warning: its slot runs the empty minibatch at weight 0, so the other
-  node groups need not know. (The JAX package drops it from the group and
-  closes the group with the next one; the same minibatches train, grouped
-  otherwise.) A pass counts the samples of the slots that ran, as the JAX
-  package does: the weights of each node group's slots, summed over the
-  node's ranks at the pass's end.
+  a warning, decided once by the assembler: its slot's ranks run the empty
+  minibatch at weight 0, so the other node groups need not know. (The JAX
+  package drops it from the group and closes the group with the next one;
+  the same minibatches train, grouped otherwise.) A pass counts the samples
+  of the slots that ran, as the JAX package does: the weights of each node
+  group's slots, summed over the node's ranks at the pass's end.
 * ZeRO-1 shards the optimizer's moments over the data group.
 """
 from __future__ import annotations
 
 import itertools
 import logging
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -109,11 +117,12 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
         # budgets probed on a validation pass before any training step stay
         # provisional until the first training pass probes again
         self._budgets_provisional = False
+        self._budgets_frozen = False  # raised to the empty minibatch's needs, the same on every rank
         self._in_validation = False
 
     @property
-    def finalize_slot(self) -> Tuple[int, int]:
-        return self.local_rank // self.node_shards, self.local_world_size // self.node_shards
+    def slots_per_group(self) -> int:
+        return self.local_world_size // self.node_shards
 
     @property
     def dropout_rank(self) -> int:
@@ -129,16 +138,9 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
             self._np = NodeParallel(self.neural_module, node_group=self.node_group, data_group=self.data_group,
                                     enable_amp=self._enable_amp, reorder=self._reorder,
                                     node_aligned=getattr(self._model, "node_aligned_minibatch_keys", ()))
-            if self._budgets is not None:
-                self._set_budgets(self._budgets)
+            if self._budgets is not None:  # raised to the empty minibatch's needs at the first pass
+                self._np.set_budgets(**self._budgets)
         return self._np
-
-    def _set_budgets(self, budgets: Dict[str, int]) -> None:
-        """Freeze ``budgets``, raised where needed to fit the empty
-        minibatch, which pads short groups and stands in for skipped ones."""
-        floor = suggest_budgets([self.empty_minibatch()], self.node_shards, reorder=self._reorder)
-        self._budgets = {k: max(v, floor[k]) for k, v in budgets.items()}
-        self._np.set_budgets(**self._budgets)
 
     @property
     def data_parallel(self) -> DataParallel:
@@ -167,51 +169,76 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
         dist.barrier()
 
     # -- budgets ---------------------------------------------------------------
-    def _probe_budgets(self, head: List[Any]) -> Dict[str, int]:
-        """Budgets over this rank's finalized minibatches of ``head``, with
-        the headroom, max-reduced over the world (a rank with none adds
-        zeros). Every rank calls this at the same point."""
-        mbs = [mb for mb, _ in head if mb is not None]
-        local = torch.zeros(len(_BUDGET_KEYS), dtype=torch.int64)
-        if mbs:
-            budgets = suggest_budgets(mbs, self.node_shards, reorder=self._reorder)
-            # the headroom keeps the slots multiples of the layout's supertile
-            adj = mbs[0]["batch"].adjacency
-            align = adj.edge_tile
-            if adj.super_tile_row_blocks is not None:
-                align = adj.senders.shape[0] // adj.super_tile_row_blocks.shape[0]
-            h = self._budget_headroom
+    def _probe_budgets(self, head: List[Any]) -> List[int]:
+        """The budgets over the assembler's finalized minibatches of
+        ``head``, with the headroom, and never below the empty minibatch's
+        needs (those alone where ``head`` is empty)."""
+        floor = suggest_budgets([self.empty_minibatch()], self.node_shards, reorder=self._reorder)
+        if not head:
+            return [floor[k] for k in _BUDGET_KEYS]
+        budgets = suggest_budgets([mb for mb, _ in head], self.node_shards, reorder=self._reorder)
+        # the headroom keeps the slots multiples of the layout's supertile
+        adj = head[0][0]["batch"].adjacency
+        align = adj.edge_tile
+        if adj.super_tile_row_blocks is not None:
+            align = adj.senders.shape[0] // adj.super_tile_row_blocks.shape[0]
+        h = self._budget_headroom
 
-            def ceil_to(n, k):
-                return -(-max(int(n), 1) // k) * k
+        def ceil_to(n, k):
+            return -(-max(int(n), 1) // k) * k
 
-            local = torch.tensor([ceil_to(budgets["boundary_budget"] * h, 8),
-                                  ceil_to(budgets["interior_slots"] * h, align),
-                                  ceil_to(budgets["boundary_slots"] * h, align)], dtype=torch.int64)
-        local = local.to(self._device)
-        dist.all_reduce(local, op=dist.ReduceOp.MAX)
-        budgets = dict(zip(_BUDGET_KEYS, (int(v) for v in local.tolist())))
-        if budgets["interior_slots"] <= 0:
-            raise RuntimeError("no minibatch on any rank to probe the node-sharding budgets")
-        return budgets
+        probed = [ceil_to(budgets["boundary_budget"] * h, 8), ceil_to(budgets["interior_slots"] * h, align),
+                  ceil_to(budgets["boundary_slots"] * h, align)]
+        return [max(p, floor[k]) for p, k in zip(probed, _BUDGET_KEYS)]
 
-    def _start_groups(self, minibatch_iterator):
+    def _start_groups(self, minibatches: Callable[[], Iterable]) -> Callable[[], Iterable]:
+        """Freeze the budgets where they are not (every rank, at the same
+        point): each node's assembler probes them on the head of its stream
+        (or, for budgets given, only the empty minibatch's needs) and the
+        world max-reduces (budgets, head length, failed), the other ranks
+        adding zeros. A failure on any assembler raises on every rank."""
         self._epoch_shard_stats = self._fresh_stats()
         training = not self._in_validation
-        if self.node_parallel.has_budgets and not (training and self._budgets_provisional):
-            return minibatch_iterator
-        head = list(itertools.islice(minibatch_iterator, self._budget_probe_batches))
-        probed = self._probe_budgets(head)
-        if self._budgets:  # never below the provisional budgets
-            probed = {k: max(v, self._budgets[k]) for k, v in probed.items()}
-        self._set_budgets(probed)
-        self._budgets_provisional = not training
-        self.LOGGER.info(
-            "Node-sharding budgets probed over %d %s batches (headroom %.2fx%s): %s",
-            len(head), "training" if training else "validation", self._budget_headroom,
-            ", provisional until the first training pass" if not training else "", self._budgets,
-        )
-        return itertools.chain(head, minibatch_iterator)
+        if self._budgets_frozen and not (training and self._budgets_provisional):
+            return minibatches
+        probe = self._budgets is None or self._budgets_frozen
+        head: List[Any] = []
+        local = [0] * (len(_BUDGET_KEYS) + 2)
+        failure: Optional[BaseException] = None
+        stream = None
+        if self.is_assembler:
+            try:
+                if probe:
+                    stream = iter(minibatches())
+                    head = list(itertools.islice(stream, self._budget_probe_batches))
+                local = [*self._probe_budgets(head), len(head), 0]
+            except Exception as exc:
+                failure, local = exc, [0] * len(_BUDGET_KEYS) + [0, 1]
+        reduced = torch.tensor(local, dtype=torch.int64, device=self._device)
+        dist.all_reduce(reduced, op=dist.ReduceOp.MAX)
+        *values, probed_batches, failed = (int(v) for v in reduced.tolist())
+        if failure is not None:
+            raise failure
+        if failed:
+            raise RuntimeError("a node's assembler failed while probing the node-sharding budgets: its ranks raised")
+        budgets = dict(zip(_BUDGET_KEYS, values))
+        if probe and not probed_batches:
+            raise RuntimeError("no minibatch on any node to probe the node-sharding budgets")
+        if self._budgets:  # never below the provisional (or given) budgets
+            budgets = {k: max(v, self._budgets[k]) for k, v in budgets.items()}
+        self._budgets = budgets
+        self.node_parallel.set_budgets(**budgets)
+        self._budgets_frozen = True
+        if probe:
+            self._budgets_provisional = not training
+            self.LOGGER.info(
+                "Node-sharding budgets probed over %d %s batches (headroom %.2fx%s): %s",
+                probed_batches, "training" if training else "validation", self._budget_headroom,
+                ", provisional until the first training pass" if not training else "", self._budgets,
+            )
+        if stream is None:
+            return minibatches
+        return lambda: itertools.chain(head, stream)
 
     def _run_validation(self, *args, **kwargs):
         self._in_validation = True
@@ -237,43 +264,45 @@ class NodeShardedModelTrainer(DistributedModelTrainer):
         dist.all_reduce(counts)
         return int(counts[self.node_rank].item())
 
-    # -- this rank's shard -------------------------------------------------------
+    # -- the assembler's shards ---------------------------------------------------
     @staticmethod
     def _fresh_stats() -> Dict[str, int]:
         return {"batches": 0, "skipped": 0, "boundary_rows": 0, "boundary_rows_max": 0}
 
-    def shard_minibatch(self, mb_data: Dict[str, Any]) -> Optional[Dict[str, Any]]:
-        """This rank's shard of a finalized minibatch; over budget, the BFS
-        renumbering (when not in play already), then None with a warning."""
+    def shard_minibatch(self, mb_data: Dict[str, Any]) -> Optional[Tuple[List[Dict[str, Any]], Dict[str, Any]]]:
+        """(every node-group rank's shard, the exchange stats) of a
+        finalized minibatch; over budget, the BFS renumbering (when not in
+        play already), then None with a warning."""
         np_ = self.node_parallel
         try:
-            sharded = np_.shard_batch(mb_data)
+            return np_.shard_all(mb_data)
         except BoundaryBudgetError as exc:
             if self._reorder is None:
                 try:
-                    sharded = np_.shard_batch(mb_data, reorder="bfs")
+                    return np_.shard_all(mb_data, reorder="bfs")
                 except BoundaryBudgetError as exc2:
-                    exc, sharded = exc2, None
-            else:
-                sharded = None
-            if sharded is None:
-                self._epoch_shard_stats["skipped"] += 1
-                self.LOGGER.warning(
-                    "Skipping a minibatch that exceeds the frozen node-sharding budgets (%s); re-run with a larger "
-                    "--node-budget-headroom or explicit budgets to include it.", exc,
-                )
-                return None
-        stats, s = np_.last_stats, self._epoch_shard_stats
-        s["batches"] += 1
-        s["boundary_rows"] += stats["boundary_nodes_total"]
-        s["boundary_rows_max"] = max(s["boundary_rows_max"], stats["boundary_nodes_total"])
-        return sharded
+                    exc = exc2
+            self.LOGGER.warning(
+                "Skipping a minibatch that exceeds the frozen node-sharding budgets (%s); re-run with a larger "
+                "--node-budget-headroom or explicit budgets to include it.", exc,
+            )
+            return None
 
-    def _prepare_minibatch(self, mb_data: Dict[str, Any], weight: float) -> Tuple[Dict[str, Any], float]:
+    def _prepare_slot(self, mb_data: Dict[str, Any], weight: float) -> Tuple[List[Dict[str, Any]], float, Dict]:
         sharded = self.shard_minibatch(mb_data)
-        if sharded is None:
-            return self.node_parallel.shard_batch(self.empty_minibatch()), 0.0
-        return sharded, weight
+        if sharded is None:  # the budgets always fit the empty minibatch
+            return self.node_parallel.shard_all(self.empty_minibatch())[0], 0.0, {"skipped": True}
+        shards, stats = sharded
+        return shards, weight, {"boundary_rows": stats["boundary_nodes_total"]}
+
+    def _took_slot(self, info: Dict) -> None:
+        s = self._epoch_shard_stats
+        if info.get("skipped"):
+            s["skipped"] += 1
+            return
+        s["batches"] += 1
+        s["boundary_rows"] += info["boundary_rows"]
+        s["boundary_rows_max"] = max(s["boundary_rows_max"], info["boundary_rows"])
 
     def _log_shard_stats(self) -> None:
         s = self._epoch_shard_stats

@@ -613,17 +613,28 @@ class NodeParallel:
         return {"boundary_budget": self.boundary_budget, "interior_slots": self.interior_slots,
                 "boundary_slots": self.boundary_slots}
 
-    def shard_batch(self, minibatch: Dict[str, Any], reorder: Optional[str] = None) -> Dict[str, Any]:
-        """Host side: this rank's view of the resharded minibatch
-        (``reorder`` overrides the configured mode). Sets ``last_stats``;
-        raises :class:`BoundaryBudgetError` over budget."""
+    def _reshard(self, minibatch: Dict[str, Any], reorder: Optional[str]) -> Dict[str, Any]:
         if not self.has_budgets:
             raise RuntimeError("node-sharding budgets are unset: call set_budgets (or probe with suggest_budgets)")
         sharded, self.last_stats = shard_batch_by_nodes(
             minibatch, self.num_shards, **self.budgets, reorder=reorder or self.reorder,
             node_aligned=self.node_aligned,
         )
-        return local_shard(sharded, self.shard_index)
+        return sharded
+
+    def shard_batch(self, minibatch: Dict[str, Any], reorder: Optional[str] = None) -> Dict[str, Any]:
+        """Host side: this rank's view of the resharded minibatch
+        (``reorder`` overrides the configured mode). Sets ``last_stats``;
+        raises :class:`BoundaryBudgetError` over budget."""
+        return local_shard(self._reshard(minibatch, reorder), self.shard_index)
+
+    def shard_all(self, minibatch: Dict[str, Any],
+                  reorder: Optional[str] = None) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
+        """Host side, resharding once: (every node-group rank's view of the
+        minibatch, by shard index; the exchange stats), as
+        :meth:`shard_batch` gives each rank its own."""
+        sharded = self._reshard(minibatch, reorder)
+        return [local_shard(sharded, s) for s in range(self.num_shards)], self.last_stats
 
     def train_step(self, minibatch: Dict[str, Any], optimizer: torch.optim.Optimizer, *, weight: float = 1.0,
                    generator: Optional[torch.Generator] = None, clip_gradient_norm: Optional[float] = None):

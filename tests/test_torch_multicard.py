@@ -120,8 +120,8 @@ def test_every_gate_of_the_leg_holds_on_every_rank(world, leg):
 def test_the_legs_held_their_gates_in_full(world):
     """Every gate a leg holds on the card is held here too: the count per
     leg, the same on every rank."""
-    want = {"world-nccl": 1, "world-dp": 12, "world-edge": 2, "world-node": 5, "world-hybrid": 4, "world-checkpoint": 2,
-            "world-epoch": 1}
+    want = {"world-nccl": 1, "world-dp": 12, "world-edge": 2, "world-node": 5, "world-hybrid": 5, "world-checkpoint": 2,
+            "world-epoch": 3}
     for rank in world["ranks"]:
         assert {leg: len(lines(rank, leg)) for leg in LEGS} == want
 

@@ -198,8 +198,10 @@ def test_weighted_step_ignores_padding_batches(setup, tmp_path):
 def test_distributed_trainer_trains_with_uneven_groups(setup, tmp_path):
     """The groups of 2 slots over batches of 3 graphs, weights and the
     padding of the short last group equal JAX's single-host groups (batch
-    arrays bitwise); then two epochs of training on 2 ranks end with the
-    same parameters on both, a checkpoint and the optimizer state."""
+    arrays bitwise), rank 1's handed over by rank 0, the node's assembler,
+    which alone makes the node's stream; then two epochs of training on 2
+    ranks end with the same parameters on both, a checkpoint and the
+    optimizer state."""
     _, jmodel, _, _, _, tmodel, _, _ = setup
     graphs = list(synthetic_typilus_graphs(40, seed=1, mean_nodes=30, max_nodes=80))
     jtrainer = JaxDistributedModelTrainer(jmodel, tmp_path / "jax.pkl.gz", mesh=Mesh(np.asarray(jax.devices()[:2]),
@@ -211,6 +213,7 @@ def test_distributed_trainer_trains_with_uneven_groups(setup, tmp_path):
     ranks = launch("groups", {"model": tmodel, "graphs": graphs, "fresh_model": fresh}, tmp_path)
     assert jgroups[-1][2][-1] == 0.0, "the data should leave the last group short"
     for rank, r in enumerate(ranks):
+        assert r["streams"] == (1 if rank == 0 else 0), "only the node's assembler makes its stream"
         assert len(r["groups"]) == len(jgroups)
         for got, (stacked, raw, weights) in zip(r["groups"], jgroups):
             assert got["weight"] == weights[rank] and got["num_raw"] == len(raw)

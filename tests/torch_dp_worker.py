@@ -142,11 +142,16 @@ def _groups(payload, rank, world, tmp):
         optimizer_creator=lambda p: torch.optim.Adam(p, lr=1e-3), clip_gradient_norm=1.0,
         target_validation_metric="Accuracy", target_validation_metric_higher_is_better=True, device="cpu",
     )
-    groups = []
-    for mb, raw, weight in trainer.group_minibatches(model.minibatch_iterator(
+    groups, streams = [], []
+
+    def minibatches():  # the node's stream: made by its assembler alone
+        streams.append(rank)
+        return model.minibatch_iterator(
             model.tensorize_dataset(iter(payload["graphs"]), parallelize=False), max_minibatch_size=3,
-            yield_partial_minibatches=False, parallelize=False, finalize_slot=(rank, world))):
-        groups.append({"weight": weight, "num_raw": len(raw), "batch": mb})
+            yield_partial_minibatches=False, parallelize=False)
+
+    for mb, num_raw, weight in trainer.group_minibatches(minibatches):
+        groups.append({"weight": weight, "num_raw": num_raw, "batch": mb})
 
     def data(n, seed):
         return LazyDataIterable(lambda: synthetic_typilus_graphs(n, seed=seed, mean_nodes=30, max_nodes=80))
@@ -162,7 +167,7 @@ def _groups(payload, rank, world, tmp):
     trainer.train(data(40, 1), data(10, 2), validate_on_start=False, parallelize=False,
                   store_tensorized_data_in_memory=True)
     accuracy = fresh.report_accuracy(iter(data(10, 3)), trainer.neural_module, device="cpu")
-    return {"groups": groups, "params": _params(trainer.neural_module), "accuracy": accuracy,
+    return {"groups": groups, "streams": len(streams), "params": _params(trainer.neural_module), "accuracy": accuracy,
             "epochs": epochs, "checkpoint": (tmp / "g2c_train.pkl.gz").exists(),
             "optimizer_state": (tmp / "g2c_train.pkl.gz").with_suffix(".optimizerstate").exists()}
 
@@ -180,7 +185,7 @@ def _nodes(payload, rank, world, tmp):
         model, tmp / "nodes.pkl.gz", local_world_size=1, max_num_epochs=1, minibatch_size=3,
         optimizer_creator=lambda p: torch.optim.Adam(p, lr=1e-3), clip_gradient_norm=1.0, device="cpu",
     )
-    weights = [weight for _, _, weight in trainer.group_minibatches(model.minibatch_iterator(
+    weights = [weight for _, _, weight in trainer.group_minibatches(lambda: model.minibatch_iterator(
         model.tensorize_dataset(iter(graphs), parallelize=False), max_minibatch_size=3,
         yield_partial_minibatches=False, parallelize=False))]
     trainer.load_metadata_and_create_network(graphs, parallelize=False)

@@ -1,5 +1,6 @@
 """Ranks of the port's sharding tests (``test_torch_edge_sharding.py``,
-``test_torch_node_sharding.py``, ``test_torch_node_sharded_trainer.py``).
+``test_torch_node_sharding.py``, ``test_torch_node_sharded_trainer.py``)
+and of its node assembler's (``test_torch_node_assembler.py``).
 
 A test module starts ONE world of gloo ranks (:func:`launch`) and hands it
 every case of the module; each rank runs the cases in order and writes its
@@ -467,8 +468,11 @@ def trainer_budgets(payload, rank, world, tmp):
     handler = _Records()
     handler.setLevel(logging.WARNING)
     trainer.LOGGER.addHandler(handler)
+    trainer._start_groups(None)  # a pass's start freezes the budgets given (raised to the empty minibatch's)
     skipped = trainer.shard_minibatch(mb)
-    prepared, weight = trainer._prepare_minibatch(mb, 8.0)
+    shards, weight, info = trainer._prepare_slot(mb, 8.0)
+    trainer._took_slot(info)
+    prepared = shards[trainer.node_parallel.shard_index]
     trainer.LOGGER.removeHandler(handler)
     out["skip"] = {"skipped_is_none": skipped is None, "count": trainer._epoch_shard_stats["skipped"],
                    "messages": handler.messages, "weight": weight,
@@ -490,19 +494,20 @@ def trainer_budgets(payload, rank, world, tmp):
 
 def _skipped_sample_count(payload, sub, rank):
     """A training epoch (data 2 x node 2) in which each node group's second
-    minibatch is forced over budget (its ``shard_batch`` raises the budget
-    error): the graphs of this node group's skipped minibatch, and (the
-    raw samples of the node's groups, the samples the epoch reported)."""
+    minibatch is forced over budget (the assembler's third and fourth
+    reshards raise the budget error): the graphs of each skipped minibatch
+    and the reshards of real minibatches on this rank, and (the raw samples
+    of the node's groups, the samples the epoch reported)."""
     from ptgnn_tpu_torch.parallel.node_sharding import BoundaryBudgetError
 
     model, trainer = _trainer(payload, sub, rank, max_num_epochs=1)
-    seen = {"group_raw": 0, "calls": 0, "skipped_graphs": 0, "reported": []}
+    seen = {"group_raw": 0, "calls": 0, "skipped_graphs": [], "reported": []}
     real_group, real_report = trainer.group_minibatches, trainer._report_training_epoch
 
-    def group_minibatches(it):
-        for mb, raw, weight in real_group(it):
-            seen["group_raw"] += len(raw)
-            yield mb, raw, weight
+    def group_minibatches(minibatches, parallelize=False):
+        for mb, num_raw, weight in real_group(minibatches, parallelize):
+            seen["group_raw"] += num_raw
+            yield mb, num_raw, weight
 
     def report(epoch, loss, num_minibatches, num_samples, *rest):  # the training pass's end
         seen["reported"].append((seen["group_raw"], num_samples))
@@ -511,18 +516,19 @@ def _skipped_sample_count(payload, sub, rank):
     trainer.group_minibatches, trainer._report_training_epoch = group_minibatches, report
     trainer.load_metadata_and_create_network(_data(24, 1), parallelize=False)
     np_ = trainer.node_parallel
-    real_shard = np_.shard_batch
+    real_shard = np_.shard_all
 
-    def shard_batch(mb, **kw):
-        seen["calls"] += 1
-        if seen["calls"] == 2:
-            seen["skipped_graphs"] = int(mb["batch"].num_graphs)
-            raise BoundaryBudgetError("forced over budget")
+    def shard_all(mb, **kw):
+        if int(mb["batch"].num_graphs):  # a minibatch of the node's stream, not the empty one
+            seen["calls"] += 1
+            if seen["calls"] in (3, 4):  # the second group's two slots
+                seen["skipped_graphs"].append(int(mb["batch"].num_graphs))
+                raise BoundaryBudgetError("forced over budget")
         return real_shard(mb, **kw)
 
-    np_.shard_batch = shard_batch
+    np_.shard_all = shard_all
     _train(trainer, _data(24, 1), _data(6, 2), initialize_metadata=False, validate_on_start=False)
-    return {"skipped_graphs": seen["skipped_graphs"], "reported": seen["reported"]}
+    return {"skipped_graphs": seen["skipped_graphs"], "calls": seen["calls"], "reported": seen["reported"]}
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +615,121 @@ def trainer_prefetch(payload, rank, world, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the node's assembler (parallel/distributed_trainer.py, parallel/handoff.py)
+# ---------------------------------------------------------------------------
+def _stream(model, graphs, size):
+    """The factory of a node's stream of finalized minibatches over
+    ``graphs``, in order."""
+    return lambda: model.minibatch_iterator(model.tensorize_dataset(iter(graphs), parallelize=False),
+                                            max_minibatch_size=size, yield_partial_minibatches=False,
+                                            parallelize=False)
+
+
+def _assembler_trainer(payload, tmp, kind="data-parallel", **kw):
+    from ptgnn_tpu_torch.parallel.distributed_trainer import DistributedModelTrainer
+    from ptgnn_tpu_torch.parallel.node_sharded_trainer import NodeShardedModelTrainer
+
+    kw = {"minibatch_size": payload["minibatch_size"], "device": "cpu", "max_num_epochs": 2,
+          "optimizer_creator": lambda params: torch.optim.Adam(params, lr=1e-3), **kw}
+    if kind == "data-parallel":
+        return DistributedModelTrainer(payload["model"], Path(tmp) / "assembler.pkl.gz", **kw)
+    return NodeShardedModelTrainer(payload["model"], Path(tmp) / "assembler.pkl.gz", node_shards=2, **kw)
+
+
+def assembler_groups(payload, rank, world, tmp):
+    """This rank's (host minibatch, raw count, weight) of every group, with
+    this process's host work (``chip_smoke.HostWork``) and handoff: the
+    data-parallel trainer as one node of 4 (every node reads
+    ``payload["all"]``) and as 2 nodes of 2 (node n reads
+    ``payload["graphs"][n]``), each with the groups made in this thread and
+    ahead in a thread; then the node-sharded trainer (2 data x 2 node,
+    budgets probed) over ``payload["all"]``, with its frozen budgets."""
+    import chip_smoke
+
+    model, size = payload["model"], payload["minibatch_size"]
+    out = {}
+    for layout, local_world in (("one node", 4), ("two nodes", 2)):
+        graphs = payload["all"] if local_world == world else payload["graphs"][rank // local_world]
+        for parallelize in (False, True):
+            trainer = _assembler_trainer(payload, tmp, local_world_size=local_world)
+            with chip_smoke.HostWork(model) as work:
+                slots = list(trainer.group_minibatches(_stream(model, graphs, size), parallelize))
+            out[(layout, parallelize)] = {"slots": slots, "host": work.reading(), "handoff": trainer.handoff_stats,
+                                          "node_rank": trainer.node_rank}
+            dist.barrier()
+    trainer = _assembler_trainer(payload, tmp, kind="node-sharded")
+    trainer.load_metadata_and_create_network(payload["all"], parallelize=False)
+    with chip_smoke.HostWork(model) as work:
+        slots = list(trainer.group_minibatches(_stream(model, payload["all"], size), True))
+    out["hybrid"] = {"slots": slots, "host": work.reading(), "handoff": trainer.handoff_stats,
+                     "budgets": trainer._budgets, "shard_index": trainer.node_parallel.shard_index}
+    return out
+
+
+def assembler_train(payload, rank, world, tmp):
+    """Two epochs with validation of the data-parallel trainer (one node of
+    4, the tensorize forked, the data memorized) and one of the node-sharded
+    trainer (2 data x 2 node), each with this process's host work: the
+    parameters at the end."""
+    import chip_smoke
+    from ptgnn_tpu_torch.core.data import LazyDataIterable
+
+    model = payload["model"]
+    train, valid = LazyDataIterable(lambda: iter(payload["all"])), LazyDataIterable(lambda: iter(payload["valid"]))
+    out = {}
+    for kind, epochs, extra in (("data-parallel", 2, {"store_tensorized_data_in_memory": True}),
+                                ("node-sharded", 1, {})):
+        (Path(tmp) / kind).mkdir(exist_ok=True)
+        trainer = _assembler_trainer(payload, Path(tmp) / kind, kind=kind, max_num_epochs=epochs)
+        with chip_smoke.HostWork(model) as work:
+            trainer.train(train, valid, validate_on_start=False, patience=epochs, parallelize=True,
+                          use_multiprocessing=True, **extra)
+        out[kind] = {"params": _params(trainer.neural_module), "host": work.reading(),
+                     "handoff": trainer.handoff_stats}
+    return out
+
+
+def assembler_failure(payload, rank, world, tmp):
+    """The assembler's ``tensorize`` raises on its third sample (rank 0's;
+    node 1's assembler runs on): what this rank raised, and the seconds it
+    took, as one node of 4 (the groups ahead in a thread) and as 2 nodes of
+    2 (in this thread)."""
+    import time
+
+    model = payload["model"]
+    cls = type(model)
+    real, had = cls.tensorize, "tensorize" in vars(cls)
+    out = {}
+    for layout, local_world, parallelize in (("one node", 4, True), ("two nodes", 2, False)):
+        calls = [0]
+
+        def failing(self, datapoint, _calls=calls):
+            _calls[0] += 1
+            if rank == 0 and _calls[0] == 3:
+                raise ValueError("planted failure in the assembler's tensorize")
+            return real(self, datapoint)
+
+        graphs = payload["all"] if local_world == world else payload["graphs"][rank // local_world]
+        trainer = _assembler_trainer(payload, tmp, local_world_size=local_world)
+        cls.tensorize = failing
+        t0 = time.monotonic()
+        error = None
+        try:
+            for _ in trainer.group_minibatches(_stream(model, graphs, payload["minibatch_size"]), parallelize):
+                pass
+        except Exception as exc:  # the case's result: every rank must raise
+            error = f"{type(exc).__name__}: {exc}"
+        finally:
+            if had:
+                cls.tensorize = real
+            else:
+                del cls.tensorize
+        out[layout] = {"error": error, "seconds": time.monotonic() - t0}
+        dist.barrier()
+    return out
+
+
 CASES: Dict[str, Callable] = {
     "edge_aggregate": edge_aggregate,
     "edge_pna": edge_pna,
@@ -626,4 +747,7 @@ CASES: Dict[str, Callable] = {
     "trainer_budgets": trainer_budgets,
     "dcp_zero1": dcp_zero1,
     "trainer_prefetch": trainer_prefetch,
+    "assembler_groups": assembler_groups,
+    "assembler_train": assembler_train,
+    "assembler_failure": assembler_failure,
 }
