@@ -54,16 +54,27 @@ one Python dispatch per kernel.
 * **Generators** (``generators``) are registered with each graph, so a
   replay draws from the generator's current seed and offset: reseeded with
   ``s``, it draws exactly what an eager call seeded with ``s`` draws.
+* **Phase marks** (``utils/tracing.py``): a graph is captured with
+  ``keep_graph=True`` and instantiated here, so that the phase marks it
+  captured can be switched in its executable graph. Before each replay the
+  graph's marks are enabled where :func:`tracing.marking` holds (a profiler
+  records, or marking was turned on) and disabled otherwise; they are
+  switched only when that changes, and a disabled mark runs as an empty
+  node. Spans: ``ptgnn.compiled_step.capture`` (the warm-up and capture:
+  :class:`CaptureStats` ``seconds``), ``ptgnn.compiled_step.stage`` (the
+  copies into the static buffers) and ``ptgnn.compiled_step.replay`` (the
+  replay and the counters; on the CPU, the plain call).
 """
 from __future__ import annotations
 
 import gc
-import time
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ptgnn_tpu_torch.ops import segment_kernels as sk
+from ptgnn_tpu_torch.utils import tracing
 
 __all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS", "canonical_device"]
 
@@ -170,12 +181,15 @@ class CaptureStats(NamedTuple):
     pool_bytes: int
 
 
-class _Entry(NamedTuple):
+@dataclass
+class _Entry:
     graph: torch.cuda.CUDAGraph
     inputs: List[torch.Tensor]  # the static input buffers, in leaf order
     outputs: Any  # the static outputs
     counted: List[Tuple[Any, str, int]]  # (owner, attribute, what one replay adds)
     stats: CaptureStats
+    marks: Any  # the nodes of the phase marks the graph holds (utils/tracing.graph_marks)
+    marks_on: bool  # whether they are enabled
 
 
 def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:
@@ -221,18 +235,24 @@ class CompiledStep:
 
     def __call__(self, *args, **kwargs):
         if self.device.type != "cuda":
-            return self.fn(*args, **kwargs)
+            with tracing.span("ptgnn.compiled_step.replay"):
+                return self.fn(*args, **kwargs)
         key, leaves = signature(args, kwargs)
         entry = self._entries.get(key)
         if entry is None:
             entry = self._compile(key, leaves)
             self._entries[key] = entry
         else:
-            for buf, leaf in zip(entry.inputs, leaves):
-                buf.copy_(leaf)
-        entry.graph.replay()
-        for owner, name, added in entry.counted:
-            _counter_add(owner, name, added)
+            with tracing.span("ptgnn.compiled_step.stage"):
+                for buf, leaf in zip(entry.inputs, leaves):
+                    buf.copy_(leaf)
+        with tracing.span("ptgnn.compiled_step.replay"):
+            if len(entry.marks) and entry.marks_on != tracing.marking():
+                entry.marks_on = not entry.marks_on
+                tracing.set_graph_marks(entry.graph, entry.marks, entry.marks_on)
+            entry.graph.replay()
+            for owner, name, added in entry.counted:
+                _counter_add(owner, name, added)
         return entry.outputs
 
     # ------------------------------------------------------------------
@@ -259,13 +279,25 @@ class CompiledStep:
         for leaf in leaves:
             if leaf.device != self.device:
                 raise ValueError(f"a compiled step on {self.device} was given a tensor on {leaf.device}")
-        t0 = time.perf_counter()
+        with tracing.span("ptgnn.compiled_step.capture") as timed:
+            graph, inputs, outputs, counted, reserved = self._capture(key, leaves)
+            marks = tracing.graph_marks(graph)
+            marks_on = tracing.marking()
+            if len(marks) and not marks_on:
+                tracing.set_graph_marks(graph, marks, False)
+        stats = CaptureStats(timed.seconds, torch.cuda.memory_reserved(self.device) - reserved)
+        return _Entry(graph, inputs, outputs, counted, stats, marks, marks_on)
+
+    def _capture(self, key: Hashable, leaves: List[torch.Tensor]) -> Tuple[Any, ...]:
+        """(graph, static inputs, static outputs, replayed counters, the
+        bytes the device reserved before the graph's pool) of a signature's
+        warm-up and capture."""
         inputs = [torch.empty_like(leaf).copy_(leaf) for leaf in leaves]
         args, kwargs = _unflatten(key[0], iter(inputs))
         stream = torch.cuda.Stream(self.device)
         self._warm_up(stream, args, kwargs)
 
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for generator in self._generators:
             graph.register_generator_state(generator)
         torch.cuda.synchronize(self.device)
@@ -289,6 +321,7 @@ class CompiledStep:
                     _end_failed_capture(graph)
                     raise
                 graph.capture_end()
+            graph.instantiate()
         finally:
             if collecting:
                 gc.enable()
@@ -298,8 +331,7 @@ class CompiledStep:
             torch.cuda.current_stream(self.device).wait_stream(stream)
         counted = [(owner, name, added) for (owner, name), a, b in zip(counters, after, before)
                    if (added := _counter_added(a, b))]
-        stats = CaptureStats(time.perf_counter() - t0, torch.cuda.memory_reserved(self.device) - reserved)
-        return _Entry(graph, inputs, outputs, counted, stats)
+        return graph, inputs, outputs, counted, reserved
 
     def _warm_up(self, stream: torch.cuda.Stream, args: tuple, kwargs: dict) -> None:
         """``warmup_calls`` eager calls on ``stream``, the last of which may

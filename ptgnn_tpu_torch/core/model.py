@@ -5,6 +5,12 @@ As in the JAX package, minibatches are statically shaped: models with fixed
 budgets implement ``can_add_to_minibatch`` so a batch closes before it would
 overflow its padded shape, and ``finalize_minibatch`` returns host numpy
 arrays that the caller moves to a device in one call.
+
+The host pipeline is traced (``utils/tracing.py``): every model's
+``tensorize``, ``extend_minibatch_with`` and ``finalize_minibatch`` is a
+span (``ptgnn.model.tensorize``, ``ptgnn.model.extend_minibatch``,
+``ptgnn.model.finalize_minibatch``), counted once per root call: a
+sub-model's call inside its parent's is part of the parent's.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from ptgnn_tpu_torch.core.checkpoint import cpu_state, read_pickle, write_pickle
 from ptgnn_tpu_torch.core.iterators import BufferedIterator, ThreadedIterator, shuffled_iterator
+from ptgnn_tpu_torch.utils import tracing
 
 _EXHAUSTED = object()
 
@@ -28,10 +35,25 @@ TModel = TypeVar("TModel", bound="AbstractNeuralModel")
 
 __all__ = ["AbstractNeuralModel"]
 
+# The host pipeline's methods and the span each call of them is.
+_SPANNED = {
+    "tensorize": "ptgnn.model.tensorize",
+    "extend_minibatch_with": "ptgnn.model.extend_minibatch",
+    "finalize_minibatch": "ptgnn.model.finalize_minibatch",
+}
+
 
 class AbstractNeuralModel(ABC, Generic[TRawDatapoint, TTensorizedDatapoint, TNeuralModule]):
     def __init__(self):
         self.__metadata_initialized = False
+
+    def __init_subclass__(cls, **kwargs):
+        """Each of :data:`_SPANNED` that a model class defines is a span."""
+        super().__init_subclass__(**kwargs)
+        for attr, name in _SPANNED.items():
+            fn = cls.__dict__.get(attr)
+            if callable(fn) and not getattr(fn, "__isabstractmethod__", False):
+                setattr(cls, attr, tracing.spanned(name)(fn))
 
     def __getstate__(self):
         """Models pickle whole (checkpoints are (model, state dict) blobs);

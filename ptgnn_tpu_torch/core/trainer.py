@@ -49,6 +49,7 @@ from ptgnn_tpu_torch.core.metrics import MetricsAccumulator
 from ptgnn_tpu_torch.core.model import AbstractNeuralModel
 from ptgnn_tpu_torch.device import DeviceLike, resolve_device
 from ptgnn_tpu_torch.graph.structs import tree_tensors, tree_to
+from ptgnn_tpu_torch.utils import tracing
 from ptgnn_tpu_torch.utils.oom import is_oom_error, release_cached_memory
 
 __all__ = [
@@ -236,7 +237,14 @@ class TrainStep:
     step; the compiled steps register it, so a replay draws what an eager
     step from the same seed draws. Each of :attr:`train_step`,
     :attr:`grad_step` and :attr:`apply_step` is a :class:`CompiledStep`; its
-    ``fn`` runs the same step eagerly."""
+    ``fn`` runs the same step eagerly.
+
+    Tracing (``utils/tracing.py``): :meth:`step` is the span
+    ``ptgnn.train_step``, whose ``args`` are the step's ordinal; the step
+    launches the phase marks ``FORWARD`` before the forward, ``BACKWARD``
+    before ``loss.backward()``, ``OPTIMIZER`` before the clip and ``UPDATED``
+    after the gradients are zeroed (the accumulation step the first two,
+    the apply step the last two)."""
 
     def __init__(self, module: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
                  clip_gradient_norm: Optional[float] = None, amp: bool = False):
@@ -257,6 +265,7 @@ class TrainStep:
         self.train_step = CompiledStep(self._train, self.device, **compile_kw)
         self.grad_step = CompiledStep(self._forward_backward, self.device, **compile_kw)
         self.apply_step = CompiledStep(self._apply, self.device, **compile_kw)
+        self._ordinal = 0
 
     def _state(self) -> List[torch.Tensor]:
         """Every tensor a step writes in place."""
@@ -269,15 +278,23 @@ class TrainStep:
         return tensors
 
     def _forward_backward(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        tracing.mark(tracing.FORWARD, self.device)
         loss, metrics = module_loss(self.module, minibatch, train=True, generator=self.generator, amp=self._amp)
+        tracing.mark(tracing.BACKWARD, self.device)
         loss.backward()
         return loss.detach(), metrics
 
-    def _update(self) -> None:
+    def _update(self, divide: bool = False) -> None:
+        """Clip and apply the gradients (divided by the accumulation count
+        first where ``divide``), then zero them."""
+        tracing.mark(tracing.OPTIMIZER, self.device)
+        if divide:
+            torch._foreach_div_(self._grads, self._divisor)
         if self._clip is not None:
             clip_by_global_norm_(self._grads, self._clip)
         self.optimizer.step()
         torch._foreach_zero_(self._grads)
+        tracing.mark(tracing.UPDATED, self.device)
 
     def _train(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
         loss, metrics = self._forward_backward(minibatch)
@@ -286,8 +303,7 @@ class TrainStep:
 
     @torch.no_grad()
     def _apply(self) -> None:
-        torch._foreach_div_(self._grads, self._divisor)
-        self._update()
+        self._update(divide=True)
 
     def set_lr(self, lr_factor: float) -> None:
         """Every group's learning rate to its base times ``lr_factor``."""
@@ -298,8 +314,10 @@ class TrainStep:
         """One step on a device-resident minibatch; returns (loss, metrics),
         device tensors that the next step overwrites. Nothing waits for the
         device."""
-        self.set_lr(lr_factor)
-        return self.train_step(minibatch)
+        self._ordinal += 1
+        with tracing.span("ptgnn.train_step", self._ordinal):
+            self.set_lr(lr_factor)
+            return self.train_step(minibatch)
 
     def accumulate(self, minibatch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Forward and backward of one microbatch, its gradients added to the

@@ -27,11 +27,12 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from ptgnn_tpu_torch.utils import tracing
 
 SOURCE = Path(__file__).resolve().parent / "batch_assembler.cc"
 BUILD_DIR = SOURCE.parents[1] / "_build" / "native"
@@ -75,16 +76,16 @@ def build() -> float:
         try:
             if path.exists():  # another process built it while this one waited
                 return 0.0
-            t0 = time.perf_counter()
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"g++ failed to build the native layout assembler (exit {proc.returncode}):\n"
-                                   f"{proc.stderr}{proc.stdout}")
-            os.replace(tmp, path)  # readers see the whole library or none
-            return time.perf_counter() - t0
+            with tracing.span("ptgnn.kernels.build") as timed:
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                                      capture_output=True, text=True, timeout=300)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"g++ failed to build the native layout assembler (exit {proc.returncode}):\n"
+                                       f"{proc.stderr}{proc.stdout}")
+                os.replace(tmp, path)  # readers see the whole library or none
+            return timed.seconds
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 

@@ -18,9 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Optional
+
+from ptgnn_tpu_torch.utils import tracing
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -67,6 +68,13 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P],
     ),
+    "trace_mark": ("trace_mark.cu", "ptgnn_trace_mark", [ctypes.c_int, _P]),
+}
+# A library's other C entry points: name -> {function: argtypes}; each
+# returns an int error code, as the kernels' do.
+_HELPERS = {
+    "trace_mark": {"ptgnn_trace_mark_nodes": [_P, _P, ctypes.c_int, _P],
+                   "ptgnn_trace_mark_set_enabled": [_P, _P, ctypes.c_int, ctypes.c_int]},
 }
 
 _LOCK = threading.Lock()
@@ -95,31 +103,36 @@ def build_all() -> float:
     """Build every kernel library that is missing, in parallel. Returns the
     seconds spent; raises with nvcc's output if a build fails."""
     with _LOCK:
-        t0 = time.perf_counter()
         todo = {n: _library_path(n) for n in _SIGNATURES if not _library_path(n).exists()}
         if not todo:
             return 0.0
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name, path in todo.items():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / _SIGNATURES[name][0])]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ), tmp, path)
-        failures = []
-        for name, (proc, tmp, path) in procs.items():
-            output, _ = proc.communicate()
-            BUILD_LOG[name] = output
-            if proc.returncode != 0:
-                failures.append(f"{name} (exit {proc.returncode}):\n{output}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, path)
-        if failures:
-            raise RuntimeError("nvcc failed for " + "\n".join(failures))
-        return time.perf_counter() - t0
+        with tracing.span("ptgnn.kernels.build") as timed:
+            _build(todo)
+        return timed.seconds
+
+
+def _build(todo: Dict[str, Path]) -> None:
+    """Run nvcc on every (name, library path) of ``todo`` at once."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / _SIGNATURES[name][0])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        output, _ = proc.communicate()
+        BUILD_LOG[name] = output
+        if proc.returncode != 0:
+            failures.append(f"{name} (exit {proc.returncode}):\n{output}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
 
 
 def kernel_function(name: str):
@@ -136,8 +149,18 @@ def kernel_function(name: str):
                 fn.restype = ctypes.c_int
                 lib.ptgnn_error_string.argtypes = [ctypes.c_int]
                 lib.ptgnn_error_string.restype = ctypes.c_char_p
+                for helper, argtypes in _HELPERS.get(name, {}).items():
+                    getattr(lib, helper).argtypes = argtypes
+                    getattr(lib, helper).restype = ctypes.c_int
                 _LIBS[name] = lib
     return getattr(lib, _SIGNATURES[name][1])
+
+
+def helper_function(name: str, function: str):
+    """The C entry point ``function`` of kernel library ``name`` (one of
+    its ``_HELPERS``), built if needed."""
+    kernel_function(name)
+    return getattr(_LIBS[name], function)
 
 
 def check(name: str, err: int) -> None:

@@ -14,12 +14,13 @@ received: the bytes, dtypes and shapes of the sender's."""
 from __future__ import annotations
 
 import pickle
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ptgnn_tpu_torch.utils import tracing
 
 __all__ = ["NodeHandoff", "node_local_group", "pack", "unpack", "SLOT", "END", "ERROR"]
 
@@ -76,7 +77,9 @@ class NodeHandoff:
     a node over ``group``. ``stats`` counts this rank's slot messages: sent
     or received, their blob bytes, the host seconds in the calls
     (``seconds``: waits for the other side included) and, of those, the
-    seconds packing or unpacking (``pack_seconds``)."""
+    seconds packing or unpacking (``pack_seconds``): the spans
+    ``ptgnn.handoff.send`` / ``receive`` and ``ptgnn.handoff.pack`` /
+    ``unpack`` (``utils/tracing.py``), which count every message."""
 
     def __init__(self, group: Any, ranks: Sequence[int]):
         self.group = group
@@ -93,38 +96,38 @@ class NodeHandoff:
 
     def send(self, kind: int, objects: Sequence[Any]) -> None:
         """``objects[i]`` to ``peers[i]``, all in flight at once."""
-        t0 = time.perf_counter()
-        works, held, sent, packing = [], [], 0, 0.0
-        for dst, obj in zip(self.peers, objects):
-            t = time.perf_counter()
-            head_bytes, num_buffers, blob = pack(obj)
-            packing += time.perf_counter() - t
-            header = torch.tensor([kind, blob.size, head_bytes, num_buffers], dtype=torch.int64)
-            data = torch.from_numpy(blob)
-            works += [dist.isend(header, dst, group=self.group), dist.isend(data, dst, group=self.group)]
-            held.append((header, data))
-            sent += blob.size
-        for work in works:
-            work.wait()
+        with tracing.span("ptgnn.handoff.send") as call:
+            works, held, sent, packing = [], [], 0, 0.0
+            for dst, obj in zip(self.peers, objects):
+                with tracing.span("ptgnn.handoff.pack") as packed:
+                    head_bytes, num_buffers, blob = pack(obj)
+                packing += packed.seconds
+                header = torch.tensor([kind, blob.size, head_bytes, num_buffers], dtype=torch.int64)
+                data = torch.from_numpy(blob)
+                works += [dist.isend(header, dst, group=self.group), dist.isend(data, dst, group=self.group)]
+                held.append((header, data))
+                sent += blob.size
+            for work in works:
+                work.wait()
         if kind == SLOT:
-            self._count(len(held), sent, t0, packing)
+            self._count(len(held), sent, call.seconds, packing)
 
     def receive(self) -> Tuple[int, Any]:
         """(kind, object) of the assembler's next message to this rank."""
-        t0 = time.perf_counter()
-        header = torch.empty(4, dtype=torch.int64)
-        dist.recv(header, self.assembler, group=self.group)
-        kind, size, head_bytes, num_buffers = header.tolist()
-        data = torch.empty(size, dtype=torch.uint8)
-        dist.recv(data, self.assembler, group=self.group)
-        t = time.perf_counter()
-        obj = unpack(data.numpy(), head_bytes, num_buffers)
+        with tracing.span("ptgnn.handoff.receive") as call:
+            header = torch.empty(4, dtype=torch.int64)
+            dist.recv(header, self.assembler, group=self.group)
+            kind, size, head_bytes, num_buffers = header.tolist()
+            data = torch.empty(size, dtype=torch.uint8)
+            dist.recv(data, self.assembler, group=self.group)
+            with tracing.span("ptgnn.handoff.unpack") as unpacked:
+                obj = unpack(data.numpy(), head_bytes, num_buffers)
         if kind == SLOT:
-            self._count(1, size, t0, time.perf_counter() - t)
+            self._count(1, size, call.seconds, unpacked.seconds)
         return kind, obj
 
-    def _count(self, slots: int, size: int, t0: float, packing: float) -> None:
+    def _count(self, slots: int, size: int, seconds: float, packing: float) -> None:
         self.stats["slots"] += slots
         self.stats["bytes"] += size
-        self.stats["seconds"] += time.perf_counter() - t0
+        self.stats["seconds"] += seconds
         self.stats["pack_seconds"] += packing
