@@ -382,6 +382,9 @@ PPI_PER_TRAIN_STEP = {
     "float32": counts_of(broadcast=10, segsum=10),
     "bf16": counts_of(broadcast=10, segsum=10, typed=15),
 }
+# K6, the typed dW (tallied beside the counts above): one a layer in a bf16
+# step, the dW of each MP layer's typed message product.
+PPI_DW_PER_TRAIN_STEP = {"float32": 0, "bf16": 5}
 # VarMisuse: the 'mlp' stack is Graph2Class's; the head's sums add three K1
 # a forward and eight a step (its gathers' backward included). The 'ggnn'
 # stack's gated layer (8 positions, sum aggregation, no target state): the
@@ -518,35 +521,55 @@ def graphs(seed: int = SEED):
 
 class Launches(dict):
     """The kernels' launch counts by kernel name; ``by_width`` holds the
-    broadcast's (K3's) by (row bytes, dtype name). Equality compares the
-    counts by kernel only."""
+    broadcast's (K3's) by (row bytes, dtype name), ``by_shape`` the typed
+    dW's (K6's) by (tiles, tile, Din, M, types). K6 is tallied beside the
+    counts by kernel, not among them: equality compares the counts by
+    kernel only (the five kernels each path's constants hold exactly)."""
 
-    def __init__(self, counts=(), by_width=None):
+    def __init__(self, counts=(), by_width=None, by_shape=None):
         super().__init__(counts)
         self.by_width = dict(by_width or {})
+        self.by_shape = dict(by_shape or {})
+
+    @property
+    def typed_dw(self) -> int:
+        return sum(self.by_shape.values())
 
 
 def launch_counts() -> Launches:
-    """The launch counters now, with K3's tally by width."""
+    """The launch counters now, with K3's tally by width and K6's by shape."""
     from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
 
-    return Launches(sk.launch_counts(), sk.broadcast_launches_by_width())
+    counts = sk.launch_counts()
+    if counts.pop("typed_dw") != sum(ttl.typed_dw_kernel.launches_by_shape.values()):
+        raise RuntimeError("the typed dW's launches and its tally by shape disagree")
+    return Launches(counts, sk.broadcast_launches_by_width(), ttl.typed_dw_kernel.launches_by_shape)
 
 
 def _by_width(counts) -> dict:
     return getattr(counts, "by_width", {})
 
 
+def _by_shape(counts) -> dict:
+    return getattr(counts, "by_shape", {})
+
+
+def _tally_sum(a: dict, b: dict, sign: int = 1) -> dict:
+    out = dict(a)
+    for k, n in b.items():
+        out[k] = out.get(k, 0) + sign * n
+    return {k: n for k, n in out.items() if n}
+
+
 def delta(after, before):
-    widths = {k: n - _by_width(before).get(k, 0) for k, n in _by_width(after).items()}
-    return Launches({k: after[k] - before[k] for k in after}, {k: n for k, n in widths.items() if n})
+    return Launches({k: after[k] - before[k] for k in after}, _tally_sum(_by_width(after), _by_width(before), -1),
+                    _tally_sum(_by_shape(after), _by_shape(before), -1))
 
 
 def add_counts(a, b):
-    widths = dict(_by_width(a))
-    for k, n in _by_width(b).items():
-        widths[k] = widths.get(k, 0) + n
-    return Launches({k: a[k] + b[k] for k in a}, widths)
+    return Launches({k: a[k] + b[k] for k in a}, _tally_sum(_by_width(a), _by_width(b)),
+                    _tally_sum(_by_shape(a), _by_shape(b)))
 
 
 def set_dropout(module, rate: float) -> None:
@@ -1323,20 +1346,26 @@ def ppi_train_phase(model, samples, batches, dev, card):
         raise RuntimeError("ModelTrainer.train took no PPI step or wrote no checkpoint")
     if got != expected:
         raise RuntimeError(f"ModelTrainer.train launches {got} != {expected} expected from {fw} forwards and {bw} backwards")
+    if got.typed_dw != PPI_DW_PER_TRAIN_STEP["bf16"] * bw:
+        raise RuntimeError(f"ModelTrainer.train launched the typed dW {got.typed_dw} times over {bw} bf16 steps")
     for name, amp in (("float32", False), ("bf16", True)):
         steps_module = model.build_neural_module(device=dev, seed=SEED)
         before = launch_counts()
         stats = train_steps(steps_module, batches, steps=PPI_TRAIN_STEPS, enable_amp=amp, learning_rate=1e-3, seed=SEED)
         runs = executions(stats, PPI_TRAIN_STEPS)
-        per_step = {k: v / runs for k, v in delta(launch_counts(), before).items()}
+        added = delta(launch_counts(), before)
+        per_step = {k: v / runs for k, v in added.items()}
         if per_step != PPI_PER_TRAIN_STEP[name]:
             raise RuntimeError(f"expected {PPI_PER_TRAIN_STEP[name]} launches per {name} PPI step, got {per_step}")
+        if added.typed_dw != PPI_DW_PER_TRAIN_STEP[name] * runs:
+            raise RuntimeError(f"expected {PPI_DW_PER_TRAIN_STEP[name]} typed dW launches per {name} PPI step, "
+                               f"got {added.typed_dw / runs}")
         if not math.isfinite(stats["loss"]):
             raise RuntimeError(f"PPI train_steps ({name}) gave a non-finite loss {stats['loss']}")
         phase("ppi-train", f"train_steps {name}: {PPI_TRAIN_STEPS} steps after 1 warm-up, loss {stats['loss']:.6f}, "
               f"{stats['ms_per_step']:.3f} ms/step, {stats['graphs_per_s']:.2f} graphs/s, "
               f"{stats['nodes_per_s']:.0f} nodes/s, {stats['edges_per_s']:.0f} edges/s on {card}; "
-              f"launches per step {per_step}")
+              f"launches per step {per_step}, typed dW {added.typed_dw / runs}")
         expected = add_counts(expected, {k: v * runs for k, v in PPI_PER_TRAIN_STEP[name].items()})
     counts = launch_counts()  # the ppi-train path ends here
     phase("ppi-train", f"launches over the ppi-train path: {counts}")
@@ -2971,6 +3000,196 @@ def layers_kernel_entries(adj, seen, dev, gen, entry):
     return entries
 
 
+# K6, the typed dW (csrc/typed_dw.cu), at (tiles, tile, Din, M, types):
+# PPI's message layers (a whole batch's 960 tiles), the edge-feature stacks'
+# D = 640 and 384, Graph2Class's 64- and 128-wide layers under AMP (17 edge
+# types), and the card tests' small cases: Din and M of 128-512, a tile of
+# 48 (not a multiple of the 64-row box) and of 32, M = 384 (two column
+# blocks), types with no tile.
+TYPED_DW_SHAPES = ((960, 128, 512, 256, 3), (960, 128, 640, 256, 3), (960, 128, 384, 256, 3),
+                   (384, 128, 128, 64, 17), (384, 128, 256, 128, 17), (40, 128, 128, 128, 3),
+                   (30, 48, 256, 512, 4), (50, 32, 512, 128, 3), (20, 128, 256, 384, 5))
+
+
+def typed_dw_inputs(shape, dev, gen, g_pad: int = 0):
+    """bf16 x [E, Din] and g [E, M] (g a view of rows ``M + g_pad`` wide),
+    and int32 tile types of ragged shares (type t drawn with weight 2^-t, in
+    no order), the last tile's type out of range; with 4 types or more,
+    type 1 has no tile."""
+    n_tiles, tile, din, m, num_types = shape
+    e = n_tiles * tile
+    x = torch.randn(e, din, device=dev, generator=gen).bfloat16()
+    g = torch.randn(e, m + g_pad, device=dev, generator=gen).bfloat16()[:, :m]
+    weights = torch.tensor([2.0 ** -t for t in range(num_types)], device=dev)
+    if num_types >= 4:
+        weights[1] = 0.0
+    tt = torch.multinomial(weights, n_tiles, replacement=True, generator=gen).int()
+    tt[-1] = num_types
+    return x, g, tt
+
+
+def typed_dw_reference(x, g, tt, tile, num_types):
+    """float64 dW of each type, each element's sum of |x||g|, and each
+    type's slot count."""
+    rows = tt.long().repeat_interleave(tile)
+    ref, scale, slots = [], [], []
+    for t in range(num_types):
+        sel = torch.nonzero(rows == t)[:, 0]
+        xs, gs = x.index_select(0, sel).double(), g.index_select(0, sel).double()
+        ref.append(xs.T @ gs)
+        scale.append(xs.abs().T @ gs.abs())
+        slots.append(sel.numel())
+    return torch.stack(ref), torch.stack(scale), slots
+
+
+def typed_dw_tolerance(scale, slots, tile):
+    """A float32 sum of n terms in any order lies within (n - 1) 2^-24 of the
+    sum of their magnitudes. The kernel adds each 16-row product of a
+    64-row stage to its accumulator (a chain of at most slots / 16 adds,
+    16 more inside one wgmma step), then the chunks' partials (at most
+    slots / tile of them); the plain version's float32 product chains at
+    most slots adds. Each type's bound, times the elements' sums of |x||g|."""
+    per_type = torch.tensor([(n / 16 + n / tile + 64) * 2.0 ** -24 for n in slots], dtype=torch.float64,
+                            device=scale.device)
+    plain = torch.tensor([(n + 64) * 2.0 ** -24 for n in slots], dtype=torch.float64, device=scale.device)
+    return per_type[:, None, None] * scale, plain[:, None, None] * scale
+
+
+def typed_dw_checks(shape, dev, gen) -> float:
+    """K6 at ``shape`` against the float64 product of the same bf16 operands
+    (and its plain version too), within the bounds of
+    ``typed_dw_tolerance``; zeros for a type with no tile; the same bits on
+    a second run, from a row-strided g read in place, and replayed from a
+    CUDA graph on new inputs. Returns the largest |kernel - plain|."""
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    n_tiles, tile, din, m, num_types = shape
+    x, g, tt = typed_dw_inputs(shape, dev, gen, g_pad=8)
+    got = ttl.typed_dw_kernel(x, g, tt, tile, num_types)
+    plain = ttl.typed_weight_gradient_plain(x, g, tt, tile, num_types)
+    ref, scale, slots = typed_dw_reference(x, g, tt, tile, num_types)
+    tol_kernel, tol_plain = typed_dw_tolerance(scale, slots, tile)
+    for which, out, tol in (("kernel", got, tol_kernel), ("plain version", plain, tol_plain)):
+        if out.dtype != torch.float32 or bool(((out.double() - ref).abs() > tol).any()):
+            worst = float(((out.double() - ref).abs() / tol.clamp_min(1e-300)).max())
+            raise RuntimeError(f"typed dW {which} off float64 at {shape} ({worst:.3g} x its bound)")
+    for t, n in enumerate(slots):
+        if n == 0 and bool(got[t].any()):
+            raise RuntimeError(f"typed dW of type {t}, which has no tile, is not zero at {shape}")
+    if not bitwise_equal(got, ttl.typed_dw_kernel(x, g, tt, tile, num_types)):
+        raise RuntimeError(f"typed dW gave other bits on a second run at {shape}")
+    if not bitwise_equal(got, ttl.typed_dw_kernel(x, g.contiguous(), tt, tile, num_types)):
+        raise RuntimeError(f"typed dW of a row-strided g differs from that of its copy at {shape}")
+    x2, g2, _ = typed_dw_inputs(shape, dev, gen)
+    static_x, static_g = x.clone(), g.contiguous()
+    ttl.typed_dw_kernel(static_x, static_g, tt, tile, num_types)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ttl.typed_dw_kernel(static_x, static_g, tt, tile, num_types)
+    static_x.copy_(x2)
+    static_g.copy_(g2)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not bitwise_equal(captured, ttl.typed_dw_kernel(x2, g2, tt, tile, num_types)):
+        raise RuntimeError(f"typed dW replayed from a CUDA graph differs from the eager call at {shape}")
+    return float((got - plain).abs().max())
+
+
+def typed_dw_entry(shape, dev, gen, max_abs_err, launches: int, launches_by_path: dict) -> dict:
+    """The kernels-line entry of K6 at ``shape``: its time (a CUDA graph of
+    16 launches over inputs rotated past the L2), its bound (x and g read,
+    dW written, once; 2 E Din M operations at the bf16 peak), its plain
+    version's, the library call it replaces (the per-type masked float32
+    torch.matmul products of the operands cast up, ``library_ms``), and the
+    route the fused op's backward took at this shape before K6
+    (``replaced_ms``: those products, or the per-tile float32 bmm and its
+    one-hot type sum, by ``fused_mp._use_masked_dw_route``)."""
+    from ptgnn_tpu_torch.ops import fused_mp
+    from ptgnn_tpu_torch.ops import typed_linear as ttl
+
+    n_tiles, tile, din, m, num_types = shape
+    e = n_tiles * tile
+    _, _, tt = typed_dw_inputs(shape, dev, gen)
+    pairs = rotating(lambda: typed_dw_inputs(shape, dev, gen)[:2], e * (din + m) * 2)
+
+    def calls(fn):
+        return [lambda p=pairs[i % len(pairs)]: fn(*p) for i in range(16)]
+
+    def masked(x, g):
+        rows = tt.long().repeat_interleave(tile)
+        xf, gf = x.float(), g.float()
+        return torch.stack([xf.T @ (gf * (rows == t)[:, None]) for t in range(num_types)])
+
+    def per_tile(x, g):
+        per = torch.bmm(x.float().reshape(n_tiles, tile, din).transpose(1, 2), g.float().reshape(n_tiles, tile, m))
+        onehot = (torch.arange(num_types, device=dev)[:, None] == tt.long()[None, :]).float()
+        return (onehot @ per.reshape(n_tiles, din * m)).reshape(num_types, din, m)
+
+    times = {
+        "ms": graph_time_ms(calls(lambda x, g: ttl.typed_dw_kernel(x, g, tt, tile, num_types))),
+        "plain_ms": graph_time_ms(calls(lambda x, g: ttl.typed_weight_gradient_plain(x, g, tt, tile, num_types))),
+        "library_ms": graph_time_ms(calls(masked)),
+    }
+    masked_route = fused_mp._use_masked_dw_route(n_tiles, e, din, m, num_types, 2)
+    times["replaced_ms"] = times["library_ms"] if masked_route else graph_time_ms(calls(per_tile))
+    del pairs
+    nbytes = e * (din + m) * 2 + num_types * din * m * 4 + n_tiles * 4
+    entry = {
+        "name": "typed_dw", "route": "cuda", "source": "ptgnn_tpu_torch/csrc/typed_dw.cu",
+        "replaces": "the per-type masked float32 products (ops/fused_mp.py::_weight_gradient, "
+                    "ops/typed_linear.py::_TypedMatmul.backward)",
+        "launches": launches, "launches_by_path": launches_by_path, "max_abs_err": max_abs_err,
+        **times, **bound(nbytes, 2 * e * din * m, BF16_OPS_PER_S),
+        "replaced_route": "masked" if masked_route else "per-tile", "shape": list(shape), "dtype": "bfloat16",
+    }
+    entry["chunk_len"], entry["partial_slots"] = ttl.typed_dw_plan(
+        n_tiles, tile, din, m, num_types, torch.cuda.get_device_properties(dev).multi_processor_count)
+    phase("kernels", json.dumps(entry))
+    return entry
+
+
+def typed_dw_phase(dev, shapes, launches_by_path=None) -> list:
+    """K6 checked at every shape of ``shapes`` and timed there beside its
+    bound, its plain version, the library call and the route it replaced;
+    raises where it is not faster than the replaced route (its gate opens
+    at these shapes)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    launches_by_path = launches_by_path or {}
+    entries, slower = [], []
+    for shape in shapes:
+        err = typed_dw_checks(shape, dev, gen)
+        by_path = {path: n for path, n in ((p, c.get(shape, 0)) for p, c in launches_by_path.items()) if n}
+        e = typed_dw_entry(shape, dev, gen, err, sum(by_path.values()), by_path)
+        entries.append(e)
+        if e["ms"] >= e["replaced_ms"]:
+            slower.append((shape, e["ms"], e["replaced_ms"]))
+    torch.cuda.synchronize()
+    phase("typed-dw", f"K6 within its float32 bounds of float64 (the plain version too), zeros for a type with no "
+          f"tile, bitwise from run to run, from a row-strided g and in a CUDA graph replay, at {list(shapes)}")
+    if slower:
+        raise RuntimeError(f"K6 is not faster than the route it replaced at (shape, ms, replaced ms) {slower}")
+    return entries
+
+
+def typed_dw_main() -> None:
+    """``chip_smoke.py --typed-dw``: build, K6's registers, its checks and
+    timings at TYPED_DW_SHAPES."""
+    from ptgnn_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    phase("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}; torch {torch.__version__}")
+    build_s = cuda_build.build_all()
+    phase("build", f"{build_s:.2f} s for {sorted(cuda_build.BUILD_LOG) or 'nothing (cached)'}")
+    for line in cuda_build.BUILD_LOG.get("typed_dw", "").splitlines():
+        if "Used" in line or "spill" in line:
+            phase("build", f"typed_dw: {line.strip()}")
+    entries = typed_dw_phase(dev, TYPED_DW_SHAPES)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck")
 
 
@@ -3000,6 +3219,8 @@ def sanitizer_target() -> None:
     for dtype in (torch.bfloat16, torch.float32):
         ttl.typed_matmul_kernel(torch.randn(4096, 128, device=dev, generator=g).to(dtype),
                                 torch.randn(3, 128, 256, device=dev, generator=g).to(dtype), tile_types, 32)
+    ttl.typed_dw_kernel(torch.randn(4096, 128, device=dev, generator=g).bfloat16(),
+                        torch.randn(4096, 256, device=dev, generator=g).bfloat16(), tile_types, 32, 3)
     torch.cuda.synchronize()
     print("sanitizer target: every kernel launched", flush=True)
 
@@ -6613,6 +6834,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:] == ["--typed-dw"]:
+        typed_dw_main()
+        return
     if sys.argv[1:] == ["--sanitizer-target"]:
         sanitizer_target()
         return
@@ -6764,8 +6988,11 @@ def main() -> None:
              "autotune": at_counts, "checkpoint": ck_counts, "profiling": pr_counts,
              "compiled": cs_counts, "multiprocess-tensorize": mt_counts, "linear-residual": lr_counts}
     main_counts = {k: sum(counts[k] for counts in paths.values()) for k in serving_counts}
+    main_counts["typed_dw"] = sum(counts.typed_dw for counts in paths.values())
     if min(main_counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
+    dw_by_path = {path: counts.by_shape for path, counts in paths.items() if counts.by_shape}
+    phase("kernels", f"K6 launches by (tiles, tile, Din, M, types) and path: {dw_by_path}")
 
     # ---- 5. parity --------------------------------------------------------
     cpu_module = model.build_neural_module(device="cpu", seed=SEED).eval()
@@ -6951,6 +7178,9 @@ def main() -> None:
     kernels += layers_kernel_entries(layers_adj, layers_seen, dev, gen, entry)
     kernels += broadcast_width_entries(layers_adj, "Graph2Class batch, layers stack", paths["layers"].by_width,
                                        widths_by_path, dev, gen, entry)
+    # K6 at every (tiles, tile, Din, M, types) a path launched it at: checked
+    # and timed there, faster than the route it replaced.
+    kernels += typed_dw_phase(dev, sorted({k for by_shape in dw_by_path.values() for k in by_shape}), dw_by_path)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

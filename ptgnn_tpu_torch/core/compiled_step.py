@@ -74,6 +74,7 @@ from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Op
 import torch
 
 from ptgnn_tpu_torch.ops import segment_kernels as sk
+from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel
 from ptgnn_tpu_torch.utils import tracing
 
 __all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS", "canonical_device"]
@@ -84,9 +85,9 @@ WARMUP_CALLS = 1
 
 # (owner, attribute) of every counter that a replay adds to as its capture
 # did: the kernel wrappers' launch counters, the broadcast's tally by width,
-# and any a caller adds.
+# the typed dW's by shape, and any a caller adds.
 REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()] + [
-    (sk.planned_broadcast_to_edges, "launches_by_width")
+    (sk.planned_broadcast_to_edges, "launches_by_width"), (typed_dw_kernel, "launches_by_shape")
 ]
 
 

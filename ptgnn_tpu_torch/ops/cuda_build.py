@@ -68,6 +68,12 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P],
     ),
+    "typed_dw": (
+        "typed_dw.cu",
+        "ptgnn_typed_dw",
+        [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
+    ),
     "trace_mark": ("trace_mark.cu", "ptgnn_trace_mark", [ctypes.c_int, _P]),
 }
 # A library's other C entry points: name -> {function: argtypes}; each

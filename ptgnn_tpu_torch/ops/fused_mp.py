@@ -48,7 +48,12 @@ from ptgnn_tpu_torch.ops.segment_kernels import (
     plan_from_adjacency,
     planned_segment_extremum_with_argmax,
 )
-from ptgnn_tpu_torch.ops.typed_linear import typed_tile_matmul
+from ptgnn_tpu_torch.ops.typed_linear import (
+    typed_tile_matmul,
+    typed_weight_gradient,
+    typed_weight_gradient_plain,
+    use_typed_dw_kernel,
+)
 
 _U32 = 0xFFFFFFFF
 _BIG = 3.0e38
@@ -206,17 +211,21 @@ def _use_masked_dw_route(n_tiles: int, e_pad: int, din: int, m: int, num_types: 
 
 def _weight_gradient(inp, d_msgs, weight_stack, adj, compute_dtype) -> torch.Tensor:
     """dW[t] = sum over slots of type t of inp^T d_msgs, float32 accumulation
-    (padding slots carry d_msgs == 0)."""
+    (padding slots carry d_msgs == 0). bf16 takes the typed dW (the kernel
+    on the card) where its gate opens; elsewhere the per-type masked dots or
+    the per-tile route, by traffic."""
     tile = adj.edge_tile
     n_tiles = adj.tile_types.shape[0]
     din, m = inp.shape[1], d_msgs.shape[1]
     num_types = weight_stack.shape[0]
-    inp_f, dm_f = inp.to(compute_dtype).float(), d_msgs.float()
+    inp_c = inp.to(compute_dtype)
+    if use_typed_dw_kernel(inp_c, m):
+        return typed_weight_gradient(inp_c, d_msgs, adj.tile_types, tile, num_types).to(weight_stack.dtype)
     itemsize = torch.finfo(compute_dtype).bits // 8
     if _use_masked_dw_route(n_tiles, inp.shape[0], din, m, num_types, itemsize):
-        tt_e = adj.tile_types.long().repeat_interleave(tile)
-        d_w = torch.stack([inp_f.T @ (dm_f * (tt_e == t)[:, None]) for t in range(num_types)])
+        d_w = typed_weight_gradient_plain(inp_c, d_msgs, adj.tile_types, tile, num_types)
     else:
+        inp_f, dm_f = inp_c.float(), d_msgs.float()
         per_tile = torch.bmm(
             inp_f.reshape(n_tiles, tile, din).transpose(1, 2), dm_f.reshape(n_tiles, tile, m)
         )  # [n_tiles, Din, M]

@@ -40,7 +40,7 @@ import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
 from ptgnn_tpu_torch.ops.segment import masked_take
-from ptgnn_tpu_torch.ops.typed_linear import typed_matmul_kernel
+from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel, typed_matmul_kernel
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -578,6 +578,7 @@ _WRAPPERS = {
     "broadcast_to_edges": planned_broadcast_to_edges,
     "segment_sum": planned_segment_sum,
     "typed_matmul": typed_matmul_kernel,
+    "typed_dw": typed_dw_kernel,
 }
 
 
@@ -588,7 +589,7 @@ def kernel_wrappers() -> List:
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters of the port's kernel wrappers: this module's and
-    the typed matmul's (``ops/typed_linear.py``)."""
+    the typed matmul's and typed dW's (``ops/typed_linear.py``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
@@ -601,3 +602,4 @@ def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
     planned_broadcast_to_edges.launches_by_width.clear()
+    typed_dw_kernel.launches_by_shape.clear()

@@ -12,15 +12,22 @@ type's weight block. The counterpart of the JAX package's
   replaces the Pallas ``_pallas_typed_matmul_impl`` and reads each tile's
   weight block in place, and :func:`typed_matmul_plain` on the CPU. Its
   gradient is :class:`_TypedMatmul` (the JAX custom VJP): dx from the same
-  route against ``W^T``, dW from per-type masked float32 products.
+  route against ``W^T``, dW from :func:`typed_weight_gradient`.
 * Elsewhere (Graph2Class's 64-wide weights, float32) it is the gathered
   stack and one ``torch.bmm``, as XLA's route in the JAX package; its
   gradients are stock autograd.
 
-The fused op's backward calls :func:`typed_tile_matmul` without autograd
-and forms dW itself (``ops/fused_mp.py``).
+The weight gradient of a typed product, ``dW[t] = sum over the tiles of
+type t of x_i^T g_i`` in float32, is one function for both of its callers
+(:class:`_TypedMatmul` and the fused op's backward, ``ops/fused_mp.py``):
+:func:`typed_weight_gradient`, the typed dW kernel ``csrc/typed_dw.cu`` on
+the card where :func:`use_typed_dw_kernel` opens (bf16), and
+:func:`typed_weight_gradient_plain`, the per-type masked float32 products,
+on the CPU and where the gate stays shut.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -129,7 +136,8 @@ def typed_matmul(
 
 class _TypedMatmul(torch.autograd.Function):
     """:func:`typed_matmul` with the JAX custom VJP: dx from the same route
-    against W^T; dW[t] = x^T (dy masked to type t's slots), float32."""
+    against W^T; dW[t] = x^T (dy masked to type t's slots), float32, by
+    :func:`typed_weight_gradient` where its gate opens."""
 
     @staticmethod
     def forward(ctx, x, weight_stack, tile_types, edge_tile):
@@ -141,14 +149,148 @@ class _TypedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight_stack, tile_types = ctx.saved_tensors
         tile = ctx.edge_tile
-        dx = typed_matmul(dy.to(x.dtype), weight_stack.transpose(1, 2), tile_types, tile)
-        acc = torch.promote_types(x.dtype, torch.float32)
-        tt_e = tile_types.long().repeat_interleave(tile)
-        x_acc, dy_acc = x.to(acc), dy.to(x.dtype).to(acc)
-        d_w = torch.stack([
-            x_acc.T @ (dy_acc * (tt_e == t)[:, None]) for t in range(weight_stack.shape[0])
-        ]).to(weight_stack.dtype)
+        dy = dy.to(x.dtype)
+        dx = typed_matmul(dy, weight_stack.transpose(1, 2), tile_types, tile)
+        dw = typed_weight_gradient if use_typed_dw_kernel(x, dy.shape[1]) else typed_weight_gradient_plain
+        d_w = dw(x, dy, tile_types, tile, weight_stack.shape[0]).to(weight_stack.dtype)
         return dx, d_w, None, None
+
+
+# ---------------------------------------------------------------------------
+# The weight gradient of a typed product (K6)
+# ---------------------------------------------------------------------------
+
+# The most edge types the kernel counts in shared memory.
+TYPED_DW_MAX_TYPES = 1024
+
+
+def use_typed_dw_kernel(x: torch.Tensor, m: int) -> bool:
+    """K6's gate, read from the product's compute dtype and device and its
+    widths (Din = x's columns, M): bf16 on the CPU (the plain version) or a
+    CUDA card, Din and M multiples of 8 (the kernel's TMA rows are whole
+    16-byte vectors). Any tile: a box never crosses one. ``chip_smoke.py``
+    times the kernel against the route it replaced at every shape a path
+    opens it at. Float32 (and every other dtype) keeps the routes it had."""
+    if x.dtype != torch.bfloat16 or x.device.type not in ("cpu", "cuda"):
+        return False
+    return x.shape[1] % 8 == 0 and m % 8 == 0
+
+
+def typed_weight_gradient_plain(
+    x: torch.Tensor, g: torch.Tensor, tile_types: torch.Tensor, edge_tile: int, num_types: int
+) -> torch.Tensor:
+    """Plain version of the typed dW kernel: [num_types, Din, M], the per-type
+    products ``x^T (g masked to type t's slots)`` in float32 (float64 for
+    float64 x) over every slot, with both operands cast up once; tiles of a
+    type outside [0, num_types) add nothing."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    tt_e = tile_types.long().repeat_interleave(edge_tile)
+    x_acc, g_acc = x.to(acc), g.to(acc)
+    return torch.stack([x_acc.T @ (g_acc * (tt_e == t)[:, None]) for t in range(num_types)])
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where TMA can read it in place (unit column stride, a row stride
+    of whole 16-byte vectors, a 16-byte aligned start), else a copy."""
+    if t.stride(1) != 1 or t.stride(0) % 8 or t.stride(0) < t.shape[1] or t.data_ptr() % 16:
+        return t.contiguous() if not t.is_contiguous() else t.clone()
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def typed_dw_plan(num_tiles: int, edge_tile: int, din: int, m: int, num_types: int, sms: int) -> tuple:
+    """(chunk length, partial slots) of the typed dW kernel: each work unit
+    sums one chunk of at most ``chunk length`` tiles of one type. The length
+    is the one whose units, at most ``num_tiles // length + num_types``
+    chunks times the (din, m) blocks, cost least in waves of ``sms`` units,
+    a unit taking its tiles' loads and its float32 partial's write and read
+    (the second pass); tried at whole waves, with and without room left for
+    each type's partly filled last chunk."""
+    bn = 64 if m <= 64 else 128 if m <= 128 else 256
+    blocks = -(-din // 128) * -(-m // bn)
+    stage_rows = 64 * -(-edge_tile // 64)
+    partial_tiles = (128 * bn * 4 * 2) / (stage_rows * (128 + bn) * 2)
+    best = None
+    for waves in range(1, 9):
+        for spare in (num_types * blocks, 0):
+            room = waves * sms - spare
+            if room <= 0:
+                continue
+            length = max(1, -(-num_tiles * blocks // room))
+            units = (num_tiles // length + num_types) * blocks
+            cost = -(-units // sms) * (length + partial_tiles)
+            if best is None or cost < best[0]:
+                best = (cost, length)
+    length = best[1]
+    return length, num_tiles // length + num_types
+
+
+def typed_dw_kernel(
+    x: torch.Tensor, g: torch.Tensor, tile_types: torch.Tensor, edge_tile: int, num_types: int
+) -> torch.Tensor:
+    """The typed dW kernel (``csrc/typed_dw.cu``) on CUDA tensors: x [E, Din]
+    and g [E, M] bf16 (g may be a row-strided view, read in place), tile_types
+    [E // edge_tile] int32. Returns [num_types, Din, M] float32. Raises on what
+    the kernel does not take; launches on x's card (under its device guard);
+    counts its launches in ``typed_dw_kernel.launches`` and by (tiles, tile,
+    Din, M, types) in ``typed_dw_kernel.launches_by_shape``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"typed_dw_kernel: no kernel for a tensor on {x.device}")
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16 or x.ndim != 2 or g.ndim != 2:
+        raise ValueError("the typed dW kernel takes x [E, Din] and g [E, M], both bfloat16")
+    e, din = x.shape
+    m = g.shape[1]
+    if g.shape[0] != e or e % edge_tile or din % 8 or m % 8:
+        raise ValueError(
+            f"typed dW shapes x {tuple(x.shape)}, g {tuple(g.shape)}, tile {edge_tile}: E must match and be "
+            "whole tiles, Din and M multiples of 8"
+        )
+    n_tiles = e // edge_tile
+    if tile_types.dtype != torch.int32 or tile_types.shape != (n_tiles,):
+        raise ValueError("tile_types must be an int32 tensor of one entry per tile")
+    if g.device != x.device or tile_types.device != x.device:
+        raise ValueError("x, g and the tile types must lie on one device")
+    if not 1 <= num_types <= TYPED_DW_MAX_TYPES or n_tiles >= 2**30:
+        raise ValueError(f"the typed dW kernel takes 1 to {TYPED_DW_MAX_TYPES} types and fewer than 2**30 tiles")
+    with torch.cuda.device(x.device):
+        if n_tiles == 0:
+            return torch.zeros((num_types, din, m), dtype=torch.float32, device=x.device)
+        x, g = _aligned_rows(x), _aligned_rows(g)
+        tile_types = tile_types.contiguous()
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        chunk_len, max_chunks = typed_dw_plan(n_tiles, edge_tile, din, m, num_types, sms)
+        partial = torch.empty(max_chunks * din * m, dtype=torch.float32, device=x.device)
+        chunk_base = torch.empty(num_types + 1, dtype=torch.int32, device=x.device)
+        out = torch.empty((num_types, din, m), dtype=torch.float32, device=x.device)
+        fn = cuda_build.kernel_function("typed_dw")
+        err = fn(
+            x.data_ptr(), x.stride(0), g.data_ptr(), g.stride(0), tile_types.data_ptr(), partial.data_ptr(),
+            chunk_base.data_ptr(), out.data_ptr(), n_tiles, edge_tile, din, m, num_types, chunk_len, max_chunks,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        cuda_build.check("typed_dw", err)
+    typed_dw_kernel.launches += 1
+    key = (n_tiles, edge_tile, din, m, num_types)
+    typed_dw_kernel.launches_by_shape[key] = typed_dw_kernel.launches_by_shape.get(key, 0) + 1
+    return out
+
+
+typed_dw_kernel.launches = 0
+# The launches by (tiles, tile, Din, M, types): the shapes the path runs the kernel at.
+typed_dw_kernel.launches_by_shape = {}
+
+
+def typed_weight_gradient(
+    x: torch.Tensor, g: torch.Tensor, tile_types: torch.Tensor, edge_tile: int, num_types: int
+) -> torch.Tensor:
+    """dW of a typed product: ``[num_types, Din, M]``, row block t the sum
+    over the slots of type t's tiles of ``x^T g``, float32 sums of the
+    operands' products. The plain version for a tensor on the CPU, the
+    kernel for one on a CUDA device. Callers take it where
+    :func:`use_typed_dw_kernel` opens."""
+    if x.device.type == "cpu":
+        return typed_weight_gradient_plain(x, g, tile_types, edge_tile, num_types)
+    return typed_dw_kernel(x, g, tile_types, edge_tile, num_types)
 
 
 def typed_tile_matmul(

@@ -7,6 +7,7 @@ segment sums differs; the gathers, the broadcast, the extremum and the tie
 routing are exact."""
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -72,7 +73,7 @@ def test_fused_forward_matches_jax(reduction, use_target_state):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-5)
     # The CPU ran the plain versions: no kernel was launched.
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0}
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
 
 
 @pytest.mark.parametrize("dtype,tol", [
@@ -186,7 +187,7 @@ def test_fused_gradients_match_jax(reduction, use_target_state):
     np.testing.assert_allclose(tw, gw, rtol=1e-5, atol=1e-5)
     assert np.abs(tx).max() > 0 and np.abs(tw).max() > 0
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0}
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
 
 
 @pytest.mark.parametrize("reduction", ["max", "sum"])
@@ -224,6 +225,89 @@ def test_weight_gradient_route_follows_traffic():
     # 512 x 256 layer at 2 types the masked dots
     assert not fused_mp._use_masked_dw_route(384, 49152, 128, 64, 21, 4)
     assert fused_mp._use_masked_dw_route(384, 49152, 512, 256, 2, 2)
+
+
+def _dw_before_the_typed_dw(inp, d_msgs, weight_stack, adj, compute_dtype, masked):
+    """_weight_gradient's two routes as they stood before the typed dW."""
+    tile = adj.edge_tile
+    n_tiles = adj.tile_types.shape[0]
+    din, m = inp.shape[1], d_msgs.shape[1]
+    num_types = weight_stack.shape[0]
+    inp_f, dm_f = inp.to(compute_dtype).float(), d_msgs.float()
+    if masked:
+        tt_e = adj.tile_types.long().repeat_interleave(tile)
+        d_w = torch.stack([inp_f.T @ (dm_f * (tt_e == t)[:, None]) for t in range(num_types)])
+    else:
+        per_tile = torch.bmm(inp_f.reshape(n_tiles, tile, din).transpose(1, 2), dm_f.reshape(n_tiles, tile, m))
+        types = torch.arange(num_types, device=inp.device)
+        onehot = (types[:, None] == adj.tile_types.long()[None, :]).float()
+        d_w = (onehot @ per_tile.reshape(n_tiles, din * m)).reshape(num_types, din, m)
+    return d_w.to(weight_stack.dtype)
+
+
+@pytest.mark.parametrize("masked_route", [True, False])
+def test_float32_weight_gradient_is_bit_for_bit_as_before(masked_route, monkeypatch):
+    """float32 keeps both of its routes, bit for bit; so does bf16 where the
+    typed dW's gate stays shut."""
+    monkeypatch.setattr(fused_mp, "_use_masked_dw_route", lambda *args: masked_route)
+    num_types, _, tbatch = build_batches(seed=7)
+    adj = tbatch.adjacency
+    g = torch.Generator().manual_seed(3)
+    e = adj.mask.shape[0]
+    inp = torch.randn(e, 32, generator=g)
+    d_msgs = torch.randn(e, 24, generator=g) * adj.mask[:, None]
+    weights = torch.zeros(num_types, 32, 24)
+    got = fused_mp._weight_gradient(inp, d_msgs, weights, adj, torch.float32)
+    want = _dw_before_the_typed_dw(inp, d_msgs, weights, adj, torch.float32, masked_route)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    monkeypatch.setattr(fused_mp, "use_typed_dw_kernel", lambda *args: False)
+    inp16, dm16 = inp.bfloat16(), d_msgs.bfloat16()
+    got = fused_mp._weight_gradient(inp16, dm16, weights, adj, torch.bfloat16)
+    want = _dw_before_the_typed_dw(inp16, dm16, weights, adj, torch.bfloat16, masked_route)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d,m,jax_masked", [(128, 256, True), (16, 24, False)])
+def test_typed_dw_plain_version_matches_jax_on_both_routes(d, m, jax_masked, monkeypatch):
+    """bf16 sum aggregation: the port's dW comes from the shared typed dW
+    (its plain version on the CPU) and equals the JAX package's on the
+    route its traffic rule picks at these widths, the per-type masked dots
+    or the per-tile dots and segment sum: rtol 1e-5 and 1e-5 of the largest
+    magnitude (float32 sums of the same exact bf16 products, in another
+    order)."""
+    from ptgnn_tpu_torch.ops import typed_linear as tl
+
+    calls = []
+    real = tl.typed_weight_gradient
+    monkeypatch.setattr(fused_mp, "typed_weight_gradient", lambda *a: calls.append(a[0].dtype) or real(*a))
+    num_types, jbatch, tbatch = build_batches(seed=8)
+    rng = np.random.RandomState(11)
+    n = PAD["max_nodes"]
+    states = rng.randn(n, d).astype(np.float32).astype(ml_dtypes.bfloat16)
+    weights = (rng.randn(num_types, 2 * d, m) / np.sqrt(2 * d)).astype(np.float32)
+    cot = rng.randn(n, m).astype(np.float32)
+    n_tiles = tbatch.adjacency.tile_types.shape[0]
+    assert fused_mp._use_masked_dw_route(n_tiles, PAD["max_edge_slots"], 2 * d, m, num_types, 2) == jax_masked
+
+    def f(w):
+        out = jax_fused(jnp.asarray(states), w, (jbatch.adjacency, None), n, "sum", True, 1.0)
+        return jnp.sum(out.astype(jnp.float32) * cot)
+
+    jdw = np.asarray(jax.grad(f)(jnp.asarray(weights)))
+    w = torch.from_numpy(weights.copy()).requires_grad_()
+    x = torch.from_numpy(states.astype(np.float32)).bfloat16()
+    out = fused_typed_message_aggregation(x, w, tbatch.adjacency, n, "sum", True)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    assert calls == [torch.bfloat16]
+    assert np.abs(jdw).max() > 0
+    np.testing.assert_allclose(w.grad.numpy(), jdw, rtol=1e-5, atol=1e-5 * np.abs(jdw).max())
+
+
+def test_weight_gradient_and_the_typed_matmul_share_one_dw():
+    from ptgnn_tpu_torch.ops import typed_linear as tl
+
+    assert fused_mp.typed_weight_gradient is tl.typed_weight_gradient
+    assert fused_mp.use_typed_dw_kernel is tl.use_typed_dw_kernel
 
 
 @pytest.mark.parametrize("col_offset", [0, 16])

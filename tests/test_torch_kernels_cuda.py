@@ -31,6 +31,7 @@ from ptgnn_tpu_torch.implementations.typilus.harness import build_graph2class, s
 from ptgnn_tpu_torch.implementations.ppi.harness import build_ppi, synthetic_ppi_samples
 from ptgnn_tpu_torch.ops import segment_kernels as tsk
 from ptgnn_tpu_torch.ops import typed_linear as ttl
+from ptgnn_tpu_torch.ops import fused_mp
 from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
 from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
 
@@ -523,7 +524,7 @@ def test_graph2class_forward_on_card_matches_cpu(cuda_device):
         counts = tsk.launch_counts()
         cpu = cpu_module._logits(batch.to("cpu"), train=False)[0].numpy()
     assert counts == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
-                      "segment_sum": 0, "typed_matmul": 0}
+                      "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
     # rtol 1e-4 and 1e-4 of the logit scale: float32 rounding differs
     # between the card's and the CPU's matmuls and transcendentals.
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=1e-4 * np.abs(cpu).max())
@@ -533,7 +534,8 @@ def test_graph2class_forward_on_card_matches_cpu(cuda_device):
 def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
     """float32: the loss to rtol 1e-5, every gradient to rtol 1e-4 and 1e-4 of
     its tensor's largest magnitude. bf16 AMP: the step runs through the same
-    kernels and gives a finite loss and float32 gradients."""
+    kernels, the 8 MP layers' dW through the typed dW (K6), and gives a
+    finite loss and float32 gradients."""
     kw = dict(padding=small_padding(max_nodes=256), hidden_state_size=64, num_minibatches=1, dropout_rate=0.0)
     _, gpu_module, mbs = build_graph2class(device=cuda_device, **kw)
     _, cpu_module, _ = build_graph2class(device="cpu", **kw)
@@ -543,7 +545,7 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 24,
-                                   "segment_sum": 17, "typed_matmul": 0}
+                                   "segment_sum": 17, "typed_matmul": 0, "typed_dw": 8 if amp else 0}
     assert all(p.grad.dtype == torch.float32 for p in gpu_module.parameters())
     if amp:
         assert np.isfinite(float(loss.detach()))
@@ -559,11 +561,11 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
 
 @pytest.mark.parametrize("architecture,argmax_routing,per_step", [
     ("mlp", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 16,
-                   "segment_sum": 9, "typed_matmul": 0}),
+                   "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0}),
     ("ggnn", False, {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 16,
-                     "segment_sum": 17, "typed_matmul": 0}),
+                     "segment_sum": 17, "typed_matmul": 0, "typed_dw": 0}),
     ("ggnn", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 8,
-                    "segment_sum": 9, "typed_matmul": 0}),
+                    "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0}),
 ])
 def test_graph2class_paths_train_on_card_as_on_cpu(cuda_device, architecture, argmax_routing, per_step):
     """A train step of the argmax-routed and the GGNN paths: the launches the
@@ -680,6 +682,25 @@ def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, argmax_routi
     torch.cuda.synchronize()
     for cpu, card in zip(*grads):
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5, atol=1e-5)
+    # bf16: the card's dW is the typed dW (K6), launched once, on the
+    # backward's own operands; held to the float64 product of those
+    # operands within its float32 bound (the two devices' bf16 messages may
+    # pick other extrema, so the CPU's dW is no yardstick here).
+    seen = []
+    real = fused_mp.typed_weight_gradient
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_mp, "typed_weight_gradient", lambda *a: seen.append(a) or real(*a))
+        before = ttl.typed_dw_kernel.launches
+        x = states.clone().to(cuda_device).bfloat16().requires_grad_()
+        w = weights.clone().to(cuda_device).requires_grad_()
+        out = fused_typed_message_aggregation(x, w, batch.to(cuda_device).adjacency, pad["max_nodes"], reduction,
+                                              use_target_state, argmax_routing=argmax_routing)
+        (out.float() * cot.to(cuda_device)).sum().backward()
+        torch.cuda.synchronize()
+    assert ttl.typed_dw_kernel.launches == before + 1 and len(seen) == 1
+    inp, d_msgs, tile_types, tile, num_types = seen[0]
+    ref, bound = _typed_dw_reference(inp, d_msgs, tile_types, tile, num_types)
+    assert bool(((w.grad.double() - ref).abs() <= bound).all())
 
 
 # (tiles, tile, D, M, types): PPI's widths, and a whole PPI batch's 960
@@ -795,23 +816,108 @@ def test_typed_matmul_gradient_on_card_matches_cpu(cuda_device):
     within one bf16 ulp (at most 2^-7 of the value) plus 1e-5 of the
     element's sum of |a||b|, where cancellation leaves a tiny result; dW (float32
     products of bf16 values) to rtol 1e-5 and 1e-5 of its largest
-    magnitude."""
+    magnitude. The card's dW runs the typed dW (K6)."""
     x, w, tt = _typed_inputs(TYPED_SHAPES[0], torch.bfloat16, "cpu", seed=3)
     w = w.float()
     dy = torch.randn(x.shape[0], w.shape[2], generator=torch.Generator().manual_seed(4)).bfloat16()
     results = []
+    before = ttl.typed_dw_kernel.launches
     for device in ("cpu", cuda_device):
         xd = x.to(device).clone().requires_grad_()
         wd = w.to(device).clone().requires_grad_()
         y = ttl._TypedMatmul.apply(xd, wd, tt.to(device), 128)
         y.backward(dy.to(device))
         results.append([t.detach().float().cpu() for t in (y, xd.grad, wd.grad)])
+        if device == cuda_device:
+            assert ttl.typed_dw_kernel.launches == before + 1  # the card's dW is the typed dW (K6)
+        before = ttl.typed_dw_kernel.launches
     _, scale_y = _typed_reference(x, w.bfloat16(), tt, 128)
     _, scale_dx = _typed_reference(dy, w.bfloat16().transpose(1, 2), tt, 128)
     for name, cpu, card, scale in zip(("y", "dx"), results[0][:2], results[1][:2], (scale_y, scale_dx)):
         assert bool(((card - cpu).abs() <= 2.0 ** -7 * cpu.abs() + 1e-5 * scale.float()).all()), name
     dw_cpu, dw_card = results[0][2], results[1][2]
     np.testing.assert_allclose(dw_card.numpy(), dw_cpu.numpy(), rtol=1e-5, atol=1e-5 * float(dw_cpu.abs().max()))
+
+
+# (tiles, tile, Din, M, types) of the typed dW (K6): PPI's whole batch;
+# Din and M of 128, 256 and 512 on tiles of 128 and of 48 (not a multiple
+# of the kernel's 64-row box); M = 384 (two column blocks); Graph2Class's 17
+# types. _typed_dw_inputs draws ragged type shares (type t with weight
+# 2^-t, so the rarest may draw no tile), leaves type 1 without a tile where
+# there are 4 types or more, gives the last tile a type out of range, and
+# reads g as a row-strided view.
+TYPED_DW_SHAPES = [(960, 128, 512, 256, 3), (30, 128, 128, 128, 3), (30, 128, 256, 512, 4), (30, 128, 512, 128, 4),
+                   (40, 48, 128, 256, 5), (40, 48, 512, 512, 3), (20, 128, 256, 384, 5), (384, 128, 128, 64, 17)]
+
+
+def _typed_dw_inputs(shape, device, seed=0):
+    nt, tile, din, m, num_types = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(nt * tile, din, generator=g).bfloat16()
+    dy = torch.randn(nt * tile, m + 8, generator=g).bfloat16()
+    weights = torch.tensor([2.0 ** -t for t in range(num_types)])
+    if num_types >= 4:
+        weights[1] = 0.0
+    tt = torch.multinomial(weights, nt, replacement=True, generator=g).int()
+    tt[-1] = num_types
+    return x.to(device), dy.to(device)[:, :m], tt.to(device)
+
+
+def _typed_dw_reference(x, g, tt, tile, num_types):
+    """The float64 dW of each type and each element's bound: a float32 sum of
+    n terms in any order lies within (n - 1) 2^-24 of the sum of their
+    magnitudes; the kernel chains at most n / 16 accumulator adds (a wgmma
+    step adds 16 rows, up to 16 more inside one), then its chunks'
+    partials (at most n / tile), so (n / 16 + n / tile + 64) 2^-24 sum|x||g|
+    bounds it, with n the type's slots (up to 122,880 at PPI's shape)."""
+    rows = tt.long().repeat_interleave(tile)
+    refs, bounds = [], []
+    for t in range(num_types):
+        sel = torch.nonzero(rows == t)[:, 0]
+        xs, gs = x.index_select(0, sel).double(), g.index_select(0, sel).double()
+        n = sel.numel()
+        refs.append(xs.T @ gs)
+        bounds.append((n / 16 + n / tile + 64) * 2.0 ** -24 * (xs.abs().T @ gs.abs()))
+    return torch.stack(refs), torch.stack(bounds)
+
+
+@pytest.mark.parametrize("shape", TYPED_DW_SHAPES)
+def test_typed_dw_kernel_matches_float64(cuda_device, shape):
+    """K6 against the float64 product of the same bf16 operands, within the
+    float32 bound of ``_typed_dw_reference`` (its plain version, float32
+    products that chain up to n adds, within 16 times that bound); zeros
+    for a type with no tile."""
+    x, dy, tt = _typed_dw_inputs(shape, cuda_device)
+    tile, num_types = shape[1], shape[4]
+    before = ttl.typed_dw_kernel.launches
+    got = ttl.typed_dw_kernel(x, dy, tt, tile, num_types)
+    torch.cuda.synchronize()
+    assert ttl.typed_dw_kernel.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (num_types, shape[2], shape[3])
+    ref, bound = _typed_dw_reference(x, dy, tt, tile, num_types)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert bool(((ttl.typed_weight_gradient_plain(x, dy, tt, tile, num_types).double() - ref).abs()
+                 <= 16 * bound).all())
+    empty = [t for t in range(num_types) if not bool((tt == t).any())]
+    assert (1 in empty) == (num_types >= 4) and not any(bool(got[t].any()) for t in empty)
+
+
+@pytest.mark.parametrize("shape", TYPED_DW_SHAPES[:2])
+def test_typed_dw_kernel_bits_repeat_and_replay(cuda_device, shape):
+    """The same bits on a second call, from the row-strided g and from its
+    contiguous copy, and replayed from a CUDA graph on new inputs as run
+    eagerly."""
+    x, dy, tt = _typed_dw_inputs(shape, cuda_device, seed=1)
+    tile, num_types = shape[1], shape[4]
+    first = ttl.typed_dw_kernel(x, dy, tt, tile, num_types)
+    assert torch.equal(_bits_t(first), _bits_t(ttl.typed_dw_kernel(x, dy, tt, tile, num_types)))
+    assert torch.equal(_bits_t(first), _bits_t(ttl.typed_dw_kernel(x, dy.contiguous(), tt, tile, num_types)))
+    x2, dy2, _ = _typed_dw_inputs(shape, cuda_device, seed=2)
+    both, both2 = torch.cat([x, dy], dim=1), torch.cat([x2, dy2], dim=1)
+    d = shape[2]
+    captured, eager = _graph_replays(lambda a: ttl.typed_dw_kernel(a[:, :d], a[:, d:], tt, tile, num_types),
+                                     both.clone(), both2)
+    assert torch.equal(_bits_t(captured), _bits_t(eager))
 
 
 def _ppi_small(device, hidden=64):
@@ -826,7 +932,8 @@ def test_ppi_train_step_on_card_matches_cpu(cuda_device, amp, monkeypatch):
     and 1e-4 of its largest magnitude. bf16 AMP with the typed matmul route
     forced open at these small widths: 15 kernel launches a step (5 forward,
     10 backward), the loss within 2e-2 and each gradient within 2e-2 of its
-    norm of the CPU's plain route."""
+    norm of the CPU's plain route. The five dW products go through the typed
+    dW (K6) under AMP."""
     if amp:
         monkeypatch.setattr(ttl, "use_typed_matmul_kernel", lambda x, *a: x.dtype == torch.bfloat16)
     _, gpu_module, mbs = _ppi_small(cuda_device)
@@ -841,7 +948,8 @@ def test_ppi_train_step_on_card_matches_cpu(cuda_device, amp, monkeypatch):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 10,
-                                   "segment_sum": 10, "typed_matmul": 15 if amp else 0}
+                                   "segment_sum": 10, "typed_matmul": 15 if amp else 0,
+                                   "typed_dw": 5 if amp else 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator(), amp=amp)
     cpu_loss.backward()
@@ -905,7 +1013,7 @@ def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
-                                   "segment_sum": 16 + 18, "typed_matmul": 0}
+                                   "segment_sum": 16 + 18, "typed_matmul": 0, "typed_dw": 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator())
     cpu_loss.backward()
@@ -934,7 +1042,7 @@ def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeyp
     senders, the MLP-MP layers' receivers and, while K5's gate is closed,
     the weight stacks), no fused-op call, and in bf16 AMP 10 typed matmul
     launches (its gate opens at D = 384, M = 128 once forced at this small
-    stack). float32: the
+    stack) and 5 of the typed dW (K6, the dW of each typed matmul). float32: the
     loss to rtol 1e-5 and every gradient to rtol 1e-4 and 1e-4 of its largest
     magnitude. bf16 AMP: the loss within 2e-2; the two devices round at
     other places (the card's bf16 GEMMs and K5, the CPU's plain route), so
@@ -969,7 +1077,8 @@ def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeyp
     torch.cuda.synchronize()
     sums = {(False, False): 21, (False, True): 16, (True, False): 20, (True, True): 15}[gated, amp]
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 5,
-                                   "segment_sum": sums, "typed_matmul": 10 if amp else 0}
+                                   "segment_sum": sums, "typed_matmul": 10 if amp else 0,
+                                   "typed_dw": 5 if amp else 0}
     assert not fused
     names = [name for name, _ in gpu_module.named_parameters()]
     if amp:
@@ -1128,6 +1237,13 @@ def _on_other_card(kernel, dev):
     counted."""
     plan, mask = make_plan(71, 128, 512)
     g = torch.Generator().manual_seed(3)
+    if kernel == "typed_dw":  # integer operands: every sum exact, in any order
+        x, _, tt = _integer_typed_inputs(dev)
+        dy = torch.randint(-2, 3, (x.shape[0], 128), generator=g).to(torch.bfloat16).to(dev)
+        before = ttl.typed_dw_kernel.launches
+        got = ttl.typed_dw_kernel(x, dy, tt, 128, 3)
+        assert ttl.typed_dw_kernel.launches == before + 1
+        return (got.cpu(),), (ttl.typed_weight_gradient_plain(x.cpu(), dy.cpu(), tt.cpu(), 128, 3),)
     if kernel == "typed_matmul":
         x, w, tt = _integer_typed_inputs(dev)
         before = ttl.typed_matmul_kernel.launches
@@ -1156,12 +1272,13 @@ def _on_other_card(kernel, dev):
 
 
 @pytest.mark.parametrize("kernel", ["segment_sum", "segment_extremum", "segment_extremum_argmax",
-                                    "broadcast_to_edges", "typed_matmul"])
+                                    "broadcast_to_edges", "typed_matmul", "typed_dw"])
 def test_kernel_launches_on_its_tensors_card(cuda_device, kernel):
-    """K1-K5 on cuda:1 called while the current device is cuda:0: the
+    """K1-K6 on cuda:1 called while the current device is cuda:0: the
     wrapper launches on the tensors' card (its stream, its SM count, K5's
     shared-memory opt-in for that card), bitwise equal to its plain
-    version, and leaves the current device at cuda:0."""
+    version (K6 on integers, whose sums are exact), and leaves the current
+    device at cuda:0."""
     dev = _card(cuda_device, 1)
     got, plain = _on_other_card(kernel, dev)
     torch.cuda.synchronize(dev)

@@ -4,6 +4,9 @@ JAX package's Pallas typed matmul, interpreted on the CPU.
 Tolerances. The output and dx are bf16 results of float32 sums taken in
 another order: within 2 bf16 ulps. dW is a float32 sum of exact bf16
 products: rtol 1e-5 and 1e-5 of its largest magnitude.
+
+Also the typed dW's plain version, gate, chunk plan and routing (the
+kernel itself runs only on the card: ``tests/test_torch_kernels_cuda.py``).
 """
 import jax
 import jax.experimental.pallas as pl_mod
@@ -164,3 +167,75 @@ def test_kernel_wrapper_refuses_a_cpu_tensor():
     x, w, tt, _ = _inputs(seed=7)
     with pytest.raises(ValueError, match="no kernel for a tensor on cpu"):
         tl.typed_matmul_kernel(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(tt), TILE)
+
+
+def test_typed_matmul_backward_takes_the_shared_dw(monkeypatch):
+    """bf16: dW comes from the typed dW (its plain version on the CPU);
+    float32 keeps the masked float32 products, bit for bit as before."""
+    calls = []
+    real = tl.typed_weight_gradient
+    monkeypatch.setattr(tl, "typed_weight_gradient", lambda *a: calls.append(a[0].dtype) or real(*a))
+    x, w, tt, dy = _inputs(seed=8)
+    for dtype in (torch.bfloat16, torch.float32):
+        tx = torch.from_numpy(x).to(dtype).requires_grad_(True)
+        tw = torch.from_numpy(w.copy()).requires_grad_(True)
+        tdy = torch.from_numpy(dy).to(dtype)
+        tl._TypedMatmul.apply(tx, tw, torch.from_numpy(tt), TILE).backward(tdy)
+        tt_e = torch.from_numpy(tt).long().repeat_interleave(TILE)
+        xf, dyf = tx.detach().float(), tdy.float()
+        before = torch.stack([xf.T @ (dyf * (tt_e == t)[:, None]) for t in range(T)])
+        assert torch.equal(tw.grad.view(torch.int32), before.view(torch.int32)), dtype
+    assert calls == [torch.bfloat16]
+
+
+# (Din, M, opens in bf16): the kernel's TMA rows are whole 16-byte vectors.
+DW_GATE_CASES = [(512, 256, True), (640, 256, True), (128, 64, True), (72, 40, True), (36, 40, False),
+                 (64, 20, False)]
+
+
+@pytest.mark.parametrize("din,m,opens", DW_GATE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+def test_typed_dw_gate_by_dtype_and_width(dtype, din, m, opens):
+    x = torch.empty((128, din), dtype=dtype)
+    assert tl.use_typed_dw_kernel(x, m) == (opens and dtype == torch.bfloat16)
+    assert not tl.use_typed_dw_kernel(torch.empty((128, din), dtype=dtype, device="meta"), m)
+
+
+def test_typed_dw_plain_version_sums_each_types_tiles():
+    """Against each type's rows taken alone, in float64: a type with no tile
+    and a tile whose type is out of range add nothing."""
+    rng = np.random.RandomState(9)
+    nt, tile, din, m, num_types = 10, 16, 24, 40, 4
+    x = torch.from_numpy(rng.randn(nt * tile, din)).bfloat16()
+    g = torch.from_numpy(rng.randn(nt * tile, m)).bfloat16()
+    tt = torch.tensor([0, 2, 2, 0, 3, 0, 2, 3, 4, -1], dtype=torch.int32)
+    got = tl.typed_weight_gradient(x, g, tt, tile, num_types)
+    assert got.dtype == torch.float32 and got.shape == (num_types, din, m)
+    rows = tt.long().repeat_interleave(tile)
+    for t in range(num_types):
+        sel = rows == t
+        want = x[sel].double().T @ g[sel].double()
+        scale = x[sel].double().abs().T @ g[sel].double().abs()
+        assert bool(((got[t].double() - want).abs() <= 2.0 ** -20 * scale).all()), t
+    assert not got[1].any()
+
+
+def test_typed_dw_plan_fits_the_card_and_bounds_the_chunks():
+    # PPI: 960 tiles of 128 at 512 x 256 over 3 types on 132 SMs: 4 blocks a
+    # chunk, chunks of 32 tiles, at most 33 chunks: one wave of 132 units
+    assert tl.typed_dw_plan(960, 128, 512, 256, 3, 132) == (32, 33)
+    rng = np.random.RandomState(2)
+    for n_tiles, tile, din, m, num_types in [(960, 128, 512, 256, 3), (384, 128, 128, 64, 17), (30, 48, 256, 512, 4),
+                                             (1, 16, 8, 8, 1), (5000, 64, 64, 64, 40)]:
+        length, slots = tl.typed_dw_plan(n_tiles, tile, din, m, num_types, 132)
+        assert length >= 1
+        for _ in range(20):  # any split of the tiles among the types fits the slots
+            counts = np.bincount(rng.randint(0, num_types, n_tiles), minlength=num_types)
+            assert int(sum(-(-c // length) for c in counts)) <= slots
+
+
+def test_typed_dw_kernel_refuses_a_cpu_tensor():
+    x, _, tt, dy = _inputs(seed=10)
+    with pytest.raises(ValueError, match="no kernel for a tensor on cpu"):
+        tl.typed_dw_kernel(torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16(), torch.from_numpy(tt),
+                           TILE, T)
