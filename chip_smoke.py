@@ -542,6 +542,7 @@ def launch_counts() -> Launches:
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
     counts = sk.launch_counts()
+    counts.pop("keyed_dropout_elements")  # elements hashed, not launches
     if counts.pop("typed_dw") != sum(ttl.typed_dw_kernel.launches_by_shape.values()):
         raise RuntimeError("the typed dW's launches and its tally by shape disagree")
     return Launches(counts, sk.broadcast_launches_by_width(), ttl.typed_dw_kernel.launches_by_shape)

@@ -45,12 +45,13 @@ one Python dispatch per kernel.
   propagates as ``torch.OutOfMemoryError``, so the trainer's skip handles it.
 * **Counters.** A capture runs the step's Python once, but launches nothing.
   The counters in :data:`REPLAYED_COUNTERS` (the kernel wrappers'
-  ``launches``, the broadcast's launches by width, and any a caller
-  registers) and those a step names (``counters``: a data-parallel step's
-  all-reduce calls and bytes) are put back after a capture to their values
-  before it, and every replay adds what the capture added, so they count
-  what ran on the card: the warm-up calls and every replay. A counter is an
-  integer or a dict of integers (a tally by key).
+  ``launches``, the broadcast's launches by width, the keyed dropout's
+  elements, and any a caller registers) and those a step names
+  (``counters``: a data-parallel step's all-reduce calls and bytes) are
+  put back after a capture to their values before it, and every replay
+  adds what the capture added, so they count what ran on the card: the
+  warm-up calls and every replay. A counter is an integer or a dict of
+  integers (a tally by key).
 * **Generators** (``generators``) are registered with each graph, so a
   replay draws from the generator's current seed and offset: reseeded with
   ``s``, it draws exactly what an eager call seeded with ``s`` draws.
@@ -85,9 +86,11 @@ WARMUP_CALLS = 1
 
 # (owner, attribute) of every counter that a replay adds to as its capture
 # did: the kernel wrappers' launch counters, the broadcast's tally by width,
-# the typed dW's by shape, and any a caller adds.
+# the typed dW's by shape, the elements the keyed dropout hashed, and any a
+# caller adds.
 REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()] + [
-    (sk.planned_broadcast_to_edges, "launches_by_width"), (typed_dw_kernel, "launches_by_shape")
+    (sk.planned_broadcast_to_edges, "launches_by_width"), (typed_dw_kernel, "launches_by_shape"),
+    (tracing, "keyed_dropout_elements"),
 ]
 
 

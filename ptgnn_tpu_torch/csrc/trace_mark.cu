@@ -1,7 +1,9 @@
 // Phase marks: an empty one-thread kernel that the train step launches
-// between its phases (forward, backward, clip and optimizer), so that the
-// profiler's trace of a CUDA graph replay says where each phase starts, on
-// the clock of the graph's other kernels (utils/tracing.py).
+// between its phases (forward, backward, clip and optimizer), and some
+// layers inside them (Graph2Seq's encoder/decoder boundary, the keyed
+// message dropout), so that the profiler's trace of a CUDA graph replay says
+// where each phase starts, on the clock of the graph's other kernels
+// (utils/tracing.py).
 //
 // Replaces no TPU kernel. The JAX package's step is one XLA program that its
 // own profiler splits by op name; a replayed CUDA graph has no host ranges
@@ -25,7 +27,7 @@ __global__ void trace_mark_kernel() {}
 
 namespace {
 
-constexpr int kMarks = 4;
+constexpr int kMarks = 8;
 
 const void* mark_function(int id) {
   switch (id) {
@@ -33,6 +35,10 @@ const void* mark_function(int id) {
     case 1: return reinterpret_cast<const void*>(&trace_mark_kernel<1>);
     case 2: return reinterpret_cast<const void*>(&trace_mark_kernel<2>);
     case 3: return reinterpret_cast<const void*>(&trace_mark_kernel<3>);
+    case 4: return reinterpret_cast<const void*>(&trace_mark_kernel<4>);
+    case 5: return reinterpret_cast<const void*>(&trace_mark_kernel<5>);
+    case 6: return reinterpret_cast<const void*>(&trace_mark_kernel<6>);
+    case 7: return reinterpret_cast<const void*>(&trace_mark_kernel<7>);
     default: return nullptr;
   }
 }
@@ -50,7 +56,7 @@ extern "C" const char* ptgnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch mark `id` (0-3) on `stream`. Returns cudaGetLastError() after the
+// Launch mark `id` (0-7) on `stream`. Returns cudaGetLastError() after the
 // launch (0 = success).
 extern "C" int ptgnn_trace_mark(int id, void* stream) {
   const void* func = mark_function(id);

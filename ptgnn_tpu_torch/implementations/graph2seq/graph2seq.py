@@ -9,6 +9,11 @@ rows. Decoder target rows align one to one with graph slots. Decoding
 the module's device, CUDA unless the caller passes ``device="cpu"``: the
 compiled encoder, then the decoder's compiled loop (a CUDA graph per batch
 signature, both kept on the model for later calls).
+
+Tracing (``utils/tracing.py``): the encoder marks ``ENCODED`` once the GNN
+has its node states, before the summariser; while training, a gradient hook
+on those states marks ``DECODER_GRAD`` when their gradient is complete, where
+the decoder's backward hands over to the encoder's.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ptgnn_tpu_torch.sequence.grucopydecoder import (
     GruCopyingDecoderModel,
     TokenizedOutput,
 )
+from ptgnn_tpu_torch.utils import tracing
 
 LOGGER = logging.getLogger(__name__)
 
@@ -51,6 +57,10 @@ class CodeGraph2Seq(TypedDict):
 class TensorizedGraph2Seq(NamedTuple):
     encoder_data: TensorizedGraphData
     decoder_data: TokenizedOutput
+
+
+def _mark_decoder_grad(device: torch.device, grad: torch.Tensor) -> None:
+    tracing.mark(tracing.DECODER_GRAD, device)
 
 
 class Graph2SeqModule(Module):
@@ -72,6 +82,10 @@ class Graph2SeqModule(Module):
         padding nodes masked (a padding graph gets a zero summary's
         projection)."""
         gnn_output, gnn_metrics = self.gnn(batch, train=train, generator=generator)
+        states = gnn_output.output_node_representations
+        tracing.mark(tracing.ENCODED, states.device)
+        if states.requires_grad:
+            states.register_hook(functools.partial(_mark_decoder_grad, states.device))
         memories = gnn_output.reference_rows("backbone_nodes")
         origin = gnn_output.node_graph_idx_reference["backbone_nodes"]
         memory_mask = gnn_output.reference_masks["backbone_nodes"]

@@ -33,7 +33,9 @@ tie count, no message recompute.
 Message-input dropout is keyed on the DIRECTED (src, dst, type) identity by
 a uint32 hash (computed in int64, masked to 32 bits), so the transpose
 orientation regenerates the mask its pair edge used, and the mask equals
-the JAX package's bit for bit.
+the JAX package's bit for bit. Each mask made and applied sits between the
+phase marks ``KEYED_BEGIN`` and ``KEYED_END`` (``utils/tracing.py``), and
+its elements add to ``tracing.keyed_dropout_elements``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from ptgnn_tpu_torch.ops.typed_linear import (
     typed_weight_gradient_plain,
     use_typed_dw_kernel,
 )
+from ptgnn_tpu_torch.utils import tracing
 
 _U32 = 0xFFFFFFFF
 _BIG = 3.0e38
@@ -105,12 +108,16 @@ def _apply_keyed_dropout(x: torch.Tensor, drop: Dropout, col_offset: int = 0) ->
     if drop is None:
         return x
     seed, key, keep = drop
+    tracing.mark(tracing.KEYED_BEGIN, x.device)
+    tracing.keyed_dropout_elements += x.shape[0] * x.shape[1]
     mask = _keyed_dropout_mask(seed, key, x.shape[1], 1.0 - keep, col_offset)
     # The rate as a device scalar made by a fill: dividing by a Python float
     # multiplies by its reciprocal, and a tensor copied from the host waits
     # for the copy.
-    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+    out = torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    tracing.mark(tracing.KEYED_END, x.device)
+    return out
 
 
 def _senders(adj, n: int) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 from ptgnn_tpu_torch.ops import cuda_build
 from ptgnn_tpu_torch.ops.segment import masked_take
 from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel, typed_matmul_kernel
+from ptgnn_tpu_torch.utils import tracing
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -589,8 +590,12 @@ def kernel_wrappers() -> List:
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters of the port's kernel wrappers: this module's and
-    the typed matmul's and typed dW's (``ops/typed_linear.py``)."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    the typed matmul's and typed dW's (``ops/typed_linear.py``); and
+    ``keyed_dropout_elements``, the elements that the fused op's keyed
+    message-dropout hash covered (``utils/tracing.keyed_dropout_elements``)."""
+    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
+    counts["keyed_dropout_elements"] = tracing.keyed_dropout_elements
+    return counts
 
 
 def broadcast_launches_by_width() -> Dict[Tuple[int, str], int]:
@@ -601,5 +606,6 @@ def broadcast_launches_by_width() -> Dict[Tuple[int, str], int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    tracing.keyed_dropout_elements = 0
     planned_broadcast_to_edges.launches_by_width.clear()
     typed_dw_kernel.launches_by_shape.clear()

@@ -22,7 +22,18 @@
   (``core/trainer.py::TrainStep``) marks :data:`FORWARD` before the
   forward, :data:`BACKWARD` before ``loss.backward()``, :data:`OPTIMIZER`
   before the clip and :data:`UPDATED` after the gradients are zeroed.
+  Graph2Seq (``implementations/graph2seq/graph2seq.py``) marks
+  :data:`ENCODED` where the encoder's forward hands its node states on and
+  :data:`DECODER_GRAD` where their gradient is complete, so the decoder's
+  backward hands over to the encoder's; the fused op (``ops/fused_mp.py``)
+  marks :data:`KEYED_BEGIN` and :data:`KEYED_END` around each keyed
+  message-dropout mask it makes and applies.
 * :func:`marking`: a profiler records, or :func:`set_marking` turned marks on.
+* :data:`keyed_dropout_elements` counts the elements that the keyed
+  message-dropout hash covers, added to where the host launches the hash;
+  compiled steps replay it as they replay the kernels' launch counters
+  (``core/compiled_step.REPLAYED_COUNTERS``), and
+  ``ops/segment_kernels.launch_counts`` reports it.
 
 The spans the port opens:
 
@@ -55,16 +66,20 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 __all__ = ["span", "spanned", "totals", "reset", "mark", "marking", "set_marking", "graph_marks", "set_graph_marks",
-           "FORWARD", "BACKWARD", "OPTIMIZER", "UPDATED"]
+           "FORWARD", "BACKWARD", "OPTIMIZER", "UPDATED", "ENCODED", "DECODER_GRAD", "KEYED_BEGIN", "KEYED_END"]
 
-# The phase marks' ids, in a train step's order.
-FORWARD, BACKWARD, OPTIMIZER, UPDATED = range(4)
+# The phase marks' ids: the train step's four, in a step's order, then the
+# marks of the layers inside its phases.
+FORWARD, BACKWARD, OPTIMIZER, UPDATED, ENCODED, DECODER_GRAD, KEYED_BEGIN, KEYED_END = range(8)
 
 _clock = time.perf_counter
 _LOCK = threading.Lock()
 _TOTALS: Dict[str, List[float]] = {}  # name -> [count, seconds, self seconds]
 _LOCAL = threading.local()  # .stack: the spans open on this thread, innermost last
 _MARKING = False
+
+
+keyed_dropout_elements = 0  # elements the keyed message-dropout hash covered
 
 
 def _reinit_in_child() -> None:

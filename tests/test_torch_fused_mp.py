@@ -73,7 +73,8 @@ def test_fused_forward_matches_jax(reduction, use_target_state):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-5)
     # The CPU ran the plain versions: no kernel was launched.
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0,
+                                   "keyed_dropout_elements": 0}
 
 
 @pytest.mark.parametrize("dtype,tol", [
@@ -187,7 +188,8 @@ def test_fused_gradients_match_jax(reduction, use_target_state):
     np.testing.assert_allclose(tw, gw, rtol=1e-5, atol=1e-5)
     assert np.abs(tx).max() > 0 and np.abs(tw).max() > 0
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0,
+                                   "keyed_dropout_elements": 0}
 
 
 @pytest.mark.parametrize("reduction", ["max", "sum"])

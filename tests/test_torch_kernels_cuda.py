@@ -524,7 +524,7 @@ def test_graph2class_forward_on_card_matches_cpu(cuda_device):
         counts = tsk.launch_counts()
         cpu = cpu_module._logits(batch.to("cpu"), train=False)[0].numpy()
     assert counts == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
-                      "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0}
+                      "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout_elements": 0}
     # rtol 1e-4 and 1e-4 of the logit scale: float32 rounding differs
     # between the card's and the CPU's matmuls and transcendentals.
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=1e-4 * np.abs(cpu).max())
@@ -545,7 +545,8 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 24,
-                                   "segment_sum": 17, "typed_matmul": 0, "typed_dw": 8 if amp else 0}
+                                   "segment_sum": 17, "typed_matmul": 0, "typed_dw": 8 if amp else 0,
+                                   "keyed_dropout_elements": 0}
     assert all(p.grad.dtype == torch.float32 for p in gpu_module.parameters())
     if amp:
         assert np.isfinite(float(loss.detach()))
@@ -561,11 +562,11 @@ def test_graph2class_train_step_on_card_matches_cpu(cuda_device, amp):
 
 @pytest.mark.parametrize("architecture,argmax_routing,per_step", [
     ("mlp", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 16,
-                   "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0}),
+                   "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout_elements": 0}),
     ("ggnn", False, {"segment_extremum": 8, "segment_extremum_argmax": 0, "broadcast_to_edges": 16,
-                     "segment_sum": 17, "typed_matmul": 0, "typed_dw": 0}),
+                     "segment_sum": 17, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout_elements": 0}),
     ("ggnn", True, {"segment_extremum": 0, "segment_extremum_argmax": 8, "broadcast_to_edges": 8,
-                    "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0}),
+                    "segment_sum": 9, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout_elements": 0}),
 ])
 def test_graph2class_paths_train_on_card_as_on_cpu(cuda_device, architecture, argmax_routing, per_step):
     """A train step of the argmax-routed and the GGNN paths: the launches the
@@ -949,7 +950,8 @@ def test_ppi_train_step_on_card_matches_cpu(cuda_device, amp, monkeypatch):
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 10,
                                    "segment_sum": 10, "typed_matmul": 15 if amp else 0,
-                                   "typed_dw": 5 if amp else 0}
+                                   "typed_dw": 5 if amp else 0,
+                                   "keyed_dropout_elements": 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator(), amp=amp)
     cpu_loss.backward()
@@ -1013,7 +1015,8 @@ def test_graph2seq_train_step_on_card_matches_cpu(cuda_device):
     loss.backward()
     torch.cuda.synchronize()
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 8,
-                                   "segment_sum": 16 + 18, "typed_matmul": 0, "typed_dw": 0}
+                                   "segment_sum": 16 + 18, "typed_matmul": 0, "typed_dw": 0,
+                                   "keyed_dropout_elements": 0}
     cpu_loss, _ = module_loss(cpu_module, tree_to(mbs[0], torch.device("cpu")), train=True,
                               generator=torch.Generator())
     cpu_loss.backward()
@@ -1078,7 +1081,8 @@ def test_edge_feature_stack_on_card_matches_cpu(cuda_device, gated, amp, monkeyp
     sums = {(False, False): 21, (False, True): 16, (True, False): 20, (True, True): 15}[gated, amp]
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 5,
                                    "segment_sum": sums, "typed_matmul": 10 if amp else 0,
-                                   "typed_dw": 5 if amp else 0}
+                                   "typed_dw": 5 if amp else 0,
+                                   "keyed_dropout_elements": 0}
     assert not fused
     names = [name for name, _ in gpu_module.named_parameters()]
     if amp:

@@ -4,7 +4,10 @@
 order; an unprofiled replay leaves the graph's marks disabled, and they are
 switched only when the profiler starts or stops; the accumulation pair's
 graphs hold their two marks each; loss, parameters and optimizer state are
-bitwise the same with marks on and off, compiled and eager.
+bitwise the same with marks on and off, compiled and eager; a compiled
+Graph2Seq step holds its layer marks (the encoder's and decoder's boundary,
+the keyed dropout's pairs) in a step's order, and its replays add the
+capture's count of hashed elements.
 
 These tests need a card and skip elsewhere. This file imports neither JAX
 nor the JAX package:
@@ -137,3 +140,32 @@ def test_marks_on_and_off_give_the_same_bits(cuda_device, compiled):
     assert torch.equal(on_loss, off_loss)
     assert len(on_state) == len(off_state)
     assert all(torch.equal(a, b) for a, b in zip(on_state, off_state))
+
+
+def test_a_graph2seq_replay_shows_its_layer_marks_in_order(cuda_device):
+    from ptgnn_tpu_torch.implementations.graph2seq.harness import build_graph2seq
+    from ptgnn_tpu_torch.implementations.graph2seq.train import g2s_padding
+    from ptgnn_tpu_torch.ops import segment_kernels as sk
+    from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
+
+    padding = g2s_padding(max_nodes=1024, max_graphs=8)
+    samples = list(synthetic_graph2seq_samples(24, seed=3, mean_nodes=60, max_nodes=150))
+    _, module, mbs = build_graph2seq(padding=padding, samples=samples, embedding_size=32, device=cuda_device)
+    step = TrainStep(module, torch.optim.Adam(module.parameters(), lr=1e-3))
+    mb = tree_to(mbs[0], cuda_device)
+    sk.reset_launch_counts()
+    step.generator.manual_seed(0)
+    step.step(mb)  # the warm-up and the capture, unprofiled
+    torch.cuda.synchronize()
+    per_step = 2 * 8 * padding.max_edge_slots * 32  # 8 gated layers, a forward and a transposed mask each
+    assert sk.launch_counts()["keyed_dropout_elements"] == 2 * per_step  # the warm-up and the first replay
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            step.generator.manual_seed(1 + i)
+            step.step(mb)
+        torch.cuda.synchronize()
+    keyed = [tracing.KEYED_BEGIN, tracing.KEYED_END] * 8
+    one = [0] + keyed + [tracing.ENCODED, 1, tracing.DECODER_GRAD] + keyed + [2, 3]
+    assert _marks_run(prof) == one * 2
+    assert sk.launch_counts()["keyed_dropout_elements"] == 4 * per_step
