@@ -118,7 +118,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    scatter_reduce and index_add_; then the extremum, the broadcast and the
    sum on a VarMisuse batch's layout at the path's widths against their
    plain versions, and timed; then the sum on a Graph2Seq batch's layout at
-   width 128 against its plain version, and timed
+   width 128 against its plain version, and timed; the keyed dropout (K7)
+   at every (E, C, column offset, tile, dtype) a path launched it at, and at
+   Graph2Seq's [131072, 128] block in both orientations in float32 and
+   bf16, bitwise against its plain version and timed beside it, with its
+   launches by path (``chip_smoke.py --keyed-dropout`` runs the Graph2Seq
+   shapes alone)
    (entries of the kernels line);
 16. sanitizer: every kernel once at a small size under compute-sanitizer's
    memcheck, racecheck and synccheck (``chip_smoke.py --sanitizer-target``
@@ -522,14 +527,17 @@ def graphs(seed: int = SEED):
 class Launches(dict):
     """The kernels' launch counts by kernel name; ``by_width`` holds the
     broadcast's (K3's) by (row bytes, dtype name), ``by_shape`` the typed
-    dW's (K6's) by (tiles, tile, Din, M, types). K6 is tallied beside the
-    counts by kernel, not among them: equality compares the counts by
-    kernel only (the five kernels each path's constants hold exactly)."""
+    dW's (K6's) by (tiles, tile, Din, M, types), ``keyed`` the keyed
+    dropout's (K7's) by (E, C, column offset, tile, dtype name). K6 and K7
+    are tallied beside the counts by kernel, not among them: equality
+    compares the counts by kernel only (the five kernels each path's
+    constants hold exactly)."""
 
-    def __init__(self, counts=(), by_width=None, by_shape=None):
+    def __init__(self, counts=(), by_width=None, by_shape=None, keyed=None):
         super().__init__(counts)
         self.by_width = dict(by_width or {})
         self.by_shape = dict(by_shape or {})
+        self.keyed = dict(keyed or {})
 
     @property
     def typed_dw(self) -> int:
@@ -537,7 +545,9 @@ class Launches(dict):
 
 
 def launch_counts() -> Launches:
-    """The launch counters now, with K3's tally by width and K6's by shape."""
+    """The launch counters now, with K3's tally by width and K6's and K7's
+    by shape."""
+    from ptgnn_tpu_torch.ops import keyed_dropout as kd
     from ptgnn_tpu_torch.ops import segment_kernels as sk
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
@@ -545,7 +555,10 @@ def launch_counts() -> Launches:
     counts.pop("keyed_dropout_elements")  # elements hashed, not launches
     if counts.pop("typed_dw") != sum(ttl.typed_dw_kernel.launches_by_shape.values()):
         raise RuntimeError("the typed dW's launches and its tally by shape disagree")
-    return Launches(counts, sk.broadcast_launches_by_width(), ttl.typed_dw_kernel.launches_by_shape)
+    if counts.pop("keyed_dropout") != sum(kd.keyed_dropout_kernel.launches_by_shape.values()):
+        raise RuntimeError("the keyed dropout's launches and its tally by shape disagree")
+    return Launches(counts, sk.broadcast_launches_by_width(), ttl.typed_dw_kernel.launches_by_shape,
+                    kd.keyed_dropout_kernel.launches_by_shape)
 
 
 def _by_width(counts) -> dict:
@@ -563,14 +576,18 @@ def _tally_sum(a: dict, b: dict, sign: int = 1) -> dict:
     return {k: n for k, n in out.items() if n}
 
 
+def _keyed(counts) -> dict:
+    return getattr(counts, "keyed", {})
+
+
 def delta(after, before):
     return Launches({k: after[k] - before[k] for k in after}, _tally_sum(_by_width(after), _by_width(before), -1),
-                    _tally_sum(_by_shape(after), _by_shape(before), -1))
+                    _tally_sum(_by_shape(after), _by_shape(before), -1), _tally_sum(_keyed(after), _keyed(before), -1))
 
 
 def add_counts(a, b):
     return Launches({k: a[k] + b[k] for k in a}, _tally_sum(_by_width(a), _by_width(b)),
-                    _tally_sum(_by_shape(a), _by_shape(b)))
+                    _tally_sum(_by_shape(a), _by_shape(b)), _tally_sum(_keyed(a), _keyed(b)))
 
 
 def set_dropout(module, rate: float) -> None:
@@ -3191,6 +3208,122 @@ def typed_dw_main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+# K7, the keyed dropout (csrc/keyed_dropout.cu), by (E, C, column offset,
+# tile, dtype): the Graph2Seq benchmark's message-input block, 131,072 slots
+# of 128 columns, in the forward orientation (a type a slot) and the
+# transpose one (a type a 128-slot tile), float32 and bf16.
+KEYED_DROPOUT_SHAPES = tuple((131072, 128, 0, tile, dtype) for dtype in ("float32", "bfloat16") for tile in (1, 128))
+KEYED_DROPOUT_KEEP = 0.9
+
+
+def keyed_dropout_inputs(shape, dev, gen):
+    """x [E, C] of the shape's dtype, and the edge ids of a 16,384-node
+    padding: int32 endpoints (padding ids 0, 16384 and a negative one among
+    them) and a type a tile of the shape's slots."""
+    from ptgnn_tpu_torch.ops import keyed_dropout as kd
+
+    e, c, _, tile, dtype = shape
+    x = torch.randn(e, c, device=dev, generator=gen).to(getattr(torch, dtype))
+    src, dst = (torch.randint(0, 16384, (e,), device=dev, generator=gen, dtype=torch.int32) for _ in range(2))
+    src[:3] = torch.tensor([0, 16384, -1], device=dev, dtype=torch.int32)[:e]
+    types = torch.randint(0, 8, (e // tile,), device=dev, generator=gen, dtype=torch.int32)
+    return x, kd.EdgeIds(src, dst, types, tile)
+
+
+def keyed_dropout_err(x, seed, ids, col_offset: int) -> float:
+    """The largest |K7 - its plain version| at x, ``seed`` and ``col_offset``;
+    raises unless the two are equal bit for bit."""
+    from ptgnn_tpu_torch.ops import keyed_dropout as kd
+
+    got = kd.keyed_dropout_kernel(x, seed, ids, KEYED_DROPOUT_KEEP, col_offset)
+    want = kd.keyed_dropout_plain(x, seed, ids, KEYED_DROPOUT_KEEP, col_offset)
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if not bitwise_equal(got, want):
+        raise RuntimeError(f"K7 differs from its plain version by up to {err} at {tuple(x.shape)} {x.dtype}, tile "
+                           f"{ids.tile}, seed {int(seed)}, column offset {col_offset}")
+    return err
+
+
+def keyed_dropout_checks(shape, dev, gen) -> float:
+    """K7 bitwise its plain version at ``shape`` (its column offset and
+    tile) for seeds 0, 2^31 + 5 and 2^32 - 1; the largest |difference|."""
+    x, ids = keyed_dropout_inputs(shape, dev, gen)
+    return max(keyed_dropout_err(x, torch.tensor(seed, dtype=torch.int64, device=dev), ids, shape[2])
+               for seed in (0, 2**31 + 5, 2**32 - 1))
+
+
+def keyed_dropout_entry(shape, dev, gen, max_abs_err: float, launches_by_path: dict) -> dict:
+    """The kernels-line entry of K7 at ``shape``: its time (a CUDA graph of
+    16 launches over inputs rotated past the L2), its bound (x read and the
+    output written once, three 4-byte ids a row), and its plain version's,
+    the int64 composition the fused op ran before K7. ``max_abs_err`` is
+    the largest |K7 - plain| of the checks and of the timed inputs."""
+    from ptgnn_tpu_torch.ops import keyed_dropout as kd
+
+    e, c, col_offset, tile, dtype = shape
+    esize = getattr(torch, dtype).itemsize
+    _, ids = keyed_dropout_inputs(shape, dev, gen)
+    xs = rotating(lambda: keyed_dropout_inputs(shape, dev, gen)[0], e * c * esize)
+    seed = torch.tensor(2**31 + 5, dtype=torch.int64, device=dev)
+    max_abs_err = max(max_abs_err, keyed_dropout_err(xs[0], seed, ids, col_offset))
+
+    def calls(fn):
+        return [lambda x=xs[i % len(xs)]: fn(x, seed, ids, KEYED_DROPOUT_KEEP, col_offset) for i in range(16)]
+
+    times = {"ms": graph_time_ms(calls(kd.keyed_dropout_kernel)),
+             "plain_ms": graph_time_ms(calls(kd.keyed_dropout_plain))}
+    del xs
+    entry = {
+        "name": "keyed_dropout", "route": "cuda", "source": "ptgnn_tpu_torch/csrc/keyed_dropout.cu",
+        "replaces": "the int64 PyTorch mask and select (ops/keyed_dropout.py::keyed_dropout_plain)",
+        "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+        "max_abs_err": max_abs_err, **times, **bound(2 * e * c * esize + 3 * e * 4, 0), "shape": [e, c],
+        "col_offset": col_offset, "tile": tile, "dtype": dtype,
+    }
+    phase("kernels", json.dumps(entry))
+    return entry
+
+
+def keyed_dropout_phase(dev, shapes, launches_by_path=None) -> list:
+    """K7 checked bitwise against its plain version and timed beside it at
+    every (E, C, column offset, tile, dtype) of ``shapes``; raises where it
+    is not faster than the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    launches_by_path = launches_by_path or {}
+    entries = []
+    for shape in shapes:
+        err = keyed_dropout_checks(shape, dev, gen)
+        by_path = {path: n for path, n in ((p, c.get(shape, 0)) for p, c in launches_by_path.items()) if n}
+        entries.append(keyed_dropout_entry(shape, dev, gen, err, by_path))
+    torch.cuda.synchronize()
+    phase("keyed-dropout", f"K7 bitwise its plain version at (E, C, column offset, tile, dtype) {list(shapes)}, "
+          "seeds 0, 2^31 + 5 and 2^32 - 1")
+    slower = [(e["shape"], e["col_offset"], e["tile"], e["dtype"], e["ms"], e["plain_ms"])
+              for e in entries if e["ms"] >= e["plain_ms"]]
+    if slower:
+        raise RuntimeError(f"K7 is not faster than its plain version at (shape, column offset, tile, dtype, ms, "
+                           f"plain ms) {slower}")
+    return entries
+
+
+def keyed_dropout_main() -> None:
+    """``chip_smoke.py --keyed-dropout``: build, K7's registers, its checks
+    and timings at KEYED_DROPOUT_SHAPES."""
+    from ptgnn_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    phase("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}; torch {torch.__version__}")
+    build_s = cuda_build.build_all()
+    phase("build", f"{build_s:.2f} s for {sorted(cuda_build.BUILD_LOG) or 'nothing (cached)'}")
+    for line in cuda_build.BUILD_LOG.get("keyed_dropout", "").splitlines():
+        if "Used" in line or "spill" in line or "Compiling" in line:
+            phase("build", f"keyed_dropout: {line.strip()}")
+    entries = keyed_dropout_phase(dev, KEYED_DROPOUT_SHAPES)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck")
 
 
@@ -3199,6 +3332,7 @@ def sanitizer_target() -> None:
     every kernel once at a small size, on a layout with a row that the row
     reductions split into pieces, then a synchronise."""
     from ptgnn_tpu_torch.graph.batching import _assemble_layout_python
+    from ptgnn_tpu_torch.ops import keyed_dropout as kd
     from ptgnn_tpu_torch.ops import segment_kernels as sk
     from ptgnn_tpu_torch.ops import typed_linear as ttl
 
@@ -3222,6 +3356,9 @@ def sanitizer_target() -> None:
                                 torch.randn(3, 128, 256, device=dev, generator=g).to(dtype), tile_types, 32)
     ttl.typed_dw_kernel(torch.randn(4096, 128, device=dev, generator=g).bfloat16(),
                         torch.randn(4096, 256, device=dev, generator=g).bfloat16(), tile_types, 32, 3)
+    for dtype in ("float32", "bfloat16"):
+        x, ids = keyed_dropout_inputs((4096, 40, 3, 32, dtype), dev, g)
+        kd.keyed_dropout_kernel(x, torch.tensor(5, device=dev), ids, KEYED_DROPOUT_KEEP, 3)
     torch.cuda.synchronize()
     print("sanitizer target: every kernel launched", flush=True)
 
@@ -6838,6 +6975,9 @@ def main() -> None:
     if sys.argv[1:] == ["--typed-dw"]:
         typed_dw_main()
         return
+    if sys.argv[1:] == ["--keyed-dropout"]:
+        keyed_dropout_main()
+        return
     if sys.argv[1:] == ["--sanitizer-target"]:
         sanitizer_target()
         return
@@ -6994,6 +7134,8 @@ def main() -> None:
         raise RuntimeError(f"a kernel of the path was never launched: {main_counts}")
     dw_by_path = {path: counts.by_shape for path, counts in paths.items() if counts.by_shape}
     phase("kernels", f"K6 launches by (tiles, tile, Din, M, types) and path: {dw_by_path}")
+    keyed_by_path = {path: counts.keyed for path, counts in paths.items() if counts.keyed}
+    phase("kernels", f"K7 launches by (E, C, column offset, tile, dtype) and path: {keyed_by_path}")
 
     # ---- 5. parity --------------------------------------------------------
     cpu_module = model.build_neural_module(device="cpu", seed=SEED).eval()
@@ -7182,6 +7324,11 @@ def main() -> None:
     # K6 at every (tiles, tile, Din, M, types) a path launched it at: checked
     # and timed there, faster than the route it replaced.
     kernels += typed_dw_phase(dev, sorted({k for by_shape in dw_by_path.values() for k in by_shape}), dw_by_path)
+    # K7 at every (E, C, column offset, tile, dtype) a path launched it at,
+    # and at the Graph2Seq benchmark's [131072, 128] block in both
+    # orientations and dtypes: checked bitwise and timed there.
+    keyed_shapes = {k for by_shape in keyed_by_path.values() for k in by_shape} | set(KEYED_DROPOUT_SHAPES)
+    kernels += keyed_dropout_phase(dev, sorted(keyed_shapes), keyed_by_path)
     argmax_err = argmax_kernel_checks(adj, dev, gen)
     kernels.append(argmax_kernel_entry(adj, dev, gen, argmax_err, main_counts["segment_extremum_argmax"],
                                        {k: v["segment_extremum_argmax"] for k, v in paths.items()}))

@@ -75,6 +75,7 @@ from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Op
 import torch
 
 from ptgnn_tpu_torch.ops import segment_kernels as sk
+from ptgnn_tpu_torch.ops.keyed_dropout import keyed_dropout_kernel
 from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel
 from ptgnn_tpu_torch.utils import tracing
 
@@ -86,11 +87,11 @@ WARMUP_CALLS = 1
 
 # (owner, attribute) of every counter that a replay adds to as its capture
 # did: the kernel wrappers' launch counters, the broadcast's tally by width,
-# the typed dW's by shape, the elements the keyed dropout hashed, and any a
-# caller adds.
+# the typed dW's and the keyed dropout's by shape, the elements the keyed
+# dropout hashed, and any a caller adds.
 REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()] + [
     (sk.planned_broadcast_to_edges, "launches_by_width"), (typed_dw_kernel, "launches_by_shape"),
-    (tracing, "keyed_dropout_elements"),
+    (keyed_dropout_kernel, "launches_by_shape"), (tracing, "keyed_dropout_elements"),
 ]
 
 

@@ -75,6 +75,12 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
     ),
     "trace_mark": ("trace_mark.cu", "ptgnn_trace_mark", [ctypes.c_int, _P]),
+    "keyed_dropout": (
+        "keyed_dropout.cu",
+        "ptgnn_keyed_dropout",
+        [_P, ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_uint, ctypes.c_float, ctypes.c_int, _P],
+    ),
 }
 # A library's other C entry points: name -> {function: argtypes}; each
 # returns an int error code, as the kernels' do.

@@ -31,11 +31,13 @@ orientation, and by the winner's (pair id, type) in the transpose one: no
 tie count, no message recompute.
 
 Message-input dropout is keyed on the DIRECTED (src, dst, type) identity by
-a uint32 hash (computed in int64, masked to 32 bits), so the transpose
-orientation regenerates the mask its pair edge used, and the mask equals
-the JAX package's bit for bit. Each mask made and applied sits between the
-phase marks ``KEYED_BEGIN`` and ``KEYED_END`` (``utils/tracing.py``), and
-its elements add to ``tracing.keyed_dropout_elements``.
+a uint32 hash (``ops/keyed_dropout.py``: the keyed dropout kernel on the
+card, in one uint32 pass from the slot's endpoint ids; the plain int64
+version elsewhere), so the transpose orientation regenerates the mask its
+pair edge used, and the mask equals the JAX package's bit for bit. Each
+mask made and applied, its edge keys included, sits between the phase
+marks ``KEYED_BEGIN`` and ``KEYED_END`` (``utils/tracing.py``), and its
+elements add to ``tracing.keyed_dropout_elements``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ptgnn_tpu_torch.ops.keyed_dropout import EdgeIds, keyed_dropout
 from ptgnn_tpu_torch.ops.segment import masked_take
 from ptgnn_tpu_torch.ops.segment_kernels import (
     adjacency_broadcast_to_edges,
@@ -58,66 +61,31 @@ from ptgnn_tpu_torch.ops.typed_linear import (
 )
 from ptgnn_tpu_torch.utils import tracing
 
-_U32 = 0xFFFFFFFF
 _BIG = 3.0e38
 
-
-def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """x * c mod 2**32 for int64 x in [0, 2**32), without int64 overflow."""
-    lo = (x & 0xFFFF) * c
-    hi = (((x >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & _U32
-
-
-def _hash_u32(x: torch.Tensor) -> torch.Tensor:
-    """xorshift-multiply avalanche hash of uint32 values held in int64."""
-    x = x ^ (x >> 16)
-    x = _mul_u32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul_u32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
-
-def _directed_edge_key(src: torch.Tensor, dst: torch.Tensor, edge_type: torch.Tensor) -> torch.Tensor:
-    """[E] uint32 key (in int64) of a DIRECTED typed edge (u -> v, t). A slot
-    acting as its pair's transpose carrier computes the pair's key from its
-    own endpoints: (receiver, sender, tau(type))."""
-    u, v, t = (a.long() & _U32 for a in (src, dst, edge_type))
-    return _hash_u32(
-        _hash_u32(_mul_u32(u, 2654435761))
-        ^ _hash_u32(_mul_u32(v, 2246822519))
-        ^ _hash_u32(_mul_u32(t, 3266489917))
-    )
-
-
-def _keyed_dropout_mask(
-    seed: torch.Tensor, edge_key: torch.Tensor, num_cols: int, rate: float, col_offset: int = 0
-) -> torch.Tensor:
-    """[E, num_cols] keep mask from the directed edge key; ``col_offset``
-    regenerates a column slice of the forward's mask."""
-    col = col_offset + torch.arange(num_cols, dtype=torch.int64, device=edge_key.device)
-    h = _hash_u32(((edge_key[:, None] ^ seed) + _mul_u32(col, 0x9E3779B9)[None, :]) & _U32)
-    return h >= int(rate * 0xFFFFFFFF)
-
-
-Dropout = Optional[Tuple[torch.Tensor, torch.Tensor, float]]  # (seed, edge key, keep)
+Dropout = Optional[Tuple[torch.Tensor, EdgeIds, float]]  # (seed, the edges' ids, keep)
 
 
 def _apply_keyed_dropout(x: torch.Tensor, drop: Dropout, col_offset: int = 0) -> torch.Tensor:
     if drop is None:
         return x
-    seed, key, keep = drop
+    seed, ids, keep = drop
     tracing.mark(tracing.KEYED_BEGIN, x.device)
     tracing.keyed_dropout_elements += x.shape[0] * x.shape[1]
-    mask = _keyed_dropout_mask(seed, key, x.shape[1], 1.0 - keep, col_offset)
-    # The rate as a device scalar made by a fill: dividing by a Python float
-    # multiplies by its reciprocal, and a tensor copied from the host waits
-    # for the copy.
-    out = torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
-                      torch.zeros((), dtype=x.dtype, device=x.device))
+    out = keyed_dropout(x, seed, ids, keep, col_offset)
     tracing.mark(tracing.KEYED_END, x.device)
     return out
+
+
+def _forward_ids(adj) -> EdgeIds:
+    """Each slot's own directed edge: (sender, receiver, type)."""
+    return EdgeIds(adj.senders, adj.receivers, adj.edge_types)
+
+
+def _transpose_ids(adj) -> EdgeIds:
+    """The PAIR edge a slot carries, from its own endpoints: (receiver,
+    sender, the tile's transposed type)."""
+    return EdgeIds(adj.receivers, adj.senders, adj.tile_types_transposed, adj.edge_tile)
 
 
 def _senders(adj, n: int) -> torch.Tensor:
@@ -138,8 +106,7 @@ def _fused_fwd_impl(node_states, weight_stack, adj, seed, num_nodes, reduction, 
         # Receiver rows from the broadcast (0 at padding slots).
         inp = torch.cat([inp, adjacency_broadcast_to_edges(node_states.contiguous(), adj)], dim=-1)
     if keep < 1.0:
-        key = _directed_edge_key(adj.senders, adj.receivers, adj.edge_types)
-        inp = _apply_keyed_dropout(inp, (seed, key, keep))
+        inp = _apply_keyed_dropout(inp, (seed, _forward_ids(adj), keep))
     msgs = typed_tile_matmul(inp, weight_stack, adj.tile_types, adj.edge_tile)
     if argmax_routing and reduction in ("max", "min"):
         # The backward resolves each winner's transpose slot by its fwd/bwd
@@ -256,11 +223,7 @@ def _fused_bwd(node_states, weight_stack, adj, seed, out, args, inp, g,
 
     drop = drop_tr = None
     if keep < 1.0:
-        key_fwd = _directed_edge_key(adj.senders, adj.receivers, adj.edge_types)
-        tau = adj.tile_types_transposed.repeat_interleave(tile)
-        # this slot's PAIR identity, reconstructed from its own endpoints
-        key_tr = _directed_edge_key(adj.receivers, adj.senders, tau)
-        drop, drop_tr = (seed, key_fwd, keep), (seed, key_tr, keep)
+        drop, drop_tr = (seed, _forward_ids(adj), keep), (seed, _transpose_ids(adj), keep)
 
     counts_flat = None
     if reduction == "mean":

@@ -39,6 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.ops.keyed_dropout import keyed_dropout_kernel
 from ptgnn_tpu_torch.ops.segment import masked_take
 from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel, typed_matmul_kernel
 from ptgnn_tpu_torch.utils import tracing
@@ -580,6 +581,7 @@ _WRAPPERS = {
     "segment_sum": planned_segment_sum,
     "typed_matmul": typed_matmul_kernel,
     "typed_dw": typed_dw_kernel,
+    "keyed_dropout": keyed_dropout_kernel,
 }
 
 
@@ -589,8 +591,9 @@ def kernel_wrappers() -> List:
 
 
 def launch_counts() -> Dict[str, int]:
-    """The launch counters of the port's kernel wrappers: this module's and
-    the typed matmul's and typed dW's (``ops/typed_linear.py``); and
+    """The launch counters of the port's kernel wrappers: this module's, the
+    typed matmul's and typed dW's (``ops/typed_linear.py``) and the keyed
+    dropout's (``ops/keyed_dropout.py``); and
     ``keyed_dropout_elements``, the elements that the fused op's keyed
     message-dropout hash covered (``utils/tracing.keyed_dropout_elements``)."""
     counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
@@ -609,3 +612,4 @@ def reset_launch_counts() -> None:
     tracing.keyed_dropout_elements = 0
     planned_broadcast_to_edges.launches_by_width.clear()
     typed_dw_kernel.launches_by_shape.clear()
+    keyed_dropout_kernel.launches_by_shape.clear()

@@ -21,7 +21,7 @@ from ptgnn_tpu.ops.fused_mp import fused_typed_message_aggregation as jax_fused
 from ptgnn_tpu_torch.graph.batching import GraphBatcher
 from ptgnn_tpu_torch.graph.messagepassing import GraphContext, MlpMessagePassingLayer
 from ptgnn_tpu_torch.graph.structs import BatchPadding, TensorizedGraphData, tree_to
-from ptgnn_tpu_torch.ops import fused_mp
+from ptgnn_tpu_torch.ops import fused_mp, keyed_dropout
 from ptgnn_tpu_torch.ops import segment_kernels as tsk
 from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
 from tests.torch_port_helpers import force_jax_fused_interpret
@@ -73,7 +73,7 @@ def test_fused_forward_matches_jax(reduction, use_target_state):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-5)
     # The CPU ran the plain versions: no kernel was launched.
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0,
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout": 0,
                                    "keyed_dropout_elements": 0}
 
 
@@ -188,7 +188,7 @@ def test_fused_gradients_match_jax(reduction, use_target_state):
     np.testing.assert_allclose(tw, gw, rtol=1e-5, atol=1e-5)
     assert np.abs(tx).max() > 0 and np.abs(tw).max() > 0
     assert tsk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
-                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0,
+                                   "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout": 0,
                                    "keyed_dropout_elements": 0}
 
 
@@ -320,10 +320,10 @@ def test_keyed_dropout_mask_equals_jax_bitwise(col_offset):
     seed = np.uint32(2_975_412_133)
     ja, ta = jbatch.adjacency, tbatch.adjacency
     jkey = jfm._directed_edge_key(ja.senders, ja.receivers, ja.edge_types)
-    tkey = fused_mp._directed_edge_key(ta.senders, ta.receivers, ta.edge_types)
+    tkey = keyed_dropout._directed_edge_key(ta.senders, ta.receivers, ta.edge_types)
     np.testing.assert_array_equal(tkey.numpy(), np.asarray(jkey).astype(np.int64))
     jmask = jfm._keyed_dropout_mask(jnp.uint32(seed), jkey, 32, 0.2, col_offset)
-    tmask = fused_mp._keyed_dropout_mask(torch.tensor(int(seed)), tkey, 32, 0.2, col_offset)
+    tmask = keyed_dropout._keyed_dropout_mask(torch.tensor(int(seed)), tkey, 32, 0.2, col_offset)
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     # padding slots share one key; the real ones drop at about the rate
     assert 0.15 < 1.0 - float(tmask[ta.mask].float().mean()) < 0.25
