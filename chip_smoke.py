@@ -257,9 +257,10 @@ train CLI with the worker threads on forks a tensorize child (their
 default); the bitwise gates of the epochs hold with it.
 
 Every path above that trains or serves through an entry point runs compiled
-steps on the card. Their launch counters count executions: a capture's
-launches are put back and each replay adds them, as do the hook counters
-(``Tally``), so the per-forward and per-step constants hold; a compiled
+steps on the card. The port's counter table (``utils/tracing.py``: the
+launch counts and the hook counters, ``Tally``) counts executions: a
+capture's counts are put back and each replay adds them, so the
+per-forward and per-step constants hold; a compiled
 step's warm-up (one call per signature) is an execution like any other.
 
 Phases 10, 14 and 17 also hold argmax routing on a feature-tracking batch
@@ -340,6 +341,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -455,25 +457,28 @@ BPE_BATCHES = 3
 DP_STEPS = 3
 
 
-class Tally(list):
-    """A hook's counter (``[0]``) that compiled steps replay: a capture runs
+class Tally:
+    """A hook's counter in the port's counter table (``utils/tracing.py``),
+    under a key of its own. Compiled steps replay the table: a capture runs
     the hook once and launches nothing, so the count is put back after it
-    and each replay adds what the capture added, as the kernels' launch
-    counters (``core/compiled_step.py``). It counts executions on the card."""
+    and each replay adds what the capture added. It counts executions on
+    the card."""
+
+    _keys = itertools.count()
 
     def __init__(self):
-        from ptgnn_tpu_torch.core import compiled_step
+        self.key = next(Tally._keys)
 
-        super().__init__([0])
-        compiled_step.REPLAYED_COUNTERS.append((self, "n"))
+    def add(self) -> None:
+        from ptgnn_tpu_torch.utils import tracing
+
+        tracing.count("chip_smoke.tally", self.key)
 
     @property
     def n(self) -> int:
-        return self[0]
+        from ptgnn_tpu_torch.utils import tracing
 
-    @n.setter
-    def n(self, value: int) -> None:
-        self[0] = value
+        return tracing.tally("chip_smoke.tally").get(self.key, 0)
 
 
 def executions(stats: dict, steps: int) -> int:
@@ -545,20 +550,15 @@ class Launches(dict):
 
 
 def launch_counts() -> Launches:
-    """The launch counters now, with K3's tally by width and K6's and K7's
-    by shape."""
-    from ptgnn_tpu_torch.ops import keyed_dropout as kd
+    """The launch counts now, with K3's tally by width and K6's and K7's by
+    shape, from the port's counter table (``utils/tracing.py``)."""
     from ptgnn_tpu_torch.ops import segment_kernels as sk
-    from ptgnn_tpu_torch.ops import typed_linear as ttl
+    from ptgnn_tpu_torch.utils import tracing
 
-    counts = sk.launch_counts()
-    counts.pop("keyed_dropout_elements")  # elements hashed, not launches
-    if counts.pop("typed_dw") != sum(ttl.typed_dw_kernel.launches_by_shape.values()):
-        raise RuntimeError("the typed dW's launches and its tally by shape disagree")
-    if counts.pop("keyed_dropout") != sum(kd.keyed_dropout_kernel.launches_by_shape.values()):
-        raise RuntimeError("the keyed dropout's launches and its tally by shape disagree")
-    return Launches(counts, sk.broadcast_launches_by_width(), ttl.typed_dw_kernel.launches_by_shape,
-                    kd.keyed_dropout_kernel.launches_by_shape)
+    counts = {k: v for k, v in sk.launch_counts().items()
+              if k not in ("typed_dw", "keyed_dropout", "keyed_dropout_elements")}
+    return Launches(counts, tracing.tally("broadcast_to_edges"), tracing.tally("typed_dw"),
+                    tracing.tally("keyed_dropout"))
 
 
 def _by_width(counts) -> dict:
@@ -891,8 +891,8 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
     module = trainer.neural_module
     forwards, backwards = Tally(), Tally()
     hooks = [
-        module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
-        module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1)),
+        module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
+        module.node_to_class.weight.register_hook(lambda g: backwards.add()),
     ]
     valid_metrics = []
     trainer.register_validation_epoch_end_hook(lambda m, mod, e, metrics: valid_metrics.append(metrics))
@@ -903,23 +903,23 @@ def train_phase(model, batches, dev, card, name="train", per_forward=PER_FORWARD
     t_train = time.perf_counter() - t0
     phase(name, f"ModelTrainer.train: 1 epoch over {len(train_graphs)} graphs with validation "
           f"before and after in {t_train:.2f} s (host tensorize + batching included): "
-          f"{backwards[0]} train steps, {forwards[0] - backwards[0]} validation forwards; "
+          f"{backwards.n} train steps, {forwards.n - backwards.n} validation forwards; "
           f"validation metrics {valid_metrics}")
-    if backwards[0] == 0 or not checkpoint.exists():
+    if backwards.n == 0 or not checkpoint.exists():
         raise RuntimeError("ModelTrainer.train took no step or wrote no checkpoint")
     steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, name, per_step)
     counts = launch_counts()  # the train path ends here
     for hook in hooks:
         hook.remove()
     expected = {
-        k: per_forward[k] * forwards[0] + (per_step[k] - per_forward[k]) * backwards[0]
+        k: per_forward[k] * forwards.n + (per_step[k] - per_forward[k]) * backwards.n
         + steps_counts[k]
         for k in counts
     }
     phase(name, f"launches over the {name} path: {counts}")
     if counts != expected:
         raise RuntimeError(f"train path launches {counts} != {expected} expected from its "
-                           f"{forwards[0]} forwards and {backwards[0]} backwards in ModelTrainer.train")
+                           f"{forwards.n} forwards and {backwards.n} backwards in ModelTrainer.train")
     return counts
 
 
@@ -1291,21 +1291,21 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
 
     module.eval()
     forwards = Tally()
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the ppi-serving path starts here
     t0 = time.perf_counter()
     metrics = model.report_metrics(samples, module, device=dev)
     t_report = time.perf_counter() - t0
-    report_forwards = forwards[0]
+    report_forwards = forwards.n
     if not all(0.0 <= v <= 1.0 for v in metrics.values()) or set(metrics) != {"f1_score", "pr_score", "re_score"}:
         raise RuntimeError(f"report_metrics gave {metrics}")
     phase("ppi-serving", f"report_metrics {metrics} over {len(samples)} graphs in {t_report:.2f} s "
           f"({report_forwards} forwards; host tensorize + batching included)")
     eval_losses = {}
     for name, amp in (("float32", False), ("bf16", True)):
-        before, before_forwards = launch_counts(), forwards[0]
+        before, before_forwards = launch_counts(), forwards.n
         eval_losses[name] = eval_forward_phase(module, batches, card, "ppi-serving", reps, amp)
-        per_forward = {k: v / (forwards[0] - before_forwards) for k, v in delta(launch_counts(), before).items()}
+        per_forward = {k: v / (forwards.n - before_forwards) for k, v in delta(launch_counts(), before).items()}
         if per_forward != PPI_PER_FORWARD[name]:
             raise RuntimeError(f"expected {PPI_PER_FORWARD[name]} launches per {name} forward, got {per_forward}")
         phase("ppi-serving", f"{name} launches per forward {per_forward}")
@@ -1314,9 +1314,9 @@ def ppi_serving_phase(model, module, samples, batches, dev, card, reps: int = 3)
     if abs(eval_losses["bf16"] - eval_losses["float32"]) > 2e-2 * abs(eval_losses["float32"]):
         raise RuntimeError(f"bf16 eval loss {eval_losses['bf16']} is not within 2e-2 of float32's")
     n_bf16 = (reps + 1) * len(batches)
-    expected = {k: PPI_PER_FORWARD["float32"][k] * (forwards[0] - n_bf16) + PPI_PER_FORWARD["bf16"][k] * n_bf16
+    expected = {k: PPI_PER_FORWARD["float32"][k] * (forwards.n - n_bf16) + PPI_PER_FORWARD["bf16"][k] * n_bf16
                 for k in counts}
-    phase("ppi-serving", f"launches over the ppi-serving path's {forwards[0]} forwards: {counts}")
+    phase("ppi-serving", f"launches over the ppi-serving path's {forwards.n} forwards: {counts}")
     if counts != expected:
         raise RuntimeError(f"ppi-serving launches {counts} != {expected} expected")
     return counts
@@ -1341,8 +1341,8 @@ def ppi_train_phase(model, samples, batches, dev, card):
     module = trainer.neural_module
     forwards, backwards = Tally(), Tally()
     hooks = [
-        module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
-        module.to_logits.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1)),
+        module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
+        module.to_logits.weight.register_hook(lambda g: backwards.add()),
     ]
     valid_metrics = []
     trainer.register_validation_epoch_end_hook(lambda m, mod, e, metrics: valid_metrics.append(metrics))
@@ -1353,7 +1353,7 @@ def ppi_train_phase(model, samples, batches, dev, card):
     t_train = time.perf_counter() - t0
     for hook in hooks:
         hook.remove()
-    fw, bw = forwards[0], backwards[0]
+    fw, bw = forwards.n, backwards.n
     expected = {k: PPI_PER_FORWARD["bf16"][k] * fw + (PPI_PER_TRAIN_STEP["bf16"][k] - PPI_PER_FORWARD["bf16"][k]) * bw
                 for k in launch_counts()}
     got = launch_counts()
@@ -1760,7 +1760,7 @@ def ggnn_phase(dev, card, reps: int = 3):
           f"at {shared} positions; {sum(p.numel() for p in module.parameters())} parameters")
     module.eval()
     forwards = Tally()
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the ggnn path starts here
     sizes = [(int(mb["batch"].num_graphs), int(mb["batch"].num_nodes), int(mb["batch"].num_edges)) for mb in minibatches]
     g, n, e = (reps * sum(s[i] for s in sizes) for i in range(3))
@@ -1777,7 +1777,7 @@ def ggnn_phase(dev, card, reps: int = 3):
         elapsed = time.perf_counter() - t0
     counter.remove()
     serving = launch_counts()
-    if serving != {k: v * forwards[0] for k, v in GGNN_PER_FORWARD.items()}:
+    if serving != {k: v * forwards.n for k, v in GGNN_PER_FORWARD.items()}:
         raise RuntimeError(f"expected {GGNN_PER_FORWARD} launches per ggnn forward, got {serving}")
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all():
@@ -1785,7 +1785,7 @@ def ggnn_phase(dev, card, reps: int = 3):
     phase("ggnn", f"serving forward over {reps * len(batches)} device-resident batches: eval loss "
           f"{float(losses[:len(batches)].mean()):.6f}, {1e3 * elapsed / (reps * len(batches)):.3f} ms/batch, "
           f"{g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s on {card}; "
-          f"launches over {forwards[0]} forwards {serving}")
+          f"launches over {forwards.n} forwards {serving}")
     steps_counts = train_steps_phase(model, [g2c_minibatch(b) for b in batches], dev, card, "ggnn",
                                      GGNN_PER_TRAIN_STEP)
     counts = launch_counts()  # the ggnn path ends here
@@ -1926,7 +1926,7 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
 
     module.eval()
     forwards, backwards = Tally(), Tally()
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the varmisuse path starts here
     t0 = time.perf_counter()
     accuracy = model.report_accuracy(samples, module, max_minibatch_size=300, device=dev)
@@ -1934,13 +1934,13 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     if not 0.0 <= accuracy <= 1.0:
         raise RuntimeError(f"report_accuracy gave {accuracy}")
     phase(name, f"report_accuracy {accuracy:.4f} over {len(samples)} samples in {t_acc:.2f} s "
-          f"({forwards[0]} forwards; host tensorize + batching included)")
+          f"({forwards.n} forwards; host tensorize + batching included)")
     eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
     serving = launch_counts()
-    if serving != {k: v * forwards[0] for k, v in per_forward.items()}:
-        raise RuntimeError(f"expected {per_forward} launches per {name} forward, got {serving} over {forwards[0]}")
-    phase(name, f"launches over the serving path's {forwards[0]} forwards {serving}")
+    if serving != {k: v * forwards.n for k, v in per_forward.items()}:
+        raise RuntimeError(f"expected {per_forward} launches per {name} forward, got {serving} over {forwards.n}")
+    phase(name, f"launches over the serving path's {forwards.n} forwards {serving}")
 
     checkpoint = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{name}.pkl.gz"
     trainer = ModelTrainer(
@@ -1950,20 +1950,20 @@ def varmisuse_phase(dev, card, architecture, padding, samples, valid, reps: int 
     )
     trainer.load_metadata_and_create_network(samples, parallelize=False)
     hooks = [
-        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
         trainer.neural_module.candidate_scores.weight.register_hook(
-            lambda grad: backwards.__setitem__(0, backwards[0] + 1)),
+            lambda grad: backwards.add()),
     ]
     valid_metrics = []
     trainer.register_validation_epoch_end_hook(lambda m, mod, ep, metrics: valid_metrics.append(metrics))
-    before_fw = forwards[0]
+    before_fw = forwards.n
     t0 = time.perf_counter()
     trainer.train(samples, valid, initialize_metadata=False, patience=0)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     for hook in hooks:
         hook.remove()
-    fw, bw = forwards[0] - before_fw, backwards[0]
+    fw, bw = forwards.n - before_fw, backwards.n
     phase(name, f"ModelTrainer.train: 1 epoch over {len(samples)} samples with validation over {len(valid)} "
           f"before and after in {t_train:.2f} s (host tensorize + batching included): {bw} train steps, "
           f"{fw - bw} validation forwards; validation metrics {valid_metrics}")
@@ -2356,14 +2356,14 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
 
     module.eval()
     forwards, backwards = Tally(), Tally()
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the graph2seq path starts here
     # The decode loops, counted as they run (the encoder is compiled: its
     # warm-ups are encodes with no loop after them).
     loop_calls = Tally()
     for loop_name in ("_greedy_loop", "_beam_loop"):
         def counted(*args, _loop=getattr(model.decoder_model, loop_name), **kwargs):
-            loop_calls.n += 1
+            loop_calls.add()
             return _loop(*args, **kwargs)
 
         setattr(model.decoder_model, loop_name, counted)
@@ -2429,13 +2429,13 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
           f"the host pipeline and the transfers excluded) on {card}")
     compiled_decode(model, module, test, dev, card, padding.max_graphs, groups, initial_states)
 
-    encodes = forwards[0]  # the decode batches', the compiled encoder's warm-ups and the one above
+    encodes = forwards.n  # the decode batches', the compiled encoder's warm-ups and the one above
     eval_forward_phase(module, batches, card, name, reps)
     counter.remove()
     for loop_name in ("_greedy_loop", "_beam_loop"):
         delattr(model.decoder_model, loop_name)  # the model is pickled into checkpoints below
     serving = launch_counts()
-    loss_forwards, loops = forwards[0] - encodes, loop_calls.n
+    loss_forwards, loops = forwards.n - encodes, loop_calls.n
     want = {k: G2S_PER_ENCODE[k] * encodes + G2S_PER_DECODE_LOOP[k] * loops + G2S_PER_FORWARD[k] * loss_forwards
             for k in serving}
     if serving != want:
@@ -2449,20 +2449,20 @@ def graph2seq_phase(dev, card, padding, samples, valid, test, reps: int = 3):
                            seed=SEED)
     trainer.load_metadata_and_create_network(samples, parallelize=False)
     hooks = [
-        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
+        trainer.neural_module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
         trainer.neural_module.decoder.vocab_bias.register_hook(
-            lambda grad: backwards.__setitem__(0, backwards[0] + 1)),
+            lambda grad: backwards.add()),
     ]
     valid_metrics = []
     trainer.register_validation_epoch_end_hook(lambda m, mod, ep, metrics: valid_metrics.append(metrics))
-    before_fw = forwards[0]
+    before_fw = forwards.n
     t0 = time.perf_counter()
     trainer.train(samples, valid, initialize_metadata=False, patience=0)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     for hook in hooks:
         hook.remove()
-    fw, bw = forwards[0] - before_fw, backwards[0]
+    fw, bw = forwards.n - before_fw, backwards.n
     phase(name, f"ModelTrainer.train: 1 epoch over {len(samples)} samples with validation over {len(valid)} "
           f"before and after in {t_train:.2f} s (host tensorize + batching included): {bw} train steps, "
           f"{fw - bw} validation forwards; validation metrics {valid_metrics}")
@@ -2887,17 +2887,17 @@ def layers_phase(dev, card, reps: int = 3):
     with counting_fused_calls(fused):
         module.eval()
         forwards = Tally()
-        counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
         sk.reset_launch_counts()  # the layers path starts here
         for amp in (False, True):
             eval_forward_phase(module, mbs, card, name, reps, amp=amp)
         counter.remove()
         serving = launch_counts()
-        phase(name, f"launches over {forwards[0]} eval forwards {serving}; fused-op calls {len(fused)}")
-        if serving != {k: v * forwards[0] for k, v in LAYERS_PER_FORWARD.items()}:
+        phase(name, f"launches over {forwards.n} eval forwards {serving}; fused-op calls {len(fused)}")
+        if serving != {k: v * forwards.n for k, v in LAYERS_PER_FORWARD.items()}:
             raise RuntimeError(f"expected {LAYERS_PER_FORWARD} launches per layers forward, got {serving}")
-        if len(fused) != LAYERS_FUSED_PER_FORWARD * forwards[0]:
-            raise RuntimeError(f"{len(fused)} fused-op calls in {forwards[0]} forwards")
+        if len(fused) != LAYERS_FUSED_PER_FORWARD * forwards.n:
+            raise RuntimeError(f"{len(fused)} fused-op calls in {forwards.n} forwards")
         train_counts = train_steps_phase(model, mbs, dev, card, name, LAYERS_PER_TRAIN_STEP,
                                          steps=LAYERS_TRAIN_STEPS)
 
@@ -3503,13 +3503,13 @@ def edge_features_phase(dev, card, reps: int = 3):
                   f"{[tuple(p.shape) for n, p in module.named_parameters() if 'weights' in n]}")
             module.eval()
             forwards = Tally()
-            counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+            counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
             for amp in (False, True):
                 dtype = "bf16" if amp else "float32"
-                before, n0 = launch_counts(), forwards[0]
+                before, n0 = launch_counts(), forwards.n
                 eval_forward_phase(module, mbs, card, f"{name} {stack}", reps, amp=amp)
                 got = delta(launch_counts(), before)
-                want = {k: v * (forwards[0] - n0) for k, v in EDGE_PER_FORWARD[dtype].items()}
+                want = {k: v * (forwards.n - n0) for k, v in EDGE_PER_FORWARD[dtype].items()}
                 if got != want:
                     raise RuntimeError(f"{stack} {dtype} eval forwards launched {got}, expected {want}")
                 checks.append(f"{stack} {dtype} forward")
@@ -3573,13 +3573,13 @@ def bpe_phase(dev, card, reps: int = 3):
     phase(name, f"setup {time.perf_counter() - t0:.2f} s; BPE vocabulary {len(embedder.vocabulary)} entries; "
           f"pieces per node label (count of labels with 0..5 pieces kept) {np.bincount(lengths, minlength=6).tolist()}")
     forwards = Tally()
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the bpe path starts here
     eval_forward_phase(module, mbs, card, name, reps)
     counts = launch_counts()  # the bpe path ends here
     counter.remove()
-    if counts != {k: v * forwards[0] for k, v in PER_FORWARD.items()}:
-        raise RuntimeError(f"bpe forwards launched {counts}, expected {PER_FORWARD} x {forwards[0]}")
+    if counts != {k: v * forwards.n for k, v in PER_FORWARD.items()}:
+        raise RuntimeError(f"bpe forwards launched {counts}, expected {PER_FORWARD} x {forwards.n}")
     cpu_module = model.build_neural_module(device="cpu", seed=SEED).eval()
     worst = 0.0
     for mb, host in zip(mbs, minibatches):
@@ -3592,7 +3592,7 @@ def bpe_phase(dev, card, reps: int = 3):
         decided = (top2[:, 1] - top2[:, 0]) > 1e-4
         np.testing.assert_array_equal(gpu_logits.argmax(-1)[decided], cpu_logits.argmax(-1)[decided])
         worst = max(worst, float(np.abs(gpu_logits - cpu_logits).max()) / max(float(np.abs(cpu_logits).max()), 1e-30))
-    phase(name, f"launches over {forwards[0]} forwards {counts}; logits card vs CPU on {len(mbs)} batches within "
+    phase(name, f"launches over {forwards.n} forwards {counts}; logits card vs CPU on {len(mbs)} batches within "
           f"rtol 1e-4, atol 1e-4 x max|logit| (worst {worst:.3e} of max|logit|), argmax equal on decided slots")
     return counts
 
@@ -3664,8 +3664,8 @@ def data_parallel_phase(dev, card, model, batches, epochs):
         trainer.load_metadata_and_create_network(train_graphs, parallelize=False)
         module = trainer.neural_module
         forwards, backwards, traffic = Tally(), Tally(), {}
-        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
-                 module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
+        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
+                 module.node_to_class.weight.register_hook(lambda g: backwards.add())]
         # read at the epoch's end: train() frees the compiled steps' graphs as it returns
         trainer.register_train_epoch_end_hook(lambda *_: traffic.update(
             calls=trainer.data_parallel.allreduce_calls, bytes=trainer.data_parallel.allreduce_bytes,
@@ -3687,14 +3687,14 @@ def data_parallel_phase(dev, card, model, batches, epochs):
     steps = (trainer._opt_steps_this_epoch, single._opt_steps_this_epoch)
     # the compiled train step ran its DDP warm-ups once, then a replay a step
     executions = dp_steps + DDP_WARMUP_CALLS * traffic["captures"]
-    if steps != (dp_steps, dp_steps) or backwards[0] != executions or dp_steps < 2:
-        raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards[0]}: expected "
+    if steps != (dp_steps, dp_steps) or backwards.n != executions or dp_steps < 2:
+        raise RuntimeError(f"optimizer steps (distributed, single) {steps}, backwards {backwards.n}: expected "
                            f"{dp_steps} steps and {executions} executions")
-    expected = {k: PER_FORWARD[k] * forwards[0] + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * backwards[0]
+    expected = {k: PER_FORWARD[k] * forwards.n + (PER_TRAIN_STEP[k] - PER_FORWARD[k]) * backwards.n
                 for k in trainer_counts}
     if trainer_counts != expected:
         raise RuntimeError(f"data-parallel trainer launches {trainer_counts} != {expected} expected from "
-                           f"{forwards[0]} forwards and {backwards[0]} steps")
+                           f"{forwards.n} forwards and {backwards.n} steps")
     worst, bitwise = 0.0, True
     for (pname, a), b in zip(single.neural_module.named_parameters(), trainer.neural_module.parameters()):
         a, b = a.detach(), b.detach()
@@ -3710,7 +3710,7 @@ def data_parallel_phase(dev, card, model, batches, epochs):
           f"{bitwise}; train + validation {t_train:.2f} s (ModelTrainer {t_single:.2f} s); all-reduces over the "
           f"{executions} executions of the train step ({DDP_WARMUP_CALLS} DDP warm-ups, {dp_steps} replays) "
           f"{traffic.get('calls', 0) / executions:.2f} calls and {traffic.get('bytes', 0) / executions:.0f} bytes "
-          f"per execution; launches {trainer_counts} from {forwards[0]} forwards and {backwards[0]} steps")
+          f"per execution; launches {trainer_counts} from {forwards.n} forwards and {backwards.n} steps")
 
     root = out_dir / "dp-cli"
     shutil.rmtree(root, ignore_errors=True)
@@ -5302,13 +5302,84 @@ def checkpoint_phase(dev, card, model, batches):
     return counts
 
 
+def layer_label(position: int, layer) -> str:
+    """A stack entry's profiler range: its position and family."""
+    family = type(layer).__name__
+    aggregation = getattr(layer, "aggregation_fn", None)
+    if aggregation is not None:
+        family += f"({aggregation if isinstance(aggregation, str) else type(aggregation).__name__})"
+    if getattr(layer, "target_reference", "all") != "all":
+        family += f"({layer.target_reference})"
+    return f"layer {position} {family}"
+
+
+def label_layer_ranges(layers) -> list:
+    """Hooks that run each stack entry's forward inside a profiler range
+    named by :func:`layer_label`; returns their handles."""
+    from torch.autograd.profiler import record_function
+
+    open_ranges = []
+
+    def enter(label):
+        def hook(module, args):
+            ranged = record_function(label)
+            ranged.__enter__()
+            open_ranges.append(ranged)
+        return hook
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    handles = []
+    for position, layer in enumerate(layers):
+        handles.append(layer.register_forward_pre_hook(enter(layer_label(position, layer))))
+        handles.append(layer.register_forward_hook(leave))
+    return handles
+
+
+def device_us_by_layer(events) -> dict:
+    """{label: [forward us, backward us]} of the kernels that host ops
+    launched (each kernel is listed under the op that launched it): an op
+    inside a stack entry's range counts for it (forward), and so does an op
+    under the autograd engine's evaluation of a backward node whose forward
+    op ran in that range (by sequence number). The other ops' kernels go to
+    ``"outside the stack"``."""
+    def ancestor(evt, prefix):
+        while evt is not None:
+            if evt.name.startswith(prefix):
+                return evt
+            evt = evt.cpu_parent
+        return None
+
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    forward_of = {}
+    for evt in cpu:
+        ranged = ancestor(evt, "layer ")
+        if ranged is not None and evt.sequence_nr >= 0:
+            forward_of[evt.sequence_nr] = ranged.name
+    totals = defaultdict(lambda: [0.0, 0.0])
+    for evt in cpu:
+        us = sum(kernel.duration for kernel in evt.kernels)
+        if us <= 0:
+            continue
+        ranged = ancestor(evt, "layer ")
+        if ranged is not None:
+            totals[ranged.name][0] += us
+            continue
+        node = ancestor(evt, "autograd::engine::evaluate_function")
+        if node is not None and node.sequence_nr in forward_of:
+            totals[forward_of[node.sequence_nr]][1] += us
+        else:
+            totals["outside the stack"][0 if node is None else 1] += us
+    return dict(totals)
+
+
 def profiling_phase(dev, card, model, batches):
     """profile_trace around 3 Graph2Class train steps: a Chrome trace with
     the hand kernels under their symbols, and mp_layer_roofline's bound of
     one MLP-MP layer beside that layer's traced device time."""
     from ptgnn_tpu_torch.core.trainer import module_loss, optimizer_step
     from ptgnn_tpu_torch.ops import segment_kernels as sk
-    from ptgnn_tpu_torch.utils.profile_serving import device_us_by_layer, label_layer_ranges, layer_label
     from ptgnn_tpu_torch.utils.profiling import H100_SXM_FLOAT32_FLOPS, mp_layer_roofline, profile_trace
 
     name = "profiling"
@@ -6203,8 +6274,8 @@ class WorldRank:
         dp.train_step = recorded
         trainer.register_training_start_hook(lambda model, module, optimizer: optimizers.append(optimizer))
         forwards, backwards = Tally(), Tally()
-        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1)),
-                 module.node_to_class.weight.register_hook(lambda g: backwards.__setitem__(0, backwards[0] + 1))]
+        hooks = [module.gnn.register_forward_pre_hook(lambda *_: forwards.add()),
+                 module.node_to_class.weight.register_hook(lambda g: backwards.add())]
         t0 = time.perf_counter()
         (_, counts) = self.counts_of_path(lambda: trainer.train(
             self.dp_train, self.valid, initialize_metadata=False, validate_on_start=False, patience=0,
@@ -6216,7 +6287,7 @@ class WorldRank:
         total = 2 * sum(p.numel() for p in module.parameters())
         run = {"steps": steps, "initial": initial, "model": trainer._model, "adam": adam_state(optimizers[0]),
                "moments": moment_elements(optimizers[0]), "total_moments": total, "counts": counts,
-               "forwards": forwards[0], "backwards": backwards[0], "seconds": seconds,
+               "forwards": forwards.n, "backwards": backwards.n, "seconds": seconds,
                "allreduce": (dp.allreduce_calls, dp.allreduce_bytes)}
         if not eager_steps:
             dp.clear()
@@ -7027,7 +7098,7 @@ def main() -> None:
           f"(graphs, nodes, edges) {sizes}; {len(model.target_vocab)} classes")
 
     forwards = Tally()  # GNN forwards of the main path, one per batch
-    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    counter = module.gnn.register_forward_pre_hook(lambda *_: forwards.add())
     sk.reset_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     accuracy = model.report_accuracy(graphs(), module, max_minibatch_size=300, device=dev)
@@ -7065,8 +7136,8 @@ def main() -> None:
     phase("serving", f"eval loss {eval_loss:.6f}; forward over {reps * len(batches)} device-resident "
           f"batches: {g / elapsed:.1f} graphs/s, {n / elapsed:.0f} nodes/s, {e / elapsed:.0f} edges/s "
           f"({1e3 * elapsed / (reps * len(batches)):.3f} ms/batch) on {card}")
-    phase("serving", f"launches over the serving path's {forwards[0]} forwards: {serving_counts}")
-    if serving_counts != {k: v * forwards[0] for k, v in PER_FORWARD.items()}:
+    phase("serving", f"launches over the serving path's {forwards.n} forwards: {serving_counts}")
+    if serving_counts != {k: v * forwards.n for k, v in PER_FORWARD.items()}:
         raise RuntimeError(f"expected 8 + 8 kernel launches per forward, got {serving_counts}")
 
     # ---- 4. training at full width --------------------------------------

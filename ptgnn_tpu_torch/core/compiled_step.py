@@ -44,14 +44,12 @@ one Python dispatch per kernel.
   dropping the partial graph; the state is as before the call. A device OOM
   propagates as ``torch.OutOfMemoryError``, so the trainer's skip handles it.
 * **Counters.** A capture runs the step's Python once, but launches nothing.
-  The counters in :data:`REPLAYED_COUNTERS` (the kernel wrappers'
-  ``launches``, the broadcast's launches by width, the keyed dropout's
-  elements, and any a caller registers) and those a step names
-  (``counters``: a data-parallel step's all-reduce calls and bytes) are
-  put back after a capture to their values before it, and every replay
-  adds what the capture added, so they count what ran on the card: the
-  warm-up calls and every replay. A counter is an integer or a dict of
-  integers (a tally by key).
+  The counter table (``utils/tracing.py``: the kernel wrappers' launches,
+  the keyed dropout's elements, a data-parallel step's all-reduce calls
+  and bytes, whatever else counts there) is put back after a capture as it
+  was before it, and every replay adds what the capture counted, so the
+  counts are of what ran on the card: the warm-up calls and every
+  replay.
 * **Generators** (``generators``) are registered with each graph, so a
   replay draws from the generator's current seed and offset: reseeded with
   ``s``, it draws exactly what an eager call seeded with ``s`` draws.
@@ -74,56 +72,13 @@ from typing import Any, Callable, Dict, Hashable, Iterable, List, NamedTuple, Op
 
 import torch
 
-from ptgnn_tpu_torch.ops import segment_kernels as sk
-from ptgnn_tpu_torch.ops.keyed_dropout import keyed_dropout_kernel
-from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel
 from ptgnn_tpu_torch.utils import tracing
 
-__all__ = ["CompiledStep", "REPLAYED_COUNTERS", "WARMUP_CALLS", "canonical_device"]
+__all__ = ["CompiledStep", "WARMUP_CALLS", "canonical_device"]
 
 # Eager calls before a capture. One is enough for the port's steps: it runs
 # every lazy allocation of the step on the stream the capture uses.
 WARMUP_CALLS = 1
-
-# (owner, attribute) of every counter that a replay adds to as its capture
-# did: the kernel wrappers' launch counters, the broadcast's tally by width,
-# the typed dW's and the keyed dropout's by shape, the elements the keyed
-# dropout hashed, and any a caller adds.
-REPLAYED_COUNTERS: List[Tuple[Any, str]] = [(fn, "launches") for fn in sk.kernel_wrappers()] + [
-    (sk.planned_broadcast_to_edges, "launches_by_width"), (typed_dw_kernel, "launches_by_shape"),
-    (keyed_dropout_kernel, "launches_by_shape"), (tracing, "keyed_dropout_elements"),
-]
-
-
-def _counter_value(owner: Any, name: str) -> Any:
-    value = getattr(owner, name)
-    return dict(value) if isinstance(value, dict) else value
-
-
-def _counter_added(after: Any, before: Any) -> Any:
-    """What a capture added to a counter (an integer, or a dict of the keys
-    that changed); falsy when nothing."""
-    if isinstance(after, dict):
-        return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
-    return after - before
-
-
-def _counter_set(owner: Any, name: str, value: Any) -> None:
-    current = getattr(owner, name)
-    if isinstance(current, dict):  # in place: callers may hold the dict
-        current.clear()
-        current.update(value)
-    else:
-        setattr(owner, name, value)
-
-
-def _counter_add(owner: Any, name: str, added: Any) -> None:
-    current = getattr(owner, name)
-    if isinstance(current, dict):
-        for k, n in added.items():
-            current[k] = current.get(k, 0) + n
-    else:
-        setattr(owner, name, current + added)
 
 
 def canonical_device(device) -> torch.device:
@@ -191,7 +146,7 @@ class _Entry:
     graph: torch.cuda.CUDAGraph
     inputs: List[torch.Tensor]  # the static input buffers, in leaf order
     outputs: Any  # the static outputs
-    counted: List[Tuple[Any, str, int]]  # (owner, attribute, what one replay adds)
+    counted: Dict[Tuple[str, Hashable], int]  # what one replay adds to the counter table
     stats: CaptureStats
     marks: Any  # the nodes of the phase marks the graph holds (utils/tracing.graph_marks)
     marks_on: bool  # whether they are enabled
@@ -213,10 +168,8 @@ class CompiledStep:
     """``fn`` compiled per call signature on ``device`` (a plain call on the
     CPU). ``state``: returns the tensors a call writes in place (restored
     after the warm-up); ``generators``: those the step draws from;
-    ``warmup_calls``: the eager calls before a capture; ``counters``:
-    ``(owner, attribute)`` integer counters of this step's own, replayed
-    as :data:`REPLAYED_COUNTERS` are. ``fn`` is the uncompiled function:
-    calling it runs the step eagerly."""
+    ``warmup_calls``: the eager calls before a capture. ``fn`` is the
+    uncompiled function: calling it runs the step eagerly."""
 
     def __init__(
         self,
@@ -226,7 +179,6 @@ class CompiledStep:
         state: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
         generators: Sequence[torch.Generator] = (),
         warmup_calls: Optional[int] = None,
-        counters: Sequence[Tuple[Any, str]] = (),
     ):
         self.fn = fn
         self.device = canonical_device(device)
@@ -235,7 +187,6 @@ class CompiledStep:
         self.warmup_calls = WARMUP_CALLS if warmup_calls is None else warmup_calls
         if self.warmup_calls < 1:
             raise ValueError("a compiled step needs at least one warm-up call")
-        self._counters = list(counters)
         self._entries: Dict[Hashable, _Entry] = {}
 
     def __call__(self, *args, **kwargs):
@@ -256,8 +207,7 @@ class CompiledStep:
                 entry.marks_on = not entry.marks_on
                 tracing.set_graph_marks(entry.graph, entry.marks, entry.marks_on)
             entry.graph.replay()
-            for owner, name, added in entry.counted:
-                _counter_add(owner, name, added)
+            tracing.add_counters(entry.counted)
         return entry.outputs
 
     # ------------------------------------------------------------------
@@ -308,8 +258,7 @@ class CompiledStep:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # the warm-up's blocks, for the graph's pool
         reserved = torch.cuda.memory_reserved(self.device)
-        counters = REPLAYED_COUNTERS + self._counters
-        before = [_counter_value(owner, name) for owner, name in counters]
+        before = tracing.counters()
         stream.wait_stream(torch.cuda.current_stream(self.device))
         # No collection during the capture: garbage that holds another
         # graph would free it there, which the CUDA runtime does not permit
@@ -330,12 +279,10 @@ class CompiledStep:
         finally:
             if collecting:
                 gc.enable()
-            after = [_counter_value(owner, name) for owner, name in counters]
-            for (owner, name), value in zip(counters, before):
-                _counter_set(owner, name, value)
+            after = tracing.counters()
+            tracing.set_counters(before)
             torch.cuda.current_stream(self.device).wait_stream(stream)
-        counted = [(owner, name, added) for (owner, name), a, b in zip(counters, after, before)
-                   if (added := _counter_added(a, b))]
+        counted = {entry: n - before.get(entry, 0) for entry, n in after.items() if n != before.get(entry, 0)}
         return graph, inputs, outputs, counted, reserved
 
     def _warm_up(self, stream: torch.cuda.Stream, args: tuple, kwargs: dict) -> None:

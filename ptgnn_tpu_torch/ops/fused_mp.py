@@ -37,7 +37,7 @@ version elsewhere), so the transpose orientation regenerates the mask its
 pair edge used, and the mask equals the JAX package's bit for bit. Each
 mask made and applied, its edge keys included, sits between the phase
 marks ``KEYED_BEGIN`` and ``KEYED_END`` (``utils/tracing.py``), and its
-elements add to ``tracing.keyed_dropout_elements``.
+elements are counted in the counter table as ``keyed_dropout_elements``.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ def _apply_keyed_dropout(x: torch.Tensor, drop: Dropout, col_offset: int = 0) ->
         return x
     seed, ids, keep = drop
     tracing.mark(tracing.KEYED_BEGIN, x.device)
-    tracing.keyed_dropout_elements += x.shape[0] * x.shape[1]
+    tracing.count("keyed_dropout_elements", n=x.shape[0] * x.shape[1])
     out = keyed_dropout(x, seed, ids, keep, col_offset)
     tracing.mark(tracing.KEYED_END, x.device)
     return out

@@ -19,8 +19,8 @@ type of each tile in the transpose one.
   keys, hashes, tests and selects in one uint32 pass over the block; its
   output equals the plain version's bit for bit. It takes float32 or bf16
   with contiguous rows and int32 ids, and raises on anything else. It
-  counts its launches in ``keyed_dropout_kernel.launches`` and by (E, C,
-  column offset, tile, dtype) in ``keyed_dropout_kernel.launches_by_shape``.
+  counts its launches in the counter table (``utils/tracing.py``) as
+  ``keyed_dropout``, by (E, C, column offset, tile, dtype).
 * :func:`keyed_dropout` takes the kernel for a CUDA tensor, the plain
   version for any other.
 """
@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.utils import tracing
 
 _U32 = 0xFFFFFFFF
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -115,9 +116,8 @@ def keyed_dropout_kernel(
     seed rewritten between replays). Returns a contiguous [E, C] tensor of
     x's dtype, bitwise :func:`keyed_dropout_plain`'s. Raises on what the
     kernel does not take; launches on x's card (under its device guard);
-    counts its launches in ``keyed_dropout_kernel.launches`` and by (E, C,
-    column offset, tile, dtype name) in
-    ``keyed_dropout_kernel.launches_by_shape``."""
+    counts its launches in the counter table (``keyed_dropout``) by (E, C,
+    column offset, tile, dtype name)."""
     if x.dtype not in _KERNEL_DTYPES or x.ndim != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
         raise ValueError(f"keyed_dropout_kernel: no kernel for x {x.dtype} of shape {tuple(x.shape)} and strides "
                          f"{x.stride()}: it takes x [E, C] float32/bfloat16 with contiguous rows")
@@ -150,15 +150,8 @@ def keyed_dropout_kernel(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         cuda_build.check("keyed_dropout", err)
-    keyed_dropout_kernel.launches += 1
-    key = (e, c, col_offset, tile, str(x.dtype).removeprefix("torch."))
-    keyed_dropout_kernel.launches_by_shape[key] = keyed_dropout_kernel.launches_by_shape.get(key, 0) + 1
+    tracing.count("keyed_dropout", (e, c, col_offset, tile, str(x.dtype).removeprefix("torch.")))
     return out
-
-
-keyed_dropout_kernel.launches = 0
-# The launches by (E, C, column offset, tile, dtype name): the shapes the path runs the kernel at.
-keyed_dropout_kernel.launches_by_shape = {}
 
 
 def keyed_dropout(

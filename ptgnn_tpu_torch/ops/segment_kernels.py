@@ -12,9 +12,10 @@ every row's real slots in increasing order, built once per batch on the
 host), over which the extremum and sum kernels reduce row by row; a plan
 built by hand gets it from :func:`with_row_index`.
 
-Each kernel has a plain PyTorch version in this module and a launch counter
-on its wrapper (``<wrapper>.launches``; the broadcast also tallies its
-launches by row width and dtype). A wrapper runs the plain version
+Each kernel has a plain PyTorch version in this module, and its wrapper
+counts its launches in the counter table (``utils/tracing.py``) under the
+kernel's name (the broadcast keyed by row bytes and dtype; the table's
+view is :func:`launch_counts`). A wrapper runs the plain version
 for a tensor on the CPU and the kernel for a tensor on a CUDA device; it
 never falls back from one to the other.
 
@@ -39,9 +40,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
-from ptgnn_tpu_torch.ops.keyed_dropout import keyed_dropout_kernel
 from ptgnn_tpu_torch.ops.segment import masked_take
-from ptgnn_tpu_torch.ops.typed_linear import typed_dw_kernel, typed_matmul_kernel
 from ptgnn_tpu_torch.utils import tracing
 
 _BIG = 3.0e38  # finite stand-in for +/- inf (f32 max ~3.4e38)
@@ -182,16 +181,8 @@ def planned_broadcast_to_edges(table: torch.Tensor, plan: AggregationPlan) -> to
             table.shape[0], _stream(table.device),
         )
         cuda_build.check("broadcast", err)
-    planned_broadcast_to_edges.launches += 1
-    key = (d * table.element_size(), str(table.dtype).removeprefix("torch."))
-    by_width = planned_broadcast_to_edges.launches_by_width
-    by_width[key] = by_width.get(key, 0) + 1
+    tracing.count("broadcast_to_edges", (d * table.element_size(), str(table.dtype).removeprefix("torch.")))
     return out
-
-
-planned_broadcast_to_edges.launches = 0
-# The launches by (row bytes, dtype): the widths the path runs the kernel at.
-planned_broadcast_to_edges.launches_by_width = {}
 
 
 def adjacency_broadcast_to_edges(table: torch.Tensor, adj) -> torch.Tensor:
@@ -295,11 +286,8 @@ def planned_segment_extremum(
             plan.counts.shape[1], data.shape[1], ROW_CHUNK, _stream(data.device),
         )
         cuda_build.check("extremum", err)
-    planned_segment_extremum.launches += 1
+    tracing.count("segment_extremum")
     return out
-
-
-planned_segment_extremum.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -368,11 +356,8 @@ def planned_segment_extremum_with_argmax(
             ROW_CHUNK, _stream(data.device),
         )
         cuda_build.check("extremum_argmax", err)
-    planned_segment_extremum_with_argmax.launches += 1
+    tracing.count("segment_extremum_argmax")
     return vals, args
-
-
-planned_segment_extremum_with_argmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +399,8 @@ def planned_segment_sum(
             data.shape[1], ROW_CHUNK, _stream(data.device),
         )
         cuda_build.check("sum", err)
-    planned_segment_sum.launches += 1
+    tracing.count("segment_sum")
     return out
-
-
-planned_segment_sum.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -574,42 +556,18 @@ def adjacency_segment_reduce(
     return out.reshape((num_nodes,) + trailing)
 
 
-_WRAPPERS = {
-    "segment_extremum": planned_segment_extremum,
-    "segment_extremum_argmax": planned_segment_extremum_with_argmax,
-    "broadcast_to_edges": planned_broadcast_to_edges,
-    "segment_sum": planned_segment_sum,
-    "typed_matmul": typed_matmul_kernel,
-    "typed_dw": typed_dw_kernel,
-    "keyed_dropout": keyed_dropout_kernel,
-}
-
-
-def kernel_wrappers() -> List:
-    """The port's kernel wrappers, each with its ``launches`` counter."""
-    return list(_WRAPPERS.values())
+# The counters :func:`launch_counts` reports, all of them always: the kernel
+# wrappers' launches (``ops/typed_linear.py``'s and ``ops/keyed_dropout.py``'s
+# besides this module's) and the elements the fused op's keyed
+# message-dropout hash covered (``ops/fused_mp.py``).
+LAUNCH_COUNTERS = ("segment_extremum", "segment_extremum_argmax", "broadcast_to_edges", "segment_sum",
+                   "typed_matmul", "typed_dw", "keyed_dropout", "keyed_dropout_elements")
 
 
 def launch_counts() -> Dict[str, int]:
-    """The launch counters of the port's kernel wrappers: this module's, the
-    typed matmul's and typed dW's (``ops/typed_linear.py``) and the keyed
-    dropout's (``ops/keyed_dropout.py``); and
-    ``keyed_dropout_elements``, the elements that the fused op's keyed
-    message-dropout hash covered (``utils/tracing.keyed_dropout_elements``)."""
-    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
-    counts["keyed_dropout_elements"] = tracing.keyed_dropout_elements
-    return counts
-
-
-def broadcast_launches_by_width() -> Dict[Tuple[int, str], int]:
-    """The broadcast kernel's launches by (row bytes, dtype name)."""
-    return dict(planned_broadcast_to_edges.launches_by_width)
+    """:data:`LAUNCH_COUNTERS` as the counter table holds them now."""
+    return {name: tracing.counter(name) for name in LAUNCH_COUNTERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
-    tracing.keyed_dropout_elements = 0
-    planned_broadcast_to_edges.launches_by_width.clear()
-    typed_dw_kernel.launches_by_shape.clear()
-    keyed_dropout_kernel.launches_by_shape.clear()
+    tracing.reset_counters(*LAUNCH_COUNTERS)

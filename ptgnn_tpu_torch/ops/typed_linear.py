@@ -33,6 +33,7 @@ import torch
 
 from ptgnn_tpu_torch.ops import cuda_build
 from ptgnn_tpu_torch.ops.segment import take_rows
+from ptgnn_tpu_torch.utils import tracing
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,8 +85,8 @@ def typed_matmul_kernel(
     contiguous), cast to x's dtype here: a copy of the forward's stack, and
     none for the backward's dx call, which passes W's transpose. Raises on
     what the kernel does not take; launches on x's card
-    (under its device guard); counts its launches in
-    ``typed_matmul_kernel.launches``."""
+    (under its device guard); counts its launches in the counter table
+    (``typed_matmul``)."""
     if x.device.type != "cuda":
         raise ValueError(f"typed_matmul_kernel: no kernel for a tensor on {x.device}")
     if x.dtype not in _KERNEL_DTYPES or x.ndim != 2 or weight_stack.ndim != 3:
@@ -117,11 +118,8 @@ def typed_matmul_kernel(
             e // edge_tile, edge_tile, d, m, num_types, torch.cuda.current_stream(x.device).cuda_stream,
         )
         cuda_build.check("typed_matmul", err)
-    typed_matmul_kernel.launches += 1
+    tracing.count("typed_matmul")
     return y
-
-
-typed_matmul_kernel.launches = 0
 
 
 def typed_matmul(
@@ -232,8 +230,8 @@ def typed_dw_kernel(
     and g [E, M] bf16 (g may be a row-strided view, read in place), tile_types
     [E // edge_tile] int32. Returns [num_types, Din, M] float32. Raises on what
     the kernel does not take; launches on x's card (under its device guard);
-    counts its launches in ``typed_dw_kernel.launches`` and by (tiles, tile,
-    Din, M, types) in ``typed_dw_kernel.launches_by_shape``."""
+    counts its launches in the counter table (``typed_dw``) by (tiles, tile,
+    Din, M, types)."""
     if x.device.type != "cuda":
         raise ValueError(f"typed_dw_kernel: no kernel for a tensor on {x.device}")
     if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16 or x.ndim != 2 or g.ndim != 2:
@@ -269,15 +267,8 @@ def typed_dw_kernel(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         cuda_build.check("typed_dw", err)
-    typed_dw_kernel.launches += 1
-    key = (n_tiles, edge_tile, din, m, num_types)
-    typed_dw_kernel.launches_by_shape[key] = typed_dw_kernel.launches_by_shape.get(key, 0) + 1
+    tracing.count("typed_dw", (n_tiles, edge_tile, din, m, num_types))
     return out
-
-
-typed_dw_kernel.launches = 0
-# The launches by (tiles, tile, Din, M, types): the shapes the path runs the kernel at.
-typed_dw_kernel.launches_by_shape = {}
 
 
 def typed_weight_gradient(

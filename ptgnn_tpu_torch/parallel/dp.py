@@ -61,6 +61,7 @@ plain calls.
 """
 from __future__ import annotations
 
+import itertools
 import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple
 
@@ -70,6 +71,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from ptgnn_tpu_torch.core.compiled_step import CompiledStep
 from ptgnn_tpu_torch.core.trainer import clip_by_global_norm_, make_capturable, module_loss, set_learning_rate
+from ptgnn_tpu_torch.utils import tracing
 
 __all__ = ["DataParallel", "DDP_WARMUP_CALLS", "LOCAL", "base_rates", "zero1_optimizer", "moment_elements"]
 
@@ -81,6 +83,9 @@ LOCAL = "local"
 # its first iteration finds the static graph, its second rebuilds the
 # buckets, and PyTorch's CUDA graph notes ask for 11 in all.
 DDP_WARMUP_CALLS = 11
+
+# Each DataParallel's key for its counters in the counter table.
+_COUNTER_KEYS = itertools.count()
 
 
 def zero1_optimizer(
@@ -156,7 +161,9 @@ class DataParallel:
     it, so k grad steps then one apply equal one step on the weighted mean
     gradient of all k x world minibatches. Every grad step all-reduces, as
     JAX's does, so an accumulation window may end anywhere.
-    ``allreduce_calls`` and ``allreduce_bytes`` count the collectives.
+    ``allreduce_calls`` and ``allreduce_bytes`` count the collectives (in
+    the counter table, ``utils/tracing.py``, under a key of this object's:
+    compiled steps replay them as they replay the kernels' launches).
 
     The gradients are static buffers (``p.grad``, allocated here), zero
     between windows. Dropout draws from :attr:`generator`; a caller's
@@ -201,20 +208,25 @@ class DataParallel:
         self._held = 0  # grad steps held in .grad (host bookkeeping)
         self._optimizer: Optional[torch.optim.Optimizer] = None
         self.generator = torch.Generator(device=self.device)
-        self.allreduce_calls = 0
-        self.allreduce_bytes = 0
-        counters = [(self, "allreduce_calls"), (self, "allreduce_bytes")]
-        ddp_kw = dict(state=self._state, generators=[self.generator], warmup_calls=DDP_WARMUP_CALLS,
-                      counters=counters)
+        self._counter_key = next(_COUNTER_KEYS)
+        ddp_kw = dict(state=self._state, generators=[self.generator], warmup_calls=DDP_WARMUP_CALLS)
         self.train_step_compiled = CompiledStep(self._train, self.device, **ddp_kw)
         self.grad_step_compiled = CompiledStep(self._grad, self.device, **ddp_kw)
-        self.apply_step_compiled = CompiledStep(self._apply, self.device, state=self._state, counters=counters)
-        self.eval_step_compiled = CompiledStep(self._eval, self.device, counters=counters)
+        self.apply_step_compiled = CompiledStep(self._apply, self.device, state=self._state)
+        self.eval_step_compiled = CompiledStep(self._eval, self.device)
 
     # ------------------------------------------------------------------
+    @property
+    def allreduce_calls(self) -> int:
+        return tracing.tally("allreduce_calls").get(self._counter_key, 0)
+
+    @property
+    def allreduce_bytes(self) -> int:
+        return tracing.tally("allreduce_bytes").get(self._counter_key, 0)
+
     def _count(self, flat: torch.Tensor) -> None:
-        self.allreduce_calls += 1
-        self.allreduce_bytes += flat.numel() * flat.element_size()
+        tracing.count("allreduce_calls", self._counter_key)
+        tracing.count("allreduce_bytes", self._counter_key, flat.numel() * flat.element_size())
 
     def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """Sum over the data group (a no-op for LOCAL)."""

@@ -1,4 +1,5 @@
-"""Where the port's time goes: host spans and the train step's phase marks.
+"""Where the port's time goes: host spans, the train step's phase marks and
+the counter table.
 
 * :class:`span` (``with span(name):``) times a block on the host. It always
   adds to in-memory totals kept by name (:func:`totals`: count, seconds and
@@ -29,11 +30,17 @@
   marks :data:`KEYED_BEGIN` and :data:`KEYED_END` around each keyed
   message-dropout mask it makes and applies.
 * :func:`marking`: a profiler records, or :func:`set_marking` turned marks on.
-* :data:`keyed_dropout_elements` counts the elements that the keyed
-  message-dropout hash covers, added to where the host launches the hash;
-  compiled steps replay it as they replay the kernels' launch counters
-  (``core/compiled_step.REPLAYED_COUNTERS``), and
-  ``ops/segment_kernels.launch_counts`` reports it.
+* The counter table: integer counts by name and key, always on. Whatever
+  counts something adds to it in one line (:func:`count`), with no list of
+  counters anywhere: each kernel wrapper its launches (``typed_dw``,
+  ``keyed_dropout`` and ``broadcast_to_edges`` keyed by the shape they ran
+  at), the fused op ``keyed_dropout_elements``, the elements the keyed
+  message-dropout hash covered, a data-parallel step its all-reduce calls
+  and bytes under its own key. A counter reads 0 before its first count.
+  A compiled step (``core/compiled_step.py``) puts the table back after a
+  capture and adds what the capture counted on every replay, so counts are
+  executions on the device. ``ops/segment_kernels.launch_counts`` is the
+  view of it that the benchmark reads.
 
 The spans the port opens:
 
@@ -61,11 +68,12 @@ import functools
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Hashable, List, Tuple
 
 import torch
 
-__all__ = ["span", "spanned", "totals", "reset", "mark", "marking", "set_marking", "graph_marks", "set_graph_marks",
+__all__ = ["span", "spanned", "totals", "reset", "count", "counter", "tally", "counters", "set_counters",
+           "add_counters", "reset_counters", "mark", "marking", "set_marking", "graph_marks", "set_graph_marks",
            "FORWARD", "BACKWARD", "OPTIMIZER", "UPDATED", "ENCODED", "DECODER_GRAD", "KEYED_BEGIN", "KEYED_END"]
 
 # The phase marks' ids: the train step's four, in a step's order, then the
@@ -77,9 +85,7 @@ _LOCK = threading.Lock()
 _TOTALS: Dict[str, List[float]] = {}  # name -> [count, seconds, self seconds]
 _LOCAL = threading.local()  # .stack: the spans open on this thread, innermost last
 _MARKING = False
-
-
-keyed_dropout_elements = 0  # elements the keyed message-dropout hash covered
+_COUNTS: Dict[Tuple[str, Hashable], int] = {}  # (name, key) -> count, under _LOCK
 
 
 def _reinit_in_child() -> None:
@@ -173,6 +179,51 @@ def totals() -> Dict[str, Dict[str, float]]:
 def reset() -> None:
     with _LOCK:
         _TOTALS.clear()
+
+
+def count(name: str, key: Hashable = None, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` under ``key``."""
+    entry = (name, key)
+    with _LOCK:
+        _COUNTS[entry] = _COUNTS.get(entry, 0) + n
+
+
+def counter(name: str) -> int:
+    """Counter ``name`` summed over its keys: 0 before its first count."""
+    return sum(tally(name).values())
+
+
+def tally(name: str) -> Dict[Hashable, int]:
+    """Counter ``name`` by key."""
+    with _LOCK:
+        return {key: n for (counted, key), n in _COUNTS.items() if counted == name}
+
+
+def counters() -> Dict[Tuple[str, Hashable], int]:
+    """A snapshot of the whole table, by (name, key)."""
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def set_counters(snapshot: Dict[Tuple[str, Hashable], int]) -> None:
+    """The table as :func:`counters` took it."""
+    with _LOCK:
+        _COUNTS.clear()
+        _COUNTS.update(snapshot)
+
+
+def add_counters(added: Dict[Tuple[str, Hashable], int]) -> None:
+    """Add a difference of two snapshots, by (name, key)."""
+    with _LOCK:
+        for entry, n in added.items():
+            _COUNTS[entry] = _COUNTS.get(entry, 0) + n
+
+
+def reset_counters(*names: str) -> None:
+    """Clear the named counters, or the whole table where none is named."""
+    with _LOCK:
+        for entry in [entry for entry in _COUNTS if not names or entry[0] in names]:
+            del _COUNTS[entry]
 
 
 def set_marking(on: bool) -> None:

@@ -176,21 +176,18 @@ def test_an_optimizer_that_cannot_be_captured_raises():
 
 def test_a_steps_own_warm_ups_and_counters_on_the_cpu():
     from ptgnn_tpu_torch.core.compiled_step import CompiledStep, canonical_device
-
-    class Owner:
-        calls = 0
-
-    owner = Owner()
+    from ptgnn_tpu_torch.utils import tracing
 
     def step(x):
-        owner.calls += 1
+        tracing.count("test.calls")
         return x * 2
 
-    compiled = CompiledStep(step, CPU, warmup_calls=11, counters=[(owner, "calls")])
+    tracing.reset_counters("test.calls")
+    compiled = CompiledStep(step, CPU, warmup_calls=11)
     assert compiled.warmup_calls == 11 and canonical_device("cpu") == CPU
     for _ in range(3):
         assert torch.equal(compiled(torch.ones(2)), torch.full((2,), 2.0))
-    assert owner.calls == 3 and len(compiled) == 0  # plain calls: no graph, no warm-up
+    assert tracing.counter("test.calls") == 3 and len(compiled) == 0  # plain calls: no graph, no warm-up
     with pytest.raises(ValueError, match="warm-up"):
         CompiledStep(step, CPU, warmup_calls=0)
 

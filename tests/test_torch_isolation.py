@@ -39,7 +39,6 @@ def test_the_import_check_covers_this_slices_modules():
         "ptgnn_tpu_torch.graph.messagepassing.pna", "ptgnn_tpu_torch.graph.messagepassing.egc",
         "ptgnn_tpu_torch.graph.messagepassing.graphnorm", "ptgnn_tpu_torch.graph.messagepassing.selfatt",
         "ptgnn_tpu_torch.graph.messagepassing.mlp_mp", "ptgnn_tpu_torch.graph.messagepassing.base",
-        "ptgnn_tpu_torch.utils.profile_serving",
         "ptgnn_tpu_torch.parallel", "ptgnn_tpu_torch.parallel.dp", "ptgnn_tpu_torch.parallel.distributed_trainer",
         "ptgnn_tpu_torch.implementations.typilus.traindistributed", "ptgnn_tpu_torch.utils.text",
         "ptgnn_tpu_torch.graph.embedders", "ptgnn_tpu_torch.graph.gnn", "ptgnn_tpu_torch.graph.batching",

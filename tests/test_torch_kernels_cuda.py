@@ -33,6 +33,7 @@ from ptgnn_tpu_torch.ops import segment_kernels as tsk
 from ptgnn_tpu_torch.ops import typed_linear as ttl
 from ptgnn_tpu_torch.ops import fused_mp
 from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
+from ptgnn_tpu_torch.utils import tracing
 from ptgnn_tpu_torch.utils.synthetic import synthetic_graph2seq_samples
 
 pytestmark = pytest.mark.cuda
@@ -94,10 +95,10 @@ def test_extremum_kernel_matches_plain_bitwise(cuda_device, reduction, dtype, m,
     data = _signed_zeros(torch.randn(plan.local_rows.shape[0], m, generator=g), plan, reduction == "max").to(dtype)
     plain = tsk.planned_segment_reduce(data, plan, 450, reduction, mask)
     cplan = tree_to(plan, cuda_device)
-    before = tsk.planned_segment_extremum.launches
+    before = tracing.counter("segment_extremum")
     got = tsk.planned_segment_reduce(data.to(cuda_device), cplan, 450, reduction, mask.to(cuda_device))
     torch.cuda.synchronize()
-    assert tsk.planned_segment_extremum.launches == before + 1
+    assert tracing.counter("segment_extremum") == before + 1
     np.testing.assert_array_equal(_bits(got), _bits(plain))
     assert not got[400:].float().any() and not got[[3, 11]].float().any()
     assert _bits(got)[9, 0] == 0  # +0.0
@@ -121,11 +122,11 @@ def test_extremum_kernel_splits_a_hub_row_bitwise(cuda_device, reduction, dtype,
     offsets, slots = row_index(plan.local_rows.numpy(), plan.tile_row_blocks.numpy(), plan.counts.numpy())
     indexed = plan._replace(row_offsets=torch.from_numpy(offsets), row_slots=torch.from_numpy(slots))
     cdata, cmask = data.to(cuda_device), mask.to(cuda_device)
-    before = tsk.planned_segment_extremum.launches
+    before = tracing.counter("segment_extremum")
     runs = [tsk.planned_segment_reduce(cdata, tree_to(p, cuda_device), 450, reduction, cmask)
             for p in (plan, indexed, plan)]
     torch.cuda.synchronize()
-    assert tsk.planned_segment_extremum.launches == before + 3
+    assert tracing.counter("segment_extremum") == before + 3
     for got in runs:
         np.testing.assert_array_equal(_bits(got), _bits(plain))
     assert bool((runs[0][7] != 0).all())
@@ -161,12 +162,12 @@ def test_argmax_extremum_kernel_matches_plain(cuda_device, reduction, dtype, m, 
     data = _tied(plan, mask, m, dtype, is_max, seed=m)
     vals, args = tsk.planned_segment_extremum_with_argmax(data, plan, 450, is_max)
     cplan = tree_to(plan, cuda_device)
-    before = tsk.planned_segment_extremum_with_argmax.launches
+    before = tracing.counter("segment_extremum_argmax")
     cdata = data.to(cuda_device)
     got_vals, got_args = tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max)
     again_vals, again_args = tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max)
     torch.cuda.synchronize()
-    assert tsk.planned_segment_extremum_with_argmax.launches == before + 2
+    assert tracing.counter("segment_extremum_argmax") == before + 2
     assert got_vals.dtype == torch.float32 and got_args.dtype == torch.int32
     np.testing.assert_array_equal(got_args.cpu().numpy(), args.numpy())
     np.testing.assert_array_equal(_bits(got_vals + 0.0), _bits(vals + 0.0))
@@ -229,10 +230,10 @@ def test_argmax_extremum_kernel_splits_a_hub_row(cuda_device, reduction, dtype, 
     vals, args = tsk.planned_segment_extremum_with_argmax(without_nan, plan, 450, is_max)
     cplan = tree_to(plan, cuda_device)
     cdata = data.to(cuda_device)
-    before = tsk.planned_segment_extremum_with_argmax.launches
+    before = tracing.counter("segment_extremum_argmax")
     runs = [tsk.planned_segment_extremum_with_argmax(cdata, cplan, 450, is_max) for _ in range(2)]
     torch.cuda.synchronize()
-    assert tsk.planned_segment_extremum_with_argmax.launches == before + 2
+    assert tracing.counter("segment_extremum_argmax") == before + 2
     for got_vals, got_args in runs:
         np.testing.assert_array_equal(got_args.cpu().numpy(), args.numpy())
         np.testing.assert_array_equal(_bits(got_vals), _bits(vals))
@@ -254,12 +255,12 @@ def _launch_broadcast(table, cplan, times=1):
     """The kernel on ``table`` (on the card), with its launch count and its
     tally by (row bytes, dtype) checked."""
     key = (table.shape[1] * table.element_size(), str(table.dtype).removeprefix("torch."))
-    before = tsk.planned_broadcast_to_edges.launches
-    before_width = tsk.broadcast_launches_by_width().get(key, 0)
+    before = tracing.counter("broadcast_to_edges")
+    before_width = tracing.tally("broadcast_to_edges").get(key, 0)
     got = tsk.planned_broadcast_to_edges(table, cplan)
     torch.cuda.synchronize()
-    assert tsk.planned_broadcast_to_edges.launches == before + 1
-    assert tsk.broadcast_launches_by_width()[key] == before_width + 1
+    assert tracing.counter("broadcast_to_edges") == before + 1
+    assert tracing.tally("broadcast_to_edges")[key] == before_width + 1
     return got
 
 
@@ -362,11 +363,11 @@ def test_sum_kernel_matches_plain_and_is_deterministic(cuda_device, dtype, d, ti
     data = torch.randn(plan.local_rows.shape[0], d, generator=g).to(dtype)
     data = torch.where(mask[:, None], data, torch.zeros((), dtype=dtype))
     plain = tsk.planned_segment_sum(data, plan, 450)
-    before = tsk.planned_segment_sum.launches
+    before = tracing.counter("segment_sum")
     got = tsk.planned_segment_sum(data.to(cuda_device), cplan, 450)
     again = tsk.planned_segment_sum(data.to(cuda_device), cplan, 450)
     torch.cuda.synchronize()
-    assert tsk.planned_segment_sum.launches == before + 2
+    assert tracing.counter("segment_sum") == before + 2
     assert got.dtype == torch.float32 and tuple(got.shape) == (450, d)
     short = _short_rows(plan, 450)
     assert not bool(short[7])
@@ -395,10 +396,10 @@ def test_sum_kernel_splits_a_hub_row(cuda_device, dtype, d):
     g = torch.Generator().manual_seed(d + 5)
     data = torch.where(mask[:, None], torch.randn(plan.local_rows.shape[0], d, generator=g), 0.0).to(dtype)
     plain = tsk.planned_segment_sum(data, plan, 450)
-    before = tsk.planned_segment_sum.launches
+    before = tracing.counter("segment_sum")
     runs = [tsk.planned_segment_sum(data.to(cuda_device), cplan, 450) for _ in range(2)]
     torch.cuda.synchronize()
-    assert tsk.planned_segment_sum.launches == before + 2
+    assert tracing.counter("segment_sum") == before + 2
     short = _short_rows(plan, 450)
     assert int(short.logical_not().sum()) == 1
     np.testing.assert_array_equal(_bits(runs[0][short.to(cuda_device)]), _bits(plain[short]))
@@ -695,14 +696,14 @@ def test_fused_backward_on_card_matches_cpu(cuda_device, reduction, argmax_routi
     real = fused_mp.typed_weight_gradient
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fused_mp, "typed_weight_gradient", lambda *a: seen.append(a) or real(*a))
-        before = ttl.typed_dw_kernel.launches
+        before = tracing.counter("typed_dw")
         x = states.clone().to(cuda_device).bfloat16().requires_grad_()
         w = weights.clone().to(cuda_device).requires_grad_()
         out = fused_typed_message_aggregation(x, w, batch.to(cuda_device).adjacency, pad["max_nodes"], reduction,
                                               use_target_state, argmax_routing=argmax_routing)
         (out.float() * cot.to(cuda_device)).sum().backward()
         torch.cuda.synchronize()
-    assert ttl.typed_dw_kernel.launches == before + 1 and len(seen) == 1
+    assert tracing.counter("typed_dw") == before + 1 and len(seen) == 1
     inp, d_msgs, tile_types, tile, num_types = seen[0]
     ref, bound = _typed_dw_reference(inp, d_msgs, tile_types, tile, num_types)
     assert bool(((w.grad.double() - ref).abs() <= bound).all())
@@ -741,10 +742,10 @@ def _typed_reference(x, w, tt, tile):
 def test_typed_matmul_kernel_matches_plain_and_float64(cuda_device, dtype, shape):
     x, w, tt = _typed_inputs(shape, dtype, cuda_device)
     tile = shape[1]
-    before = ttl.typed_matmul_kernel.launches
+    before = tracing.counter("typed_matmul")
     got = ttl.typed_matmul_kernel(x, w, tt, tile)
     torch.cuda.synchronize()
-    assert ttl.typed_matmul_kernel.launches == before + 1 and got.dtype == dtype
+    assert tracing.counter("typed_matmul") == before + 1 and got.dtype == dtype
     ref, scale = _typed_reference(x, w, tt, tile)
     for out in (got, ttl.typed_matmul_plain(x, w, tt, tile)):
         assert bool(((out.double() - ref).abs() <= 2.0 ** -8 * ref.abs() + 1e-5 * scale).all())
@@ -826,7 +827,7 @@ def test_typed_matmul_gradient_on_card_matches_cpu(cuda_device):
     w = w.float()
     dy = torch.randn(x.shape[0], w.shape[2], generator=torch.Generator().manual_seed(4)).bfloat16()
     results = []
-    before = ttl.typed_dw_kernel.launches
+    before = tracing.counter("typed_dw")
     for device in ("cpu", cuda_device):
         xd = x.to(device).clone().requires_grad_()
         wd = w.to(device).clone().requires_grad_()
@@ -834,8 +835,8 @@ def test_typed_matmul_gradient_on_card_matches_cpu(cuda_device):
         y.backward(dy.to(device))
         results.append([t.detach().float().cpu() for t in (y, xd.grad, wd.grad)])
         if device == cuda_device:
-            assert ttl.typed_dw_kernel.launches == before + 1  # the card's dW is the typed dW (K6)
-        before = ttl.typed_dw_kernel.launches
+            assert tracing.counter("typed_dw") == before + 1  # the card's dW is the typed dW (K6)
+        before = tracing.counter("typed_dw")
     _, scale_y = _typed_reference(x, w.bfloat16(), tt, 128)
     _, scale_dx = _typed_reference(dy, w.bfloat16().transpose(1, 2), tt, 128)
     for name, cpu, card, scale in zip(("y", "dx"), results[0][:2], results[1][:2], (scale_y, scale_dx)):
@@ -894,10 +895,10 @@ def test_typed_dw_kernel_matches_float64(cuda_device, shape):
     for a type with no tile."""
     x, dy, tt = _typed_dw_inputs(shape, cuda_device)
     tile, num_types = shape[1], shape[4]
-    before = ttl.typed_dw_kernel.launches
+    before = tracing.counter("typed_dw")
     got = ttl.typed_dw_kernel(x, dy, tt, tile, num_types)
     torch.cuda.synchronize()
-    assert ttl.typed_dw_kernel.launches == before + 1
+    assert tracing.counter("typed_dw") == before + 1
     assert got.dtype == torch.float32 and got.shape == (num_types, shape[2], shape[3])
     ref, bound = _typed_dw_reference(x, dy, tt, tile, num_types)
     assert bool(((got.double() - ref).abs() <= bound).all())
@@ -1248,15 +1249,15 @@ def _on_other_card(kernel, dev):
     if kernel == "typed_dw":  # integer operands: every sum exact, in any order
         x, _, tt = _integer_typed_inputs(dev)
         dy = torch.randint(-2, 3, (x.shape[0], 128), generator=g).to(torch.bfloat16).to(dev)
-        before = ttl.typed_dw_kernel.launches
+        before = tracing.counter("typed_dw")
         got = ttl.typed_dw_kernel(x, dy, tt, 128, 3)
-        assert ttl.typed_dw_kernel.launches == before + 1
+        assert tracing.counter("typed_dw") == before + 1
         return (got.cpu(),), (ttl.typed_weight_gradient_plain(x.cpu(), dy.cpu(), tt.cpu(), 128, 3),)
     if kernel == "typed_matmul":
         x, w, tt = _integer_typed_inputs(dev)
-        before = ttl.typed_matmul_kernel.launches
+        before = tracing.counter("typed_matmul")
         got = ttl.typed_matmul_kernel(x, w, tt, 128)
-        assert ttl.typed_matmul_kernel.launches == before + 1
+        assert tracing.counter("typed_matmul") == before + 1
         return (got.cpu(),), (ttl.typed_matmul_plain(x, w, tt, 128).cpu(),)
     cplan = tree_to(plan, dev)
     if kernel == "broadcast_to_edges":
@@ -1264,7 +1265,7 @@ def _on_other_card(kernel, dev):
         return (_launch_broadcast(table.to(dev), cplan).cpu(),), (tsk.planned_broadcast_to_edges(table, plan),)
     wrapper = {"segment_sum": tsk.planned_segment_sum, "segment_extremum": tsk.planned_segment_extremum,
                "segment_extremum_argmax": tsk.planned_segment_extremum_with_argmax}[kernel]
-    before = wrapper.launches
+    before = tracing.counter(kernel)
     if kernel == "segment_sum":  # 0/1 data: small integer sums, exact in any order
         data = (torch.rand(plan.local_rows.shape[0], 64, generator=g) < 0.3).float() * mask[:, None].float()
         got, plain = wrapper(data.to(dev), cplan, 450), wrapper(data, plan, 450)
@@ -1272,7 +1273,7 @@ def _on_other_card(kernel, dev):
         data = torch.where(mask[:, None], torch.randn(plan.local_rows.shape[0], 64, generator=g),
                            torch.full((), -3.0e38))
         got, plain = wrapper(data.to(dev), cplan, 450, True), wrapper(data, plan, 450, True)
-    assert wrapper.launches == before + 1
+    assert tracing.counter(kernel) == before + 1
     got, plain = (got if isinstance(got, tuple) else (got,)), (plain if isinstance(plain, tuple) else (plain,))
     if kernel == "segment_extremum_argmax":  # values apart from the sign of zero, slots exactly
         got, plain = (got[0] + 0.0, got[1]), (plain[0] + 0.0, plain[1])

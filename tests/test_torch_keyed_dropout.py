@@ -3,13 +3,13 @@ the benchmark's plain Graph2Seq reference (``gnnbench/reference/
 g2s_ggnn_copy.py``), which keeps its own copy of the hash: the keep masks
 equal bit for bit on random keys, seeds, rates and column offsets. The
 dispatch from the edges' ids computes the plain composition on the CPU in
-both orientations and launches nothing; the kernel's launch counter is a
-replayed one. And a
+both orientations and launches nothing; the kernel's launch counter is one
+of the counter table's, which compiled steps replay. And a
 Graph2Seq train step with tracing on: the layer marks in a step's order
 (``ENCODED`` between the forward's keyed pairs and the backward's,
 ``DECODER_GRAD`` after the backward starts) and the elements the hash
-covered (``utils/tracing.keyed_dropout_elements``), one [E, columns] block a
-mask."""
+covered (the counter table's ``keyed_dropout_elements``), one [E, columns]
+block a mask."""
 import numpy as np
 import pytest
 import torch
@@ -83,22 +83,22 @@ def test_the_ids_in_dispatch_is_the_plain_composition(orientation, dtype, col_of
 
 
 def test_the_keyed_dropout_kernel_counts_its_launches_as_a_replayed_counter():
-    from ptgnn_tpu_torch.core import compiled_step
-
-    assert (keyed_dropout.keyed_dropout_kernel, "launches") in compiled_step.REPLAYED_COUNTERS
-    keyed_dropout.keyed_dropout_kernel.launches = 5
+    """Its launches are a counter of the table that compiled steps replay."""
+    sk.reset_launch_counts()
+    tracing.count("keyed_dropout", (131072, 128, 0, 128, "float32"), 5)
     assert sk.launch_counts()["keyed_dropout"] == 5
     sk.reset_launch_counts()
-    assert keyed_dropout.keyed_dropout_kernel.launches == 0 and sk.launch_counts()["keyed_dropout"] == 0
+    assert tracing.counter("keyed_dropout") == 0 and sk.launch_counts()["keyed_dropout"] == 0
 
 
-def test_the_keyed_dropout_kernel_tallies_its_launches_by_shape_as_a_replayed_counter():
-    from ptgnn_tpu_torch.core import compiled_step
-
-    assert (keyed_dropout.keyed_dropout_kernel, "launches_by_shape") in compiled_step.REPLAYED_COUNTERS
-    keyed_dropout.keyed_dropout_kernel.launches_by_shape[(131072, 128, 0, 128, "float32")] = 3
+def test_the_keyed_dropout_kernel_tallies_its_launches_per_shape_as_a_replayed_counter():
     sk.reset_launch_counts()
-    assert keyed_dropout.keyed_dropout_kernel.launches_by_shape == {}
+    tracing.count("keyed_dropout", (131072, 128, 0, 128, "float32"), 3)
+    tracing.count("keyed_dropout", (131072, 128, 128, 1, "float32"))
+    assert tracing.tally("keyed_dropout") == {(131072, 128, 0, 128, "float32"): 3,
+                                              (131072, 128, 128, 1, "float32"): 1}
+    sk.reset_launch_counts()
+    assert tracing.tally("keyed_dropout") == {}
 
 
 def test_the_keyed_dropout_gate_stays_shut_on_the_cpu():

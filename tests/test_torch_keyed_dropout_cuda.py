@@ -21,6 +21,7 @@ from ptgnn_tpu_torch.graph.structs import tree_to
 from ptgnn_tpu_torch.ops import fused_mp
 from ptgnn_tpu_torch.ops import keyed_dropout as kd
 from ptgnn_tpu_torch.ops import segment_kernels as sk
+from ptgnn_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -68,12 +69,12 @@ def test_keyed_dropout_kernel_matches_plain_bitwise(cuda_device, dtype, width, c
     x = torch.from_numpy(rng.randn(e, width).astype(np.float32)).to(cuda_device, dtype)
     for seed in SEEDS:
         for keep in KEEPS:
-            before = kd.keyed_dropout_kernel.launches
+            before = tracing.counter("keyed_dropout")
             shape = (e, width, col_offset, ids.tile, str(dtype).removeprefix("torch."))
-            before_shape = kd.keyed_dropout_kernel.launches_by_shape.get(shape, 0)
+            before_shape = tracing.tally("keyed_dropout").get(shape, 0)
             got = kd.keyed_dropout(x, _seed(seed, cuda_device), ids, keep, col_offset)
-            assert kd.keyed_dropout_kernel.launches == before + 1
-            assert kd.keyed_dropout_kernel.launches_by_shape[shape] == before_shape + 1
+            assert tracing.counter("keyed_dropout") == before + 1
+            assert tracing.tally("keyed_dropout")[shape] == before_shape + 1
             want = kd.keyed_dropout_plain(x, _seed(seed, cuda_device), ids, keep, col_offset)
             assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
             assert torch.equal(_bits(got), _bits(want)), (seed, keep)

@@ -60,7 +60,7 @@ def test_is_oom_error_forms(error, expected, jax_knows):
         assert jax_is_oom_error(error) is expected
 
 
-def test_a_kernel_wrappers_allocation_failure_is_an_oom(monkeypatch):
+def test_a_kernel_wrapper_allocation_failure_is_an_oom(monkeypatch):
     assert is_oom_error(_kernel_error(monkeypatch, 2))
     assert not is_oom_error(_kernel_error(monkeypatch, 700))
 

@@ -3,7 +3,10 @@ CPU: span totals, nesting and self time; a span inside one of its own name;
 spans on many threads at once; ranges in a ``torch.profiler`` trace only
 while one records; the host pipeline's spans once per root call on a small
 Graph2Class; the build timer as a span; phase marks that do nothing on the
-CPU and leave a train step bitwise as it was."""
+CPU and leave a train step bitwise as it was. The counter table: 0 before
+a first count, counts by key that add up by name, snapshots and resets,
+and ``ops/segment_kernels.launch_counts``, its view, after a fused op's
+forward and backward with keyed message dropout."""
 import threading
 
 import pytest
@@ -13,6 +16,8 @@ from ptgnn_tpu_torch.core.trainer import TrainStep
 from ptgnn_tpu_torch.graph.structs import tree_to
 from ptgnn_tpu_torch.implementations.typilus.harness import build_graph2class, small_padding
 from ptgnn_tpu_torch.ops import cuda_build
+from ptgnn_tpu_torch.ops import segment_kernels as sk
+from ptgnn_tpu_torch.ops.fused_mp import fused_typed_message_aggregation
 from ptgnn_tpu_torch.utils import tracing
 from ptgnn_tpu_torch.utils.synthetic import synthetic_typilus_graphs
 
@@ -223,3 +228,85 @@ def test_a_mark_does_nothing_on_the_cpu_and_changes_no_step(small_g2c, monkeypat
     assert torch.equal(l_on, l_off)
     assert all(torch.equal(a, b) for a, b in zip(p_on, p_off))
     assert all(torch.equal(a, b) for a, b in zip(s_on, s_off))
+
+
+# ---------------------------------------------------------------------------
+# the counter table
+# ---------------------------------------------------------------------------
+def test_a_counter_reads_zero_before_its_first_count():
+    tracing.reset_counters()
+    assert tracing.counter("test.never") == 0 and tracing.tally("test.never") == {}
+    tracing.count("test.once")
+    assert tracing.counter("test.once") == 1 and tracing.tally("test.once") == {None: 1}
+
+
+def test_keyed_counts_add_up_by_name():
+    tracing.reset_counters()
+    tracing.count("test.keyed", (64, "float32"))
+    tracing.count("test.keyed", (64, "float32"), 2)
+    tracing.count("test.keyed", (128, "bfloat16"), 4)
+    tracing.count("test.other", n=5)
+    assert tracing.tally("test.keyed") == {(64, "float32"): 3, (128, "bfloat16"): 4}
+    assert tracing.counter("test.keyed") == 7 and tracing.counter("test.other") == 5
+    assert tracing.counters() == {("test.keyed", (64, "float32")): 3, ("test.keyed", (128, "bfloat16")): 4,
+                                  ("test.other", None): 5}
+
+
+def test_a_snapshot_puts_the_table_back_and_a_difference_adds_to_it():
+    """What a compiled step does around a capture and at each replay."""
+    tracing.reset_counters()
+    tracing.count("test.a", n=2)
+    before = tracing.counters()
+    tracing.count("test.a")
+    tracing.count("test.b", "key", 3)
+    after = tracing.counters()
+    tracing.set_counters(before)
+    assert tracing.counters() == {("test.a", None): 2}
+    added = {entry: n - before.get(entry, 0) for entry, n in after.items() if n != before.get(entry, 0)}
+    tracing.add_counters(added)
+    tracing.add_counters(added)
+    assert tracing.counters() == {("test.a", None): 4, ("test.b", "key"): 6}
+
+
+def test_a_reset_clears_everything_or_the_named_counters():
+    tracing.count("test.a")
+    tracing.count("test.b", "key")
+    tracing.count("test.c", n=3)
+    tracing.reset_counters("test.a", "test.b")
+    assert tracing.counter("test.a") == tracing.counter("test.b") == 0 and tracing.counter("test.c") == 3
+    tracing.reset_counters()
+    assert tracing.counters() == {}
+
+
+def test_launch_counts_reads_its_eight_counters_at_zero_on_a_fresh_table():
+    tracing.reset_counters()
+    tracing.count("test.not_a_launch")
+    assert sk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
+                                  "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout": 0,
+                                  "keyed_dropout_elements": 0}
+    tracing.count("segment_sum", n=2)
+    tracing.count("broadcast_to_edges", (256, "float32"))
+    sk.reset_launch_counts()
+    assert sum(sk.launch_counts().values()) == 0 and tracing.counter("test.not_a_launch") == 1
+
+
+@pytest.mark.parametrize("reduction,columns", [("sum", 4), ("max", 6)])
+def test_launch_counts_after_a_fused_forward_and_backward_with_keyed_dropout(small_g2c, reduction, columns):
+    """The CPU launches no kernel; the hash covers the forward's [E, 2D]
+    input and the backward's two [E, D] cotangent halves, and under max
+    the value ties' recomputed [E, 2D] transpose input besides."""
+    _, _, mbs = small_g2c
+    adj = mbs[0]["batch"].adjacency
+    n, d, m = 256, 8, 8
+    types = int(max(adj.tile_types.max(), adj.tile_types_transposed.max())) + 1
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(n, d, generator=gen, requires_grad=True)
+    w = torch.randn(types, 2 * d, m, generator=gen, requires_grad=True)
+    tracing.reset_counters()
+    out = fused_typed_message_aggregation(x, w, adj, n, reduction, True, 0.8, torch.tensor(7))
+    assert sk.launch_counts()["keyed_dropout_elements"] == adj.mask.shape[0] * 2 * d
+    out.sum().backward()
+    assert x.grad.abs().max() > 0
+    assert sk.launch_counts() == {"segment_extremum": 0, "segment_extremum_argmax": 0, "broadcast_to_edges": 0,
+                                  "segment_sum": 0, "typed_matmul": 0, "typed_dw": 0, "keyed_dropout": 0,
+                                  "keyed_dropout_elements": adj.mask.shape[0] * columns * d}
